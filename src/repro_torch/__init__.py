@@ -1,0 +1,40 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` (public surface).
+
+This slice of the port covers single-buffer ``transcode`` and ``scan``
+over the 12 cells of the {utf8, utf16, utf32, latin1} matrix under
+``errors="strict"`` and ``"replace"``.  Results are bit-identical to
+``repro`` on the same inputs.  Entry points run on the card
+(``device="cuda"``, the default) through hand-written CUDA kernels, or on
+the CPU (``device="cpu"``) through the kernels' plain PyTorch versions.
+
+Attributes resolve lazily (PEP 562): ``import repro_torch`` pulls in no
+torch module of the package until a symbol is touched.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["transcode", "scan", "TranscodeResult", "to_numpy"]
+
+_EXPORTS = {
+    "transcode": ("repro_torch.core.transcode", "transcode"),
+    "scan": ("repro_torch.core.transcode", "scan"),
+    "TranscodeResult": ("repro_torch.core.result", "TranscodeResult"),
+    "to_numpy": ("repro_torch.core.result", "to_numpy"),
+}
+
+
+def __getattr__(name: str):
+    try:
+        mod_name, attr = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(mod_name), attr)
+    globals()[name] = value      # cache: resolve each symbol once
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -1,0 +1,137 @@
+"""Public transcoding API of the port: ``transcode`` and ``scan``.
+
+Port of the single-buffer surface of ``repro.core.transcode``, with the
+same arguments and defaults plus ``device=``.  Outputs are a
+:class:`repro_torch.core.result.TranscodeResult` ``(buffer, count,
+status)``: a buffer of capacity ``CAP_FACTOR[(src, dst)] * len(src)``,
+the number of meaningful elements, and the simdutf-style status (-1 for
+a valid stream, else the input offset of the first invalid maximal
+subpart, with Python ``UnicodeDecodeError.start`` semantics).
+
+Error policy (``errors=``): ``"strict"`` keeps the speculative transcode
+in the buffer and reports where the stream broke; ``"replace"`` emits one
+U+FFFD per maximal subpart of an ill-formed sequence (and ``?`` per
+Latin-1-unencodable code point) and still reports the first offset.
+
+Strategies (``strategy=``): ``"onepass"`` (the default: one launch, one
+decode) and ``"fused"`` (count launch, cumsum, write launch), both
+bit-identical to the reference.  ``"blockparallel"`` and ``"windowed"``
+are not ported yet.
+
+Devices (``device=``): ``None`` runs on the current CUDA device through
+the hand-written kernels and raises when there is none; ``"cpu"`` runs
+the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core import result as R
+from repro_torch.core.result import STATUS_OK, TranscodeResult  # noqa: F401  (re-export)
+
+# ---------------------------------------------------------------------------
+# The codec matrix: formats, aliases and static capacity conventions.
+# (``repro_torch.kernels.stages`` imports these.)
+
+FORMATS = ("utf8", "utf16", "utf32", "latin1")
+
+_FORMAT_ALIASES = {
+    "utf8": "utf8", "utf-8": "utf8",
+    "utf16": "utf16", "utf-16": "utf16", "utf-16-le": "utf16",
+    "utf16-le": "utf16", "utf16le": "utf16",
+    "utf32": "utf32", "utf-32": "utf32", "utf-32-le": "utf32",
+    "utf32-le": "utf32", "utf32le": "utf32",
+    "latin1": "latin1", "latin-1": "latin1", "latin": "latin1",
+    "iso-8859-1": "latin1", "iso8859-1": "latin1",
+}
+
+# Output capacity per input element for each (src, dst) pair: enough for
+# every *valid* stream; speculative garbage beyond it drops at capacity.
+CAP_FACTOR = {
+    ("utf8", "utf16"): 1, ("utf8", "utf32"): 1, ("utf8", "latin1"): 1,
+    ("utf16", "utf8"): 3, ("utf16", "utf32"): 1, ("utf16", "latin1"): 1,
+    ("utf32", "utf8"): 4, ("utf32", "utf16"): 2, ("utf32", "latin1"): 1,
+    ("latin1", "utf8"): 2, ("latin1", "utf16"): 1, ("latin1", "utf32"): 1,
+}
+
+PAIRS = tuple(sorted(CAP_FACTOR))
+
+# Every name the reference dispatches, in its preference order.
+STRATEGIES = ("onepass", "fused", "blockparallel", "windowed")
+
+DEFAULT_STRATEGY = "onepass"
+
+# Strategies of the reference that this port does not run yet.
+_NOT_PORTED = ("blockparallel", "windowed")
+
+
+def normalize_format(name: str) -> str:
+    """Resolve a format name or codecs-style alias to its canonical name."""
+    try:
+        return _FORMAT_ALIASES[str(name).lower()]
+    except KeyError:
+        raise ValueError(
+            f"unknown format {name!r}; supported: {list(FORMATS)} "
+            f"(and codecs aliases like 'utf-16-le')")
+
+
+def _check_pair(src: str, dst: str):
+    """The pair's capacity factor; rejects src == dst and unknown names.
+    (The one pair check: ``kernels.stages.get_pair`` calls it.)"""
+    if (src, dst) not in CAP_FACTOR:
+        raise ValueError(
+            f"unsupported format pair {src!r} -> {dst!r}; "
+            f"supported pairs: {list(PAIRS)}")
+    return CAP_FACTOR[(src, dst)]
+
+
+def _check_strategy(strategy: str, what: str) -> None:
+    if strategy in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{what}: strategy={strategy!r} is not ported to repro_torch "
+            f"yet; see ROADMAP.md queue 1 item 2 (the blockparallel and "
+            f"windowed strategies)")
+    if strategy not in STRATEGIES:
+        raise ValueError(
+            f"unknown strategy: {strategy} (supported: {list(STRATEGIES)})")
+
+
+def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
+              strategy: str = DEFAULT_STRATEGY, validate: bool = True,
+              errors: str = "strict", device=None):
+    """Strategy-dispatched transcode for any cell of the codec matrix.
+
+    ``src`` is the input buffer (a tensor, numpy array or list of a
+    narrow wire dtype or int32); ``n_valid`` its logical length, in
+    ``[0, len(src)]``.  Returns a :class:`TranscodeResult` on ``device``.
+    The pair, the input and ``n_valid`` are checked where the strategy
+    prepares its launch (``fused_transcode.prepare``).
+    """
+    R.check_errors_policy(errors)
+    s = normalize_format(src_format)
+    d = normalize_format(dst_format)
+    _check_strategy(strategy, "transcode")
+    if strategy == "onepass":
+        from repro_torch.kernels import onepass_transcode
+        return onepass_transcode.transcode_onepass(
+            src, n_valid, src=s, dst=d, validate=validate, errors=errors,
+            device=device)
+    from repro_torch.kernels import fused_transcode
+    return fused_transcode.transcode_fused(
+        src, n_valid, src=s, dst=d, validate=validate, errors=errors,
+        device=device)
+
+
+def scan(x, dst_format, *, src_format: str = "utf8", n_valid=None,
+         strategy: str = DEFAULT_STRATEGY, device=None):
+    """Single-scan validation + destination capacity for any matrix cell:
+    ``(count, status)``, two 0-d int32 tensors on ``device``."""
+    src = normalize_format(src_format)
+    dst = normalize_format(dst_format)
+    _check_strategy(strategy, "scan")
+    if strategy == "onepass":
+        from repro_torch.kernels import onepass_transcode
+        return onepass_transcode.scan_onepass(x, n_valid, src=src, dst=dst,
+                                              device=device)
+    from repro_torch.kernels import fused_transcode
+    return fused_transcode.scan_fused(x, n_valid, src=src, dst=dst,
+                                      device=device)

@@ -1,0 +1,154 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``kernels/csrc/`` are compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into a shared library with a plain C interface, and loaded with
+``ctypes``.  The library lands in ``kernels/.build/<hash>/``, keyed on a
+hash of the sources and the flags, so a changed source rebuilds and an
+unchanged one loads at once.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch.core import tables as T
+from repro_torch.kernels import runtime
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / ".build"
+LIB_NAME = "libreprotorch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "transcode_set_tables": [_P, _P, _P],
+    "transcode_count": [_I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "transcode_write": [_I, _I, _P, _I, _I, _I, _P, _I, _P, _P],
+    "transcode_onepass": [_I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                          _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built at first use and need "
+        "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet;
+    return the library's path.  The compiler's report (registers, shared
+    memory, spills) is kept beside it as ``nvcc.log``."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(device_index: int) -> None:
+    """Load the Keiser-Lemire tables into the device's constant memory
+    (once per device)."""
+    tables = [T.BYTE_1_HIGH, T.BYTE_1_LOW, T.BYTE_2_HIGH]
+    with torch.cuda.device(device_index):
+        rc = load().transcode_set_tables(
+            *[t.ctypes.data_as(ctypes.c_void_p) for t in tables])
+    check(rc, "transcode_set_tables")
+
+
+def library(device: torch.device) -> ctypes.CDLL:
+    """The loaded library, with its tables ready on ``device``."""
+    _tables_on(device.index if device.index is not None
+               else torch.cuda.current_device())
+    return load()
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def stream_of(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_length(x: torch.Tensor, n: int, what: str) -> None:
+    """Reject a logical length outside the buffer, and buffers past the
+    kernels' int32 lane indices."""
+    try:
+        runtime.check_size(x.shape[0])
+        runtime.resolve_n(x.shape[0], n)
+    except ValueError as exc:
+        raise ValueError(f"{what}: {exc}") from None
+
+
+def check_tensor(t: torch.Tensor, dtype, what: str) -> None:
+    """Reject what the kernels do not take: another device type or dtype,
+    a non-contiguous or non-1-D tensor."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected dtype {dtype}, got {t.dtype}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: expected a contiguous 1-D tensor, got shape "
+            f"{tuple(t.shape)} with strides {t.stride()}")

@@ -1,0 +1,600 @@
+// Hand-written Hopper (sm_90a) kernels of the single-buffer transcode.
+//
+// Three kernels, one source, templated on the (source, destination)
+// format pair: the 12 cells of the {utf8, utf16, utf32, latin1} matrix.
+// errors= ("replace" or "strict") and validate are runtime arguments.
+//
+//   count_kernel    replaces src/repro/kernels/fused_transcode.py::_count_kernel
+//                   per tile: decode, destination lengths and validation,
+//                   reduced to (total, err_flag, first_error).
+//   write_kernel    replaces src/repro/kernels/fused_transcode.py::_write_kernel
+//                   per tile: re-decode and store the live units at
+//                   base[tile] + in-tile rank.
+//   onepass_kernel  replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
+//                   count and write off one decode, with the inter-tile
+//                   offset carried by a chained scan across blocks.
+//
+// What bounds them on the card: the bytes they must move, (bytes read +
+// bytes written) / 3.35 TB/s, is the least time (no tensor-core work, and
+// the card's table of peak rates has no int32 rate).  The design answers
+// that by reading each input element from device memory once per pass
+// (the tile and its halo are staged in shared memory and every neighbour
+// read hits shared memory), widening to int32 only on chip, and storing
+// only live output units, narrowed to the destination type; the count
+// kernel writes 12 bytes per 1024-element tile.  The general lane body
+// is tens of integer instructions per element, well above the int32
+// ALU's few operations per byte of memory bandwidth, so in this simple
+// form instruction issue, not memory, sets the time (PERF.md).
+//
+// Semantics are lane for lane those of the reference tile bodies
+// (src/repro/kernels/stages/*.py and src/repro/core/{utf8,utf16}.py):
+// int32 lanes, arithmetic shifts, and the same select trees.  The TPU
+// kernels stored a whole stage window (slack included) at base[tile] and
+// relied on the sequential grid to let the next tile overwrite the slack;
+// here each block stores only its own units, and only below cap, into an
+// output the wrapper zero-fills, which gives the same bytes with no race.
+//
+// The C entry points return cudaGetLastError() after the launch; the
+// Python wrappers raise when it is not 0.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 1024;               // elements per block
+constexpr int THREADS = 256;
+constexpr int ITEMS = TILE / THREADS;    // consecutive lanes per thread
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_HALO = 3;
+constexpr int IMAX = 0x7fffffff;         // no-error sentinel
+constexpr int STATUS_OK = -1;
+
+enum Format { UTF8 = 0, UTF16 = 1, UTF32 = 2, LATIN1 = 3 };
+
+template <int F> struct Storage;
+template <> struct Storage<UTF8> { using T = uint8_t; };
+template <> struct Storage<UTF16> { using T = uint16_t; };
+template <> struct Storage<UTF32> { using T = uint32_t; };
+template <> struct Storage<LATIN1> { using T = uint8_t; };
+
+// How far a lane's result reads its neighbours, each way: UTF-8 reads
+// three bytes back (claims, Keiser-Lemire) and three ahead (assembly);
+// UTF-16 one unit each way (pairs); the fixed-width formats none.
+template <int F> struct Reach { static constexpr int value = 0; };
+template <> struct Reach<UTF8> { static constexpr int value = 3; };
+template <> struct Reach<UTF16> { static constexpr int value = 1; };
+
+// Keiser-Lemire nibble tables, loaded by transcode_set_tables from
+// src/repro_torch/core/tables.py.
+__constant__ int32_t kByte1High[16];
+__constant__ int32_t kByte1Low[16];
+__constant__ int32_t kByte2High[16];
+
+struct Analysis {
+  bool starts;   // lane begins a unit
+  bool valid;    // the unit is a valid character
+  int32_t cp;    // code point (U+FFFD at invalid starts, 0 elsewhere)
+  bool err;      // unit start that is not a valid character
+};
+
+struct Lane {
+  int32_t cp;     // code point the lane encodes
+  int32_t units;  // destination units it emits (0 at dead lanes)
+  bool sub;       // located error: maximal subpart or unencodable scalar
+  bool err;       // sub, or the Keiser-Lemire detector
+};
+
+// ---------------------------------------------------------------------------
+// UTF-8 source (src/repro/kernels/stages/utf8.py, core/utf8.py).
+
+__device__ __forceinline__ int utf8_lead_len_strict(int b) {
+  return b < 0x80 ? 1
+       : (b >= 0xC2 && b < 0xE0) ? 2
+       : (b >= 0xE0 && b < 0xF0) ? 3
+       : (b >= 0xF0 && b < 0xF5) ? 4 : 0;
+}
+
+__device__ __forceinline__ bool utf8_first_cont_ok(int lead, int c) {
+  const int lo = lead == 0xE0 ? 0xA0 : (lead == 0xF0 ? 0x90 : 0x80);
+  const int hi = lead == 0xED ? 0x9F : (lead == 0xF4 ? 0x8F : 0xBF);
+  return c >= lo && c <= hi;
+}
+
+__device__ __forceinline__ int32_t utf8_assemble(int len, int b, int n1,
+                                                 int n2, int n3) {
+  if (len == 2) return ((b & 0x1F) << 6) | (n1 & 0x3F);
+  if (len == 3) return ((b & 0x0F) << 12) | ((n1 & 0x3F) << 6) | (n2 & 0x3F);
+  return ((b & 0x07) << 18) | ((n1 & 0x3F) << 12) | ((n2 & 0x3F) << 6) |
+         (n3 & 0x3F);
+}
+
+__device__ __forceinline__ Analysis utf8_analyze(const int32_t* s) {
+  const int p3 = s[-3], p2 = s[-2], p1 = s[-1], b = s[0];
+  const int n1 = s[1], n2 = s[2], n3 = s[3];
+  const int L = utf8_lead_len_strict(b);
+  const bool c1ok = utf8_first_cont_ok(b, n1);
+  const bool c2ok = (n2 & 0xC0) == 0x80;
+  const bool c3ok = (n3 & 0xC0) == 0x80;
+  bool valid = L == 1 || (L == 2 && c1ok) || (L == 3 && c1ok && c2ok) ||
+               (L == 4 && c1ok && c2ok && c3ok);
+  const bool is_cont = (b & 0xC0) == 0x80;
+  const bool cont_p1 = (p1 & 0xC0) == 0x80;
+  const bool claimed =
+      (utf8_lead_len_strict(p1) >= 2 && utf8_first_cont_ok(p1, b)) ||
+      (utf8_lead_len_strict(p2) >= 3 && utf8_first_cont_ok(p2, p1) &&
+       is_cont) ||
+      (utf8_lead_len_strict(p3) == 4 && utf8_first_cont_ok(p3, p2) &&
+       cont_p1 && is_cont);
+  const bool starts = !claimed;
+  valid = starts && valid;
+  int32_t cp = L <= 1 ? b : utf8_assemble(L, b, n1, n2, n3);
+  cp = valid ? cp : 0xFFFD;
+  cp = starts ? cp : 0;
+  return {starts, valid, cp, starts && !valid};
+}
+
+__device__ __forceinline__ void utf8_decode(const int32_t* s, int32_t& cp,
+                                            bool& lead) {
+  const int b = s[0];
+  const int len = b < 0x80 ? 1 : b < 0xC0 ? 0 : b < 0xE0 ? 2
+                : b < 0xF0 ? 3 : b < 0xF8 ? 4 : 0;
+  lead = len > 0;
+  cp = !lead ? 0 : len == 1 ? b : utf8_assemble(len, b, s[1], s[2], s[3]);
+}
+
+__device__ __forceinline__ bool utf8_kl_error(const int32_t* s) {
+  const int p3 = s[-3], p2 = s[-2], p1 = s[-1], b = s[0];
+  const int sc = kByte1High[p1 >> 4] & kByte1Low[p1 & 0xF] &
+                 kByte2High[b >> 4];
+  const int must_be_cont = (p2 >= 0xE0 || p3 >= 0xF0) ? 0x80 : 0;
+  return (sc ^ must_be_cont) != 0;
+}
+
+// ---------------------------------------------------------------------------
+// UTF-16 source (src/repro/kernels/stages/utf16.py, core/utf16.py).
+
+__device__ __forceinline__ int32_t utf16_pair_cp(int u, int nxt) {
+  return 0x10000 + ((u - 0xD800) << 10) + (nxt - 0xDC00);
+}
+
+__device__ __forceinline__ Analysis utf16_analyze(const int32_t* s) {
+  const int p1 = s[-1], u = s[0], n1 = s[1];
+  const bool is_hi = (u >> 10) == 0x36, is_lo = (u >> 10) == 0x37;
+  const bool paired_hi = is_hi && (n1 >> 10) == 0x37;
+  const bool starts = !(is_lo && (p1 >> 10) == 0x36);
+  const bool valid = starts && (!(is_hi || is_lo) || paired_hi);
+  int32_t cp = paired_hi ? utf16_pair_cp(u, n1) : u;
+  cp = valid ? cp : 0xFFFD;
+  cp = starts ? cp : 0;
+  return {starts, valid, cp, starts && !valid};
+}
+
+__device__ __forceinline__ void utf16_decode(const int32_t* s, int32_t& cp,
+                                             bool& lead) {
+  const int p1 = s[-1], u = s[0];
+  const bool is_hi = (u >> 10) == 0x36, is_lo = (u >> 10) == 0x37;
+  cp = is_hi ? utf16_pair_cp(u, s[1]) : u;
+  lead = !(is_lo && (p1 >> 10) == 0x36);
+}
+
+// ---------------------------------------------------------------------------
+// Destination side (src/repro/kernels/stages/*.py encode_units).
+
+__device__ __forceinline__ bool invalid_scalar(int32_t cp) {
+  return (cp >= 0xD800 && cp < 0xE000) || cp > 0x10FFFF || cp < 0;
+}
+
+__device__ __forceinline__ bool latin1_bad(int32_t cp) {
+  return cp < 0 || cp > 0xFF;
+}
+
+template <int D>
+__device__ __forceinline__ int32_t unit_len(int32_t cp) {
+  if constexpr (D == UTF8) {
+    return 1 + (cp >= 0x80) + (cp >= 0x800) + (cp >= 0x10000);
+  } else if constexpr (D == UTF16) {
+    return 1 + (cp >= 0x10000);
+  } else {
+    return 1;
+  }
+}
+
+// Unit j of code point cp in format D (j < unit_len<D>(cp)).
+template <int D>
+__device__ __forceinline__ int32_t encode_unit(int32_t cp, int j) {
+  if constexpr (D == UTF8) {
+    const int L = unit_len<UTF8>(cp);
+    if (j == 0) {
+      return L == 1 ? cp : L == 2 ? (0xC0 | (cp >> 6))
+           : L == 3 ? (0xE0 | (cp >> 12)) : (0xF0 | ((cp >> 18) & 0x07));
+    }
+    // Continuation j carries bits [6 * (L - 1 - j), +6).
+    return 0x80 | ((cp >> (6 * (L - 1 - j))) & 0x3F);
+  } else if constexpr (D == UTF16) {
+    if (cp < 0x10000) return cp;
+    const int32_t v = cp - 0x10000;
+    return j == 0 ? 0xD800 + (v >> 10) : 0xDC00 + (v & 0x3FF);
+  } else if constexpr (D == UTF32) {
+    return cp;
+  } else {
+    return latin1_bad(cp) ? 0x3F : cp;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One lane: the reference's decode_once + count_decoded/stage_decoded.
+
+template <int S, int D>
+__device__ __forceinline__ Lane eval_lane(const int32_t* s, bool live,
+                                          bool replace, bool validate) {
+  const bool need_analysis = validate || replace;
+  Analysis a{true, true, 0, false};
+  int32_t cp = 0;
+  bool lead = true;
+  bool extra = false;
+  if constexpr (S == UTF8) {
+    if (need_analysis) a = utf8_analyze(s);
+    if (validate) extra = utf8_kl_error(s);
+    if (!replace) utf8_decode(s, cp, lead);
+  } else if constexpr (S == UTF16) {
+    if (need_analysis) a = utf16_analyze(s);
+    if (!replace) utf16_decode(s, cp, lead);
+  } else if constexpr (S == UTF32) {
+    const bool bad = invalid_scalar(s[0]);
+    a = {true, !bad, bad ? 0xFFFD : s[0], bad};
+    cp = a.cp;
+  } else {
+    a = {true, true, s[0], false};
+    cp = s[0];
+  }
+  if (replace) {
+    cp = a.cp;
+    lead = a.starts;
+  }
+  Lane r;
+  r.cp = cp;
+  r.units = (lead && live) ? unit_len<D>(cp) : 0;
+  r.sub = false;
+  r.err = false;
+  if (validate && live) {
+    r.sub = a.err || (D == LATIN1 && latin1_bad(a.cp) && a.starts);
+    r.err = r.sub || extra;
+  }
+  return r;
+}
+
+// Stage tile `tile` and its halo into shared memory as int32 lanes.
+// Elements at or past n (the padding mask) and before the stream read 0,
+// like the reference's zero boundary tiles.
+template <int S>
+__device__ __forceinline__ void load_tile(
+    const typename Storage<S>::T* __restrict__ x, int n, int tile,
+    int32_t* s) {
+  constexpr int H = Reach<S>::value;
+  const long long start = static_cast<long long>(tile) * TILE - H;
+  for (int k = threadIdx.x; k < TILE + 2 * H; k += THREADS) {
+    const long long j = start + k;
+    s[k] = (j >= 0 && j < n) ? static_cast<int32_t>(x[j]) : 0;
+  }
+}
+
+template <int S, int D>
+__device__ __forceinline__ void eval_thread(const int32_t* s, int n,
+                                            int tile, bool replace,
+                                            bool validate,
+                                            int32_t (&cps)[ITEMS],
+                                            int32_t (&units)[ITEMS],
+                                            int& err, int& ferr) {
+  err = 0;
+  ferr = IMAX;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int lane = threadIdx.x * ITEMS + k;
+    const int g = tile * TILE + lane;
+    const Lane r = eval_lane<S, D>(s + Reach<S>::value + lane, g < n,
+                                   replace, validate);
+    cps[k] = r.cp;
+    units[k] = r.units;
+    err |= r.err;
+    if (r.sub) ferr = min(ferr, g);
+  }
+}
+
+// Block-wide sum, max and min; the result is valid in thread 0.
+__device__ __forceinline__ void block_reduce(int& tot, int& err, int& ferr,
+                                             int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    err = max(err, __shfl_xor_sync(0xffffffffu, err, o));
+    ferr = min(ferr, __shfl_xor_sync(0xffffffffu, ferr, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = tot;
+    red[WARPS + warp] = err;
+    red[2 * WARPS + warp] = ferr;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < WARPS; ++w) {
+      tot += red[w];
+      err = max(err, red[WARPS + w]);
+      ferr = min(ferr, red[2 * WARPS + w]);
+    }
+  }
+}
+
+// Block-wide exclusive scan of one value per thread (warp shuffles, then
+// one warp over the warp totals).  Returns the thread's exclusive prefix;
+// `total` receives the block's sum in every thread.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sums,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < WARPS) sums[lane] = w;
+  }
+  __syncthreads();
+  total = sums[WARPS - 1];
+  return (warp ? sums[warp - 1] : 0) + incl - v;
+}
+
+// Store the thread's units from output index pos on, only below cap.
+template <int D>
+__device__ __forceinline__ void store_units(
+    typename Storage<D>::T* __restrict__ out, int cap, int pos,
+    const int32_t (&cps)[ITEMS], const int32_t (&units)[ITEMS]) {
+  using T = typename Storage<D>::T;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    for (int j = 0; j < units[k]; ++j) {
+      if (pos + j < cap) out[pos + j] = static_cast<T>(encode_unit<D>(cps[k], j));
+    }
+    pos += units[k];
+  }
+}
+
+__device__ __forceinline__ int status_from_first(int first, int err_any) {
+  if (first != IMAX) return first;
+  return err_any ? 0 : STATUS_OK;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The kernels.
+
+// Replaces fused_transcode.py::_count_kernel.  Reads each input element
+// once and writes 12 bytes per tile; its bytes bound is the input read.
+// The per-lane UTF-8 body (subpart analysis, Keiser-Lemire, decode) is
+// tens of integer instructions per byte, so issue rate, not memory, is
+// what this simple form runs into; the tile-class dispatch of ROADMAP.md
+// queue 2a skips most of it on narrow text.
+template <int S, int D>
+__global__ void __launch_bounds__(THREADS)
+count_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+             int replace, int validate, int* __restrict__ tot_out,
+             int* __restrict__ err_out, int* __restrict__ ferr_out) {
+  __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int red[3 * WARPS];
+  const int tile = blockIdx.x;
+  load_tile<S>(x, n, tile, s);
+  __syncthreads();
+  int32_t cps[ITEMS], units[ITEMS];
+  int err, ferr;
+  eval_thread<S, D>(s, n, tile, replace, validate, cps, units, err, ferr);
+  int tot = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) tot += units[k];
+  block_reduce(tot, err, ferr, red);
+  if (threadIdx.x == 0) {
+    tot_out[tile] = tot;
+    err_out[tile] = err;
+    ferr_out[tile] = ferr;
+  }
+}
+
+// Replaces fused_transcode.py::_write_kernel.  Bytes bound: the input read
+// plus the output units written.  It re-decodes without validation (the
+// cheap half of the lane body) and ranks the units with one block scan;
+// stores are per lane, into consecutive addresses across a thread's
+// four lanes.
+template <int S, int D>
+__global__ void __launch_bounds__(THREADS)
+write_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+             int replace, const int* __restrict__ base, int cap,
+             typename Storage<D>::T* __restrict__ out) {
+  __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int sums[WARPS];
+  const int tile = blockIdx.x;
+  load_tile<S>(x, n, tile, s);
+  __syncthreads();
+  int32_t cps[ITEMS], units[ITEMS];
+  int err, ferr;
+  eval_thread<S, D>(s, n, tile, replace, false, cps, units, err, ferr);
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) mine += units[k];
+  int total;
+  const int rank = block_exclusive_scan(mine, sums, total);
+  store_units<D>(out, cap, base[tile] + rank, cps, units);
+}
+
+// Replaces onepass_transcode.py::_onepass_kernel.  Bytes bound: the input
+// read once plus the output units, no intermediate leaves the chip.  The
+// TPU kernel's SMEM carry becomes a chained scan, whose critical path is
+// one L2 round trip per tile: serial in the tile count, and the reason a
+// decoupled look-back (ROADMAP.md queue 2a) is the next step.
+//
+// Chained scan across blocks.  Each block takes a tile ticket, so it only
+// ever waits on a tile whose block has already started.  state[t] packs
+// a ready flag (bit 32) with tile t's inclusive output offset (low 32
+// bits), so one acquire load reads both.  ctl = [ticket, err, ferr],
+// which the wrapper sets to [0, 0, IMAX].  Each block folds its err/ferr
+// into ctl before it waits on its predecessor, off the serial chain; the
+// fold still precedes the block's release in program order, so the last
+// tile, which acquires the whole chain, reads the final values.
+template <int S, int D>
+__global__ void __launch_bounds__(THREADS)
+onepass_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+               int replace, int validate, int cap,
+               unsigned long long* __restrict__ state, int* __restrict__ ctl,
+               int* __restrict__ fin,
+               typename Storage<D>::T* __restrict__ out) {
+  __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int sums[WARPS];
+  __shared__ int red[3 * WARPS];
+  __shared__ int s_tile, s_base;
+  if (threadIdx.x == 0) s_tile = atomicAdd(&ctl[0], 1);
+  __syncthreads();
+  const int tile = s_tile;
+  load_tile<S>(x, n, tile, s);
+  __syncthreads();
+  int32_t cps[ITEMS], units[ITEMS];
+  int err, ferr;
+  eval_thread<S, D>(s, n, tile, replace, validate, cps, units, err, ferr);
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) mine += units[k];
+  int total;
+  const int rank = block_exclusive_scan(mine, sums, total);
+  int unused = 0;
+  block_reduce(unused, err, ferr, red);
+  if (threadIdx.x == 0) {
+    if (err) atomicMax(&ctl[1], err);
+    if (ferr != IMAX) atomicMin(&ctl[2], ferr);
+    int prefix = 0;
+    if (tile > 0) {
+      unsigned long long v;
+      do {
+        v = load_acquire(&state[tile - 1]);
+      } while ((v >> 32) == 0);
+      prefix = static_cast<int>(static_cast<unsigned>(v & 0xffffffffull));
+    }
+    const int incl = prefix + total;
+    store_release(&state[tile],
+                  (1ull << 32) | static_cast<unsigned>(incl));
+    if (tile == static_cast<int>(gridDim.x) - 1) {
+      fin[0] = incl;
+      fin[1] = status_from_first(atomicAdd(&ctl[2], 0),
+                                 atomicAdd(&ctl[1], 0));
+    }
+    s_base = prefix;
+  }
+  __syncthreads();
+  store_units<D>(out, cap, s_base + rank, cps, units);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers, one per kernel and cell.
+
+template <int S, int D>
+int launch_count(const void* x, int n, int nblk, int replace, int validate,
+                 int* tot, int* err, int* ferr, cudaStream_t stream) {
+  count_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), n, replace, validate,
+      tot, err, ferr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, int D>
+int launch_write(const void* x, int n, int nblk, int replace,
+                 const int* base, int cap, void* out, cudaStream_t stream) {
+  write_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), n, replace, base, cap,
+      static_cast<typename Storage<D>::T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, int D>
+int launch_onepass(const void* x, int n, int nblk, int replace, int validate,
+                   int cap, unsigned long long* state, int* ctl, int* fin,
+                   void* out, cudaStream_t stream) {
+  onepass_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), n, replace, validate,
+      cap, state, ctl, fin, static_cast<typename Storage<D>::T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+#define PAIR_CASES(FN, ...)                                               \
+  switch (src * 4 + dst) {                                                \
+    case UTF8 * 4 + UTF16: return FN<UTF8, UTF16>(__VA_ARGS__);           \
+    case UTF8 * 4 + UTF32: return FN<UTF8, UTF32>(__VA_ARGS__);           \
+    case UTF8 * 4 + LATIN1: return FN<UTF8, LATIN1>(__VA_ARGS__);         \
+    case UTF16 * 4 + UTF8: return FN<UTF16, UTF8>(__VA_ARGS__);           \
+    case UTF16 * 4 + UTF32: return FN<UTF16, UTF32>(__VA_ARGS__);         \
+    case UTF16 * 4 + LATIN1: return FN<UTF16, LATIN1>(__VA_ARGS__);       \
+    case UTF32 * 4 + UTF8: return FN<UTF32, UTF8>(__VA_ARGS__);           \
+    case UTF32 * 4 + UTF16: return FN<UTF32, UTF16>(__VA_ARGS__);         \
+    case UTF32 * 4 + LATIN1: return FN<UTF32, LATIN1>(__VA_ARGS__);       \
+    case LATIN1 * 4 + UTF8: return FN<LATIN1, UTF8>(__VA_ARGS__);         \
+    case LATIN1 * 4 + UTF16: return FN<LATIN1, UTF16>(__VA_ARGS__);       \
+    case LATIN1 * 4 + UTF32: return FN<LATIN1, UTF32>(__VA_ARGS__);       \
+    default: return static_cast<int>(cudaErrorInvalidValue);              \
+  }
+
+extern "C" {
+
+// Copy the three 16-entry nibble tables (host int32 arrays) into the
+// current device's constant memory.
+int transcode_set_tables(const int32_t* byte_1_high, const int32_t* byte_1_low,
+                         const int32_t* byte_2_high) {
+  const size_t bytes = 16 * sizeof(int32_t);
+  cudaError_t rc = cudaMemcpyToSymbol(kByte1High, byte_1_high, bytes);
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kByte1Low, byte_1_low, bytes);
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kByte2High, byte_2_high, bytes);
+  return static_cast<int>(rc);
+}
+
+int transcode_count(int src, int dst, const void* x, int n, int nblk,
+                    int replace, int validate, int* tot, int* err, int* ferr,
+                    void* stream) {
+  PAIR_CASES(launch_count, x, n, nblk, replace, validate, tot, err, ferr,
+             static_cast<cudaStream_t>(stream))
+}
+
+int transcode_write(int src, int dst, const void* x, int n, int nblk,
+                    int replace, const int* base, int cap, void* out,
+                    void* stream) {
+  PAIR_CASES(launch_write, x, n, nblk, replace, base, cap, out,
+             static_cast<cudaStream_t>(stream))
+}
+
+int transcode_onepass(int src, int dst, const void* x, int n, int nblk,
+                      int replace, int validate, int cap,
+                      unsigned long long* state, int* ctl, int* fin,
+                      void* out, void* stream) {
+  PAIR_CASES(launch_onepass, x, n, nblk, replace, validate, cap, state, ctl,
+             fin, out, static_cast<cudaStream_t>(stream))
+}
+
+}  // extern "C"

@@ -1,0 +1,99 @@
+"""Single-pass transcode (strategy ``"onepass"``, the default): one
+launch, one decode per source tile.
+
+Port of ``repro.kernels.onepass_transcode``.  The TPU kernel carried the
+running output offset and the sticky error fold in an SMEM scalar across
+its sequential grid.  CUDA blocks run in parallel and in no order, so the
+CUDA kernel (``onepass_kernel`` in ``kernels/csrc/transcode.cu``) carries
+them with a chained scan: each block takes a tile ticket, waits for the
+previous tile's inclusive offset, publishes its own, and stores its units.
+The last tile emits ``(count, status)``.
+
+Results are bit-identical to ``strategy="fused"``.  The reference's
+per-tile ASCII and ≤2-byte class dispatch and a decoupled look-back are
+speed features, lanewise identical to the general body, and are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import compaction
+from repro_torch.core import result as R
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_transcode as ft
+from repro_torch.kernels import stages
+
+
+def onepass_plain(x, n: int, cap: int, *, src: str, dst: str, errors: str,
+                  validate: bool):
+    """Plain version of the one-pass kernel: ``(buffer, fin)`` where
+    ``fin`` is the int32 pair ``(count, status)``."""
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    t, tp, tn, gidx = stages.tiles(x, n)
+    live = gidx < n
+    a, cp, lead = stages.decode_once(codec_s, t, tp, tn, errors=errors,
+                                     validate=validate)
+    totals, errs, ferrs = stages.count_decoded(
+        codec_s, codec_d, a, cp, lead, t, tp, live, gidx,
+        ft.validation_tables(codec_s, x.device), validate=validate)
+    base, total = compaction.tile_base_offsets(totals)
+    eff, planes = stages.stage_decoded(codec_s, codec_d, cp, lead, live)
+    out = stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
+    fin = torch.stack([total, R.status_from_first(ferrs.amin(),
+                                                  errs.amax() > 0)])
+    return out, fin
+
+
+def onepass_kernel(x, n: int, cap: int, *, src: str, dst: str, errors: str,
+                   validate: bool):
+    """``(buffer, fin)``: the CUDA one-pass kernel on a CUDA tensor,
+    :func:`onepass_plain` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return onepass_plain(x, n, cap, src=src, dst=dst, errors=errors,
+                             validate=validate)
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    _build.check_tensor(x, codec_s.dtype, "onepass_kernel")
+    _build.check_length(x, n, "onepass_kernel")
+    if cap < 0:
+        raise ValueError(f"onepass_kernel: negative cap {cap}")
+    nblk = stages.num_tiles(x.shape[0])
+    out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
+    state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
+    ctl = torch.zeros(3, dtype=torch.int32, device=x.device)
+    ctl[2] = R.NO_ERR_SENTINEL       # [ticket, err, first error]
+    fin = torch.empty(2, dtype=torch.int32, device=x.device)
+    lib = _build.library(x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.transcode_onepass(
+            codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
+            ft.replace_flag(errors), int(validate), cap, state.data_ptr(),
+            ctl.data_ptr(), fin.data_ptr(), out.data_ptr(),
+            _build.stream_of(x.device))
+    _build.check(rc, "onepass_kernel")
+    onepass_kernel.launches += 1
+    return out, fin
+
+
+onepass_kernel.launches = 0
+
+
+def transcode_onepass(x, n_valid=None, *, src: str, dst: str,
+                      validate: bool = True, errors: str = "strict",
+                      device=None):
+    """Single-pass transcode for any (src, dst) cell of the matrix;
+    bit-identical to :func:`repro_torch.kernels.fused_transcode.
+    transcode_fused`, but the input is read and decoded once, in one
+    launch."""
+    R.check_errors_policy(errors)
+    x, n, cap = ft.prepare(x, n_valid, src, dst, device)
+    out, fin = onepass_kernel(x, n, cap, src=src, dst=dst, errors=errors,
+                              validate=validate)
+    return R.TranscodeResult(out, fin[0], fin[1])
+
+
+# Single-scan validation + capacity query, ``(count, status)``: the
+# counting pass is already one launch over one read of the input, so the
+# one-pass strategy's scan is the fused scan.
+scan_onepass = ft.scan_fused

@@ -1,0 +1,190 @@
+"""Generic decode×encode tile driver: the plain PyTorch body of every
+(source, destination) format pair.
+
+Port of ``repro.kernels.stages.driver``.  A :class:`Codec` bundles one
+format's personality on both sides of the code-point intermediate:
+
+  decode side   ``decode`` (speculative: every lane treated as a lead,
+                returns per-lane candidate code point + lead mask) and
+                ``analyze`` (maximal-subpart classification: unit starts,
+                validity, replacement code points, error map), plus
+                optional validation ``tables`` with an ``extra_err``
+                detector (the Keiser-Lemire nibble tables for UTF-8).
+  encode side   ``unit_len`` / ``encode`` (candidate unit planes per
+                code point), plus optional ``encode_bad`` for
+                destinations that cannot represent every scalar.
+
+The bodies run on a batch of tiles at once: ``x``, ``xp`` and ``xn`` are
+``(nblk, BLOCK)`` int32 tensors holding every tile, its previous tile and
+its next tile (zero beyond the stream).  They are the plain versions the
+CUDA kernels of ``repro_torch/kernels/csrc/transcode.cu`` are held
+against, lane for lane.  The reference's ≤2-byte and ASCII tile classes
+are lanewise identical to the general body and are not ported yet.
+
+Stage widths are derived, never hand-sized: the speculative worst case is
+``dst.py_unit_len(src.max_speculative_cp)`` units per source lane
+(:func:`stage_units`).  The derivation fixed a real overflow in the
+reference, where a UTF-16 surrogate flood claims 4 UTF-8 bytes per lane.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import compaction
+from repro_torch.core.result import NO_ERR_SENTINEL as _IMAX
+
+BLOCK = 1024
+
+
+class Codec(NamedTuple):
+    """One format's decode/encode personality (see module docstring)."""
+
+    name: str
+    code: int                 # the format's id in the CUDA kernels
+    dtype: Any                # narrow storage dtype (uint8/uint16/uint32)
+    decode: Callable          # (x, xp, xn) -> (cp, is_lead)
+    analyze: Callable         # (x, xp, xn) -> {starts, valid, cp, err}
+    unit_len: Callable        # cp -> int32 units per code point
+    encode: Callable          # cp -> tuple of candidate unit planes
+    max_speculative_cp: int   # largest cp the speculative decode fabricates
+    py_unit_len: Callable     # host-side unit_len (static stage sizing)
+    tables: Tuple = ()        # validation tables (numpy int32 arrays)
+    extra_err: Optional[Callable] = None   # (x, xp, *tables) -> bool map
+    encode_bad: Optional[Callable] = None  # cp -> bool (unencodable)
+    # Source units of the previous tile that can still be part of a
+    # character (or error subpart) reaching into the current tile: 3 for
+    # UTF-8, 1 for UTF-16, 0 for the fixed-width formats.  The CUDA
+    # kernels' halo (``Reach<>`` in csrc/transcode.cu) is held equal to it
+    # by tests/test_torch_contract.py.
+    max_lookback: int = 3
+
+
+def stage_units(src: Codec, dst: Codec) -> int:
+    """Speculative worst-case destination units per source lane."""
+    return int(dst.py_unit_len(src.max_speculative_cp))
+
+
+def num_tiles(length: int) -> int:
+    """Tiles over a stream of ``length`` elements (an empty stream still
+    makes one tile, as in the reference)."""
+    return max(1, -(-length // BLOCK))
+
+
+def tiles(x, n: int):
+    """Widen a flat stream to int32 lanes and cut it into tiles.
+
+    Elements at and past ``n`` read 0 (the padding mask), and the stream
+    is zero-padded to whole tiles.  Returns ``(x, xp, xn, gidx)``, each
+    ``(nblk, BLOCK)``: the tiles, the previous and next tile of each (zero
+    at the stream's ends, like the reference's boundary tiles) and the
+    global index of every lane.
+    """
+    nblk = num_tiles(x.shape[0])
+    flat = torch.zeros(nblk * BLOCK, dtype=torch.int32, device=x.device)
+    flat[:n] = x[:n].to(torch.int32)
+    t = flat.view(nblk, BLOCK)
+    z = torch.zeros(1, BLOCK, dtype=torch.int32, device=x.device)
+    xp = torch.cat([z, t[:-1]])
+    xn = torch.cat([t[1:], z])
+    gidx = torch.arange(nblk * BLOCK, dtype=torch.int32,
+                        device=x.device).view(nblk, BLOCK)
+    return t, xp, xn, gidx
+
+
+def _encode_err(dst: Codec, a, live):
+    """Encode-side error map over analyzed unit starts (Latin-1 egress)."""
+    if dst.encode_bad is None:
+        return a["err"] & live
+    return (a["err"] | (dst.encode_bad(a["cp"]) & a["starts"])) & live
+
+
+def decode_once(src: Codec, x, xp, xn, *, errors: str, validate: bool):
+    """The one speculative decode / analysis of the tiles.
+
+    Returns ``(a, cp, lead)``: the maximal-subpart analysis (``None``
+    when neither validation nor replacement needs it), the per-lane code
+    point and the unit-start mask.  Under ``errors="replace"`` the code
+    points and starts come from the analysis; under ``"strict"`` from the
+    raw speculative decode.
+    """
+    need_analysis = validate or errors == "replace"
+    a = src.analyze(x, xp, xn) if need_analysis else None
+    if errors == "replace":
+        return a, a["cp"], a["starts"]
+    cp, is_lead = src.decode(x, xp, xn)
+    return a, cp, is_lead
+
+
+def count_decoded(src: Codec, dst: Codec, a, cp, lead, x, xp, live, gidx,
+                  tables, *, validate: bool):
+    """Lengths + fused validation over decoded tiles.
+
+    Returns three ``(nblk,)`` int32 tensors ``(total, err_flag,
+    first_err_gidx)``; first-error offsets are global stream indices.
+    The extra detector feeds only the flag, so a defect in either
+    detector degrades to a located (or offset-0) error rather than a
+    silently accepted invalid stream.
+    """
+    units = torch.where(lead & live, dst.unit_len(cp), 0)
+    tot = units.sum(dim=-1, dtype=torch.int32)
+    if validate:
+        sub = _encode_err(dst, a, live)
+        err = sub
+        if src.extra_err is not None:
+            err = err | (src.extra_err(x, xp, *tables) & live)
+        err_flag = err.any(dim=-1).to(torch.int32)
+        ferr = torch.where(sub, gidx, _IMAX).amin(dim=-1).to(torch.int32)
+    else:
+        err_flag = torch.zeros_like(tot)
+        ferr = torch.full_like(tot, _IMAX)
+    return tot, err_flag, ferr
+
+
+def stage_decoded(src: Codec, dst: Codec, cp, lead, instream):
+    """Per-lane output of decoded tiles: ``(eff, planes)``.
+
+    ``eff`` is each lane's effective unit count (0 at dead lanes) and
+    ``planes`` the candidate unit planes, cut to :func:`stage_units`.
+    """
+    eff = torch.where(lead & instream, dst.unit_len(cp), 0).to(torch.int32)
+    return eff, dst.encode(cp)[:stage_units(src, dst)]
+
+
+def place_units(eff, planes, base, cap: int):
+    """Store each tile's units compactly at its base offset.
+
+    Lane ``i`` of tile ``t`` writes plane ``j < eff`` at ``base[t] +
+    rank + j``, where ``rank`` is the in-tile exclusive scan of ``eff``,
+    and only below ``cap``.  Returns the int32 buffer of ``cap`` lanes,
+    zero past the last unit: the bytes the reference's write window
+    leaves after its drop-at-capacity clip.
+    """
+    rank, _tot = compaction.tile_exclusive_scan(eff)
+    start = base.to(torch.int64)[:, None] + rank.to(torch.int64)
+    out = torch.zeros(cap, dtype=torch.int32, device=eff.device)
+    for j, plane in enumerate(planes):
+        pos = start + j
+        keep = (j < eff) & (pos < cap)
+        out[pos[keep]] = plane[keep].to(torch.int32)
+    return out
+
+
+def count_tile(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables, *,
+               errors: str, validate: bool):
+    """One counting/validating scan of the tiles: per-tile ``(total,
+    err_flag, first_err_gidx)``."""
+    a, cp, lead = decode_once(src, x, xp, xn, errors=errors,
+                              validate=validate)
+    return count_decoded(src, dst, a, cp, lead, x, xp, live, gidx, tables,
+                         validate=validate)
+
+
+def write_stage(src: Codec, dst: Codec, x, xp, xn, instream, *,
+                errors: str):
+    """Decode + per-lane output of the tiles: the write-pass body."""
+    _a, cp, lead = decode_once(src, x, xp, xn, errors=errors,
+                               validate=False)
+    return stage_decoded(src, dst, cp, lead, instream)

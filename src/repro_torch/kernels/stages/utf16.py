@@ -1,0 +1,55 @@
+"""UTF-16 codec stages: tile decode (surrogate-pair folding) + candidate
+code-unit encode.
+
+Port of ``repro.kernels.stages.utf16`` without the ≤2-byte tile class.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import utf16 as u16core
+from repro_torch.kernels.stages.common import shift_left_flat, shift_right_flat
+
+# Largest code point the speculative pair folding can fabricate from
+# garbage (hi = 0xDBFF followed by any 16-bit unit).  It exceeds
+# 0x10FFFF, and the stage width must size for it: a surrogate flood
+# claims 4 UTF-8 bytes at every lane.
+MAX_SPECULATIVE_CP = 0x111FFF
+
+
+def speculative_decode(u, up, un):
+    """Decode-stage entry: ``(cp, is_lead)``.  ``cp`` folds surrogate
+    pairs; a low half claimed by the previous lane's high half is not a
+    lead."""
+    top6 = u >> 10
+    is_hi = top6 == 0x36
+    is_lo = top6 == 0x37
+    nxt = shift_left_flat(u, un, 1)
+    prv = shift_right_flat(u, up, 1)
+    prv_is_hi = (prv >> 10) == 0x36
+    pair_cp = 0x10000 + ((u - 0xD800) << 10) + (nxt - 0xDC00)
+    cp = torch.where(is_hi, pair_cp, u)
+    is_lead = ~(is_lo & prv_is_hi)
+    return cp, is_lead
+
+
+def analyze_tile(u, up, un):
+    """Unit analysis of the tiles given their neighbours."""
+    return u16core.analyze_units(
+        u, shift_left_flat(u, un, 1), shift_right_flat(u, up, 1))
+
+
+def unit_len(cp):
+    """UTF-16 code units per code point (1 or 2)."""
+    return 1 + (cp >= 0x10000).to(torch.int32)
+
+
+def py_unit_len(cp: int) -> int:
+    return 1 + (cp >= 0x10000)
+
+
+def encode_units(cp):
+    """Encode-stage entry: the two candidate code-unit planes."""
+    _units, u0, u1, _bad = u16core.encode_candidates(cp)
+    return (u0, u1)

@@ -33,3 +33,8 @@ def _clear_jax_caches_between_modules():
     import jax
 
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")

@@ -1,0 +1,91 @@
+"""Each CUDA kernel of the port against its plain version, on the card.
+
+Marked ``cuda``: every test skips where there is no CUDA device (the
+kernels have no CPU mode).  Imports neither jax nor the reference
+package, so it runs on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+For every cell × {strict, replace} × validate {True, False}, on text,
+invalid units at tile boundaries and uniform garbage, the count, write
+and one-pass kernels must equal ``count_plain``, ``write_plain`` and
+``onepass_plain`` bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import compaction
+from repro_torch.core import transcode as tc
+from repro_torch.kernels import fused_transcode as ft
+from repro_torch.kernels import onepass_transcode as op
+from repro_torch.kernels import stages
+
+N = 5 * stages.BLOCK + 3
+GEN_HI = {"utf8": 256, "utf16": 1 << 16, "utf32": 0x110000, "latin1": 256}
+DT = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
+      "latin1": np.uint8}
+
+
+def _inputs(fmt, seed):
+    rng = np.random.default_rng(seed)
+    text = "".join(map(chr, rng.integers(0x20, 0x3000, N)))
+    enc = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
+           "latin1": "latin-1"}[fmt]
+    units = np.frombuffer(text.encode(enc, "replace"), DT[fmt])[:N].copy()
+    edges = units.copy()
+    for k in range(1, 5):
+        edges[k * stages.BLOCK - 1] = GEN_HI[fmt] - 1
+    garbage = rng.integers(0, GEN_HI[fmt], N).astype(DT[fmt])
+    return [("text", units, len(units)), ("edges", edges, len(edges) - 2),
+            ("garbage", garbage, N), ("empty", units[:0], 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_kernels_match_plain_on_card(src, dst):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for name, arr, n in _inputs(src, seed=61):
+        x = torch.from_numpy(arr).cuda()
+        cap = tc.CAP_FACTOR[(src, dst)] * len(arr)
+        for errors in ("strict", "replace"):
+            for validate in (True, False):
+                ctx = (name, src, dst, errors, validate)
+                kern = ft.count_kernel(x, n, src=src, dst=dst,
+                                       errors=errors, validate=validate)
+                plain = ft.count_plain(x, n, src=src, dst=dst,
+                                       errors=errors, validate=validate)
+                for a, b in zip(kern, plain):
+                    assert torch.equal(a, b), ctx
+                base, _total = compaction.tile_base_offsets(kern[0])
+                assert torch.equal(
+                    ft.write_kernel(x, n, base, cap, src=src, dst=dst,
+                                    errors=errors),
+                    ft.write_plain(x, n, base, cap, src=src, dst=dst,
+                                   errors=errors)), ctx
+                for a, b in zip(
+                        op.onepass_kernel(x, n, cap, src=src, dst=dst,
+                                          errors=errors, validate=validate),
+                        op.onepass_plain(x, n, cap, src=src, dst=dst,
+                                         errors=errors, validate=validate)):
+                    assert torch.equal(a, b), ctx
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    x = torch.zeros(8, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):
+        ft.count_kernel(x.to(torch.int32), 8, src="utf8", dst="utf16",
+                        errors="strict", validate=True)
+    with pytest.raises(ValueError):
+        ft.count_kernel(torch.zeros(16, dtype=torch.uint8,
+                                    device="cuda")[::2], 8, src="utf8",
+                        dst="utf16", errors="strict", validate=True)
+    with pytest.raises(ValueError):
+        ft.write_kernel(x, 8, torch.zeros(2, dtype=torch.int32,
+                                          device="cuda"), 8,
+                        src="utf8", dst="utf16", errors="strict")

@@ -8,28 +8,39 @@ Phases, in order; any failure exits non-zero before the last line:
 
   1. Device and build: print the card's name and power limit, build the
      CUDA kernels from ``src/repro_torch/kernels/csrc``.
-  2. Correctness on the card: every one of the 12 format cells ×
-     {strict, replace} × validate {True, False}, through ``transcode``
-     (onepass and fused) and ``scan``, on ~1 MiB of lipsum text (paper
-     Table 4a profiles), the same text with invalid units at and across
-     1024-element tile boundaries, ``n_valid < len``, an empty input, a
-     UTF-16 high-surrogate flood and UTF-32 0xFFFFFFFF / 0xD800.  Each
+  2. Correctness on the card.  Single buffer: every one of the 12 format
+     cells × {strict, replace} × validate {True, False}, through
+     ``transcode`` (onepass and fused) and ``scan``, on ~1 MiB of lipsum
+     text (paper Table 4a profiles), the same text with invalid units at
+     and across 1024-element tile boundaries, ``n_valid < len``, an empty
+     input, a UTF-16 high-surrogate flood and UTF-32 0xFFFFFFFF / 0xD800.
+     Packed batches, same cells and policies: zero-length documents, a
+     document cut mid-character before one that starts with continuation
+     units (or a low surrogate), invalid units at document starts and
+     ends, garbage in the slack and past ``offsets[-1]``, and the same
+     documents at a fixed tile span with ``pad_to_docs`` padding, through
+     ``ragged_transcode`` (onepass and fused) and ``ragged_scan``.  Each
      kernel is held bit-identical to its plain PyTorch version on the
-     same inputs (buffer, count, status), onepass to fused, and the
-     outputs to CPython's codecs where the text is decoded by them.
-  3. The main path with launch counts: a 64 MiB UTF-8 buffer (arabic
-     profile) through ``transcode`` (onepass, the default), ``transcode
-     (strategy="fused")`` and ``scan`` to UTF-16, with every kernel's
-     launch count set to 0 just before and read just after; the output
-     is checked against an independent encoder.  Then each kernel is held
-     bit-identical to its plain version at that size (65,536 tiles, many
-     waves of blocks) under {strict, replace} × validate {True, False}:
-     on the main buffer, on it with invalid units at and across many tile
-     boundaries, and with one invalid unit in its second-to-last tile.
+     same inputs, onepass to fused, single-buffer outputs to CPython's
+     codecs where they decode the input, and every document's slice of a
+     ragged result to the single-buffer ``transcode`` of it alone.
+  3. The main paths, each with every kernel's launch count set to 0 just
+     before and read just after: a 64 MiB UTF-8 buffer (arabic profile)
+     through ``transcode`` (onepass, the default), ``transcode
+     (strategy="fused")`` and ``scan`` to UTF-16; a ragged batch of 8,192
+     UTF-8 documents (~71 MiB packed) through ``ragged_transcode``
+     (onepass and fused) and ``ragged_scan``; the 64 MiB buffer through
+     ``transcode_stream`` in chunks of seeded random sizes, split
+     mid-character.  Outputs are checked against an independent encoder,
+     the whole-buffer transcode and, for a sample of documents, the
+     single-buffer path.  Each kernel is held bit-identical to its plain
+     version at these sizes under {strict, replace} × validate {True,
+     False}, with invalid units at and across many tile boundaries.
   4. Timing with CUDA events (median after warm-up): each kernel and its
-     plain version at the main path's shape, and the entry points at
-     1<<17 characters of each lipsum profile (paper Tables 5 and 6); the
-     timed kernel and plain outputs are held equal too.
+     plain version at the main paths' shapes, the entry points there,
+     and the single-buffer entry points at 1<<17 characters of each
+     lipsum profile (paper Tables 5 and 6); the timed kernel and plain
+     outputs are held equal too.
   5. The ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -55,11 +66,20 @@ REPLACES = {
     "count": "src/repro/kernels/fused_transcode.py:123",
     "write": "src/repro/kernels/fused_transcode.py:137",
     "onepass": "src/repro/kernels/onepass_transcode.py:87",
+    "rcount": "src/repro/kernels/ragged_transcode.py:143",
+    "rwrite": "src/repro/kernels/ragged_transcode.py:161",
+    "ronepass": "src/repro/kernels/ragged_transcode.py:220",
 }
 BLOCK = 1024
 TEXT_CHARS = 48_000            # per lipsum profile: ~1 MiB of UTF-8 in all
 MAIN_BYTES = 64 << 20          # the main path's UTF-8 buffer
 LIPSUM_CHARS = 1 << 17         # paper Tables 5 and 6
+# The main ragged batch: the skewed mix of benchmarks/transcode_bench.py
+# ::table_ragged (one long document per 8) at the size of a serving or
+# data-loading wave.
+RAGGED_DOCS = 8192
+RAGGED_LONG, RAGGED_SHORT = 16_384, 2_048     # characters per document
+STREAM_MAX_CHUNK = 4 << 20     # stream chunk sizes: log-uniform in [1, this]
 
 # Paper Table 4a lipsum profiles: percentage of characters per UTF-8
 # length (1/2/3/4 bytes) and the code-point pools of each class (a copy of
@@ -187,6 +207,82 @@ def correctness_inputs(fmt: str, text_cps: np.ndarray, rng):
     return out
 
 
+# Per source format: the end of a document cut mid-character, and the
+# start of the next one (continuation units, a low surrogate).
+CUT_TAIL = {"utf8": [0x41, 0xE4, 0xB8], "utf16": [0x41, 0xD800],
+            "utf32": [0x41, 0xD800], "latin1": [0x41, 0xE9]}
+CUT_HEAD = {"utf8": [0x80, 0xBF, 0x41], "utf16": [0xDC00, 0x42],
+            "utf32": [0x110000, 0x42], "latin1": [0x80, 0x42]}
+GEN_HI = {"utf8": 256, "utf16": 1 << 16, "utf32": 0x110000, "latin1": 256}
+
+
+def ragged_inputs(fmt: str, text_cps: np.ndarray, rng):
+    """Named packed batches ``(name, docs, data, offsets, lengths)`` of one
+    source format: text, empty documents, a document that fills its tile
+    and ends mid-character before one that starts with continuation
+    units, invalid units at document starts and ends, garbage in the
+    slack and past ``offsets[-1]``; then the same documents at a fixed
+    tile span with padding documents."""
+    from repro_torch.core import packing
+    dt = NP_DTYPE[fmt]
+    bad = np.asarray(BAD_UNITS[fmt], dt)
+    tail, head = np.asarray(CUT_TAIL[fmt], dt), np.asarray(CUT_HEAD[fmt], dt)
+
+    def text(n_chars):
+        lo = int(rng.integers(0, len(text_cps) - n_chars))
+        return encode(text_cps[lo: lo + n_chars], fmt)
+
+    docs = [text(300), text(0),
+            np.concatenate([text(BLOCK)[:BLOCK - len(tail)], tail]),
+            np.concatenate([head, text(40)]), text(700),
+            np.concatenate([bad[:1], text(30), bad[-1:]]), text(0),
+            np.concatenate([text(1500), tail]),
+            rng.integers(0, GEN_HI[fmt], 900).astype(dt)]
+    out = []
+    span = max(-(-len(d) // BLOCK) for d in docs)
+    for name, kw in (("mixed", {}), ("fixed", dict(
+            doc_tiles=span, pad_to_docs=len(docs) + 5))):
+        pk = packing.pack_documents(docs, dtype=dt, **kw)
+        data = np.concatenate([pk.data, rng.integers(
+            0, GEN_HI[fmt], BLOCK + 77).astype(dt)])
+        for d in (0, 4):
+            lo = int(pk.offsets[d]) + int(pk.lengths[d])
+            data[lo: int(pk.offsets[d + 1])] = bad[0]
+        out.append((name, docs, data, pk.offsets, pk.lengths))
+    return out
+
+
+def main_ragged_docs(rng):
+    """The main ragged batch: ``RAGGED_DOCS`` UTF-8 documents; document
+    ``i`` of lipsum profile ``i % 9``, ``RAGGED_LONG`` characters when
+    ``i % 8 == 0`` and ``RAGGED_SHORT`` otherwise, empty when
+    ``i % 64 == 63``, and with one byte set to 0xFF when ``i % 32 == 7``.
+    Returns ``(docs, code points of each document, {doc: 0xFF position})``."""
+    langs = list(PROFILES)
+    i_all = np.arange(RAGGED_DOCS)
+    n_chars = np.where(i_all % 8 == 0, RAGGED_LONG, RAGGED_SHORT)
+    n_chars[i_all % 64 == 63] = 0
+    docs, cps_of = [None] * RAGGED_DOCS, [None] * RAGGED_DOCS
+    for k, lang in enumerate(langs):
+        idx = i_all[k::len(langs)]
+        cps = codepoints(lang, int(n_chars[idx].sum()), rng)
+        u8 = utf8_encode(cps)
+        byte_at = np.concatenate([[0], np.cumsum(
+            1 + (cps >= 0x80) + (cps >= 0x800) + (cps >= 0x10000))])
+        c0 = 0
+        for i in idx:
+            c1 = c0 + int(n_chars[i])
+            docs[i], cps_of[i] = u8[byte_at[c0]: byte_at[c1]], cps[c0:c1]
+            c0 = c1
+    injected = {}
+    for i in range(7, RAGGED_DOCS, 32):
+        pos = int(rng.integers(0, len(docs[i])))
+        docs[i] = docs[i].copy()
+        docs[i][pos] = 0xFF
+        injected[i] = pos
+    return docs, cps_of, injected
+
+
 # ---------------------------------------------------------------------------
 # Checks.
 
@@ -275,11 +371,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch
-        from repro_torch.core import compaction
+        from repro_torch.core import compaction, packing
         from repro_torch.core import transcode as tc
         from repro_torch.kernels import _build
         from repro_torch.kernels import fused_transcode as ft
         from repro_torch.kernels import onepass_transcode as op
+        from repro_torch.kernels import ragged_transcode as rt
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is missing ({exc}); "
               f"run from the root of a checkout", file=sys.stderr)
@@ -305,8 +402,18 @@ def main(argv=None) -> int:
     log(f"phase 1: kernels built in {report['build_s']:.1f} s ({lib_path}; "
         f"source digest {lib_path.parent.name})")
     kernels = {"count": ft.count_kernel, "write": ft.write_kernel,
-               "onepass": op.onepass_kernel}
+               "onepass": op.onepass_kernel, "rcount": rt.rcount_kernel,
+               "rwrite": rt.rwrite_kernel, "ronepass": rt.ronepass_kernel}
     max_err = {name: 0 for name in kernels}
+
+    def zero_counts():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in kernels.items()
+                if kern.launches}
 
     def hold_kernels(x, n, cap, src, dst, errors, validate, *ctx):
         """Each kernel against its plain version on one input; returns
@@ -322,6 +429,54 @@ def main(argv=None) -> int:
         hold("onepass", k_o, op.onepass_plain(x, n, cap, validate=validate,
                                               **kw), max_err, *ctx)
         return k_o
+
+    def ownership(x, offsets, lengths):
+        """``(own, cap factor * nblk * 1024)`` of a packed batch on the
+        card."""
+        nblk = max(1, -(-x.shape[0] // BLOCK))
+        own = packing.tile_ownership(torch.from_numpy(offsets).cuda(),
+                                     torch.from_numpy(lengths).cuda(), nblk)
+        return own, nblk * BLOCK
+
+    def hold_ragged(x, offsets, lengths, src, dst, errors, validate, *ctx):
+        """Each ragged kernel against its plain version on one packed
+        batch; returns the ragged onepass kernel's outputs."""
+        own, span = ownership(x, offsets, lengths)
+        cap = tc.CAP_FACTOR[(src, dst)] * span
+        kw = dict(src=src, dst=dst, errors=errors)
+        k_cnt = rt.rcount_kernel(x, own, validate=validate, **kw)
+        hold("rcount", k_cnt, rt.rcount_plain(x, own, validate=validate,
+                                              **kw), max_err, *ctx)
+        base, _total = compaction.tile_base_offsets(k_cnt[0])
+        hold("rwrite", rt.rwrite_kernel(x, own, base, cap, **kw),
+             rt.rwrite_plain(x, own, base, cap, **kw), max_err, *ctx)
+        k_o = rt.ronepass_kernel(x, own, cap, validate=validate, **kw)
+        hold("ronepass", k_o, rt.ronepass_plain(x, own, cap,
+                                                validate=validate, **kw),
+             max_err, *ctx)
+        return k_o
+
+    def same_as_single(res, docs, src, dst, errors, validate, which, *ctx):
+        """Every document ``d in which`` of a ragged result, split out by
+        ``unpack_results``, equals the single-buffer ``transcode`` of that
+        document alone, on the card (the buffers up to both capacities)."""
+        parts = packing.unpack_results(res.buffer, res.offsets, res.counts)
+        counts, statuses = res.counts.cpu().numpy(), res.statuses.cpu().numpy()
+        for d in which:
+            doc = docs[d]
+            n = len(doc)
+            buf = np.zeros(max(n, 1), NP_DTYPE[src])
+            buf[:n] = doc
+            one = repro_torch.transcode(torch.from_numpy(buf).cuda(), dst,
+                                        src_format=src, n_valid=n,
+                                        errors=errors, validate=validate)
+            require(int(counts[d]) == int(one.count)
+                    and int(statuses[d]) == int(one.status),
+                    "ragged vs single count/status", d, *ctx)
+            k = min(len(parts[d]), one.buffer.shape[0])
+            require(np.array_equal(parts[d][:k],
+                                   one.buffer[:k].cpu().numpy()),
+                    "ragged vs single buffer", d, *ctx)
 
     # -- 2. correctness on the card ------------------------------------------
     text_cps = np.concatenate([codepoints(lang, TEXT_CHARS, rng)
@@ -375,9 +530,42 @@ def main(argv=None) -> int:
                     "scan", src, dst, name)
     torch.cuda.synchronize()
     report["correctness_cases"] = n_cases
-    report["max_abs_err"] = max_err
-    log(f"phase 2: {n_cases} cases bit-identical (kernels = plain, onepass "
-        f"= fused, codecs agree)")
+    log(f"phase 2: {n_cases} single-buffer cases bit-identical (kernels = "
+        f"plain, onepass = fused, codecs agree)")
+
+    r_inputs = {fmt: ragged_inputs(fmt, text_cps, rng) for fmt in PY_CODEC}
+    n_ragged = 0
+    for src, dst in tc.PAIRS:
+        for name, docs, data, offsets, lengths in r_inputs[src]:
+            x = torch.from_numpy(data).cuda()
+            for errors in ("strict", "replace"):
+                for validate in (True, False):
+                    ctx = (src, dst, f"ragged {name}", errors, validate)
+                    kw = dict(src_format=src, dst_format=dst, errors=errors,
+                              validate=validate)
+                    one = repro_torch.ragged_transcode(x, offsets, lengths,
+                                                       **kw)
+                    fused = repro_torch.ragged_transcode(
+                        x, offsets, lengths, strategy="fused", **kw)
+                    for a, b in zip(one, fused):
+                        require(equal(a, b), "ragged onepass vs fused", *ctx)
+                    k_o = hold_ragged(x, offsets, lengths, src, dst, errors,
+                                      validate, *ctx)
+                    require(equal(one.buffer, k_o[0]), "ragged entry", *ctx)
+                    same_as_single(one, docs, src, dst, errors, validate,
+                                   range(len(docs)), *ctx)
+                    if errors == "strict" and validate:
+                        counts, statuses = repro_torch.ragged_scan(
+                            x, offsets, lengths, src_format=src,
+                            dst_format=dst)
+                        require(equal(counts, one.counts)
+                                and equal(statuses, one.statuses),
+                                "ragged_scan", *ctx)
+                    n_ragged += 1
+    torch.cuda.synchronize()
+    report["ragged_correctness_cases"] = n_ragged
+    log(f"phase 2: {n_ragged} ragged cases bit-identical (kernels = plain, "
+        f"onepass = fused, every document = its single-buffer transcode)")
 
     # -- 3. the main path, with launch counts --------------------------------
     main_bytes = MAIN_BYTES
@@ -394,16 +582,15 @@ def main(argv=None) -> int:
                                      np.uint16)])
     x_main = torch.from_numpy(x8).cuda()
     torch.cuda.synchronize()
-    for kern in kernels.values():
-        kern.launches = 0
+    zero_counts()
     res = repro_torch.transcode(x_main, "utf16")
     res_fused = repro_torch.transcode(x_main, "utf16", strategy="fused")
     cnt, st = repro_torch.scan(x_main, "utf16")
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    launches = read_counts()
     log(f"phase 3: main path launches {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched on the main path")
+    for name in ("count", "write", "onepass"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} never launched on the main path")
     require(int(res.count) == len(want16) and int(res.status) == -1,
             "main path count/status", int(res.count), int(res.status))
     require(np.array_equal(res.buffer[:len(want16)].cpu().numpy(), want16),
@@ -441,6 +628,123 @@ def main(argv=None) -> int:
     report["main_size_cases"] = n_main
     log(f"phase 3: {n_main} cases at 64 MiB bit-identical (kernels = "
         f"plain, onepass = fused)")
+
+    # The main ragged batch: ragged_transcode (onepass, fused) and
+    # ragged_scan, each with the counts set to 0 just before it.
+    docs, cps_of, injected = main_ragged_docs(rng)
+    pk = packing.pack_documents(docs)
+    x_rag = torch.from_numpy(pk.data).cuda()
+    rag_args = (x_rag, pk.offsets, pk.lengths)
+    torch.cuda.synchronize()
+    rag_calls = {
+        "ragged_transcode": lambda: repro_torch.ragged_transcode(*rag_args),
+        "ragged_transcode fused": lambda: repro_torch.ragged_transcode(
+            *rag_args, strategy="fused"),
+        "ragged_scan": lambda: repro_torch.ragged_scan(*rag_args)}
+    rag_out, per_call = {}, {}
+    for label, fn in rag_calls.items():
+        zero_counts()
+        rag_out[label] = fn()
+        per_call[label] = read_counts()
+    log(f"phase 3: ragged path launches per call {per_call}")
+    require(per_call == {"ragged_transcode": {"ronepass": 1},
+                         "ragged_transcode fused": {"rcount": 1, "rwrite": 1},
+                         "ragged_scan": {"rcount": 1}},
+            "ragged path launches", per_call)
+    for label, counts in per_call.items():
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    rres = rag_out["ragged_transcode"]
+    for a, b in zip(rres, rag_out["ragged_transcode fused"]):
+        require(equal(a, b), "main ragged onepass vs fused")
+    require(equal(rag_out["ragged_scan"][0], rres.counts)
+            and equal(rag_out["ragged_scan"][1], rres.statuses),
+            "main ragged scan")
+    counts = rres.counts.cpu().numpy()
+    statuses = rres.statuses.cpu().numpy()
+    out_offsets = rres.offsets.cpu().numpy()
+    out_host = rres.buffer.cpu().numpy()
+    require(np.array_equal(out_offsets[1:], np.cumsum(counts)),
+            "main ragged offsets")
+    for d, cps in enumerate(cps_of):
+        if d in injected:
+            require(0 <= statuses[d] <= injected[d], "main ragged status", d)
+            continue
+        want = utf16_encode(cps)
+        lo = int(out_offsets[d])
+        require(int(counts[d]) == len(want) and statuses[d] == -1
+                and np.array_equal(out_host[lo: lo + len(want)], want),
+                "main ragged document vs encoder", d)
+    sample = sorted(set(rng.choice(RAGGED_DOCS, 48, replace=False).tolist())
+                    | set(list(injected)[:8]) | {0, 63, RAGGED_DOCS - 1})
+    same_as_single(rres, docs, "utf8", "utf16", "strict", True, sample,
+                   "main ragged")
+    n_rag_main = 0
+    spread_docs = rng.choice(RAGGED_DOCS, RAGGED_DOCS // 16, replace=False)
+    bad_data = pk.data.copy()
+    for k, d in enumerate(spread_docs):      # at and across document ends
+        lo, n = int(pk.offsets[d]), int(pk.lengths[d])
+        if n:
+            bad_data[lo + (n - 1 if k % 2 else 0)] = BAD_UNITS["utf8"][
+                k % len(BAD_UNITS["utf8"])]
+    for name, arr in (("main", None), ("injected", bad_data)):
+        x = x_rag if arr is None else torch.from_numpy(arr).cuda()
+        for errors in ("strict", "replace"):
+            for validate in (True, False):
+                ctx = ("utf8", "utf16", f"ragged {name}", errors, validate)
+                k_o = hold_ragged(x, pk.offsets, pk.lengths, "utf8", "utf16",
+                                  errors, validate, *ctx)
+                fused = repro_torch.ragged_transcode(
+                    x, pk.offsets, pk.lengths, errors=errors,
+                    validate=validate, strategy="fused")
+                require(equal(k_o[0], fused.buffer), "ragged onepass vs "
+                        "fused", *ctx)
+                n_rag_main += 1
+        del x
+    torch.cuda.synchronize()
+    report["ragged_main"] = {
+        "docs": RAGGED_DOCS, "bytes": int(pk.lengths.sum()),
+        "packed_bytes": len(pk.data), "tiles": len(pk.data) // BLOCK,
+        "units_out": int(counts.sum()), "injected_docs": len(injected),
+        "launches_per_call": per_call, "size_cases": n_rag_main}
+    log(f"phase 3: ragged batch of {RAGGED_DOCS} documents "
+        f"({int(pk.lengths.sum())} bytes, {len(pk.data) // BLOCK} tiles): "
+        f"every valid document = encoder, {len(sample)} sampled = single "
+        f"buffer, {n_rag_main} cases bit-identical (kernels = plain, "
+        f"onepass = fused)")
+
+    # The stream: the 64 MiB buffer in chunks of seeded random sizes.
+    sizes = np.exp(rng.uniform(0, np.log(STREAM_MAX_CHUNK), 4 * (
+        main_bytes // STREAM_MAX_CHUNK + 64))).astype(np.int64)
+    cuts = np.cumsum(sizes)
+    cuts = cuts[cuts < main_bytes]
+    require(len(cuts) < len(sizes), "stream chunks do not cover the buffer")
+    mid_char = int(((x8[cuts] & 0xC0) == 0x80).sum())
+    require(mid_char > 0, "no stream split falls mid-character")
+    chunks = np.split(x8, cuts)
+    zero_counts()
+    t0 = time.time()
+    sres, sstate = repro_torch.transcode_stream(chunks, src_format="utf8",
+                                                dst_format="utf16")
+    stream_s = time.time() - t0
+    stream_launches = read_counts()
+    log(f"phase 3: stream path launches {stream_launches}")
+    require(stream_launches.get("onepass", 0) > 0,
+            "kernel onepass never launched on the stream path")
+    require(int(sres.count) == int(res.count) and int(sres.status) == -1
+            and sstate.consumed == main_bytes
+            and np.array_equal(sres.buffer,
+                               res.buffer[:int(res.count)].cpu().numpy()),
+            "stream vs whole-buffer transcode")
+    report["stream"] = {"bytes": main_bytes, "chunks": len(chunks),
+                        "mid_character_splits": mid_char,
+                        "launches": stream_launches, "host_s": stream_s,
+                        "GB_per_s_in": main_bytes / stream_s / 1e9}
+    log(f"phase 3: stream of {main_bytes} bytes in {len(chunks)} chunks "
+        f"({mid_char} split mid-character) = whole-buffer transcode; "
+        f"{stream_s * 1e3:.1f} ms host clock "
+        f"({main_bytes / stream_s / 1e9:.2f} GB/s)  [{smi}]")
+    report["max_abs_err"] = max_err
 
     # -- 4. timing -------------------------------------------------------------
     def time_kernels(x, src, dst, reps, plain_reps):
@@ -492,12 +796,62 @@ def main(argv=None) -> int:
             out[label] = {"ms": ms, "GB_per_s_in": n / ms / 1e6}
         return out
 
+    def time_ragged(x, offsets, lengths, src, dst, reps, plain_reps):
+        """Each ragged kernel's wrapper and its plain version on a packed
+        batch (strict, validate), with the bytes bound of the function:
+        the input once, the output of ``cap`` units once, and per tile
+        12 bytes of ownership read plus the per-tile scalars (12 bytes
+        out of rcount and ronepass, 4 bytes of base into rwrite)."""
+        own, span = ownership(x, offsets, lengths)
+        nblk = span // BLOCK
+        cap = tc.CAP_FACTOR[(src, dst)] * span
+        in_bytes = x.shape[0] * x.element_size()
+        out_bytes = cap * np.dtype(NP_DTYPE[dst]).itemsize
+        kw = dict(src=src, dst=dst, errors="strict")
+        base, _ = compaction.tile_base_offsets(
+            rt.rcount_kernel(x, own, validate=True, **kw)[0])
+        calls = {
+            "rcount": (lambda: rt.rcount_kernel(x, own, validate=True, **kw),
+                       lambda: rt.rcount_plain(x, own, validate=True, **kw),
+                       in_bytes + 24 * nblk),
+            "rwrite": (lambda: rt.rwrite_kernel(x, own, base, cap, **kw),
+                       lambda: rt.rwrite_plain(x, own, base, cap, **kw),
+                       in_bytes + 16 * nblk + out_bytes),
+            "ronepass": (lambda: rt.ronepass_kernel(x, own, cap,
+                                                    validate=True, **kw),
+                         lambda: rt.ronepass_plain(x, own, cap,
+                                                   validate=True, **kw),
+                         in_bytes + 24 * nblk + out_bytes),
+        }
+        out = {}
+        for name, (kern_fn, plain_fn, nbytes) in calls.items():
+            hold(name, kern_fn(), plain_fn(), max_err, "timed ragged", src,
+                 dst)
+            ms = cuda_ms(kern_fn, reps=reps)
+            out[name] = {"ms": ms,
+                         "plain_ms": cuda_ms(plain_fn, reps=plain_reps,
+                                             warmup=1),
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
+        return out
+
     timing = {"64MiB arabic utf8->utf16": {
         "kernels": time_kernels(x_main, "utf8", "utf16", 10, 3),
         "entry": entry_ms(x_main, "utf8", "utf16", 10)}}
     main_t = timing["64MiB arabic utf8->utf16"]
+    rag_label = f"ragged {RAGGED_DOCS} docs utf8->utf16"
+    rag_in = int(pk.lengths.sum())
+    rag_entry = {}
+    for label, fn in rag_calls.items():
+        ms = cuda_ms(fn, reps=10)
+        rag_entry[label] = {"ms": ms, "GB_per_s_in": rag_in / ms / 1e6}
+    timing[rag_label] = {
+        "kernels": time_ragged(x_rag, pk.offsets, pk.lengths, "utf8",
+                               "utf16", 10, 3),
+        "entry": rag_entry}
+    rag_t = timing[rag_label]
     lines = []
-    for name, t in main_t["kernels"].items():
+    for name, t in [*main_t["kernels"].items(), *rag_t["kernels"].items()]:
         lines.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
@@ -511,6 +865,13 @@ def main(argv=None) -> int:
             f"plain {t['plain_ms']:.3f} ms  [{smi}]")
     for name, t in main_t["entry"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:18s} {t['ms']:.4f} ms "
+            f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")
+    for name, t in rag_t["kernels"].items():
+        log(f"phase 4: {rag_label} {name:8s} {t['ms']:.4f} ms "
+            f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "
+            f"plain {t['plain_ms']:.3f} ms  [{smi}]")
+    for name, t in rag_t["entry"].items():
+        log(f"phase 4: {rag_label} {name:22s} {t['ms']:.4f} ms "
             f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")
     for lang in PROFILES:
         cps = codepoints(lang, LIPSUM_CHARS, rng)

@@ -1,7 +1,9 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` (public surface).
 
-This slice of the port covers single-buffer ``transcode`` and ``scan``
-over the 12 cells of the {utf8, utf16, utf32, latin1} matrix under
+The port covers single-buffer ``transcode`` and ``scan``, the ragged
+packed-batch ``ragged_transcode`` and ``ragged_scan`` (over
+``pack_documents``) and the chunked ``transcode_stream``, over the 12
+cells of the {utf8, utf16, utf32, latin1} matrix under
 ``errors="strict"`` and ``"replace"``.  Results are bit-identical to
 ``repro`` on the same inputs.  Entry points run on the card
 (``device="cuda"``, the default) through hand-written CUDA kernels, or on
@@ -15,12 +17,23 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["transcode", "scan", "TranscodeResult", "to_numpy"]
+__all__ = [
+    "transcode", "scan", "ragged_transcode", "ragged_scan",
+    "transcode_stream", "pack_documents",
+    "TranscodeResult", "RaggedTranscodeResult", "StreamState", "to_numpy",
+]
 
 _EXPORTS = {
     "transcode": ("repro_torch.core.transcode", "transcode"),
     "scan": ("repro_torch.core.transcode", "scan"),
+    "ragged_transcode": ("repro_torch.core.transcode", "ragged_transcode"),
+    "ragged_scan": ("repro_torch.core.transcode", "ragged_scan"),
+    "transcode_stream": ("repro_torch.core.stream", "transcode_stream"),
+    "StreamState": ("repro_torch.core.stream", "StreamState"),
+    "pack_documents": ("repro_torch.core.packing", "pack_documents"),
     "TranscodeResult": ("repro_torch.core.result", "TranscodeResult"),
+    "RaggedTranscodeResult": ("repro_torch.core.result",
+                              "RaggedTranscodeResult"),
     "to_numpy": ("repro_torch.core.result", "to_numpy"),
 }
 

@@ -3,7 +3,8 @@
 Port of ``repro.core.result``.  A :class:`TranscodeResult` is a
 NamedTuple of tensors on the device the transcode ran on: ``buffer`` in
 the destination's storage dtype, and ``count`` and ``status`` as 0-d
-int32 tensors.  Status semantics are the reference's:
+int32 tensors.  A :class:`RaggedTranscodeResult` carries the same
+per document of a packed batch.  Status semantics are the reference's:
 
   * ``status == STATUS_OK`` (-1): the input was valid (or ``validate``
     was off) and ``buffer[:count]`` is the faithful transcode.
@@ -52,6 +53,26 @@ class TranscodeResult(NamedTuple):
         return self.status < 0
 
 
+class RaggedTranscodeResult(NamedTuple):
+    """Per-batch result of a ragged packed transcode.
+
+    Document ``d``'s output occupies ``buffer[offsets[d] : offsets[d] +
+    counts[d]]`` (a dense stream, no padding between documents);
+    ``counts[d]`` and ``statuses[d]`` carry :class:`TranscodeResult`'s
+    ``count`` and ``status`` semantics, the status relative to the
+    document's own start.
+    """
+
+    buffer: torch.Tensor    # dense packed output, destination dtype
+    offsets: torch.Tensor   # int32 [B+1]: per-document output offsets
+    counts: torch.Tensor    # int32 [B]: per-document output counts
+    statuses: torch.Tensor  # int32 [B]: STATUS_OK or doc-relative offset
+
+    @property
+    def ok(self) -> torch.Tensor:
+        return self.statuses < 0
+
+
 def status_from_first(first_index, err_any=None):
     """Fold a min-reduced first-error index (NO_ERR_SENTINEL = clean) and
     an optional independent error flag into one 0-d int32 status.
@@ -72,9 +93,10 @@ def status_from_first(first_index, err_any=None):
 
 
 def to_numpy(result):
-    """Copy a result (or any tuple of tensors, such as ``scan``'s
-    ``(count, status)``) to numpy, keeping its tuple type, so it compares
-    directly with the reference's arrays."""
+    """Copy a result (a :class:`TranscodeResult`, a
+    :class:`RaggedTranscodeResult`, or any tuple of tensors, such as
+    ``scan``'s ``(count, status)``) to numpy, keeping its tuple type, so
+    it compares directly with the reference's arrays."""
     def conv(t):
         return np.asarray(t.detach().cpu().numpy())
     if isinstance(result, torch.Tensor):

@@ -1,7 +1,8 @@
-"""Public transcoding API of the port: ``transcode`` and ``scan``.
+"""Public transcoding API of the port: ``transcode`` and ``scan`` for one
+buffer, ``ragged_transcode`` and ``ragged_scan`` for a packed batch.
 
-Port of the single-buffer surface of ``repro.core.transcode``, with the
-same arguments and defaults plus ``device=``.  Outputs are a
+Port of the single-buffer and ragged surface of ``repro.core.transcode``,
+with the same arguments and defaults plus ``device=``.  Outputs are a
 :class:`repro_torch.core.result.TranscodeResult` ``(buffer, count,
 status)``: a buffer of capacity ``CAP_FACTOR[(src, dst)] * len(src)``,
 the number of meaningful elements, and the simdutf-style status (-1 for
@@ -59,6 +60,10 @@ PAIRS = tuple(sorted(CAP_FACTOR))
 STRATEGIES = ("onepass", "fused", "blockparallel", "windowed")
 
 DEFAULT_STRATEGY = "onepass"
+
+# The ragged (packed-batch) entry point's names, as in the reference;
+# "sharded" is not ported yet.
+RAGGED_STRATEGIES = ("onepass", "fused", "sharded")
 
 # Strategies of the reference that this port does not run yet.
 _NOT_PORTED = ("blockparallel", "windowed")
@@ -135,3 +140,47 @@ def scan(x, dst_format, *, src_format: str = "utf8", n_valid=None,
     from repro_torch.kernels import fused_transcode
     return fused_transcode.scan_fused(x, n_valid, src=src, dst=dst,
                                       device=device)
+
+
+# ---------------------------------------------------------------------------
+# Ragged packed-batch entry points (one launch per pass for the batch).
+
+
+def ragged_transcode(data, offsets, lengths, *, src_format: str = "utf8",
+                     dst_format: str = "utf16", validate: bool = True,
+                     errors: str = "strict",
+                     strategy: str = DEFAULT_STRATEGY,
+                     n_shards=None, shard_mesh=None, chunk_budget=None,
+                     device=None):
+    """Ragged packed-batch transcode for any matrix cell over a
+    :func:`repro_torch.core.packing.pack_documents` layout.
+
+    Returns a :class:`repro_torch.core.result.RaggedTranscodeResult`
+    whose per-document slices are bit-identical to the single-document
+    transcode; ``errors=`` applies per document.  ``strategy="onepass"``
+    (the default) is one launch, ``"fused"`` the count and write
+    launches.  ``n_shards``/``shard_mesh``/``chunk_budget`` apply only to
+    ``strategy="sharded"``, which is not ported yet.
+    """
+    if strategy == "sharded":
+        raise NotImplementedError(
+            "ragged_transcode: strategy='sharded' is not ported to "
+            "repro_torch yet; see ROADMAP.md queue 1 item 10 (multi-device "
+            "and fault tolerance)")
+    if n_shards is not None or shard_mesh is not None:
+        raise ValueError("n_shards/shard_mesh require strategy='sharded'")
+    from repro_torch.kernels import ragged_transcode as rt
+    return rt.transcode_ragged(
+        data, offsets, lengths, src=normalize_format(src_format),
+        dst=normalize_format(dst_format), validate=validate, errors=errors,
+        strategy=strategy, device=device)
+
+
+def ragged_scan(data, offsets, lengths, *, src_format: str = "utf8",
+                dst_format: str = "utf16", device=None):
+    """Per-document single-scan validation + capacity: ``(counts,
+    statuses)``, two int32 ``[B]`` tensors on ``device``."""
+    from repro_torch.kernels import ragged_transcode as rt
+    return rt.scan_ragged(
+        data, offsets, lengths, src=normalize_format(src_format),
+        dst=normalize_format(dst_format), device=device)

@@ -38,6 +38,11 @@ _SIGNATURES = {
     "transcode_write": [_I, _I, _P, _I, _I, _I, _P, _I, _P, _P],
     "transcode_onepass": [_I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                           _P],
+    "transcode_rcount": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                         _P],
+    "transcode_rwrite": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
+    "transcode_ronepass": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _P, _P],
 }
 
 

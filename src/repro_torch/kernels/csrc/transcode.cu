@@ -1,18 +1,35 @@
-// Hand-written Hopper (sm_90a) kernels of the single-buffer transcode.
+// Hand-written Hopper (sm_90a) kernels of the single-buffer and the
+// ragged packed-batch transcode.
 //
-// Three kernels, one source, templated on the (source, destination)
+// Four kernels, one source, templated on the (source, destination)
 // format pair: the 12 cells of the {utf8, utf16, utf32, latin1} matrix.
 // errors= ("replace" or "strict") and validate are runtime arguments.
+// count_kernel and write_kernel are also templated on the tile geometry:
+// Flat (one buffer of n live elements) or Packed (a batch of documents
+// packed at tile-aligned offsets, with per-tile ownership arrays).
 //
-//   count_kernel    replaces src/repro/kernels/fused_transcode.py::_count_kernel
-//                   per tile: decode, destination lengths and validation,
-//                   reduced to (total, err_flag, first_error).
-//   write_kernel    replaces src/repro/kernels/fused_transcode.py::_write_kernel
-//                   per tile: re-decode and store the live units at
-//                   base[tile] + in-tile rank.
-//   onepass_kernel  replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
-//                   count and write off one decode, with the inter-tile
-//                   offset carried by a chained scan across blocks.
+//   count_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_count_kernel
+//                         per tile: decode, destination lengths and
+//                         validation, reduced to (total, err_flag,
+//                         first_error).
+//   write_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_write_kernel
+//                         per tile: re-decode and store the live units at
+//                         base[tile] + in-tile rank.
+//   onepass_kernel        replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
+//                         count and write off one decode, with the
+//                         inter-tile offset carried by a chained scan
+//                         across blocks.
+//   count_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rcount_kernel
+//   write_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rwrite_kernel
+//   ronepass_kernel       replaces src/repro/kernels/ragged_transcode.py::_ronepass_kernel
+//                         the same bodies over a packed batch: a tile
+//                         reads its neighbour tiles only when they belong
+//                         to its own document, and its live end is its
+//                         document's end.  The chained scan's global
+//                         offset is the per-document segment scan, since
+//                         documents are packed in order; ronepass writes
+//                         per-tile (total, err, first_error) for the
+//                         per-document reduce.
 //
 // What bounds them on the card: the bytes they must move, (bytes read +
 // bytes written) / 3.35 TB/s, is the least time (no tensor-core work, and
@@ -264,18 +281,65 @@ __device__ __forceinline__ Lane eval_lane(const int32_t* s, bool live,
   return r;
 }
 
+// Tile geometry of a single buffer: n live elements.
+struct Flat {
+  int n;
+  __device__ __forceinline__ int end(int) const { return n; }
+};
+
+// Tile geometry of a packed batch (src/repro_torch/core/packing.py): len
+// elements of data in nblk tiles, and per tile the end of its document
+// (tile_end) and whether the previous / next tile belongs to the same
+// document (same_prev / same_next, 0 or 1).
+struct Packed {
+  int len;
+  int nblk;
+  const int* tile_end;
+  const int* same_prev;
+  const int* same_next;
+  __device__ __forceinline__ int end(int tile) const {
+    return tile_end[tile];
+  }
+};
+
 // Stage tile `tile` and its halo into shared memory as int32 lanes.
 // Elements at or past n (the padding mask) and before the stream read 0,
 // like the reference's zero boundary tiles.
 template <int S>
 __device__ __forceinline__ void load_tile(
-    const typename Storage<S>::T* __restrict__ x, int n, int tile,
+    const typename Storage<S>::T* __restrict__ x, const Flat& g, int tile,
     int32_t* s) {
   constexpr int H = Reach<S>::value;
   const long long start = static_cast<long long>(tile) * TILE - H;
   for (int k = threadIdx.x; k < TILE + 2 * H; k += THREADS) {
     const long long j = start + k;
-    s[k] = (j >= 0 && j < n) ? static_cast<int32_t>(x[j]) : 0;
+    s[k] = (j >= 0 && j < g.n) ? static_cast<int32_t>(x[j]) : 0;
+  }
+}
+
+// The packed form: an element of the tile reads x[j] only below its
+// document's end; a halo element of tile t-1 or t+1 only when that tile
+// belongs to the same document and j is below that tile's end.  Every
+// other element reads 0.  This is the reference's _mask_to_docs followed
+// by `xp * same_prev` / `xn * same_next`.  Trailing pad tiles clamp to
+// the last document with same_prev = 1; only the per-neighbour end test
+// keeps them out of the last live tile's next halo.
+template <int S>
+__device__ __forceinline__ void load_tile(
+    const typename Storage<S>::T* __restrict__ x, const Packed& g, int tile,
+    int32_t* s) {
+  constexpr int H = Reach<S>::value;
+  const long long start = static_cast<long long>(tile) * TILE - H;
+  const int end_own = g.tile_end[tile];
+  const int end_prev =
+      (H > 0 && tile > 0 && g.same_prev[tile]) ? g.tile_end[tile - 1] : 0;
+  const int end_next = (H > 0 && tile + 1 < g.nblk && g.same_next[tile])
+                           ? g.tile_end[tile + 1] : 0;
+  for (int k = threadIdx.x; k < TILE + 2 * H; k += THREADS) {
+    const long long j = start + k;
+    const int end = k < H ? end_prev : (k < H + TILE ? end_own : end_next);
+    s[k] = (j >= 0 && j < g.len && j < end) ? static_cast<int32_t>(x[j])
+                                             : 0;
   }
 }
 
@@ -389,27 +453,54 @@ __device__ __forceinline__ void store_release(unsigned long long* p,
 }
 
 // ---------------------------------------------------------------------------
+// The chained scan of the one-pass kernels.
+
+// Thread 0 only: wait for tile-1's inclusive output offset, publish
+// tile's own (prefix + total), and return the tile's exclusive prefix.
+// state[t] packs a ready flag (bit 32) with tile t's inclusive offset
+// (low 32 bits), so one acquire load reads both.  Tiles come from a
+// ticket counter, so a block only ever waits on a tile whose block has
+// already started.
+__device__ __forceinline__ int chain_prefix(unsigned long long* state,
+                                            int tile, int total) {
+  int prefix = 0;
+  if (tile > 0) {
+    unsigned long long v;
+    do {
+      v = load_acquire(&state[tile - 1]);
+    } while ((v >> 32) == 0);
+    prefix = static_cast<int>(static_cast<unsigned>(v & 0xffffffffull));
+  }
+  store_release(&state[tile],
+                (1ull << 32) | static_cast<unsigned>(prefix + total));
+  return prefix;
+}
+
+// ---------------------------------------------------------------------------
 // The kernels.
 
-// Replaces fused_transcode.py::_count_kernel.  Reads each input element
-// once and writes 12 bytes per tile; its bytes bound is the input read.
-// The per-lane UTF-8 body (subpart analysis, Keiser-Lemire, decode) is
-// tens of integer instructions per byte, so issue rate, not memory, is
-// what this simple form runs into; the tile-class dispatch of ROADMAP.md
-// queue 2a skips most of it on narrow text.
-template <int S, int D>
+// count_kernel<Flat> replaces fused_transcode.py::_count_kernel and
+// count_kernel<Packed> replaces ragged_transcode.py::_rcount_kernel.
+// Reads each input element once and writes 12 bytes per tile; its bytes
+// bound is the input read (plus 12 bytes per tile of ownership when
+// packed).  The per-lane UTF-8 body (subpart analysis, Keiser-Lemire,
+// decode) is tens of integer instructions per byte, so issue rate, not
+// memory, is what this simple form runs into; the tile-class dispatch of
+// ROADMAP.md queue 2a skips most of it on narrow text.
+template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
-count_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+count_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
              int replace, int validate, int* __restrict__ tot_out,
              int* __restrict__ err_out, int* __restrict__ ferr_out) {
   __shared__ int32_t s[TILE + 2 * MAX_HALO];
   __shared__ int red[3 * WARPS];
   const int tile = blockIdx.x;
-  load_tile<S>(x, n, tile, s);
+  load_tile<S>(x, geo, tile, s);
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, n, tile, replace, validate, cps, units, err, ferr);
+  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, cps, units,
+                    err, ferr);
   int tot = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) tot += units[k];
@@ -421,24 +512,26 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, int n,
   }
 }
 
-// Replaces fused_transcode.py::_write_kernel.  Bytes bound: the input read
-// plus the output units written.  It re-decodes without validation (the
-// cheap half of the lane body) and ranks the units with one block scan;
-// stores are per lane, into consecutive addresses across a thread's
-// four lanes.
-template <int S, int D>
+// write_kernel<Flat> replaces fused_transcode.py::_write_kernel and
+// write_kernel<Packed> replaces ragged_transcode.py::_rwrite_kernel.
+// Bytes bound: the input read plus the output units written.  It
+// re-decodes without validation (the cheap half of the lane body) and
+// ranks the units with one block scan; stores are per lane, into
+// consecutive addresses across a thread's four lanes.
+template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
-write_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+write_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
              int replace, const int* __restrict__ base, int cap,
              typename Storage<D>::T* __restrict__ out) {
   __shared__ int32_t s[TILE + 2 * MAX_HALO];
   __shared__ int sums[WARPS];
   const int tile = blockIdx.x;
-  load_tile<S>(x, n, tile, s);
+  load_tile<S>(x, geo, tile, s);
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, n, tile, replace, false, cps, units, err, ferr);
+  eval_thread<S, D>(s, geo.end(tile), tile, replace, false, cps, units, err,
+                    ferr);
   int mine = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) mine += units[k];
@@ -449,21 +542,19 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, int n,
 
 // Replaces onepass_transcode.py::_onepass_kernel.  Bytes bound: the input
 // read once plus the output units, no intermediate leaves the chip.  The
-// TPU kernel's SMEM carry becomes a chained scan, whose critical path is
-// one L2 round trip per tile: serial in the tile count, and the reason a
-// decoupled look-back (ROADMAP.md queue 2a) is the next step.
+// TPU kernel's SMEM carry becomes a chained scan (chain_prefix), whose
+// critical path is one L2 round trip per tile: serial in the tile count,
+// and the reason a decoupled look-back (ROADMAP.md queue 2a) is the next
+// step.
 //
-// Chained scan across blocks.  Each block takes a tile ticket, so it only
-// ever waits on a tile whose block has already started.  state[t] packs
-// a ready flag (bit 32) with tile t's inclusive output offset (low 32
-// bits), so one acquire load reads both.  ctl = [ticket, err, ferr],
-// which the wrapper sets to [0, 0, IMAX].  Each block folds its err/ferr
-// into ctl before it waits on its predecessor, off the serial chain; the
-// fold still precedes the block's release in program order, so the last
-// tile, which acquires the whole chain, reads the final values.
+// ctl = [ticket, err, ferr], which the wrapper sets to [0, 0, IMAX].  Each
+// block folds its err/ferr into ctl before it waits on its predecessor,
+// off the serial chain; the fold still precedes the block's release in
+// program order, so the last tile, which acquires the whole chain, reads
+// the final values.
 template <int S, int D>
 __global__ void __launch_bounds__(THREADS)
-onepass_kernel(const typename Storage<S>::T* __restrict__ x, int n,
+onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
                int replace, int validate, int cap,
                unsigned long long* __restrict__ state, int* __restrict__ ctl,
                int* __restrict__ fin,
@@ -475,11 +566,12 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, int n,
   if (threadIdx.x == 0) s_tile = atomicAdd(&ctl[0], 1);
   __syncthreads();
   const int tile = s_tile;
-  load_tile<S>(x, n, tile, s);
+  load_tile<S>(x, geo, tile, s);
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, n, tile, replace, validate, cps, units, err, ferr);
+  eval_thread<S, D>(s, geo.n, tile, replace, validate, cps, units, err,
+                    ferr);
   int mine = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) mine += units[k];
@@ -490,19 +582,9 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, int n,
   if (threadIdx.x == 0) {
     if (err) atomicMax(&ctl[1], err);
     if (ferr != IMAX) atomicMin(&ctl[2], ferr);
-    int prefix = 0;
-    if (tile > 0) {
-      unsigned long long v;
-      do {
-        v = load_acquire(&state[tile - 1]);
-      } while ((v >> 32) == 0);
-      prefix = static_cast<int>(static_cast<unsigned>(v & 0xffffffffull));
-    }
-    const int incl = prefix + total;
-    store_release(&state[tile],
-                  (1ull << 32) | static_cast<unsigned>(incl));
+    const int prefix = chain_prefix(state, tile, total);
     if (tile == static_cast<int>(gridDim.x) - 1) {
-      fin[0] = incl;
+      fin[0] = prefix + total;
       fin[1] = status_from_first(atomicAdd(&ctl[2], 0),
                                  atomicAdd(&ctl[1], 0));
     }
@@ -512,23 +594,69 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, int n,
   store_units<D>(out, cap, s_base + rank, cps, units);
 }
 
-// ---------------------------------------------------------------------------
-// Launchers, one per kernel and cell.
-
+// Replaces ragged_transcode.py::_ronepass_kernel: onepass_kernel over a
+// packed batch.  The running offset of the chained scan is the
+// per-document segment scan (documents are packed in order, densely);
+// in place of the folded (count, status) it writes each tile's (total,
+// err, first_error), which the wrapper reduces per document.  Bytes
+// bound: the input once, the output units, 24 bytes per tile of
+// ownership and per-tile scalars.  ticket[0] is set to 0 by the wrapper.
 template <int S, int D>
-int launch_count(const void* x, int n, int nblk, int replace, int validate,
+__global__ void __launch_bounds__(THREADS)
+ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
+                int replace, int validate, int cap,
+                unsigned long long* __restrict__ state,
+                int* __restrict__ ticket, int* __restrict__ tot_out,
+                int* __restrict__ err_out, int* __restrict__ ferr_out,
+                typename Storage<D>::T* __restrict__ out) {
+  __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int sums[WARPS];
+  __shared__ int red[3 * WARPS];
+  __shared__ int s_tile, s_base;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  load_tile<S>(x, geo, tile, s);
+  __syncthreads();
+  int32_t cps[ITEMS], units[ITEMS];
+  int err, ferr;
+  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, cps, units,
+                    err, ferr);
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) mine += units[k];
+  int total;
+  const int rank = block_exclusive_scan(mine, sums, total);
+  int unused = 0;
+  block_reduce(unused, err, ferr, red);
+  if (threadIdx.x == 0) {
+    tot_out[tile] = total;
+    err_out[tile] = err;
+    ferr_out[tile] = ferr;
+    s_base = chain_prefix(state, tile, total);
+  }
+  __syncthreads();
+  store_units<D>(out, cap, s_base + rank, cps, units);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers, one per kernel and cell (the geometry G is deduced from the
+// argument).
+
+template <int S, int D, class G>
+int launch_count(const void* x, G geo, int nblk, int replace, int validate,
                  int* tot, int* err, int* ferr, cudaStream_t stream) {
-  count_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), n, replace, validate,
+  count_kernel<S, D, G><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, replace, validate,
       tot, err, ferr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S, int D>
-int launch_write(const void* x, int n, int nblk, int replace,
+template <int S, int D, class G>
+int launch_write(const void* x, G geo, int nblk, int replace,
                  const int* base, int cap, void* out, cudaStream_t stream) {
-  write_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), n, replace, base, cap,
+  write_kernel<S, D, G><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, replace, base, cap,
       static_cast<typename Storage<D>::T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -538,8 +666,21 @@ int launch_onepass(const void* x, int n, int nblk, int replace, int validate,
                    int cap, unsigned long long* state, int* ctl, int* fin,
                    void* out, cudaStream_t stream) {
   onepass_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), n, replace, validate,
-      cap, state, ctl, fin, static_cast<typename Storage<D>::T*>(out));
+      static_cast<const typename Storage<S>::T*>(x), Flat{n}, replace,
+      validate, cap, state, ctl, fin,
+      static_cast<typename Storage<D>::T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S, int D>
+int launch_ronepass(const void* x, Packed geo, int replace, int validate,
+                    int cap, unsigned long long* state, int* ticket,
+                    int* tot, int* err, int* ferr, void* out,
+                    cudaStream_t stream) {
+  ronepass_kernel<S, D><<<geo.nblk, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, replace, validate,
+      cap, state, ticket, tot, err, ferr,
+      static_cast<typename Storage<D>::T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,14 +719,14 @@ int transcode_set_tables(const int32_t* byte_1_high, const int32_t* byte_1_low,
 int transcode_count(int src, int dst, const void* x, int n, int nblk,
                     int replace, int validate, int* tot, int* err, int* ferr,
                     void* stream) {
-  PAIR_CASES(launch_count, x, n, nblk, replace, validate, tot, err, ferr,
-             static_cast<cudaStream_t>(stream))
+  PAIR_CASES(launch_count, x, Flat{n}, nblk, replace, validate, tot,
+             err, ferr, static_cast<cudaStream_t>(stream))
 }
 
 int transcode_write(int src, int dst, const void* x, int n, int nblk,
                     int replace, const int* base, int cap, void* out,
                     void* stream) {
-  PAIR_CASES(launch_write, x, n, nblk, replace, base, cap, out,
+  PAIR_CASES(launch_write, x, Flat{n}, nblk, replace, base, cap, out,
              static_cast<cudaStream_t>(stream))
 }
 
@@ -595,6 +736,37 @@ int transcode_onepass(int src, int dst, const void* x, int n, int nblk,
                       void* out, void* stream) {
   PAIR_CASES(launch_onepass, x, n, nblk, replace, validate, cap, state, ctl,
              fin, out, static_cast<cudaStream_t>(stream))
+}
+
+// The packed-batch entry points: `len` elements of data in `nblk` tiles,
+// with the int32 [nblk] ownership arrays of packing.tile_ownership.
+int transcode_rcount(int src, int dst, const void* x, int len, int nblk,
+                     const int* tile_end, const int* same_prev,
+                     const int* same_next, int replace, int validate,
+                     int* tot, int* err, int* ferr, void* stream) {
+  const Packed geo{len, nblk, tile_end, same_prev, same_next};
+  PAIR_CASES(launch_count, x, geo, nblk, replace, validate, tot, err, ferr,
+             static_cast<cudaStream_t>(stream))
+}
+
+int transcode_rwrite(int src, int dst, const void* x, int len, int nblk,
+                     const int* tile_end, const int* same_prev,
+                     const int* same_next, int replace, const int* base,
+                     int cap, void* out, void* stream) {
+  const Packed geo{len, nblk, tile_end, same_prev, same_next};
+  PAIR_CASES(launch_write, x, geo, nblk, replace, base, cap, out,
+             static_cast<cudaStream_t>(stream))
+}
+
+int transcode_ronepass(int src, int dst, const void* x, int len, int nblk,
+                       const int* tile_end, const int* same_prev,
+                       const int* same_next, int replace, int validate,
+                       int cap, unsigned long long* state, int* ticket,
+                       int* tot, int* err, int* ferr, void* out,
+                       void* stream) {
+  const Packed geo{len, nblk, tile_end, same_prev, same_next};
+  PAIR_CASES(launch_ronepass, x, geo, replace, validate, cap, state, ticket,
+             tot, err, ferr, out, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

@@ -26,21 +26,33 @@ from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import stages
 
 
+def onepass_tiles(codec_s, codec_d, t, tp, tn, live, gidx, cap: int, *,
+                  errors: str, validate: bool):
+    """The one-pass body over prepared tiles (shared with the ragged
+    one-pass): one decode, then per-tile ``(total, err, first_err)`` and
+    the compact buffer of ``cap`` units.  Returns ``(buffer, totals,
+    errs, ferrs)``."""
+    a, cp, lead = stages.decode_once(codec_s, t, tp, tn, errors=errors,
+                                     validate=validate)
+    totals, errs, ferrs = stages.count_decoded(
+        codec_s, codec_d, a, cp, lead, t, tp, live, gidx,
+        ft.validation_tables(codec_s, t.device), validate=validate)
+    base, _total = compaction.tile_base_offsets(totals)
+    eff, planes = stages.stage_decoded(codec_s, codec_d, cp, lead, live)
+    out = stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
+    return out, totals, errs, ferrs
+
+
 def onepass_plain(x, n: int, cap: int, *, src: str, dst: str, errors: str,
                   validate: bool):
     """Plain version of the one-pass kernel: ``(buffer, fin)`` where
     ``fin`` is the int32 pair ``(count, status)``."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.tiles(x, n)
-    live = gidx < n
-    a, cp, lead = stages.decode_once(codec_s, t, tp, tn, errors=errors,
-                                     validate=validate)
-    totals, errs, ferrs = stages.count_decoded(
-        codec_s, codec_d, a, cp, lead, t, tp, live, gidx,
-        ft.validation_tables(codec_s, x.device), validate=validate)
-    base, total = compaction.tile_base_offsets(totals)
-    eff, planes = stages.stage_decoded(codec_s, codec_d, cp, lead, live)
-    out = stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
+    out, totals, errs, ferrs = onepass_tiles(
+        codec_s, codec_d, t, tp, tn, gidx < n, gidx, cap, errors=errors,
+        validate=validate)
+    _base, total = compaction.tile_base_offsets(totals)
     fin = torch.stack([total, R.status_from_first(ferrs.amin(),
                                                   errs.amax() > 0)])
     return out, fin

@@ -20,7 +20,7 @@ from repro_torch.kernels.stages import utf32 as s_utf32
 from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import (  # noqa: F401  (re-export)
     BLOCK, Codec, count_decoded, count_tile, decode_once, num_tiles,
-    place_units, stage_decoded, stage_units, tiles,
+    place_units, ragged_tiles, stage_decoded, stage_units, tiles,
     write_stage)
 
 UTF8 = Codec(

@@ -94,6 +94,29 @@ def tiles(x, n: int):
     return t, xp, xn, gidx
 
 
+def ragged_tiles(x, tile_end, same_prev, same_next):
+    """The packed-batch counterpart of :func:`tiles`.
+
+    ``tile_end``, ``same_prev`` and ``same_next`` are the int32
+    ``(nblk,)`` ownership arrays of ``core.packing.tile_ownership``.
+    Every lane at or past its tile's ``tile_end`` reads 0 (the
+    reference's ``_mask_to_docs``), and the previous and next tiles are
+    multiplied by ``same_prev`` / ``same_next``, so no element flows in
+    across a document boundary.  Returns ``(x, xp, xn, gidx)`` like
+    :func:`tiles`.
+    """
+    nblk = tile_end.shape[0]
+    flat = torch.zeros(nblk * BLOCK, dtype=torch.int32, device=x.device)
+    flat[:x.shape[0]] = x.to(torch.int32)
+    gidx = torch.arange(nblk * BLOCK, dtype=torch.int32,
+                        device=x.device).view(nblk, BLOCK)
+    t = torch.where(gidx < tile_end[:, None], flat.view(nblk, BLOCK), 0)
+    z = torch.zeros(1, BLOCK, dtype=torch.int32, device=x.device)
+    xp = torch.cat([z, t[:-1]]) * same_prev[:, None]
+    xn = torch.cat([t[1:], z]) * same_next[:, None]
+    return t, xp, xn, gidx
+
+
 def _encode_err(dst: Codec, a, live):
     """Encode-side error map over analyzed unit starts (Latin-1 egress)."""
     if dst.encode_bad is None:

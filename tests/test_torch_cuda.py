@@ -9,17 +9,22 @@ package, so it runs on a machine with only PyTorch:
 For every cell × {strict, replace} × validate {True, False}, on text,
 invalid units at tile boundaries and uniform garbage, the count, write
 and one-pass kernels must equal ``count_plain``, ``write_plain`` and
-``onepass_plain`` bit for bit.
+``onepass_plain`` bit for bit; on packed batches (empty documents,
+documents cut mid-character, garbage in the slack and past the last
+document), the ragged kernels must equal ``rcount_plain``,
+``rwrite_plain`` and ``ronepass_plain``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import compaction
+import repro_torch
+from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
+from repro_torch.kernels import ragged_transcode as rt
 from repro_torch.kernels import stages
 
 N = 5 * stages.BLOCK + 3
@@ -89,3 +94,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         ft.write_kernel(x, 8, torch.zeros(2, dtype=torch.int32,
                                           device="cuda"), 8,
                         src="utf8", dst="utf16", errors="strict")
+
+
+def _ragged_batches(fmt, seed):
+    """Packed batches: text, empty documents, a document cut
+    mid-character before one that starts with high units, garbage in the
+    slack and past ``offsets[-1]``; one with a fixed tile span per
+    document and padding documents."""
+    rng = np.random.default_rng(seed)
+    (_n, text, _), (_e, edges, _), (_g, garbage, _), _empty = \
+        _inputs(fmt, seed)
+    hi = np.full(3, GEN_HI[fmt] - 1, DT[fmt])
+    docs = [text[:700], text[:0], edges[:stages.BLOCK], hi,
+            garbage[:1500], text[:0], text[:stages.BLOCK + 1]]
+    out = []
+    for kw in ({}, dict(doc_tiles=2, pad_to_docs=len(docs) + 3)):
+        pk = packing.pack_documents(docs, dtype=DT[fmt], **kw)
+        data = np.concatenate([pk.data, rng.integers(
+            0, GEN_HI[fmt], stages.BLOCK + 5).astype(DT[fmt])])
+        lo = int(pk.offsets[0]) + int(pk.lengths[0])
+        data[lo: int(pk.offsets[1])] = GEN_HI[fmt] - 1
+        out.append((data, pk.offsets, pk.lengths))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_ragged_kernels_match_plain_on_card(src, dst):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for k, (data, offsets, lengths) in enumerate(_ragged_batches(src, 62)):
+        x = torch.from_numpy(data).cuda()
+        nblk = stages.num_tiles(len(data))
+        own = packing.tile_ownership(torch.from_numpy(offsets).cuda(),
+                                     torch.from_numpy(lengths).cuda(), nblk)
+        cap = tc.CAP_FACTOR[(src, dst)] * nblk * stages.BLOCK
+        for errors in ("strict", "replace"):
+            for validate in (True, False):
+                ctx = (k, src, dst, errors, validate)
+                kw = dict(src=src, dst=dst, errors=errors)
+                kern = rt.rcount_kernel(x, own, validate=validate, **kw)
+                plain = rt.rcount_plain(x, own, validate=validate, **kw)
+                for a, b in zip(kern, plain):
+                    assert torch.equal(a, b), ctx
+                base, _total = compaction.tile_base_offsets(kern[0])
+                assert torch.equal(rt.rwrite_kernel(x, own, base, cap, **kw),
+                                   rt.rwrite_plain(x, own, base, cap, **kw)), \
+                    ctx
+                for a, b in zip(
+                        rt.ronepass_kernel(x, own, cap, validate=validate,
+                                           **kw),
+                        rt.ronepass_plain(x, own, cap, validate=validate,
+                                          **kw)):
+                    assert torch.equal(a, b), ctx
+                one = repro_torch.ragged_transcode(
+                    x, offsets, lengths, src_format=src, dst_format=dst,
+                    errors=errors, validate=validate)
+                fused = repro_torch.ragged_transcode(
+                    x, offsets, lengths, src_format=src, dst_format=dst,
+                    errors=errors, validate=validate, strategy="fused")
+                for a, b in zip(one, fused):
+                    assert torch.equal(a, b), ctx
+
+
+@pytest.mark.cuda
+def test_ragged_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    x = torch.zeros(2 * stages.BLOCK, dtype=torch.uint8, device="cuda")
+    own = packing.tile_ownership(torch.tensor([0, 1024], device="cuda"),
+                                 torch.tensor([5], device="cuda"), 2)
+    kw = dict(src="utf8", dst="utf16", errors="strict")
+    with pytest.raises(ValueError):
+        rt.rcount_kernel(x, own[:1] + tuple(t[:1] for t in own[1:]),
+                         validate=True, **kw)
+    with pytest.raises(ValueError):
+        rt.rcount_kernel(x, (own[0], own[1].long(), *own[2:]),
+                         validate=True, **kw)
+    with pytest.raises(ValueError):
+        rt.rwrite_kernel(x, own, torch.zeros(1, dtype=torch.int32,
+                                             device="cuda"), 8, **kw)
+    with pytest.raises(ValueError):
+        rt.ronepass_kernel(x, own, -1, validate=True, **kw)

@@ -23,7 +23,20 @@ Phases, in order; any failure exits non-zero before the last line:
      kernel is held bit-identical to its plain PyTorch version on the
      same inputs, onepass to fused, single-buffer outputs to CPython's
      codecs where they decode the input, and every document's slice of a
-     ragged result to the single-buffer ``transcode`` of it alone.
+     ragged result to the single-buffer ``transcode`` of it alone.  The
+     legacy kernel surface (``kernels/ops.py``: ``validate_utf8``,
+     ``decode_utf8``, ``utf8_to_utf16``, ``utf16_to_utf8``) on the lipsum
+     text and on invalid bytes across tile boundaries, a 4-byte character
+     and a surrogate pair split across a tile boundary, leads truncated at
+     ``n`` (tile-aligned and not), ``n_valid < len``, an empty input and a
+     lone high surrogate at ``n - 1``: its validate, decode and encode
+     kernels bit-identical to their plain versions (narrow and int32
+     input), its outputs and flags equal to CPython's codecs.  Flash
+     attention at (B, S, H, D) in {(2, 256, 4, 128), (1, 384, 2, 80),
+     (2, 128, 2, 64)} x window {None, 128} x {f32, bf16}, and Sq = 128
+     with Sk = 256: kernel vs plain (f32 atol 2e-5 / rtol 1e-4, the
+     reference tests'; bf16 atol 1e-4 / rtol 1e-2, one bf16 rounding
+     step; TF32 off), and causality.
   3. The main paths, each with every kernel's launch count set to 0 just
      before and read just after: a 64 MiB UTF-8 buffer (arabic profile)
      through ``transcode`` (onepass, the default), ``transcode
@@ -36,12 +49,23 @@ Phases, in order; any failure exits non-zero before the last line:
      single-buffer path.  Each kernel is held bit-identical to its plain
      version at these sizes under {strict, replace} × validate {True,
      False}, with invalid units at and across many tile boundaries.
+     The legacy ops on the 64 MiB buffer (``validate_utf8``,
+     ``decode_utf8``, ``utf8_to_utf16``), then ``utf16_to_utf8`` on its
+     UTF-16 transcode: equal to ``transcode`` and back to the bytes, and
+     their kernels bit-identical to the plain versions there, with
+     invalid units at many tile boundaries too.  ``flash_attention`` at
+     the attention width of qwen3-8b (S = 4096, 32 heads of 128, causal,
+     bf16 and f32) and h2o-danube-1.8b (S = 8192, 32 heads of 80, window
+     4096, bf16), k/v expanded from 8 KV heads: kernel vs plain.
   4. Timing with CUDA events (median after warm-up): each kernel and its
      plain version at the main paths' shapes, the entry points there,
      and the single-buffer entry points at 1<<17 characters of each
      lipsum profile (paper Tables 5 and 6); the timed kernel and plain
-     outputs are held equal too.
-  5. The ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+     outputs are held equal too.  For flash attention also
+     ``torch.nn.functional.scaled_dot_product_attention`` on the same
+     inputs, as the library yardstick (the port never calls it).
+  5. The ``kernels`` line (all ten kernels), then ``{"ok": true,
+     "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
 no CUDA device is present, and when run without the rest of the repo.
@@ -61,7 +85,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor cores, same data sheet
+              "float32": 67e12}     # FP32 without tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/transcode.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "count": "src/repro/kernels/fused_transcode.py:123",
     "write": "src/repro/kernels/fused_transcode.py:137",
@@ -69,7 +96,28 @@ REPLACES = {
     "rcount": "src/repro/kernels/ragged_transcode.py:143",
     "rwrite": "src/repro/kernels/ragged_transcode.py:161",
     "ronepass": "src/repro/kernels/ragged_transcode.py:220",
+    "validate": "src/repro/kernels/utf8_validate.py:79",
+    "decode": "src/repro/kernels/utf8_decode.py:58",
+    "encode": "src/repro/kernels/utf16_encode.py:40",
+    "flash": "src/repro/kernels/flash_attention.py:41",
 }
+# Flash attention at the attention width of two configurations of the
+# repo (src/repro/configs/qwen3_8b.py, h2o_danube_1_8b.py): 32 query
+# heads over 8 KV heads; (label, S, head_dim, window, dtype name).
+FLASH_HEADS, FLASH_KV_HEADS = 32, 8
+FLASH_MAIN = [("qwen3_8b causal bf16", 4096, 128, None, "bfloat16"),
+              ("qwen3_8b causal f32", 4096, 128, None, "float32"),
+              ("h2o_danube_1_8b window 4096 bf16", 8192, 80, 4096,
+               "bfloat16")]
+FLASH_SMALL = [(2, 256, 256, 4, 128), (1, 384, 384, 2, 80),
+               (2, 128, 128, 2, 64), (1, 128, 256, 2, 64)]
+# Kernel vs plain on the card.  f32: the reference tests' tolerance.  bf16:
+# both compute in f32 from the same bf16 inputs and differ only in the order
+# of the f32 sums, so the outputs differ by at most one bf16 rounding step
+# (2**-7 of the value); the reference tests' 3e-2 is for bf16 against the
+# JAX reference and would pass a kernel that drops a chunk of keys.
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
+             "bfloat16": dict(atol=1e-4, rtol=1e-2)}
 BLOCK = 1024
 TEXT_CHARS = 48_000            # per lipsum profile: ~1 MiB of UTF-8 in all
 MAIN_BYTES = 64 << 20          # the main path's UTF-8 buffer
@@ -283,6 +331,61 @@ def main_ragged_docs(rng):
     return docs, cps_of, injected
 
 
+def legacy_inputs(text_cps: np.ndarray, rng):
+    """Named ``(format, name, buffer, n_valid)`` inputs of the legacy ops:
+    text, invalid units at and across tile starts, ``n_valid < len``, an
+    empty input, a 4-byte character and a surrogate pair split across a
+    tile boundary, leads truncated at ``n`` (tile-aligned and not) and a
+    lone high surrogate at ``n - 1`` (its low half past ``n``)."""
+    out = []
+    for fmt in ("utf8", "utf16"):
+        text = encode(text_cps, fmt)
+        n_tiles = len(text) // BLOCK - 1
+        tiles = rng.choice(n_tiles, size=min(64, n_tiles), replace=False) + 1
+        out += [(fmt, "text", text, None),
+                (fmt, "injected", inject(text, fmt, tiles), None),
+                (fmt, "n_valid<len", text, len(text) - 777),
+                (fmt, "empty", text[:0], None)]
+    tail = text_cps[:5000]
+    out.append(("utf8", "4-byte char across a tile", utf8_encode(
+        np.concatenate([np.full(2 * BLOCK - 2, 0x41), [0x1F389], tail])),
+        None))
+    out.append(("utf16", "pair across a tile", utf16_encode(
+        np.concatenate([np.full(2 * BLOCK - 1, 0x41), [0x1F389], tail])),
+        None))
+    for n in (4 * BLOCK, 4 * BLOCK + 321):
+        b = np.full(6 * BLOCK, 0x41, np.uint8)
+        b[n - 1], b[n: n + 2] = 0xE4, 0xB8
+        out.append(("utf8", f"3-byte lead cut at n={n}", b, n))
+        b = np.full(6 * BLOCK, 0x41, np.uint8)
+        b[n - 3: n + 1] = (0xF0, 0x9F, 0x8E, 0x89)
+        out.append(("utf8", f"4-byte char cut at n={n}", b, n))
+    for n in (3 * BLOCK, 3 * BLOCK + 99):
+        u = utf16_encode(tail).copy()
+        u[n - 1], u[n] = 0xD83C, 0xDF89
+        out.append(("utf16", f"lone high surrogate at n-1={n - 1}", u, n))
+    return out
+
+
+def live_pairs(s: int, window) -> int:
+    """Causal (query, key) pairs of one head, within the window if any."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(s: int, d: int, window, dtype: str):
+    """``(bound ms, bound_by, flops)`` of one flash call at batch 1 with
+    FLASH_HEADS heads: 4 * d flops per live pair and head at the card's
+    peak for the type, against q, k, v and o read or written once."""
+    flops = 4 * d * FLASH_HEADS * live_pairs(s, window)
+    nbytes = 4 * s * FLASH_HEADS * d * (2 if dtype == "bfloat16" else 4)
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops)
+
+
 # ---------------------------------------------------------------------------
 # Checks.
 
@@ -331,6 +434,21 @@ def hold(name: str, kern, plain, max_err: dict, *ctx):
         require(equal(a, b), f"{name} kernel vs plain", *ctx)
 
 
+def hold_close(name: str, kern, plain, dtype: str, max_err: dict, *ctx):
+    """Require a float kernel's output within ``FLASH_TOL`` of its plain
+    version's, finite and of the same shape and type; fold the largest absolute difference into ``max_err[name]``."""
+    import torch
+    require(kern.shape == plain.shape and kern.dtype == plain.dtype
+            and bool(torch.isfinite(kern).all()), f"{name} shape/finite",
+            *ctx)
+    diff = (kern.float() - plain.float()).abs()
+    max_err[name] = max(max_err[name], diff.max().item())
+    tol = FLASH_TOL[dtype]
+    bad = diff > tol["atol"] + tol["rtol"] * plain.float().abs()
+    require(not bool(bad.any()), f"{name} kernel vs plain", *ctx,
+            diff.max().item())
+
+
 # ---------------------------------------------------------------------------
 # Timing.
 
@@ -373,10 +491,14 @@ def main(argv=None) -> int:
         import repro_torch
         from repro_torch.core import compaction, packing
         from repro_torch.core import transcode as tc
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_transcode as ft
         from repro_torch.kernels import onepass_transcode as op
         from repro_torch.kernels import ragged_transcode as rt
+        from repro_torch.kernels import utf8_decode as kdec
+        from repro_torch.kernels import utf8_validate as kval
+        from repro_torch.kernels import utf16_encode as kenc
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package is missing ({exc}); "
               f"run from the root of a checkout", file=sys.stderr)
@@ -385,6 +507,9 @@ def main(argv=None) -> int:
     t_start = time.time()
     report = {"seed": args.seed}
     rng = np.random.default_rng(args.seed)
+    # The legacy-ops inputs draw from a generator of their own, so the
+    # transcode paths' data stay those of --seed alone.
+    legacy_rng = np.random.default_rng([args.seed, 1])
 
     # -- 1. device and build -------------------------------------------------
     smi = subprocess.run(
@@ -403,7 +528,9 @@ def main(argv=None) -> int:
         f"source digest {lib_path.parent.name})")
     kernels = {"count": ft.count_kernel, "write": ft.write_kernel,
                "onepass": op.onepass_kernel, "rcount": rt.rcount_kernel,
-               "rwrite": rt.rwrite_kernel, "ronepass": rt.ronepass_kernel}
+               "rwrite": rt.rwrite_kernel, "ronepass": rt.ronepass_kernel,
+               "validate": kval.validate_kernel, "decode": kdec.decode_kernel,
+               "encode": kenc.encode_kernel, "flash": fa.flash_kernel}
     max_err = {name: 0 for name in kernels}
 
     def zero_counts():
@@ -429,6 +556,19 @@ def main(argv=None) -> int:
         hold("onepass", k_o, op.onepass_plain(x, n, cap, validate=validate,
                                               **kw), max_err, *ctx)
         return k_o
+
+    def hold_legacy(x, n, fmt, *ctx):
+        """The legacy kernels of one format against their plain versions
+        on one input, narrow and widened to int32."""
+        for xx in (x, x.to(torch.int32)):
+            if fmt == "utf8":
+                hold("validate", kval.validate_kernel(xx, n),
+                     kval.validate_plain(xx, n), max_err, *ctx, xx.dtype)
+                hold("decode", kdec.decode_kernel(xx, n),
+                     kdec.decode_plain(xx, n), max_err, *ctx, xx.dtype)
+            else:
+                hold("encode", kenc.encode_kernel(xx, n),
+                     kenc.encode_plain(xx, n), max_err, *ctx, xx.dtype)
 
     def ownership(x, offsets, lengths):
         """``(own, cap factor * nblk * 1024)`` of a packed batch on the
@@ -566,6 +706,70 @@ def main(argv=None) -> int:
     report["ragged_correctness_cases"] = n_ragged
     log(f"phase 2: {n_ragged} ragged cases bit-identical (kernels = plain, "
         f"onepass = fused, every document = its single-buffer transcode)")
+
+    # The legacy kernel surface (kernels/ops.py), against CPython.
+    n_legacy = 0
+    for fmt, name, arr, n_valid in legacy_inputs(text_cps, legacy_rng):
+        x = torch.from_numpy(arr).cuda()
+        n = len(arr) if n_valid is None else n_valid
+        ctx = ("legacy", fmt, name)
+        hold_legacy(x, n, fmt, *ctx)
+        try:
+            text, valid = arr[:n].tobytes().decode(PY_CODEC[fmt]), True
+        except UnicodeDecodeError:
+            text, valid = None, False
+        if fmt == "utf8":
+            require(bool(ops.validate_utf8(x, n_valid)) == valid,
+                    "validate_utf8 vs codecs", *ctx)
+            cp, lead, units, derr = ops.decode_utf8(x, n_valid)
+            require(cp.shape == lead.shape == units.shape == (len(arr),)
+                    and not (valid and bool(derr)), "decode_utf8", *ctx)
+            out, count, err = ops.utf8_to_utf16(x, n_valid)
+            want = None if not valid else np.frombuffer(
+                text.encode("utf-16-le"), np.uint16)
+        else:
+            out, count, err = ops.utf16_to_utf8(x, n_valid)
+            want = None if not valid else np.frombuffer(
+                text.encode("utf-8"), np.uint8)
+        require(out.dtype == torch.int32 and bool(err) == (not valid),
+                "legacy err vs codecs", *ctx, bool(err), valid)
+        if want is not None:
+            require(int(count) == len(want) and np.array_equal(
+                out[:int(count)].cpu().numpy(), want), "legacy vs codecs",
+                *ctx)
+        n_legacy += 1
+    torch.cuda.synchronize()
+    report["legacy_correctness_cases"] = n_legacy
+    log(f"phase 2: {n_legacy} legacy-ops cases (validate, decode, encode "
+        f"kernels = plain on narrow and int32 input; ops = codecs)")
+
+    # Flash attention at small shapes, kernel vs plain, and causality.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    n_flash = 0
+    for b, sq, sk, h, d in FLASH_SMALL:
+        for window in (None, 128):
+            for dt in ("float32", "bfloat16"):
+                q, k, v = (torch.randn(b, s_, h, d, generator=gen,
+                                       device="cuda").to(getattr(torch, dt))
+                           for s_ in (sq, sk, sk))
+                ctx = ("flash", b, sq, sk, h, d, window, dt)
+                got = fa.flash_kernel(q, k, v, window)
+                hold_close("flash", got, fa.flash_plain(q, k, v, window), dt,
+                           max_err, *ctx)
+                if sq == sk:
+                    cut = sq // 2 + 3
+                    k2, v2 = k.clone(), v.clone()
+                    k2[:, cut:], v2[:, cut:] = 9.9, 9.9
+                    again = fa.flash_kernel(q, k2, v2, window)
+                    require(equal(got[:, :cut], again[:, :cut]),
+                            "flash causality", *ctx)
+                n_flash += 1
+    torch.cuda.synchronize()
+    report["flash_correctness_cases"] = n_flash
+    log(f"phase 2: {n_flash} flash cases within tolerance of plain "
+        f"(f32 atol 2e-5 rtol 1e-4, bf16 atol 1e-4 rtol 1e-2; TF32 off), "
+        f"causal")
 
     # -- 3. the main path, with launch counts --------------------------------
     main_bytes = MAIN_BYTES
@@ -744,6 +948,82 @@ def main(argv=None) -> int:
         f"({mid_char} split mid-character) = whole-buffer transcode; "
         f"{stream_s * 1e3:.1f} ms host clock "
         f"({main_bytes / stream_s / 1e9:.2f} GB/s)  [{smi}]")
+    # The legacy kernel surface on the 64 MiB buffer, then back from its
+    # UTF-16 transcode; counts set to 0 before and read after each path.
+    u16_main = res.buffer[:int(res.count)]
+    zero_counts()
+    ok_main = ops.validate_utf8(x_main)
+    dec_main = ops.decode_utf8(x_main)
+    o16, c16, e16 = ops.utf8_to_utf16(x_main)
+    legacy_launches = read_counts()
+    zero_counts()
+    o8, c8, e8 = ops.utf16_to_utf8(u16_main)
+    enc_launches = read_counts()
+    log(f"phase 3: legacy ops launches {legacy_launches}, utf16_to_utf8 "
+        f"{enc_launches}")
+    require(legacy_launches == {"validate": 2, "decode": 2}
+            and enc_launches == {"encode": 1}, "legacy path launches",
+            legacy_launches, enc_launches)
+    for counts_ in (legacy_launches, enc_launches):
+        launches.update(counts_)
+    require(bool(ok_main) and not bool(dec_main[3]), "legacy main valid")
+    require(int(c16) == int(res.count) and bool(e16) == (int(res.status)
+                                                        != -1)
+            and equal(o16[:int(c16)], u16_main.to(torch.int32)),
+            "utf8_to_utf16 vs transcode")
+    require(int(c8) == main_bytes and not bool(e8)
+            and equal(o8[:int(c8)], x_main.to(torch.int32)),
+            "utf16_to_utf8 back to the bytes")
+    del o16, o8, dec_main
+    u16_host = u16_main.cpu().numpy()
+    nblk16 = -(-len(u16_host) // BLOCK)
+    spread16 = legacy_rng.choice(np.arange(1, nblk16 - 1),
+                                 size=nblk16 // 16, replace=False)
+    n_legacy_main = 0
+    for (name, arr), arr16 in zip(main_inputs, (u16_host, inject(
+            u16_host, "utf16", spread16), None)):
+        hold_legacy(torch.from_numpy(arr).cuda(), main_bytes, "utf8",
+                    "64 MiB", name)
+        n_legacy_main += 1
+        if arr16 is not None:
+            hold_legacy(torch.from_numpy(arr16).cuda(), len(arr16), "utf16",
+                        "64 MiB", name)
+            n_legacy_main += 1
+    torch.cuda.synchronize()
+    report["legacy_main"] = {"bytes": main_bytes, "utf16_units": len(u16_host),
+                             "launches": {**legacy_launches, **enc_launches},
+                             "size_cases": n_legacy_main}
+    log(f"phase 3: legacy ops at 64 MiB = transcode and back; "
+        f"{n_legacy_main} cases bit-identical (kernels = plain)")
+
+    # Flash attention at the attention width of qwen3-8b and
+    # h2o-danube-1.8b, k/v expanded from 8 KV heads (q head h reads KV
+    # head h // 4, chunked_attention's grouping).
+    flash_in = {}
+    for label, s_len, d, window, dt in FLASH_MAIN:
+        q = torch.randn(1, s_len, FLASH_HEADS, d, generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+        k, v = (torch.randn(1, s_len, FLASH_KV_HEADS, d, generator=gen,
+                            device="cuda").to(getattr(torch, dt))
+                .repeat_interleave(FLASH_HEADS // FLASH_KV_HEADS, dim=2)
+                for _ in range(2))
+        flash_in[label] = (q, k, v, window, dt)
+    torch.cuda.synchronize()
+    zero_counts()
+    flash_out = {label: fa.flash_attention(q, k, v, window=window)
+                 for label, (q, k, v, window, _dt) in flash_in.items()}
+    flash_launches = read_counts()
+    log(f"phase 3: flash path launches {flash_launches}")
+    require(flash_launches == {"flash": len(FLASH_MAIN)},
+            "flash path launches", flash_launches)
+    launches.update(flash_launches)
+    for label, (q, k, v, window, dt) in flash_in.items():
+        hold_close("flash", flash_out[label],
+                   fa.flash_plain(q, k, v, window), dt, max_err, label)
+    del flash_out
+    torch.cuda.synchronize()
+    log(f"phase 3: flash at {', '.join(flash_in)} within tolerance of plain "
+        f"(max abs err {max_err['flash']:.3g})")
     report["max_abs_err"] = max_err
 
     # -- 4. timing -------------------------------------------------------------
@@ -850,15 +1130,96 @@ def main(argv=None) -> int:
                                "utf16", 10, 3),
         "entry": rag_entry}
     rag_t = timing[rag_label]
+
+    # The legacy kernels at the main path's shapes: the 64 MiB buffer,
+    # and its 37.7 M-unit UTF-16 transcode for the encode kernel.  Bytes
+    # bound: the input once, the int32 planes once, 4 bytes per tile.
+    n16 = u16_main.shape[0]
+    nblk8, nblk16 = main_bytes // BLOCK, -(-n16 // BLOCK)
+    legacy_calls = {
+        "validate": (lambda: kval.validate_kernel(x_main, main_bytes),
+                     lambda: kval.validate_plain(x_main, main_bytes),
+                     main_bytes + 4 * nblk8),
+        "decode": (lambda: kdec.decode_kernel(x_main, main_bytes),
+                   lambda: kdec.decode_plain(x_main, main_bytes),
+                   main_bytes + 12 * main_bytes + 4 * nblk8),
+        "encode": (lambda: kenc.encode_kernel(u16_main, n16),
+                   lambda: kenc.encode_plain(u16_main, n16),
+                   2 * n16 + 20 * n16 + 4 * nblk16),
+    }
+    legacy_t = {}
+    for name, (kern_fn, plain_fn, nbytes) in legacy_calls.items():
+        hold(name, kern_fn(), plain_fn(), max_err, "timed legacy")
+        ms = cuda_ms(kern_fn, reps=10)
+        legacy_t[name] = {"ms": ms,
+                          "plain_ms": cuda_ms(plain_fn, reps=3, warmup=1),
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
+    legacy_entry = {}
+    for label, fn in (
+            ("validate_utf8", lambda: ops.validate_utf8(x_main)),
+            ("decode_utf8", lambda: ops.decode_utf8(x_main)),
+            ("utf8_to_utf16", lambda: ops.utf8_to_utf16(x_main)),
+            ("utf16_to_utf8", lambda: ops.utf16_to_utf8(u16_main))):
+        legacy_entry[label] = {"ms": cuda_ms(fn, reps=10)}
+    timing["legacy ops, 64MiB arabic utf8 / its utf16"] = {
+        "kernels": legacy_t, "entry": legacy_entry}
+    for name, t in legacy_t.items():
+        log(f"phase 4: legacy {name:8s} {t['ms']:.4f} ms "
+            f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "
+            f"plain {t['plain_ms']:.3f} ms  [{smi}]")
+    for name, t in legacy_entry.items():
+        log(f"phase 4: ops.{name:14s} {t['ms']:.4f} ms  [{smi}]")
+
+    # Flash attention: kernel, plain version and, as the library
+    # yardstick, scaled_dot_product_attention on the same inputs (moved
+    # to its (B, H, S, D) layout before timing; a boolean mask for the
+    # window).
+    flash_t = {}
+    for label, (q, k, v, window, dt) in flash_in.items():
+        s_len, d = q.shape[1], q.shape[3]
+        bound_ms, bound_by, flops = flash_bound(s_len, d, window, dt)
+        ms = cuda_ms(lambda: fa.flash_kernel(q, k, v, window), reps=5)
+        plain_ms = cuda_ms(lambda: fa.flash_plain(q, k, v, window), reps=3,
+                           warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window is None:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+        else:
+            pos = torch.arange(s_len, device="cuda")
+            mask = (pos[None] <= pos[:, None]) & (pos[:, None] - pos[None]
+                                                  < window)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        library_ms = cuda_ms(sdpa, reps=5)
+        lib_diff = (sdpa().transpose(1, 2).float()
+                    - fa.flash_kernel(q, k, v, window).float()).abs().max()
+        flash_t[label] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "flops": flops,
+                          "TFLOP_per_s": flops / ms / 1e9,
+                          "max_abs_diff_vs_library": lib_diff.item()}
+        log(f"phase 4: flash {label:34s} {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s)  bound {bound_ms:.4f} ms ({bound_by})  plain "
+            f"{plain_ms:.3f} ms  sdpa {library_ms:.3f} ms (max |diff| "
+            f"{lib_diff.item():.3g})  [{smi}]")
+        del qt, kt, vt
+    timing["flash attention"] = flash_t
+
     lines = []
-    for name, t in [*main_t["kernels"].items(), *rag_t["kernels"].items()]:
+    main_flash = flash_t[FLASH_MAIN[0][0]]
+    for name, t in [*main_t["kernels"].items(), *rag_t["kernels"].items(),
+                    *legacy_t.items(), ("flash", main_flash)]:
         lines.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": FLASH_SOURCE if name == "flash" else SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "bit_identical": max_err[name] == 0,
             "max_abs_err": max_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": t.get("bound_by", "bytes"),
+            "library_ms": t.get("library_ms")})
     for name, t in main_t["kernels"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:8s} {t['ms']:.4f} ms "
             f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "

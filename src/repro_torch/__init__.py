@@ -5,9 +5,14 @@ packed-batch ``ragged_transcode`` and ``ragged_scan`` (over
 ``pack_documents``) and the chunked ``transcode_stream``, over the 12
 cells of the {utf8, utf16, utf32, latin1} matrix under
 ``errors="strict"`` and ``"replace"``.  Results are bit-identical to
-``repro`` on the same inputs.  Entry points run on the card
-(``device="cuda"``, the default) through hand-written CUDA kernels, or on
-the CPU (``device="cpu"``) through the kernels' plain PyTorch versions.
+``repro`` on the same inputs.  Outside ``__all__``, as in ``repro``:
+the legacy kernel surface ``repro_torch.kernels.ops`` (``validate_utf8``,
+``decode_utf8``, ``utf8_to_utf16``, ``utf16_to_utf8``), bit-identical
+too, and ``repro_torch.kernels.flash_attention.flash_attention``, within
+the reference tests' tolerances.  Entry points run on the card
+(``device="cuda"``, the default) through hand-written CUDA kernels, one
+for each of the reference's ten Pallas kernels, or on the CPU
+(``device="cpu"``) through the kernels' plain PyTorch versions.
 
 Attributes resolve lazily (PEP 562): ``import repro_torch`` pulls in no
 torch module of the package until a symbol is touched.

@@ -1,14 +1,57 @@
-"""Hierarchical stream compaction: in-tile and inter-tile scans.
+"""Stream compaction: global (cumsum + scatter) and hierarchical.
 
-Port of ``repro.core.compaction.tile_exclusive_scan`` and
-``tile_base_offsets``.  The transcode compacts each tile's output units
-with an in-tile exclusive scan and places the tile at the exclusive scan
-of the per-tile totals; only these two helpers see per-tile state.
+Port of ``repro.core.compaction`` without ``compact_gather``.
+:func:`compact` and :func:`compact_offsets` are the global form that
+the legacy kernel surface (``kernels/ops.py``) runs after its kernels, as
+the reference leaves it to XLA outside any kernel: plain torch ops on the
+device.  The transcode compacts each tile's output units with an in-tile
+exclusive scan and places the tile at the exclusive scan of the per-tile
+totals; only the last two helpers see per-tile state.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _scatter_drop(dest, keep, values, capacity: int, fill, dtype):
+    """``out[dest[i]] = values[i]`` for kept lanes with ``dest < capacity``
+    into a ``capacity``-sized buffer: the reference's ``.at[dest].set(...,
+    mode="drop")``.  Dropped lanes go to one extra slot, cut off after."""
+    dest = torch.where(keep & (dest < capacity), dest, capacity)
+    out = torch.full((capacity + 1,) + tuple(values.shape[1:]), fill,
+                     dtype=dtype, device=values.device)
+    out[dest.to(torch.int64)] = values.to(dtype)
+    return out[:capacity]
+
+
+def compact(values, mask, capacity: int, fill=0):
+    """Compress ``values[mask]`` to the front of a ``capacity``-sized
+    buffer (along axis 0).  Returns ``(out, count)``, ``count`` int32."""
+    rank = torch.cumsum(mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    count = rank[-1] + 1 if mask.shape[0] > 0 else \
+        torch.zeros((), dtype=torch.int32, device=mask.device)
+    out = _scatter_drop(rank, mask, values, capacity, fill, values.dtype)
+    return out, count
+
+
+def compact_offsets(values, lengths, mask, capacity: int, fill=0):
+    """Variable-length compaction: lane ``i`` contributes ``lengths[i]``
+    items of ``values[i]`` (shape ``(N, K)``, ``K >= max(lengths)``) at
+    the exclusive cumsum of the masked lengths.  Items at or past
+    ``capacity`` are dropped.  Returns ``(out, total)``, ``total`` int32
+    (it may exceed ``capacity``)."""
+    n, k = values.shape
+    eff = torch.where(mask, lengths, 0).to(torch.int32)
+    incl = torch.cumsum(eff, dim=0, dtype=torch.int32)
+    total = incl[-1] if n > 0 else \
+        torch.zeros((), dtype=torch.int32, device=values.device)
+    j = torch.arange(k, dtype=torch.int32, device=values.device)[None, :]
+    dest = (incl - eff)[:, None] + j
+    keep = mask[:, None] & (j < eff[:, None])
+    out = _scatter_drop(dest.reshape(-1), keep.reshape(-1),
+                        values.reshape(-1), capacity, fill, values.dtype)
+    return out, total
 
 
 def tile_exclusive_scan(x):

@@ -4,10 +4,11 @@ A copy of the tables of ``repro.core.tables`` that this slice uses: the
 Keiser-Lemire three-nibble validation tables (``BYTE_1_HIGH``,
 ``BYTE_1_LOW``, ``BYTE_2_HIGH``).  The speculative decode computes the
 sequence length and overlong bounds as select trees, as the reference's
-stages do, so ``LEAD_LENGTH_32`` and ``MIN_CP_FOR_LEN`` are not copied.
-The CUDA kernels load the nibble tables from here into ``__constant__``
-memory, so this file is their single definition in the port; the tests
-hold it equal to the reference's.
+stages do; ``LEAD_LENGTH_32`` and ``MIN_CP_FOR_LEN`` are copied for the
+whole-array oracles of ``kernels/ref.py`` only.  The CUDA kernels load
+the nibble tables from here into ``__constant__`` memory, so this file is
+their single definition in the port; the tests hold every table equal to
+the reference's.
 """
 
 from __future__ import annotations
@@ -85,3 +86,13 @@ BYTE_2_HIGH = np.array(
     ],
     dtype=np.int32,
 )
+
+# Sequence length by ``byte >> 3`` (0 at continuations and 0xF8..0xFF).
+LEAD_LENGTH_32 = np.zeros(32, dtype=np.int32)
+LEAD_LENGTH_32[0:16] = 1          # 0x00..0x7F ASCII
+LEAD_LENGTH_32[24:28] = 2         # 0xC0..0xDF
+LEAD_LENGTH_32[28:30] = 3         # 0xE0..0xEF
+LEAD_LENGTH_32[30] = 4            # 0xF0..0xF7
+
+# Minimum code point for a sequence of length L (overlong check), 1-indexed.
+MIN_CP_FOR_LEN = np.array([0, 0, 0x80, 0x800, 0x10000], dtype=np.int32)

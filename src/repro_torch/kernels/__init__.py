@@ -1,1 +1,8 @@
-"""Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+``csrc/transcode.cu`` holds the transcode kernels (count, write and
+one-pass, flat and packed) and the legacy validate, decode and encode
+kernels; ``csrc/flash_attention.cu`` the flash attention kernel.  Each
+wrapper runs its kernel on a CUDA tensor and its plain version on a CPU
+tensor, and counts its launches (``<wrapper>.launches``).
+"""

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``kernels/csrc/`` are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into a shared library with a plain C interface, and loaded with
-``ctypes``.  The library lands in ``kernels/.build/<hash>/``, keyed on a
-hash of the sources and the flags, so a changed source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time.
+The sources under ``kernels/csrc/`` are compiled at first use, one
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` per source, all
+started together, and linked with ``nvcc -shared`` into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library
+lands in ``kernels/.build/<hash>/``, keyed on a hash of the sources and
+the flags, so a changed source rebuilds and an unchanged one loads at
+once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
 LIB_NAME = "libreprotorch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "transcode_set_tables": [_P, _P, _P],
     "transcode_count": [_I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -43,6 +45,11 @@ _SIGNATURES = {
     "transcode_rwrite": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],
     "transcode_ronepass": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P,
                            _P, _P, _P, _P, _P, _P],
+    "legacy_validate": [_I, _P, _I, _I, _P, _P],
+    "legacy_decode": [_I, _P, _I, _I, _I, _P, _P, _P],
+    "legacy_encode": [_I, _P, _I, _I, _I, _P, _P, _P],
+    "flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _P],
 }
 
 
@@ -73,25 +80,41 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet;
-    return the library's path.  The compiler's report (registers, shared
-    memory, spills) is kept beside it as ``nvcc.log``."""
+    return the library's path.  Each source compiles in its own ``nvcc``
+    process, all at once; the compilers' reports (registers, shared
+    memory, spills) are kept beside the library as ``nvcc.log``."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(work / f"{src.stem}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(work / LIB_NAME),
+               *(str(work / f"{Path(c[-1]).stem}.o") for c, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(work / LIB_NAME, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -31,6 +31,20 @@
 //                         per-tile (total, err, first_error) for the
 //                         per-document reduce.
 //
+// Three more kernels carry the legacy kernel surface (kernels/ops.py);
+// they are templated on the input element type (uint8, uint16 or int32)
+// and have no dependence across blocks:
+//
+//   validate_kernel       replaces src/repro/kernels/utf8_validate.py::utf8_validate_kernel
+//                         per tile: the Keiser-Lemire maximum of sc ^ must.
+//   decode_kernel         replaces src/repro/kernels/utf8_decode.py::utf8_decode_kernel
+//                         per lane: the legacy speculative decode (cp,
+//                         lead, units) and per tile its error flag.
+//   encode_kernel         replaces src/repro/kernels/utf16_encode.py::utf16_encode_kernel
+//                         per lane: surrogate folding, four candidate
+//                         UTF-8 byte planes and the length; per tile the
+//                         unpaired-surrogate flag.
+//
 // What bounds them on the card: the bytes they must move, (bytes read +
 // bytes written) / 3.35 TB/s, is the least time (no tensor-core work, and
 // the card's table of peak rates has no int32 rate).  The design answers
@@ -640,6 +654,174 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
 }
 
 // ---------------------------------------------------------------------------
+// The legacy kernels (kernels/ops.py).  One block per 1024-element tile;
+// thread t handles lanes t, t + 256, t + 512 and t + 768, so each store
+// of a warp covers 32 consecutive int32 (128 bytes).  What bounds them is
+// the bytes they move: the decode and encode kernels write 12 and 20
+// bytes of int32 planes per input element, the validation kernel reads
+// the input and writes 4 bytes per tile.
+
+// Stage tile `tile` with HB elements of look-back and HA of look-ahead
+// into shared memory as int32 lanes; elements at or past n, and before
+// the stream, read 0 (the reference's _mask_padding and its zero boundary
+// tiles).
+template <typename T, int HB, int HA>
+__device__ __forceinline__ void load_legacy(const T* __restrict__ x, int n,
+                                            int tile, int32_t* s) {
+  const long long start = static_cast<long long>(tile) * TILE - HB;
+  for (int k = threadIdx.x; k < TILE + HB + HA; k += THREADS) {
+    const long long j = start + k;
+    s[k] = (j >= 0 && j < n) ? static_cast<int32_t>(x[j]) : 0;
+  }
+}
+
+// Block-wide maximum; the result is valid in thread 0.
+__device__ __forceinline__ int block_max(int v, int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < WARPS; ++w) v = max(v, red[w]);
+  }
+  return v;
+}
+
+// jnp.take at its default mode on a 16-entry table: an index in [-16, 16)
+// reads it (negative ones from the end), any other reads int32 min.  A
+// byte always indexes in range; wider input keeps the reference's result.
+template <typename T>
+__device__ __forceinline__ int32_t table_take(const int32_t* table, int i) {
+  if constexpr (sizeof(T) == 1) {
+    return table[i];
+  } else {
+    return (i >= -16 && i < 16) ? table[i & 15] : INT32_MIN;
+  }
+}
+
+__device__ __forceinline__ int legacy_seq_len(int b) {
+  return b < 0x80 ? 1 : b < 0xC0 ? 0 : b < 0xE0 ? 2
+       : b < 0xF0 ? 3 : b < 0xF8 ? 4 : 0;
+}
+
+// Replaces utf8_validate.py::utf8_validate_kernel.  The nibble tables are
+// copied from constant memory into shared memory, where lanes that look
+// up different entries do not serialise.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+validate_kernel(const T* __restrict__ x, int n, int* __restrict__ errs) {
+  __shared__ int32_t s[MAX_HALO + TILE];
+  __shared__ int32_t tab[48];
+  __shared__ int red[WARPS];
+  const int tile = blockIdx.x;
+  if (threadIdx.x < 16) {
+    tab[threadIdx.x] = kByte1High[threadIdx.x];
+    tab[16 + threadIdx.x] = kByte1Low[threadIdx.x];
+    tab[32 + threadIdx.x] = kByte2High[threadIdx.x];
+  }
+  load_legacy<T, MAX_HALO, 0>(x, n, tile, s);
+  __syncthreads();
+  int err = INT32_MIN;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int32_t* p = s + MAX_HALO + k * THREADS + threadIdx.x;
+    const int p3 = p[-3], p2 = p[-2], p1 = p[-1], b = p[0];
+    const int sc = table_take<T>(tab, p1 >> 4) &
+                   table_take<T>(tab + 16, p1 & 0xF) &
+                   table_take<T>(tab + 32, b >> 4);
+    const int must_be_cont = (p2 >= 0xE0 || p3 >= 0xF0) ? 0x80 : 0;
+    err = max(err, sc ^ must_be_cont);
+  }
+  err = block_max(err, red);
+  if (threadIdx.x == 0) errs[tile] = err;
+}
+
+// Replaces utf8_decode.py::utf8_decode_kernel: stages/utf8.py::decode_tile
+// per lane.  Its error map is the structural check (an expected
+// continuation that is not one, or a byte >= 0xF8) or the scalar range
+// check at leads, not the maximal-subpart analysis of the transcode.
+// planes holds cp, lead and units, len lanes each.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+decode_kernel(const T* __restrict__ x, int n, int len,
+              int* __restrict__ planes, int* __restrict__ errs) {
+  __shared__ int32_t s[MAX_HALO + TILE + MAX_HALO];
+  __shared__ int red[WARPS];
+  const int tile = blockIdx.x;
+  load_legacy<T, MAX_HALO, MAX_HALO>(x, n, tile, s);
+  __syncthreads();
+  int err = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int lane = k * THREADS + threadIdx.x;
+    const int32_t* p = s + MAX_HALO + lane;
+    const int b = p[0];
+    const int sl = legacy_seq_len(b);
+    const bool lead = sl > 0;
+    const int32_t cp = !lead ? 0 : sl == 1 ? b
+                     : utf8_assemble(sl, b, p[1], p[2], p[3]);
+    const bool is_cont = (b & 0xC0) == 0x80;
+    const bool exp_cont = legacy_seq_len(p[-1]) >= 2 ||
+                          legacy_seq_len(p[-2]) >= 3 ||
+                          legacy_seq_len(p[-3]) >= 4;
+    const bool struct_err = exp_cont != is_cont || b >= 0xF8;
+    const int min_cp = sl == 2 ? 0x80 : sl == 3 ? 0x800
+                     : sl == 4 ? 0x10000 : 0;
+    const bool range_err =
+        lead && (cp < min_cp || (cp >= 0xD800 && cp < 0xE000) ||
+                 cp > 0x10FFFF);
+    err |= struct_err || range_err;
+    const long long g = static_cast<long long>(tile) * TILE + lane;
+    if (g < len) {
+      planes[g] = cp;
+      planes[len + g] = lead;
+      planes[2LL * len + g] = lead ? 1 + (cp >= 0x10000) : 0;
+    }
+  }
+  err = block_max(err, red);
+  if (threadIdx.x == 0) errs[tile] = err;
+}
+
+// Replaces utf16_encode.py::utf16_encode_kernel: stages/utf16.py::
+// encode_tile per lane.  planes holds the candidate bytes b0..b3 and the
+// length L (0 at a low half its high half consumed), len lanes each.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+encode_kernel(const T* __restrict__ x, int n, int len,
+              int* __restrict__ planes, int* __restrict__ errs) {
+  __shared__ int32_t s[1 + TILE + 1];
+  __shared__ int red[WARPS];
+  const int tile = blockIdx.x;
+  load_legacy<T, 1, 1>(x, n, tile, s);
+  __syncthreads();
+  int err = 0;
+#pragma unroll
+  for (int k = 0; k < ITEMS; ++k) {
+    const int lane = k * THREADS + threadIdx.x;
+    const int32_t* p = s + 1 + lane;
+    const int u = p[0], prv = p[-1], nxt = p[1];
+    const bool is_hi = (u >> 10) == 0x36, is_lo = (u >> 10) == 0x37;
+    const bool prv_is_hi = (prv >> 10) == 0x36;
+    const int32_t cp = is_hi ? utf16_pair_cp(u, nxt) : u;
+    const int L = unit_len<UTF8>(cp);
+    err |= (is_hi && (nxt >> 10) != 0x37) || (is_lo && !prv_is_hi);
+    const long long g = static_cast<long long>(tile) * TILE + lane;
+    if (g < len) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        planes[j * static_cast<long long>(len) + g] =
+            j < L ? encode_unit<UTF8>(cp, j) : 0;
+      }
+      planes[4LL * len + g] = (is_lo && prv_is_hi) ? 0 : L;
+    }
+  }
+  err = block_max(err, red);
+  if (threadIdx.x == 0) errs[tile] = err;
+}
+
+// ---------------------------------------------------------------------------
 // Launchers, one per kernel and cell (the geometry G is deduced from the
 // argument).
 
@@ -684,7 +866,40 @@ int launch_ronepass(const void* x, Packed geo, int replace, int validate,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_validate(const void* x, int n, int nblk, int* errs,
+                    cudaStream_t stream) {
+  validate_kernel<T><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n, errs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_decode(const void* x, int n, int len, int nblk, int* planes,
+                  int* errs, cudaStream_t stream) {
+  decode_kernel<T><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n, len, planes, errs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_encode(const void* x, int n, int len, int nblk, int* planes,
+                  int* errs, cudaStream_t stream) {
+  encode_kernel<T><<<nblk, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n, len, planes, errs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The legacy kernels' input element type: 0 the op's wire type NARROW
+// (uint8 for UTF-8, uint16 for UTF-16), 1 int32.
+#define ELEMENT_CASES(NARROW, FN, ...)                                    \
+  switch (element) {                                                      \
+    case 0: return FN<NARROW>(__VA_ARGS__);                               \
+    case 1: return FN<int32_t>(__VA_ARGS__);                              \
+    default: return static_cast<int>(cudaErrorInvalidValue);              \
+  }
 
 #define PAIR_CASES(FN, ...)                                               \
   switch (src * 4 + dst) {                                                \
@@ -767,6 +982,27 @@ int transcode_ronepass(int src, int dst, const void* x, int len, int nblk,
   const Packed geo{len, nblk, tile_end, same_prev, same_next};
   PAIR_CASES(launch_ronepass, x, geo, replace, validate, cap, state, ticket,
              tot, err, ferr, out, static_cast<cudaStream_t>(stream))
+}
+
+// The legacy entry points: `n` live elements of an input of `len`, in
+// `nblk` tiles; `errs` takes one int32 per tile, `planes` 3 (decode) or 5
+// (encode) int32 planes of `len` lanes.
+int legacy_validate(int element, const void* x, int n, int nblk, int* errs,
+                    void* stream) {
+  ELEMENT_CASES(uint8_t, launch_validate, x, n, nblk, errs,
+                static_cast<cudaStream_t>(stream))
+}
+
+int legacy_decode(int element, const void* x, int n, int len, int nblk,
+                  int* planes, int* errs, void* stream) {
+  ELEMENT_CASES(uint8_t, launch_decode, x, n, len, nblk, planes, errs,
+                static_cast<cudaStream_t>(stream))
+}
+
+int legacy_encode(int element, const void* x, int n, int len, int nblk,
+                  int* planes, int* errs, void* stream) {
+  ELEMENT_CASES(uint16_t, launch_encode, x, n, len, nblk, planes, errs,
+                static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Shared runtime helpers of the kernel wrappers: device and input
-resolution.
+resolution, and the tiling of the plain versions.
 
 Counterpart of ``repro.kernels.runtime``, which resolves the Pallas
 execution mode.  Here every entry point runs on the card unless the
@@ -74,6 +74,21 @@ def resolve_n(length: int, n_valid) -> int:
     if not 0 <= n <= length:
         raise ValueError(f"n_valid={n} outside [0, {length}]")
     return n
+
+
+def tile_with_boundaries(x, n: int, block: int, boundary_tiles: int = 2):
+    """Widen flat ``x`` to int32 lanes, zero the elements at and past
+    ``n`` (the padding mask), pad to whole tiles of ``block`` elements
+    (``nblk = max(1, ceil(len / block))``) and add zero boundary tiles:
+    one leading tile for bodies that only look back
+    (``boundary_tiles=1``), one on each end for bodies that read both
+    neighbours (``2``).  Returns ``(x2, nblk)``, ``x2`` of shape
+    ``(nblk + boundary_tiles, block)``."""
+    nblk = max(1, -(-x.shape[0] // block))
+    flat = torch.zeros((nblk + boundary_tiles) * block, dtype=torch.int32,
+                       device=x.device)
+    flat[block: block + n] = x[:n].to(torch.int32)
+    return flat.view(nblk + boundary_tiles, block), nblk
 
 
 def check_size(length: int) -> None:

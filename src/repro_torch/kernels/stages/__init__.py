@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tables as T
-from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels.stages import latin1 as s_latin1
 from repro_torch.kernels.stages import utf16 as s_utf16
 from repro_torch.kernels.stages import utf32 as s_utf32
@@ -34,7 +33,7 @@ UTF8 = Codec(
     max_speculative_cp=s_utf8.MAX_SPECULATIVE_CP,
     py_unit_len=s_utf8.py_unit_len,
     tables=(T.BYTE_1_HIGH, T.BYTE_1_LOW, T.BYTE_2_HIGH),
-    extra_err=kval.kl_error_tile,
+    extra_err=s_utf8.kl_error_tile,
     max_lookback=3,
 )
 

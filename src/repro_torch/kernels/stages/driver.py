@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core import compaction
 from repro_torch.core.result import NO_ERR_SENTINEL as _IMAX
+from repro_torch.kernels import runtime
 
 BLOCK = 1024
 
@@ -82,16 +83,10 @@ def tiles(x, n: int):
     at the stream's ends, like the reference's boundary tiles) and the
     global index of every lane.
     """
-    nblk = num_tiles(x.shape[0])
-    flat = torch.zeros(nblk * BLOCK, dtype=torch.int32, device=x.device)
-    flat[:n] = x[:n].to(torch.int32)
-    t = flat.view(nblk, BLOCK)
-    z = torch.zeros(1, BLOCK, dtype=torch.int32, device=x.device)
-    xp = torch.cat([z, t[:-1]])
-    xn = torch.cat([t[1:], z])
+    x2, nblk = runtime.tile_with_boundaries(x, n, BLOCK)
     gidx = torch.arange(nblk * BLOCK, dtype=torch.int32,
                         device=x.device).view(nblk, BLOCK)
-    return t, xp, xn, gidx
+    return x2[1:-1], x2[:-2], x2[2:], gidx
 
 
 def ragged_tiles(x, tile_end, same_prev, same_next):

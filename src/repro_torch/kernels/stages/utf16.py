@@ -1,7 +1,8 @@
 """UTF-16 codec stages: tile decode (surrogate-pair folding) + candidate
 code-unit encode.
 
-Port of ``repro.kernels.stages.utf16`` without the ≤2-byte tile class.
+Port of ``repro.kernels.stages.utf16`` without the ≤2-byte tile class,
+with the legacy ``encode_tile`` of the standalone UTF-16 encode kernel.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.core import utf16 as u16core
 from repro_torch.kernels.stages.common import shift_left_flat, shift_right_flat
+from repro_torch.kernels.stages.utf8 import utf8_candidates
 
 # Largest code point the speculative pair folding can fabricate from
 # garbage (hi = 0xDBFF followed by any 16-bit unit).  It exceeds
@@ -38,6 +40,21 @@ def analyze_tile(u, up, un):
     """Unit analysis of the tiles given their neighbours."""
     return u16core.analyze_units(
         u, shift_left_flat(u, un, 1), shift_right_flat(u, up, 1))
+
+
+def encode_tile(u, up, un):
+    """The legacy UTF-16-decode + UTF-8-encode body of the standalone
+    encode kernel: ``(b0, b1, b2, b3, L, err_map)``.  ``L`` is 0 at
+    consumed low halves; ``err_map`` marks unpaired surrogate halves."""
+    cp, is_lead = speculative_decode(u, up, un)
+    b0, b1, b2, b3, L = utf8_candidates(cp)
+    L = torch.where(is_lead, L, 0)
+    is_hi = (u >> 10) == 0x36
+    is_lo = (u >> 10) == 0x37
+    nxt_is_lo = (shift_left_flat(u, un, 1) >> 10) == 0x37
+    prv_is_hi = (shift_right_flat(u, up, 1) >> 10) == 0x36
+    err_map = (is_hi & ~nxt_is_lo) | (is_lo & ~prv_is_hi)
+    return b0, b1, b2, b3, L, err_map
 
 
 def unit_len(cp):

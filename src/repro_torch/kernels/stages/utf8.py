@@ -4,16 +4,19 @@
 Port of ``repro.kernels.stages.utf8`` without the ≤2-byte tile class.
 The decode side is the speculative block-parallel decode (every byte
 treated as a lead, paper Figs. 2-4 bit surgery) plus the shared
-maximal-subpart analysis.  The encode side is the paper §5 candidate
-byte production.  Both are functions of int32 lanes.
+maximal-subpart analysis, and the legacy per-position ``decode_tile``
+of the standalone decode kernel.  The encode side is the paper §5
+candidate byte production.  All are functions of int32 lanes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tables as T
 from repro_torch.core import utf8 as u8mod
-from repro_torch.kernels.stages.common import shift_left_flat, shift_right_flat
+from repro_torch.kernels.stages.common import (
+    shift_left_flat, shift_right_flat, take)
 
 # Largest code point the speculative decode can fabricate from garbage
 # input: a 4-byte assembly with every data bit set.  The driver sizes the
@@ -53,6 +56,34 @@ def speculative_decode(b, bp, bn):
     return torch.where(is_lead, cp, 0), is_lead
 
 
+def decode_tile(b, bp, bn):
+    """The legacy per-position decode of one batch of tiles (the body of
+    the standalone decode kernel, not the maximal-subpart analysis).
+
+    Returns ``(cp, is_lead, units, err_map)``: the candidate code point
+    (0 at non-leads), the lead mask, the UTF-16 units of each lead
+    (``1 + (cp >= 0x10000)``, 0 elsewhere) and the error map
+    ``struct_err | range_err``: an expected-continuation mismatch or a
+    byte >= 0xF8, or an overlong, surrogate or > 0x10FFFF scalar at a
+    lead.
+    """
+    cp, is_lead = speculative_decode(b, bp, bn)
+    seq_len = _seq_len(b)
+    is_cont = (b & 0xC0) == 0x80
+    seq_len_prev = _seq_len(bp)
+    exp_cont = ((shift_right_flat(seq_len, seq_len_prev, 1) >= 2)
+                | (shift_right_flat(seq_len, seq_len_prev, 2) >= 3)
+                | (shift_right_flat(seq_len, seq_len_prev, 3) >= 4))
+    struct_err = (exp_cont != is_cont) | (b >= 0xF8)
+    min_cp = torch.where(seq_len == 2, 0x80,
+             torch.where(seq_len == 3, 0x800,
+             torch.where(seq_len == 4, 0x10000, 0)))
+    range_err = is_lead & (
+        (cp < min_cp) | ((cp >= 0xD800) & (cp < 0xE000)) | (cp > 0x10FFFF))
+    units = torch.where(is_lead, 1 + (cp >= 0x10000).to(torch.int32), 0)
+    return cp, is_lead, units.to(torch.int32), struct_err | range_err
+
+
 def analyze_tile(b, bp, bn):
     """Maximal-subpart analysis of the tiles given their neighbours."""
     return u8mod.analyze_subparts(
@@ -64,6 +95,32 @@ def analyze_tile(b, bp, bn):
         shift_right_flat(b, bp, 2),
         shift_right_flat(b, bp, 3),
     )
+
+
+def kl_values(b, bp, byte_1_high, byte_1_low, byte_2_high):
+    """Keiser-Lemire ``sc ^ must`` per lane for a batch of tiles.
+
+    ``b``/``bp`` are the current and previous tiles (int32, identical
+    shape); the three 16-entry nibble tables are int32 tensors on the
+    same device.  0 where the three ANDed nibble lookups agree with the
+    expected-continuation bit; errors surface at the second byte of each
+    bad pair.
+    """
+    prev1 = shift_right_flat(b, bp, 1)
+    prev2 = shift_right_flat(b, bp, 2)
+    prev3 = shift_right_flat(b, bp, 3)
+    sc = (take(byte_1_high, prev1 >> 4) & take(byte_1_low, prev1 & 0xF)
+          & take(byte_2_high, b >> 4))
+    must_be_cont = ((prev2 >= 0xE0) | (prev3 >= 0xF0)).to(torch.int32) \
+        * T.TWO_CONTS
+    return sc ^ must_be_cont
+
+
+def kl_error_tile(b, bp, byte_1_high, byte_1_low, byte_2_high):
+    """The Keiser-Lemire detector as a bool error map (see
+    :func:`kl_values`): the UTF-8 codec's extra validation, folded into
+    the count pass's error flag."""
+    return kl_values(b, bp, byte_1_high, byte_1_low, byte_2_high) != 0
 
 
 # ---------------------------------------------------------------------------
@@ -85,9 +142,10 @@ def py_unit_len(cp: int) -> int:
     return 1 + (cp >= 0x80) + (cp >= 0x800) + (cp >= 0x10000)
 
 
-def encode_units(cp):
-    """Encode-stage entry: the four candidate byte planes (paper Fig. 1
-    bit layout; U+FFFD lanes encode as EF BF BD)."""
+def utf8_candidates(cp):
+    """Candidate UTF-8 bytes and length per code point (paper Fig. 1 bit
+    layout): ``(b0, b1, b2, b3, L)`` with ``L`` in 1..4; U+FFFD lanes
+    encode as EF BF BD."""
     c0 = cp & 0x3F
     c1 = (cp >> 6) & 0x3F
     c2 = (cp >> 12) & 0x3F
@@ -103,4 +161,9 @@ def encode_units(cp):
     b2 = torch.where(L == 3, 0x80 | c0,
          torch.where(L == 4, 0x80 | c1, z))
     b3 = torch.where(L == 4, 0x80 | c0, z)
-    return (b0, b1, b2, b3)
+    return b0, b1, b2, b3, L
+
+
+def encode_units(cp):
+    """Encode-stage entry: the four candidate byte planes."""
+    return utf8_candidates(cp)[:4]

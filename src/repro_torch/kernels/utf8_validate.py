@@ -1,8 +1,16 @@
-"""Keiser-Lemire UTF-8 validation body (paper §4).
+"""Keiser-Lemire UTF-8 validation (paper §4): the standalone kernel of
+the legacy kernel surface, and the body the count pass folds in.
 
-Port of ``repro.kernels.utf8_validate.kl_error_tile`` only; the
-standalone validation kernel of the reference is still to be ported (see
-ROADMAP.md).  The count pass folds this detector into its error flag.
+Port of ``repro.kernels.utf8_validate``.  The kernel computes, per
+1024-byte tile, the maximum of ``sc ^ must`` over the tile: the three
+ANDed nibble-table lookups against the expected-continuation bit, with
+the previous tile's last three bytes as look-back (zero before the
+stream).  It is ``validate_kernel`` (``kernels/csrc/transcode.cu``) on a
+CUDA tensor and :func:`validate_plain` on a CPU tensor; the wrapper keeps
+a launch count (``validate_kernel.launches``).  The lane body
+``kl_values`` and ``kl_error_tile``, the same detector as a bool map that
+the count pass folds into its flag, live with the UTF-8 stages
+(``stages/utf8.py``) and are re-exported here.
 """
 
 from __future__ import annotations
@@ -10,27 +18,57 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tables as T
-from repro_torch.kernels.stages.common import shift_right_flat
+from repro_torch.kernels import _build, runtime
+from repro_torch.kernels.stages.driver import BLOCK, num_tiles
+from repro_torch.kernels.stages.utf8 import (  # noqa: F401  (re-export)
+    kl_error_tile, kl_values)
+
+# Input dtypes the UTF-8 kernels read as they are (the launcher's element
+# code: 0 the wire type, 1 int32); the ops widen any other integer input
+# to int32 first, as the reference's ``astype(int32)`` does.
+ELEMENTS = {torch.uint8: 0, torch.int32: 1}
 
 
-def kl_error_tile(b, bp, byte_1_high, byte_1_low, byte_2_high):
-    """Keiser-Lemire nibble-table error map for a batch of tiles.
+def _tables(device):
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in (T.BYTE_1_HIGH, T.BYTE_1_LOW, T.BYTE_2_HIGH))
 
-    ``b``/``bp`` are the current and previous tiles (int32, identical
-    shape); the three 16-entry nibble tables are int32 tensors on the
-    same device.  Returns a bool error map: positions where the three
-    ANDed nibble lookups disagree with the expected-continuation bit.
-    Errors surface at the second byte of each bad pair.
-    """
-    prev1 = shift_right_flat(b, bp, 1)
-    prev2 = shift_right_flat(b, bp, 2)
-    prev3 = shift_right_flat(b, bp, 3)
-    sc = (
-        byte_1_high[(prev1 >> 4).long()]
-        & byte_1_low[(prev1 & 0xF).long()]
-        & byte_2_high[(b >> 4).long()]
-    )
-    is_third = prev2 >= 0xE0
-    is_fourth = prev3 >= 0xF0
-    must_be_cont = (is_third | is_fourth).to(torch.int32) * T.TWO_CONTS
-    return (sc ^ must_be_cont) != 0
+
+def validate_plain(x, n: int):
+    """Plain version of the validation kernel: the int32 ``(nblk,)``
+    per-tile maximum of :func:`kl_values`, elements at and past ``n``
+    read as 0."""
+    x2, _nblk = runtime.tile_with_boundaries(x, n, BLOCK, boundary_tiles=1)
+    return kl_values(x2[1:], x2[:-1], *_tables(x.device)).amax(dim=-1)
+
+
+def check_legacy_input(x, n: int, elements: dict, what: str) -> None:
+    """Reject what a legacy kernel does not take: a dtype outside its
+    ``elements``, a tensor or length the launchers reject."""
+    if x.dtype not in elements:
+        raise ValueError(f"{what}: expected one of {list(elements)}, "
+                         f"got {x.dtype}")
+    _build.check_tensor(x, x.dtype, what)
+    _build.check_length(x, n, what)
+
+
+def validate_kernel(x, n: int):
+    """Per-tile Keiser-Lemire maxima: the CUDA validation kernel on a
+    CUDA tensor (uint8 or int32), :func:`validate_plain` on a CPU
+    tensor."""
+    if x.device.type == "cpu":
+        return validate_plain(x, n)
+    check_legacy_input(x, n, ELEMENTS, "validate_kernel")
+    nblk = num_tiles(x.shape[0])
+    errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
+    lib = _build.library(x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.legacy_validate(ELEMENTS[x.dtype], x.data_ptr(), n,
+                                 nblk, errs.data_ptr(),
+                                 _build.stream_of(x.device))
+    _build.check(rc, "validate_kernel")
+    validate_kernel.launches += 1
+    return errs
+
+
+validate_kernel.launches = 0

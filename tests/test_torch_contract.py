@@ -47,7 +47,8 @@ KERNELS = (ft.count_kernel, ft.write_kernel, op.onepass_kernel)
 
 
 @pytest.mark.parametrize("name", ["BYTE_1_HIGH", "BYTE_1_LOW",
-                                  "BYTE_2_HIGH"])
+                                  "BYTE_2_HIGH", "LEAD_LENGTH_32",
+                                  "MIN_CP_FOR_LEN"])
 def test_tables_equal_reference(name):
     mine, ref = getattr(tables, name), getattr(ref_tables, name)
     assert mine.dtype == ref.dtype and np.array_equal(mine, ref)

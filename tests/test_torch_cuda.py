@@ -12,7 +12,10 @@ and one-pass kernels must equal ``count_plain``, ``write_plain`` and
 ``onepass_plain`` bit for bit; on packed batches (empty documents,
 documents cut mid-character, garbage in the slack and past the last
 document), the ragged kernels must equal ``rcount_plain``,
-``rwrite_plain`` and ``ronepass_plain``.
+``rwrite_plain`` and ``ronepass_plain``.  The legacy validate, decode and
+encode kernels must equal their plain versions bit for bit (narrow and
+int32 input, ``n`` below the length), and the flash kernel its plain
+version within the reference tests' tolerances.
 """
 
 import numpy as np
@@ -22,10 +25,14 @@ import torch
 import repro_torch
 from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
 from repro_torch.kernels import ragged_transcode as rt
 from repro_torch.kernels import stages
+from repro_torch.kernels import utf8_decode as kdec
+from repro_torch.kernels import utf8_validate as kval
+from repro_torch.kernels import utf16_encode as kenc
 
 N = 5 * stages.BLOCK + 3
 GEN_HI = {"utf8": 256, "utf16": 1 << 16, "utf32": 0x110000, "latin1": 256}
@@ -176,3 +183,82 @@ def test_ragged_wrappers_reject_what_the_kernels_do_not_take():
                                              device="cuda"), 8, **kw)
     with pytest.raises(ValueError):
         rt.ronepass_kernel(x, own, -1, validate=True, **kw)
+
+
+def _legacy_inputs(fmt, seed):
+    """``(name, x, n)`` for the legacy kernels: text, invalid units at tile
+    boundaries, garbage (also as int32 past the wire range), an input cut
+    below its length and an empty one."""
+    (_t, text, _), (_e, edges, _), (_g, garbage, _), _empty = \
+        _inputs(fmt, seed)
+    wide = np.random.default_rng(seed).integers(
+        -(1 << 20), 1 << 20, N).astype(np.int32)
+    return [("text", text, len(text)), ("edges", edges, len(edges)),
+            ("garbage", garbage, N), ("int32", garbage.astype(np.int32), N),
+            ("int32-wide", wide, N - 3), ("cut", text, len(text) - 1029),
+            ("empty", text[:0], 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,kernel,plain", [
+    ("utf8", kval.validate_kernel, kval.validate_plain),
+    ("utf8", kdec.decode_kernel, kdec.decode_plain),
+    ("utf16", kenc.encode_kernel, kenc.encode_plain)])
+def test_legacy_kernels_match_plain_on_card(fmt, kernel, plain):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for name, arr, n in _legacy_inputs(fmt, 63):
+        x = torch.from_numpy(arr)
+        kern = kernel(x.cuda(), n)
+        want = plain(x, n)
+        for a, b in zip(kern if isinstance(kern, tuple) else (kern,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,d,window", [
+    (2, 256, 256, 2, 128, None), (1, 384, 384, 2, 80, 128),
+    (2, 128, 128, 2, 64, None), (1, 128, 256, 2, 32, None),
+    (1, 256, 128, 1, 64, 64)])
+def test_flash_kernel_matches_plain_on_card(dtype, b, sq, sk, h, d, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(64)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dtype).cuda()
+               for s in (sq, sk, sk))
+    got = fa.flash_kernel(q, k, v, window)
+    want = fa.flash_plain(q, k, v, window)
+    # bf16: both compute in f32 from the same inputs, so they differ by at
+    # most one bf16 rounding step (2**-7 of the value).
+    tol = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 else \
+        dict(atol=1e-4, rtol=1e-2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_legacy_and_flash_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    x = torch.zeros(8, dtype=torch.uint8, device="cuda")
+    u = torch.from_numpy(np.zeros(8, np.uint16)).cuda()
+    with pytest.raises(ValueError):
+        kval.validate_kernel(x.long(), 8)
+    with pytest.raises(ValueError):
+        kdec.decode_kernel(x, 9)
+    # Each kernel reads its own wire type or int32, nothing else.
+    with pytest.raises(ValueError):
+        kval.validate_kernel(u, 8)
+    with pytest.raises(ValueError):
+        kdec.decode_kernel(u, 8)
+    with pytest.raises(ValueError):
+        kenc.encode_kernel(x, 8)
+    q = torch.zeros(1, 128, 2, 48, device="cuda")
+    with pytest.raises(ValueError):
+        fa.flash_kernel(q, q, q)
+    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_kernel(q, q, q)

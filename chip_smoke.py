@@ -33,10 +33,12 @@ Phases, in order; any failure exits non-zero before the last line:
      kernels bit-identical to their plain versions (narrow and int32
      input), its outputs and flags equal to CPython's codecs.  Flash
      attention at (B, S, H, D) in {(2, 256, 4, 128), (1, 384, 2, 80),
-     (2, 128, 2, 64)} x window {None, 128} x {f32, bf16}, and Sq = 128
-     with Sk = 256: kernel vs plain (f32 atol 2e-5 / rtol 1e-4, the
-     reference tests'; bf16 atol 1e-4 / rtol 1e-2, one bf16 rounding
-     step; TF32 off), and causality.
+     (2, 128, 2, 64)} x window {None, 128} x {f32, bf16}, Sq = 128 with
+     Sk = 256, and edge cases at bk = 32 (a window whose first key tile
+     starts inside the bf16 kernel's 64-key chunk), Sq > Sk under a
+     window (rows with no live key), D = 80 and D = 32: kernel vs plain
+     (f32 atol 2e-5 / rtol 1e-4, the reference tests'; bf16 atol 1e-4 /
+     rtol 1e-2, one bf16 rounding step; TF32 off), and causality.
   3. The main paths, each with every kernel's launch count set to 0 just
      before and read just after: a 64 MiB UTF-8 buffer (arabic profile)
      through ``transcode`` (onepass, the default), ``transcode
@@ -48,7 +50,9 @@ Phases, in order; any failure exits non-zero before the last line:
      the whole-buffer transcode and, for a sample of documents, the
      single-buffer path.  Each kernel is held bit-identical to its plain
      version at these sizes under {strict, replace} × validate {True,
-     False}, with invalid units at and across many tile boundaries.
+     False}, with invalid units at and across many tile boundaries; the
+     one-pass kernels (their decoupled look-back) are launched 10 times
+     over on each of these inputs, every launch bit-identical.
      The legacy ops on the 64 MiB buffer (``validate_utf8``,
      ``decode_utf8``, ``utf8_to_utf16``), then ``utf16_to_utf8`` on its
      UTF-16 transcode: equal to ``transcode`` and back to the bytes, and
@@ -109,8 +113,23 @@ FLASH_MAIN = [("qwen3_8b causal bf16", 4096, 128, None, "bfloat16"),
               ("qwen3_8b causal f32", 4096, 128, None, "float32"),
               ("h2o_danube_1_8b window 4096 bf16", 8192, 80, 4096,
                "bfloat16")]
-FLASH_SMALL = [(2, 256, 256, 4, 128), (1, 384, 384, 2, 80),
-               (2, 128, 128, 2, 64), (1, 128, 256, 2, 64)]
+# (B, Sq, Sk, H, D, windows, bq, bk): the reference tests' shapes, then
+# edges of the bf16 kernel's 64-key chunks: bk = 32 with the window's first
+# key tile inside a chunk, Sq > Sk under a window (rows with no live key;
+# Sk = 160 ends mid-chunk), D = 80 and D = 32.
+FLASH_SMALL = [(2, 256, 256, 4, 128, (None, 128), 128, 128),
+               (1, 384, 384, 2, 80, (None, 128), 128, 128),
+               (2, 128, 128, 2, 64, (None, 128), 128, 128),
+               (1, 128, 256, 2, 64, (None, 128), 128, 128),
+               (1, 256, 256, 2, 64, (96,), 64, 32),
+               (1, 256, 128, 1, 64, (64,), 128, 128),
+               (1, 384, 128, 2, 80, (64,), 64, 32),
+               (1, 256, 160, 2, 32, (64,), 64, 32),
+               (1, 256, 256, 2, 32, (130,), 128, 32)]
+# Launches of each one-pass kernel per main-size input and policy, every
+# one bit-identical: a race in the look-back shows as a launch that
+# differs.
+REPEATS = 10
 # Kernel vs plain on the card.  f32: the reference tests' tolerance.  bf16:
 # both compute in f32 from the same bf16 inputs and differ only in the order
 # of the f32 sums, so the outputs differ by at most one bf16 rounding step
@@ -542,9 +561,17 @@ def main(argv=None) -> int:
         return {name: kern.launches for name, kern in kernels.items()
                 if kern.launches}
 
-    def hold_kernels(x, n, cap, src, dst, errors, validate, *ctx):
-        """Each kernel against its plain version on one input; returns
-        the onepass kernel's ``(buffer, fin)``."""
+    def hold_repeats(name, launch, want, *ctx):
+        """``REPEATS - 1`` more launches of a one-pass kernel, each
+        bit-identical to its first (``want``, already held to plain)."""
+        for rep in range(1, REPEATS):
+            hold(name, launch(), want, max_err, *ctx, "launch", rep)
+
+    def hold_kernels(x, n, cap, src, dst, errors, validate, *ctx,
+                     repeats=False):
+        """Each kernel against its plain version on one input, the
+        one-pass kernel ``REPEATS`` times when ``repeats``; returns the
+        onepass kernel's ``(buffer, fin)``."""
         kw = dict(src=src, dst=dst, errors=errors)
         k_cnt = ft.count_kernel(x, n, validate=validate, **kw)
         hold("count", k_cnt, ft.count_plain(x, n, validate=validate, **kw),
@@ -555,6 +582,9 @@ def main(argv=None) -> int:
         k_o = op.onepass_kernel(x, n, cap, validate=validate, **kw)
         hold("onepass", k_o, op.onepass_plain(x, n, cap, validate=validate,
                                               **kw), max_err, *ctx)
+        if repeats:
+            hold_repeats("onepass", lambda: op.onepass_kernel(
+                x, n, cap, validate=validate, **kw), k_o, *ctx)
         return k_o
 
     def hold_legacy(x, n, fmt, *ctx):
@@ -578,9 +608,11 @@ def main(argv=None) -> int:
                                      torch.from_numpy(lengths).cuda(), nblk)
         return own, nblk * BLOCK
 
-    def hold_ragged(x, offsets, lengths, src, dst, errors, validate, *ctx):
+    def hold_ragged(x, offsets, lengths, src, dst, errors, validate, *ctx,
+                    repeats=False):
         """Each ragged kernel against its plain version on one packed
-        batch; returns the ragged onepass kernel's outputs."""
+        batch, the one-pass kernel ``REPEATS`` times when ``repeats``;
+        returns the ragged onepass kernel's outputs."""
         own, span = ownership(x, offsets, lengths)
         cap = tc.CAP_FACTOR[(src, dst)] * span
         kw = dict(src=src, dst=dst, errors=errors)
@@ -594,6 +626,9 @@ def main(argv=None) -> int:
         hold("ronepass", k_o, rt.ronepass_plain(x, own, cap,
                                                 validate=validate, **kw),
              max_err, *ctx)
+        if repeats:
+            hold_repeats("ronepass", lambda: rt.ronepass_kernel(
+                x, own, cap, validate=validate, **kw), k_o, *ctx)
         return k_o
 
     def same_as_single(res, docs, src, dst, errors, validate, which, *ctx):
@@ -747,21 +782,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     n_flash = 0
-    for b, sq, sk, h, d in FLASH_SMALL:
-        for window in (None, 128):
+    for b, sq, sk, h, d, windows, bq, bk in FLASH_SMALL:
+        for window in windows:
             for dt in ("float32", "bfloat16"):
                 q, k, v = (torch.randn(b, s_, h, d, generator=gen,
                                        device="cuda").to(getattr(torch, dt))
                            for s_ in (sq, sk, sk))
-                ctx = ("flash", b, sq, sk, h, d, window, dt)
-                got = fa.flash_kernel(q, k, v, window)
-                hold_close("flash", got, fa.flash_plain(q, k, v, window), dt,
+                ctx = ("flash", b, sq, sk, h, d, window, bq, bk, dt)
+                got = fa.flash_kernel(q, k, v, window, bq, bk)
+                hold_close("flash", got,
+                           fa.flash_plain(q, k, v, window, bq, bk), dt,
                            max_err, *ctx)
                 if sq == sk:
                     cut = sq // 2 + 3
                     k2, v2 = k.clone(), v.clone()
                     k2[:, cut:], v2[:, cut:] = 9.9, 9.9
-                    again = fa.flash_kernel(q, k2, v2, window)
+                    again = fa.flash_kernel(q, k2, v2, window, bq, bk)
                     require(equal(got[:, :cut], again[:, :cut]),
                             "flash causality", *ctx)
                 n_flash += 1
@@ -818,7 +854,8 @@ def main(argv=None) -> int:
             for validate in (True, False):
                 ctx = ("utf8", "utf16", f"64 MiB {name}", errors, validate)
                 k_o = hold_kernels(x, main_bytes, main_bytes, "utf8",
-                                   "utf16", errors, validate, *ctx)
+                                   "utf16", errors, validate, *ctx,
+                                   repeats=True)
                 fused = repro_torch.transcode(
                     x, "utf16", errors=errors, validate=validate,
                     strategy="fused")
@@ -831,7 +868,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     report["main_size_cases"] = n_main
     log(f"phase 3: {n_main} cases at 64 MiB bit-identical (kernels = "
-        f"plain, onepass = fused)")
+        f"plain, onepass = fused; onepass launched {REPEATS} times each)")
 
     # The main ragged batch: ragged_transcode (onepass, fused) and
     # ragged_scan, each with the counts set to 0 just before it.
@@ -897,7 +934,7 @@ def main(argv=None) -> int:
             for validate in (True, False):
                 ctx = ("utf8", "utf16", f"ragged {name}", errors, validate)
                 k_o = hold_ragged(x, pk.offsets, pk.lengths, "utf8", "utf16",
-                                  errors, validate, *ctx)
+                                  errors, validate, *ctx, repeats=True)
                 fused = repro_torch.ragged_transcode(
                     x, pk.offsets, pk.lengths, errors=errors,
                     validate=validate, strategy="fused")
@@ -915,7 +952,7 @@ def main(argv=None) -> int:
         f"({int(pk.lengths.sum())} bytes, {len(pk.data) // BLOCK} tiles): "
         f"every valid document = encoder, {len(sample)} sampled = single "
         f"buffer, {n_rag_main} cases bit-identical (kernels = plain, "
-        f"onepass = fused)")
+        f"onepass = fused; ronepass launched {REPEATS} times each)")
 
     # The stream: the 64 MiB buffer in chunks of seeded random sizes.
     sizes = np.exp(rng.uniform(0, np.log(STREAM_MAX_CHUNK), 4 * (

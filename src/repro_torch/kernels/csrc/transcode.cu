@@ -17,15 +17,15 @@
 //                         base[tile] + in-tile rank.
 //   onepass_kernel        replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
 //                         count and write off one decode, with the
-//                         inter-tile offset carried by a chained scan
-//                         across blocks.
+//                         inter-tile offset carried by a decoupled
+//                         look-back across blocks.
 //   count_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rcount_kernel
 //   write_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rwrite_kernel
 //   ronepass_kernel       replaces src/repro/kernels/ragged_transcode.py::_ronepass_kernel
 //                         the same bodies over a packed batch: a tile
 //                         reads its neighbour tiles only when they belong
 //                         to its own document, and its live end is its
-//                         document's end.  The chained scan's global
+//                         document's end.  The look-back's global
 //                         offset is the per-document segment scan, since
 //                         documents are packed in order; ronepass writes
 //                         per-tile (total, err, first_error) for the
@@ -467,27 +467,61 @@ __device__ __forceinline__ void store_release(unsigned long long* p,
 }
 
 // ---------------------------------------------------------------------------
-// The chained scan of the one-pass kernels.
+// The decoupled look-back of the one-pass kernels (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016), over
+// the running output offset.
+//
+// state[t] packs a flag (bits 32-33) with a 32-bit unsigned value (low 32
+// bits), so one 64-bit release store publishes both and one acquire load
+// reads both.  The wrappers zero-fill state, so 0 is NOT_READY.  Offsets
+// are below 4 * MAX_ELEMENTS < 2**31 (runtime.py), so the value never
+// reaches the flag bits.
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;  // tile total
+constexpr unsigned long long FLAG_INCLUSIVE = 2ull << 32;  // prefix + total
 
-// Thread 0 only: wait for tile-1's inclusive output offset, publish
-// tile's own (prefix + total), and return the tile's exclusive prefix.
-// state[t] packs a ready flag (bit 32) with tile t's inclusive offset
-// (low 32 bits), so one acquire load reads both.  Tiles come from a
-// ticket counter, so a block only ever waits on a tile whose block has
-// already started.
-__device__ __forceinline__ int chain_prefix(unsigned long long* state,
-                                            int tile, int total) {
-  int prefix = 0;
-  if (tile > 0) {
+// Warp 0 only, all 32 lanes.  Publishes (AGGREGATE, total) at once, then
+// looks back over windows of 32 predecessors, one acquire load per lane,
+// until a window holds an INCLUSIVE value: the tile's exclusive prefix is
+// that value plus the aggregates above it.  Publishes (INCLUSIVE, prefix +
+// total) and returns the prefix in every lane.  Lane 0 makes both
+// stores, so whatever thread 0 wrote before the call (the err/ferr fold of
+// onepass_kernel) is released with the tile's first publish.  Tiles come
+// from a ticket counter, so every predecessor's block has started and
+// publishes its aggregate without waiting on anyone: no tile waits on a
+// chain.
+__device__ __forceinline__ int lookback_prefix(unsigned long long* state,
+                                               int tile, int total) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    store_release(&state[tile], (tile == 0 ? FLAG_INCLUSIVE : FLAG_AGGREGATE)
+                                    | static_cast<unsigned>(total));
+  }
+  unsigned prefix = 0;
+  for (int end = tile; end > 0; end -= 32) {
+    // Lane 31 reads the nearest predecessor; lanes before tile 0 read an
+    // INCLUSIVE 0.
+    const int t = end - 32 + lane;
     unsigned long long v;
     do {
-      v = load_acquire(&state[tile - 1]);
-    } while ((v >> 32) == 0);
-    prefix = static_cast<int>(static_cast<unsigned>(v & 0xffffffffull));
+      v = t >= 0 ? load_acquire(&state[t]) : FLAG_INCLUSIVE;
+    } while (__any_sync(0xffffffffu, (v >> 32) == 0));
+    const unsigned incl = __ballot_sync(0xffffffffu, (v >> 32) == 2);
+    const int from = incl ? 31 - __clz(incl) : 0;
+    unsigned sum = lane >= from ? static_cast<unsigned>(v) : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    }
+    prefix += sum;
+    if (incl) break;
   }
-  store_release(&state[tile],
-                (1ull << 32) | static_cast<unsigned>(prefix + total));
-  return prefix;
+  // Order every lane's acquire before lane 0's release, so a successor
+  // that acquires this tile's INCLUSIVE value sees what they saw.
+  __syncwarp();
+  if (lane == 0 && tile > 0) {
+    store_release(&state[tile], FLAG_INCLUSIVE | (prefix + total));
+  }
+  return static_cast<int>(prefix);
 }
 
 // ---------------------------------------------------------------------------
@@ -556,16 +590,18 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
 
 // Replaces onepass_transcode.py::_onepass_kernel.  Bytes bound: the input
 // read once plus the output units, no intermediate leaves the chip.  The
-// TPU kernel's SMEM carry becomes a chained scan (chain_prefix), whose
-// critical path is one L2 round trip per tile: serial in the tile count,
-// and the reason a decoupled look-back (ROADMAP.md queue 2a) is the next
-// step.
+// TPU kernel's SMEM carry becomes a decoupled look-back (lookback_prefix):
+// a block publishes its tile total as soon as it has it, so no block waits
+// on a chain of predecessors.
 //
 // ctl = [ticket, err, ferr], which the wrapper sets to [0, 0, IMAX].  Each
-// block folds its err/ferr into ctl before it waits on its predecessor,
-// off the serial chain; the fold still precedes the block's release in
-// program order, so the last tile, which acquires the whole chain, reads
-// the final values.
+// block's thread 0 folds its err/ferr into ctl before the tile's first
+// publish, the AGGREGATE one, and releases the fold with it.  The last
+// tile's prefix acquires, transitively, every tile's first publish: the
+// AGGREGATEs in its windows directly, and each earlier tile through the
+// INCLUSIVE value it stops at, whose publisher acquired its own window
+// first.  So the last tile, reading ctl after its look-back, sees every
+// block's fold.
 template <int S, int D>
 __global__ void __launch_bounds__(THREADS)
 onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
@@ -593,28 +629,34 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
   const int rank = block_exclusive_scan(mine, sums, total);
   int unused = 0;
   block_reduce(unused, err, ferr, red);
-  if (threadIdx.x == 0) {
-    if (err) atomicMax(&ctl[1], err);
-    if (ferr != IMAX) atomicMin(&ctl[2], ferr);
-    const int prefix = chain_prefix(state, tile, total);
-    if (tile == static_cast<int>(gridDim.x) - 1) {
-      fin[0] = prefix + total;
-      fin[1] = status_from_first(atomicAdd(&ctl[2], 0),
-                                 atomicAdd(&ctl[1], 0));
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      if (err) atomicMax(&ctl[1], err);
+      if (ferr != IMAX) atomicMin(&ctl[2], ferr);
     }
-    s_base = prefix;
+    const int prefix = lookback_prefix(state, tile, total);
+    if (threadIdx.x == 0) {
+      if (tile == static_cast<int>(gridDim.x) - 1) {
+        fin[0] = prefix + total;
+        fin[1] = status_from_first(atomicAdd(&ctl[2], 0),
+                                   atomicAdd(&ctl[1], 0));
+      }
+      s_base = prefix;
+    }
   }
   __syncthreads();
   store_units<D>(out, cap, s_base + rank, cps, units);
 }
 
 // Replaces ragged_transcode.py::_ronepass_kernel: onepass_kernel over a
-// packed batch.  The running offset of the chained scan is the
+// packed batch.  The running offset of the look-back is the
 // per-document segment scan (documents are packed in order, densely);
 // in place of the folded (count, status) it writes each tile's (total,
 // err, first_error), which the wrapper reduces per document.  Bytes
 // bound: the input once, the output units, 24 bytes per tile of
 // ownership and per-tile scalars.  ticket[0] is set to 0 by the wrapper.
+// The look-back carries only the offset: the per-tile scalars need no
+// ordering across blocks.
 template <int S, int D>
 __global__ void __launch_bounds__(THREADS)
 ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
@@ -643,11 +685,14 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
   const int rank = block_exclusive_scan(mine, sums, total);
   int unused = 0;
   block_reduce(unused, err, ferr, red);
-  if (threadIdx.x == 0) {
-    tot_out[tile] = total;
-    err_out[tile] = err;
-    ferr_out[tile] = ferr;
-    s_base = chain_prefix(state, tile, total);
+  if (threadIdx.x < 32) {
+    const int prefix = lookback_prefix(state, tile, total);
+    if (threadIdx.x == 0) {
+      tot_out[tile] = total;
+      err_out[tile] = err;
+      ferr_out[tile] = ferr;
+      s_base = prefix;
+    }
   }
   __syncthreads();
   store_units<D>(out, cap, s_base + rank, cps, units);

@@ -8,10 +8,11 @@ triangle and, under a window, the tiles wholly below it are skipped.  A
 row with no live key in that range gets the uniform average of its
 values (every score is ``NEG_INF``), as in the reference.
 
-The CUDA kernel (``kernels/csrc/flash_attention.cu``) runs on a CUDA
-tensor, :func:`flash_plain` on a CPU tensor; the wrapper keeps a launch
-count (``flash_kernel.launches``).  GQA is expanded by the caller (q head
-``h`` reads KV head ``h // g``), as in the reference.
+The CUDA kernels (``kernels/csrc/flash_attention.cu``) run on a CUDA
+tensor, :func:`flash_plain` on a CPU tensor: bf16 on the tensor cores
+(wgmma, with K/V staged by TMA), f32 on the FMA pipes.  The wrapper keeps
+a launch count (``flash_kernel.launches``).  GQA is expanded by the caller
+(q head ``h`` reads KV head ``h // g``), as in the reference.
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ NEG_INF = -1e30
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 80, 128)
-KERNEL_ROWS = 64     # query rows per CUDA block (bq must be a multiple)
-KERNEL_KEYS = 32     # keys per staged chunk (bk must be a multiple)
+KERNEL_ROWS = 64     # query rows per f32 block or bf16 warpgroup (bq must
+                     # be a multiple)
+KERNEL_KEYS = 32     # bk must be a multiple: the f32 kernel's key chunk
+                     # (the bf16 kernel's 64-key chunks exclude keys
+                     # outside [lo*bk, hi*bk) explicitly)
 
 
 def check_shapes(q, k, v, bq: int, bk: int) -> None:
@@ -104,6 +108,10 @@ def flash_kernel(q, k, v, window=None, bq: int = BQ, bk: int = BK):
             raise ValueError(
                 f"flash_kernel: {name} must be a contiguous float32 or "
                 f"bfloat16 CUDA tensor like q, got {t.dtype} on {t.device}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_kernel: bfloat16 {name} must start on a 16-byte "
+                f"boundary (the kernel's TMA copies need it)")
     if d not in KERNEL_HEAD_DIMS or bq % KERNEL_ROWS or bk % KERNEL_KEYS:
         raise ValueError(
             f"flash_kernel: takes head dims {KERNEL_HEAD_DIMS}, bq a "

@@ -5,14 +5,15 @@ Port of ``repro.kernels.onepass_transcode``.  The TPU kernel carried the
 running output offset and the sticky error fold in an SMEM scalar across
 its sequential grid.  CUDA blocks run in parallel and in no order, so the
 CUDA kernel (``onepass_kernel`` in ``kernels/csrc/transcode.cu``) carries
-them with a chained scan: each block takes a tile ticket, waits for the
-previous tile's inclusive offset, publishes its own, and stores its units.
-The last tile emits ``(count, status)``.
+them with a single-pass scan with decoupled look-back: each block takes a
+tile ticket, publishes its tile total at once, sums its predecessors'
+published totals back to the nearest published inclusive offset, and
+stores its units.  The error fold goes through atomics released with each
+tile's first publish; the last tile emits ``(count, status)``.
 
 Results are bit-identical to ``strategy="fused"``.  The reference's
-per-tile ASCII and ≤2-byte class dispatch and a decoupled look-back are
-speed features, lanewise identical to the general body, and are not
-ported yet.
+per-tile ASCII and ≤2-byte class dispatch, a speed feature lanewise
+identical to the general body, is not ported yet.
 """
 
 from __future__ import annotations

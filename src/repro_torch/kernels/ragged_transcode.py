@@ -12,9 +12,9 @@ ownership masking:
                    document (inflow from another document reads 0).
   Passes           ``strategy="onepass"`` (the default): one launch that
                    counts and writes off one decode, the offset carried
-                   by a chained scan across blocks; because documents are
-                   packed in order, the global running offset is the
-                   per-document segment scan.  ``strategy="fused"``: a
+                   by a decoupled look-back across blocks; because
+                   documents are packed in order, the global running
+                   offset is the per-document segment scan.  ``strategy="fused"``: a
                    count launch, ``torch.cumsum`` over the tile totals,
                    a write launch.
   Per-doc reduce   Per-tile ``(total, err, first_err)`` reduced per

@@ -15,7 +15,9 @@ document), the ragged kernels must equal ``rcount_plain``,
 ``rwrite_plain`` and ``ronepass_plain``.  The legacy validate, decode and
 encode kernels must equal their plain versions bit for bit (narrow and
 int32 input, ``n`` below the length), and the flash kernel its plain
-version within the reference tests' tolerances.
+version within the reference tests' tolerances.  The one-pass kernels'
+decoupled look-back is launched 20 times over at tile counts around its
+32-tile window, each launch bit-identical to fused and to plain.
 """
 
 import numpy as np
@@ -164,6 +166,83 @@ def test_ragged_kernels_match_plain_on_card(src, dst):
                     assert torch.equal(a, b), ctx
 
 
+# Tile counts around the look-back's 32-tile window.
+LOOKBACK_TILES = (1, 2, 31, 32, 33, 65, 4097)
+
+
+def _utf8_text(n_bytes, rng):
+    """``n_bytes`` of UTF-8 text (1- to 3-byte characters), cut at
+    ``n_bytes`` even mid-character."""
+    cps = rng.integers(0x20, 0x3000, n_bytes)
+    cps[(cps >= 0xD800) & (cps < 0xE000)] = 0x41
+    return np.frombuffer("".join(map(chr, cps)).encode("utf-8"),
+                         np.uint8)[:n_bytes].copy()
+
+
+def _lookback_batch(n_tiles, rng):
+    """A packed batch of exactly ``n_tiles`` tiles: an empty document,
+    then documents of 1, 3, 1, 2, ... tiles, each ending short of its last
+    tile."""
+    docs, total, k = [np.zeros(0, np.uint8)], 0, 0
+    while total < n_tiles:
+        span = min((1, 3, 1, 2)[k % 4], n_tiles - total)
+        docs.append(_utf8_text(span * stages.BLOCK
+                               - int(rng.integers(1, 200)), rng))
+        total, k = total + span, k + 1
+    return packing.pack_documents(docs)
+
+
+def _lookback_errors(data, end, n_tiles):
+    """Invalid bytes in the first tile, just before ``end`` (the text's end,
+    in the last tile) and at the start of the tile after the first 32-tile
+    window edge."""
+    for pos in (3, end - 2, min(33, n_tiles - 1) * stages.BLOCK):
+        data[pos] = 0xFF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", LOOKBACK_TILES)
+def test_lookback_kernels_repeat_bit_identical_on_card(n_tiles):
+    """20 launches each of onepass_kernel and ronepass_kernel, for one
+    buffer and for a packed batch of ``n_tiles`` tiles with errors at the
+    first tile, the last tile and a window edge: every launch equals the
+    plain version and fused (buffer, count/status; per-tile scalars)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    rng = np.random.default_rng(65 + n_tiles)
+    arr = _utf8_text(n_tiles * stages.BLOCK - 5, rng)
+    _lookback_errors(arr, len(arr), n_tiles)
+    x, n = torch.from_numpy(arr).cuda(), len(arr)
+    cap = tc.CAP_FACTOR[("utf8", "utf16")] * n
+    pk = _lookback_batch(n_tiles, rng)
+    data = pk.data.copy()
+    _lookback_errors(data, int(pk.offsets[-2] + pk.lengths[-1]), n_tiles)
+    xr = torch.from_numpy(data).cuda()
+    assert stages.num_tiles(len(data)) == n_tiles
+    own = packing.tile_ownership(torch.from_numpy(pk.offsets).cuda(),
+                                 torch.from_numpy(pk.lengths).cuda(), n_tiles)
+    rcap = tc.CAP_FACTOR[("utf8", "utf16")] * n_tiles * stages.BLOCK
+    for errors in ("strict", "replace"):
+        kw = dict(src="utf8", dst="utf16", errors=errors, validate=True)
+        want = op.onepass_plain(x, n, cap, **kw)
+        fused = repro_torch.transcode(x, "utf16", src_format="utf8",
+                                      errors=errors, strategy="fused")
+        assert torch.equal(want[0], fused.buffer)
+        assert torch.equal(want[1], torch.stack([fused.count, fused.status]))
+        rwant = rt.ronepass_plain(xr, own, rcap, **kw)
+        rfused = repro_torch.ragged_transcode(
+            xr, pk.offsets, pk.lengths, src_format="utf8", dst_format="utf16",
+            errors=errors, strategy="fused")
+        assert torch.equal(rwant[0], rfused.buffer)
+        for a, b in zip(rwant[1:], rt.rcount_kernel(xr, own, **kw)):
+            assert torch.equal(a, b), errors
+        for rep in range(20):
+            for a, b in zip(op.onepass_kernel(x, n, cap, **kw), want):
+                assert torch.equal(a, b), ("onepass", rep, errors)
+            for a, b in zip(rt.ronepass_kernel(xr, own, rcap, **kw), rwant):
+                assert torch.equal(a, b), ("ronepass", rep, errors)
+
+
 @pytest.mark.cuda
 def test_ragged_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
@@ -218,19 +297,26 @@ def test_legacy_kernels_match_plain_on_card(fmt, kernel, plain):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,sk,h,d,window", [
-    (2, 256, 256, 2, 128, None), (1, 384, 384, 2, 80, 128),
-    (2, 128, 128, 2, 64, None), (1, 128, 256, 2, 32, None),
-    (1, 256, 128, 1, 64, 64)])
-def test_flash_kernel_matches_plain_on_card(dtype, b, sq, sk, h, d, window):
+@pytest.mark.parametrize("b,sq,sk,h,d,window,bq,bk", [
+    (2, 256, 256, 2, 128, None, 128, 128), (1, 384, 384, 2, 80, 128, 128, 128),
+    (2, 128, 128, 2, 64, None, 128, 128), (1, 128, 256, 2, 32, None, 128, 128),
+    (1, 256, 128, 1, 64, 64, 128, 128),
+    # bk = 32: lo*bk (32, 96) inside the bf16 kernel's 64-key chunks.
+    (1, 256, 256, 2, 64, 96, 64, 32),
+    # Sq > Sk under a window (rows with no live key), D = 80 and D = 32;
+    # Sk = 160 ends mid-chunk.
+    (1, 384, 128, 2, 80, 64, 64, 32), (1, 256, 160, 2, 32, 64, 64, 32),
+    (1, 256, 256, 2, 32, 130, 128, 32)])
+def test_flash_kernel_matches_plain_on_card(dtype, b, sq, sk, h, d, window,
+                                            bq, bk):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(64)
     q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dtype).cuda()
                for s in (sq, sk, sk))
-    got = fa.flash_kernel(q, k, v, window)
-    want = fa.flash_plain(q, k, v, window)
+    got = fa.flash_kernel(q, k, v, window, bq, bk)
+    want = fa.flash_plain(q, k, v, window, bq, bk)
     # bf16: both compute in f32 from the same inputs, so they differ by at
     # most one bf16 rounding step (2**-7 of the value).
     tol = dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32 else \
@@ -260,5 +346,10 @@ def test_legacy_and_flash_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         fa.flash_kernel(q, q, q)
     q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_kernel(q, q, q)
+    # bf16 tensors reach the kernel through TMA, from 16-byte boundaries.
+    q = torch.zeros(128 * 2 * 64 + 1, device="cuda",
+                    dtype=torch.bfloat16)[1:].view(1, 128, 2, 64)
     with pytest.raises(ValueError):
         fa.flash_kernel(q, q, q)

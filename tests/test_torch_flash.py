@@ -6,8 +6,12 @@ version.
 Tolerances are the reference tests' (``tests/test_flash_attention.py``):
 ``atol=2e-5, rtol=1e-4`` in f32, where only the order of the f32 sums
 differs, and ``3e-2`` in bf16, where the output is rounded to 8 bits of
-mantissa.  Inputs are made with numpy from a seed.
+mantissa.  Inputs are made with numpy from a seed.  A plain-torch model
+of the bf16 CUDA kernel's arithmetic is held to the kernel's on-card
+tolerance against ``flash_plain``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -49,6 +53,79 @@ def test_flash_matches_reference_kernel(b, sq, sk, h, d, window):
                      window=window)
     assert got.dtype == torch.float32 and got.shape == (b, sq, h, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def _tc_kernel_model(q, k, v, window, bq=fa.BQ, bk=fa.BK, split=True):
+    """The bf16 tensor-core kernel's arithmetic (``flash_tc_kernel`` in
+    ``kernels/csrc/flash_attention.cu``) in plain torch: 64-row query
+    blocks, 64-key chunks from the block's reference range rounded down to
+    64 (keys outside the range weigh 0, keys past Sk are zeros), products
+    of the bf16 operands in f32 with the scale (and log2 e) applied after
+    Q K^T, an online softmax on exp2, and P fed to P V as bf16 hi and lo
+    parts (as one bf16 when ``split`` is false)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    heads = lambda t: t.permute(0, 2, 1, 3).reshape(b * h, -1, d).float()  # noqa: E731
+    qf, kf, vf = heads(q), heads(k), heads(v)
+    pad = torch.zeros(b * h, 64, d)
+    kf, vf = torch.cat([kf, pad], 1), torch.cat([vf, pad], 1)
+    scale = 1.0 / math.sqrt(d) * math.log2(math.e)
+    out = torch.zeros(b * h, sq, d)
+    for r0 in range(0, sq, 64):
+        lo, hi = fa.tile_range(r0 // bq, bq, bk, sk // bk, window)
+        rows = torch.arange(r0, r0 + 64)[:, None]
+        m = torch.full((b * h, 64, 1), fa.NEG_INF)
+        l = torch.zeros(b * h, 64, 1)
+        acc = torch.zeros(b * h, 64, d)
+        for kc in range(lo * bk // 64 * 64, hi * bk, 64):
+            keys = torch.arange(kc, kc + 64)[None]
+            s = qf[:, r0:r0 + 64] @ kf[:, kc:kc + 64].transpose(1, 2) * scale
+            live = keys <= rows
+            if window is not None:
+                live &= rows - keys < window
+            s = torch.where(live, s, fa.NEG_INF)
+            s = torch.where((keys >= lo * bk) & (keys < hi * bk), s,
+                            -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+            m, l = m_new, l * corr + p.sum(-1, keepdim=True)
+            p_hi = p.to(torch.bfloat16).float()
+            p_lo = (p - p_hi).to(torch.bfloat16).float() * split
+            vv = vf[:, kc:kc + 64]
+            acc = acc * corr + p_hi @ vv + p_lo @ vv
+        out[:, r0:r0 + 64] = acc / l.clamp_min(1e-30)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 128, 96])
+@pytest.mark.parametrize("b,sq,sk,h,d,bq,bk", [
+    (2, 256, 256, 2, 64, 128, 128), (1, 384, 384, 2, 80, 128, 128),
+    (1, 256, 256, 2, 128, 128, 128), (1, 128, 256, 2, 64, 128, 128),
+    (1, 256, 128, 1, 32, 128, 128), (1, 256, 256, 2, 64, 64, 32),
+    (1, 384, 160, 2, 80, 64, 32)])
+def test_tc_kernel_model_within_card_tolerance(b, sq, sk, h, d, bq, bk,
+                                               window):
+    """The bf16 kernel's arithmetic (scale after Q K^T, P as bf16 hi + lo)
+    stays within the on-card tolerance of ``flash_plain``, atol 1e-4 and
+    rtol 1e-2: one bf16 rounding step of the output."""
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in _qkv(b, sq, sk, h, d, seed=sq + sk + d))
+    got = _tc_kernel_model(q, k, v, window, bq, bk)
+    want = fa.flash_plain(q, k, v, window, bq, bk)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-4,
+                               rtol=1e-2)
+
+
+def test_tc_kernel_model_needs_p_split():
+    """With P as one bf16 (8 bits, as FlashAttention-2 feeds it) the same
+    arithmetic leaves the on-card tolerance: the reason for the hi/lo
+    split."""
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in _qkv(1, 256, 256, 2, 128, seed=5))
+    got = _tc_kernel_model(q, k, v, None, split=False).float()
+    want = fa.flash_plain(q, k, v).float()
+    assert ((got - want).abs() > 1e-4 + 1e-2 * want.abs()).any()
 
 
 @pytest.mark.parametrize("bq,bk", [(128, 128), (64, 32), (128, 64)])

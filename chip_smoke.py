@@ -19,7 +19,11 @@ Phases, in order; any failure exits non-zero before the last line:
      units (or a low surrogate), invalid units at document starts and
      ends, garbage in the slack and past ``offsets[-1]``, and the same
      documents at a fixed tile span with ``pad_to_docs`` padding, through
-     ``ragged_transcode`` (onepass and fused) and ``ragged_scan``.  Each
+     ``ragged_transcode`` (onepass and fused) and ``ragged_scan``.  The
+     count kernels on tiles of each class of their dispatch (ASCII,
+     <=2-byte, general), with a class-breaking unit only in a tile's
+     inflow, on views 1-15 bytes past a 16-byte boundary, and the ragged
+     count kernel on packed documents of each class.  Each
      kernel is held bit-identical to its plain PyTorch version on the
      same inputs, onepass to fused, single-buffer outputs to CPython's
      codecs where they decode the input, and every document's slice of a
@@ -52,7 +56,10 @@ Phases, in order; any failure exits non-zero before the last line:
      version at these sizes under {strict, replace} × validate {True,
      False}, with invalid units at and across many tile boundaries; the
      one-pass kernels (their decoupled look-back) are launched 10 times
-     over on each of these inputs, every launch bit-identical.
+     over on each of these inputs, every launch bit-identical; the count
+     kernel also on the 64 MiB buffer 3 bytes past a 16-byte boundary.
+     How many tiles of the 64 MiB buffer and of the ragged batch fall in
+     each class, from the plain predicate on the host.
      The legacy ops on the 64 MiB buffer (``validate_utf8``,
      ``decode_utf8``, ``utf8_to_utf16``), then ``utf16_to_utf8`` on its
      UTF-16 transcode: equal to ``transcode`` and back to the bytes, and
@@ -67,7 +74,8 @@ Phases, in order; any failure exits non-zero before the last line:
      lipsum profile (paper Tables 5 and 6); the timed kernel and plain
      outputs are held equal too.  For flash attention also
      ``torch.nn.functional.scaled_dot_product_attention`` on the same
-     inputs, as the library yardstick (the port never calls it).
+     inputs, as the library yardstick (the port never calls it); the f32
+     kernel's bound is its three TF32 products at the TF32 peak.
   5. The ``kernels`` line (all ten kernels), then ``{"ok": true,
      "device": ...}`` last.
 
@@ -89,8 +97,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor cores, same data sheet
-              "float32": 67e12}     # FP32 without tensor cores
+# Dense tensor-core peaks of the same data sheet.  The f32 flash kernel
+# runs three TF32 products (hi*lo, lo*hi, hi*hi) per product of the
+# function, so its bound is three times the work at the TF32 rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+PRODUCTS = {"bfloat16": 1, "float32": 3}
+BOUND_LABEL = {"bfloat16": "operations", "float32": "operations (3xTF32)"}
 SOURCE = "src/repro_torch/kernels/csrc/transcode.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
@@ -386,6 +398,47 @@ def legacy_inputs(text_cps: np.ndarray, rng):
     return out
 
 
+# A unit outside the <=2-byte tile class, and one in it but outside ASCII.
+CLASS_BREAK = {"utf8": 0xE4, "utf16": 0xD800, "utf32": 0x800, "latin1": 0xFF}
+IN_CLASS2 = {"utf8": 0xC3, "utf16": 0x7FF, "utf32": 0x7FF, "latin1": 0x80}
+
+
+def class_inputs(fmt: str, rng):
+    """Named buffers of six tiles for the count kernels' tile classes:
+    all ASCII, all <=2-byte text, a mix (tiles 2-3 <=2-byte, the rest
+    ASCII), then the mix with one unit outside a class in the last 1-3
+    units before a tile (its inflow only) or inside it."""
+    n = 6 * BLOCK
+    ascii = rng.integers(0x20, 0x7F, n).astype(NP_DTYPE[fmt])
+    cps = np.where(rng.random(n) < 0.7, rng.integers(0x80, 0x800, n),
+                   rng.integers(0x20, 0x7F, n))
+    c2 = encode(cps, fmt)[:n].copy()
+    mixed = ascii.copy()
+    mixed[2 * BLOCK: 4 * BLOCK] = c2[2 * BLOCK: 4 * BLOCK]
+    out = [("ascii", ascii), ("class2", c2), ("mixed", mixed)]
+    for tile, unit in ((1, CLASS_BREAK[fmt]), (4, CLASS_BREAK[fmt]),
+                       (1, IN_CLASS2[fmt])):
+        for pos in (tile * BLOCK - 3, tile * BLOCK - 2, tile * BLOCK - 1,
+                    tile * BLOCK + 200):
+            m = mixed.copy()
+            m[pos] = unit
+            out.append((f"{unit:#x} at {pos}", m))
+    return out
+
+
+def class_counts(stages, src: str, x, own=None) -> dict:
+    """Tiles of each class of the count kernels' dispatch, from the plain
+    predicate on the host: ``x`` a CPU tensor, ``own`` the packed batch's
+    ownership arrays (CPU) or None for a single buffer."""
+    import torch
+    t, tp, _tn, _g = (stages.tiles(x, x.shape[0]) if own is None
+                      else stages.ragged_tiles(x, *own[1:]))
+    cls = stages.tile_class(stages.get_codec(src), t, tp)
+    return {name: int((cls == c).sum()) for name, c in (
+        ("ascii", stages.ASCII), ("class2", stages.CLASS2),
+        ("general", stages.GENERAL))} | {"tiles": int(torch.numel(cls))}
+
+
 def live_pairs(s: int, window) -> int:
     """Causal (query, key) pairs of one head, within the window if any."""
     if window is None or window >= s:
@@ -395,11 +448,13 @@ def live_pairs(s: int, window) -> int:
 
 def flash_bound(s: int, d: int, window, dtype: str):
     """``(bound ms, bound_by, flops)`` of one flash call at batch 1 with
-    FLASH_HEADS heads: 4 * d flops per live pair and head at the card's
-    peak for the type, against q, k, v and o read or written once."""
+    FLASH_HEADS heads: 4 * d flops per live pair and head (the work the
+    function needs, ``flops``), run as PRODUCTS[dtype] tensor-core
+    products at the card's peak for the type, against q, k, v and o read
+    or written once."""
     flops = 4 * d * FLASH_HEADS * live_pairs(s, window)
     nbytes = 4 * s * FLASH_HEADS * d * (2 if dtype == "bfloat16" else 4)
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    ops_ms = PRODUCTS[dtype] * flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops)
@@ -515,6 +570,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import fused_transcode as ft
         from repro_torch.kernels import onepass_transcode as op
         from repro_torch.kernels import ragged_transcode as rt
+        from repro_torch.kernels import stages
         from repro_torch.kernels import utf8_decode as kdec
         from repro_torch.kernels import utf8_validate as kval
         from repro_torch.kernels import utf16_encode as kenc
@@ -526,9 +582,10 @@ def main(argv=None) -> int:
     t_start = time.time()
     report = {"seed": args.seed}
     rng = np.random.default_rng(args.seed)
-    # The legacy-ops inputs draw from a generator of their own, so the
-    # transcode paths' data stay those of --seed alone.
+    # The legacy-ops and tile-class inputs draw from generators of their
+    # own, so the other paths' data stay those of --seed alone.
     legacy_rng = np.random.default_rng([args.seed, 1])
+    class_rng = np.random.default_rng([args.seed, 2])
 
     # -- 1. device and build -------------------------------------------------
     smi = subprocess.run(
@@ -586,6 +643,22 @@ def main(argv=None) -> int:
             hold_repeats("onepass", lambda: op.onepass_kernel(
                 x, n, cap, validate=validate, **kw), k_o, *ctx)
         return k_o
+
+    def general_count(x, src, dst, errors, validate, n=None, own=None):
+        """Per-tile ``(total, err, first_err)`` of the general lane body
+        on every tile (``stages.count_tile``), with no tile-class
+        dispatch: a yardstick for the count kernels that does not share
+        their class decision.  ``own`` for a packed batch, else ``n``."""
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        if own is None:
+            t, tp, tn, gidx = stages.tiles(x, n)
+            live = gidx < n
+        else:
+            t, tp, tn, gidx = stages.ragged_tiles(x, *own[1:])
+            live = gidx < own[1][:, None]
+        return stages.count_tile(codec_s, codec_d, t, tp, tn, live, gidx,
+                                 ft.validation_tables(codec_s, x.device),
+                                 errors=errors, validate=validate)
 
     def hold_legacy(x, n, fmt, *ctx):
         """The legacy kernels of one format against their plain versions
@@ -742,6 +815,63 @@ def main(argv=None) -> int:
     log(f"phase 2: {n_ragged} ragged cases bit-identical (kernels = plain, "
         f"onepass = fused, every document = its single-buffer transcode)")
 
+    # The count kernels on tiles of each class, with a class-breaking unit
+    # only in a tile's inflow, and on views 1-15 bytes past a 16-byte
+    # boundary (the vector loads' fallback): every policy at the aligned
+    # start, strict with validation at every other; the plain versions
+    # run on the host.
+    n_class = 0
+    for src, dst in tc.PAIRS:
+        size = np.dtype(NP_DTYPE[src]).itemsize
+        for name, arr in class_inputs(src, class_rng):
+            raw = torch.zeros(len(arr) + 16 // size,
+                              dtype=getattr(torch, NP_DTYPE[src].__name__),
+                              device="cuda")
+            for shift in range(0, 16, size):
+                x = raw[shift // size: shift // size + len(arr)]
+                x.copy_(torch.from_numpy(arr).cuda())
+                require(x.data_ptr() % 16 == shift, "view alignment", shift)
+                for errors, validate in ((("strict", True), ("strict", False),
+                                          ("replace", True),
+                                          ("replace", False)) if shift == 0
+                                         else (("strict", True),)):
+                    kw = dict(src=src, dst=dst, errors=errors,
+                              validate=validate)
+                    hold("count", tuple(t.cpu() for t in ft.count_kernel(
+                        x, len(arr), **kw)), ft.count_plain(
+                            torch.from_numpy(arr), len(arr), **kw),
+                         max_err, "class", name, shift, *kw.values())
+                    n_class += 1
+        bufs = dict(class_inputs(src, class_rng))
+        docs = [bufs["ascii"][:1500], bufs["class2"][:2048],
+                bufs["mixed"][:700], np.concatenate([
+                    [CLASS_BREAK[src]], bufs["ascii"][:1200]]).astype(
+                        NP_DTYPE[src]), bufs["ascii"][:0],
+                bufs["class2"][:3000]]
+        pk = packing.pack_documents(docs, dtype=NP_DTYPE[src])
+        own, _span = ownership(pk.data, pk.offsets, pk.lengths)
+        own_cpu = tuple(t.cpu() for t in own)
+        raw = torch.zeros(len(pk.data) + 16 // size,
+                          dtype=getattr(torch, NP_DTYPE[src].__name__),
+                          device="cuda")
+        for shift in (0, size, 16 - size):
+            x = raw[shift // size: shift // size + len(pk.data)]
+            x.copy_(torch.from_numpy(pk.data).cuda())
+            for errors in ("strict", "replace"):
+                for validate in (True, False):
+                    kw = dict(src=src, dst=dst, errors=errors,
+                              validate=validate)
+                    hold("rcount", tuple(t.cpu() for t in rt.rcount_kernel(
+                        x, own, **kw)), rt.rcount_plain(
+                            torch.from_numpy(pk.data), own_cpu, **kw),
+                         max_err, "class docs", shift, *kw.values())
+                    n_class += 1
+    torch.cuda.synchronize()
+    report["class_cases"] = n_class
+    log(f"phase 2: {n_class} tile-class cases of count and rcount "
+        f"bit-identical (ASCII, <=2-byte and general tiles, class breakers "
+        f"in the inflow only, views 1-15 bytes past a 16-byte boundary)")
+
     # The legacy kernel surface (kernels/ops.py), against CPython.
     n_legacy = 0
     for fmt, name, arr, n_valid in legacy_inputs(text_cps, legacy_rng):
@@ -869,6 +999,29 @@ def main(argv=None) -> int:
     report["main_size_cases"] = n_main
     log(f"phase 3: {n_main} cases at 64 MiB bit-identical (kernels = "
         f"plain, onepass = fused; onepass launched {REPEATS} times each)")
+    # The count kernel on the 64 MiB buffer as a view 3 bytes past a
+    # 16-byte boundary (no vector loads), and how much of the buffer each
+    # of its tile classes covers.
+    raw = torch.zeros(main_bytes + 16, dtype=torch.uint8, device="cuda")
+    x_off = raw[3: 3 + main_bytes]
+    x_off.copy_(x_main)
+    kw = dict(src="utf8", dst="utf16", errors="strict", validate=True)
+    hold("count", ft.count_kernel(x_off, main_bytes, **kw),
+         ft.count_plain(x_off, main_bytes, **kw), max_err, "64 MiB view +3")
+    del raw, x_off
+    for name, arr in main_inputs[:2]:
+        x = torch.from_numpy(arr).cuda()
+        for errors in ("strict", "replace"):
+            kw = dict(src="utf8", dst="utf16", errors=errors, validate=True)
+            hold("count", ft.count_kernel(x, main_bytes, **kw),
+                 general_count(x, n=main_bytes, **kw), max_err,
+                 "64 MiB general body", name, errors)
+        del x
+    main_classes = class_counts(stages, "utf8", torch.from_numpy(x8))
+    report["main_path"]["tile_classes"] = main_classes
+    log(f"phase 3: 64 MiB tiles by class {main_classes}; count kernel on a "
+        f"view 3 bytes past a 16-byte boundary = plain; count kernel on the "
+        f"main and injected buffers = the general body (no class dispatch)")
 
     # The main ragged batch: ragged_transcode (onepass, fused) and
     # ragged_scan, each with the counts set to 0 just before it.
@@ -948,6 +1101,23 @@ def main(argv=None) -> int:
         "packed_bytes": len(pk.data), "tiles": len(pk.data) // BLOCK,
         "units_out": int(counts.sum()), "injected_docs": len(injected),
         "launches_per_call": per_call, "size_cases": n_rag_main}
+    rag_own = packing.tile_ownership(
+        torch.from_numpy(pk.offsets), torch.from_numpy(pk.lengths),
+        max(1, -(-len(pk.data) // BLOCK)))
+    rag_classes = class_counts(stages, "utf8", torch.from_numpy(pk.data),
+                               rag_own)
+    report["ragged_main"]["tile_classes"] = rag_classes
+    own_rag, _span = ownership(x_rag, pk.offsets, pk.lengths)
+    for name, arr in (("main", None), ("injected", bad_data)):
+        x = x_rag if arr is None else torch.from_numpy(arr).cuda()
+        for errors in ("strict", "replace"):
+            kw = dict(src="utf8", dst="utf16", errors=errors, validate=True)
+            hold("rcount", rt.rcount_kernel(x, own_rag, **kw),
+                 general_count(x, own=own_rag, **kw), max_err,
+                 "ragged general body", name, errors)
+        del x
+    log(f"phase 3: ragged batch tiles by class {rag_classes}; rcount kernel "
+        f"on the main and injected batches = the general body")
     log(f"phase 3: ragged batch of {RAGGED_DOCS} documents "
         f"({int(pk.lengths.sum())} bytes, {len(pk.data) // BLOCK} tiles): "
         f"every valid document = encoder, {len(sample)} sampled = single "
@@ -1234,11 +1404,14 @@ def main(argv=None) -> int:
                     - fa.flash_kernel(q, k, v, window).float()).abs().max()
         flash_t[label] = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "flops": flops,
+                          "bound_by": bound_by,
+                          "bound_label": BOUND_LABEL[dt] if bound_by
+                          == "operations" else bound_by, "flops": flops,
                           "TFLOP_per_s": flops / ms / 1e9,
                           "max_abs_diff_vs_library": lib_diff.item()}
         log(f"phase 4: flash {label:34s} {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s)  bound {bound_ms:.4f} ms ({bound_by})  plain "
+            f"TFLOP/s)  bound {bound_ms:.4f} ms "
+            f"({flash_t[label]['bound_label']})  plain "
             f"{plain_ms:.3f} ms  sdpa {library_ms:.3f} ms (max |diff| "
             f"{lib_diff.item():.3g})  [{smi}]")
         del qt, kt, vt

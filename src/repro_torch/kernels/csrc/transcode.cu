@@ -11,7 +11,8 @@
 //   count_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_count_kernel
 //                         per tile: decode, destination lengths and
 //                         validation, reduced to (total, err_flag,
-//                         first_error).
+//                         first_error); one warp per tile, dispatched
+//                         on the tile's class.
 //   write_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_write_kernel
 //                         per tile: re-decode and store the live units at
 //                         base[tile] + in-tile rank.
@@ -48,14 +49,18 @@
 // What bounds them on the card: the bytes they must move, (bytes read +
 // bytes written) / 3.35 TB/s, is the least time (no tensor-core work, and
 // the card's table of peak rates has no int32 rate).  The design answers
-// that by reading each input element from device memory once per pass
-// (the tile and its halo are staged in shared memory and every neighbour
-// read hits shared memory), widening to int32 only on chip, and storing
-// only live output units, narrowed to the destination type; the count
-// kernel writes 12 bytes per 1024-element tile.  The general lane body
-// is tens of integer instructions per element, well above the int32
-// ALU's few operations per byte of memory bandwidth, so in this simple
-// form instruction issue, not memory, sets the time (PERF.md).
+// that by reading each input element from device memory once per pass,
+// widening to int32 only on chip, and storing only live output units,
+// narrowed to the destination type; the count kernel writes 12 bytes per
+// 1024-element tile.  The lane bodies are tens of integer instructions
+// per element, well above the int32 ALU's few operations per byte of
+// memory bandwidth, so instruction issue, not memory, sets the time
+// (PERF.md).  The count kernel answers that with the reference's per-tile
+// classes (ASCII, <=2-byte, general) and registers in place of a staged
+// tile (see count_kernel); the write and one-pass kernels stage the tile
+// and its halo in shared memory as int32 lanes and run the general body
+// on every tile.  Every kernel reads the Keiser-Lemire nibble tables from
+// its block's shared-memory copy.
 //
 // Semantics are lane for lane those of the reference tile bodies
 // (src/repro/kernels/stages/*.py and src/repro/core/{utf8,utf16}.py):
@@ -96,11 +101,19 @@ template <int F> struct Reach { static constexpr int value = 0; };
 template <> struct Reach<UTF8> { static constexpr int value = 3; };
 template <> struct Reach<UTF16> { static constexpr int value = 1; };
 
-// Keiser-Lemire nibble tables, loaded by transcode_set_tables from
-// src/repro_torch/core/tables.py.
-__constant__ int32_t kByte1High[16];
-__constant__ int32_t kByte1Low[16];
-__constant__ int32_t kByte2High[16];
+// Keiser-Lemire nibble tables (byte_1_high, byte_1_low, byte_2_high, 16
+// entries each), loaded by transcode_set_tables from
+// src/repro_torch/core/tables.py.  Lane bodies never read them here: each
+// block copies them to shared memory (load_kl_tables), since lanes of a
+// warp that look up different constant-memory addresses serialise.
+constexpr int KL_ENTRIES = 48;
+__constant__ int32_t kKL[KL_ENTRIES];
+
+// The block's shared copy of kKL; the caller's next __syncthreads
+// publishes it.
+__device__ __forceinline__ void load_kl_tables(int32_t* tab) {
+  if (threadIdx.x < KL_ENTRIES) tab[threadIdx.x] = kKL[threadIdx.x];
+}
 
 struct Analysis {
   bool starts;   // lane begins a unit
@@ -174,12 +187,40 @@ __device__ __forceinline__ void utf8_decode(const int32_t* s, int32_t& cp,
   cp = !lead ? 0 : len == 1 ? b : utf8_assemble(len, b, s[1], s[2], s[3]);
 }
 
-__device__ __forceinline__ bool utf8_kl_error(const int32_t* s) {
-  const int p3 = s[-3], p2 = s[-2], p1 = s[-1], b = s[0];
-  const int sc = kByte1High[p1 >> 4] & kByte1Low[p1 & 0xF] &
-                 kByte2High[b >> 4];
-  const int must_be_cont = (p2 >= 0xE0 || p3 >= 0xF0) ? 0x80 : 0;
+// tab is the block's shared copy of kKL.  In the <=2-byte class no byte
+// reaches 0xE0, so must_be_cont is 0.
+template <bool C2>
+__device__ __forceinline__ bool utf8_kl_error(const int32_t* s,
+                                              const int32_t* tab) {
+  const int p1 = s[-1];
+  const int sc = tab[p1 >> 4] & tab[16 + (p1 & 0xF)] & tab[32 + (s[0] >> 4)];
+  const int must_be_cont =
+      (!C2 && (s[-2] >= 0xE0 || s[-3] >= 0xF0)) ? 0x80 : 0;
   return (sc ^ must_be_cont) != 0;
+}
+
+// The <=2-byte class (src/repro/kernels/stages/utf8.py analyze2 and
+// decode2): every byte of the tile and of its 3-byte inflow is below
+// 0xE0, so strict lead lengths are 0, 1 or 2, only the 2-byte claim
+// survives and the first continuation's range is 80..BF.  Lanewise equal
+// to utf8_analyze and utf8_decode on such a tile.
+__device__ __forceinline__ Analysis utf8_analyze2(const int32_t* s) {
+  const int p1 = s[-1], b = s[0], n1 = s[1];
+  const int L = b < 0x80 ? 1 : (b >= 0xC2 && b < 0xE0) ? 2 : 0;
+  const bool is_cont = (b & 0xC0) == 0x80;
+  const bool starts = !(p1 >= 0xC2 && p1 <= 0xDF && is_cont);
+  const bool c1ok = (n1 & 0xC0) == 0x80;
+  const bool valid = starts && (L == 1 || (L == 2 && c1ok));
+  int32_t cp = L == 2 ? ((b & 0x1F) << 6) | (n1 & 0x3F) : b;
+  cp = valid ? cp : (starts ? 0xFFFD : 0);
+  return {starts, valid, cp, starts && !valid};
+}
+
+__device__ __forceinline__ void utf8_decode2(const int32_t* s, int32_t& cp,
+                                             bool& lead) {
+  const int b = s[0];
+  lead = b < 0x80 || b >= 0xC0;
+  cp = !lead ? 0 : b < 0x80 ? b : ((b & 0x1F) << 6) | (s[1] & 0x3F);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,19 +296,33 @@ __device__ __forceinline__ int32_t encode_unit(int32_t cp, int j) {
 
 // ---------------------------------------------------------------------------
 // One lane: the reference's decode_once + count_decoded/stage_decoded.
+// C2 selects the <=2-byte class bodies (decode_once2), valid only on a
+// tile of that class; UTF-16 and UTF-32 lanes of the class are their own
+// code points, valid and leads.  tab, the block's Keiser-Lemire tables,
+// is read only for a UTF-8 source under validate.
 
-template <int S, int D>
+template <int S, int D, bool C2 = false>
 __device__ __forceinline__ Lane eval_lane(const int32_t* s, bool live,
-                                          bool replace, bool validate) {
+                                          bool replace, bool validate,
+                                          const int32_t* tab) {
   const bool need_analysis = validate || replace;
   Analysis a{true, true, 0, false};
   int32_t cp = 0;
   bool lead = true;
   bool extra = false;
   if constexpr (S == UTF8) {
-    if (need_analysis) a = utf8_analyze(s);
-    if (validate) extra = utf8_kl_error(s);
-    if (!replace) utf8_decode(s, cp, lead);
+    if (need_analysis) a = C2 ? utf8_analyze2(s) : utf8_analyze(s);
+    if (validate) extra = utf8_kl_error<C2>(s, tab);
+    if (!replace) {
+      if constexpr (C2) {
+        utf8_decode2(s, cp, lead);
+      } else {
+        utf8_decode(s, cp, lead);
+      }
+    }
+  } else if constexpr (C2) {
+    a = {true, true, s[0], false};
+    cp = s[0];
   } else if constexpr (S == UTF16) {
     if (need_analysis) a = utf16_analyze(s);
     if (!replace) utf16_decode(s, cp, lead);
@@ -299,6 +354,11 @@ __device__ __forceinline__ Lane eval_lane(const int32_t* s, bool live,
 struct Flat {
   int n;
   __device__ __forceinline__ int end(int) const { return n; }
+  // Elements of the tile, and of the previous / next tile as its halo,
+  // are read below these limits (and from 0 on); the rest read 0.
+  __device__ __forceinline__ int own_limit(int) const { return n; }
+  __device__ __forceinline__ int prev_limit(int) const { return n; }
+  __device__ __forceinline__ int next_limit(int) const { return n; }
 };
 
 // Tile geometry of a packed batch (src/repro_torch/core/packing.py): len
@@ -313,6 +373,16 @@ struct Packed {
   const int* same_next;
   __device__ __forceinline__ int end(int tile) const {
     return tile_end[tile];
+  }
+  __device__ __forceinline__ int own_limit(int tile) const {
+    return min(len, tile_end[tile]);
+  }
+  __device__ __forceinline__ int prev_limit(int tile) const {
+    return tile > 0 && same_prev[tile] ? min(len, tile_end[tile - 1]) : 0;
+  }
+  __device__ __forceinline__ int next_limit(int tile) const {
+    return tile + 1 < nblk && same_next[tile] ? min(len, tile_end[tile + 1])
+                                              : 0;
   }
 };
 
@@ -361,6 +431,7 @@ template <int S, int D>
 __device__ __forceinline__ void eval_thread(const int32_t* s, int n,
                                             int tile, bool replace,
                                             bool validate,
+                                            const int32_t* tab,
                                             int32_t (&cps)[ITEMS],
                                             int32_t (&units)[ITEMS],
                                             int& err, int& ferr) {
@@ -371,7 +442,7 @@ __device__ __forceinline__ void eval_thread(const int32_t* s, int n,
     const int lane = threadIdx.x * ITEMS + k;
     const int g = tile * TILE + lane;
     const Lane r = eval_lane<S, D>(s + Reach<S>::value + lane, g < n,
-                                   replace, validate);
+                                   replace, validate, tab);
     cps[k] = r.cp;
     units[k] = r.units;
     err |= r.err;
@@ -528,32 +599,246 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
 // The kernels.
 
 // count_kernel<Flat> replaces fused_transcode.py::_count_kernel and
-// count_kernel<Packed> replaces ragged_transcode.py::_rcount_kernel.
-// Reads each input element once and writes 12 bytes per tile; its bytes
-// bound is the input read (plus 12 bytes per tile of ownership when
-// packed).  The per-lane UTF-8 body (subpart analysis, Keiser-Lemire,
-// decode) is tens of integer instructions per byte, so issue rate, not
-// memory, is what this simple form runs into; the tile-class dispatch of
-// ROADMAP.md queue 2a skips most of it on narrow text.
+// count_kernel<Packed> replaces ragged_transcode.py::_rcount_kernel: per
+// 1024-element tile (total, err_flag, first_error), the triples that
+// write_kernel's base offsets and the ragged per-document reduce read.
+// Bytes bound: the input read once plus 12 bytes per tile written (and 12
+// bytes of ownership per tile when packed).
+//
+// One warp per tile, CTILES tiles a block.  Lane l holds elements
+// [32 l, 32 l + 32) of its tile in registers, in its narrow type packed
+// into 32-bit words, loaded with 16-byte vector loads where the buffer
+// starts on a 16-byte boundary and the lane's elements all lie below the
+// tile's limit (element by element otherwise).  A lane takes the Reach<S>
+// elements on either side from its neighbours' words by shuffles; lane 0
+// and lane 31 read the previous and next tile's halo, masked as load_tile
+// masks them.  Lanes widen to int32 in registers only, so the lane bodies
+// are eval_lane's, with the reference's int32 semantics; the nibble tables
+// are a shared-memory copy.  Nothing is staged in shared memory, so there
+// are no bank conflicts and no block barrier after the tables.
+//
+// Each tile takes one of three classes, decided for the whole warp from
+// its words and the Reach<S> elements before the tile (the reference's
+// per-tile dispatch, src/repro/kernels/stages/driver.py): ASCII (every
+// element and the inflow in [0, 0x80): each live lane is one unit and no
+// error, ascii_tile_pred), the <=2-byte class (class2_pred: UTF-8 below
+// 0xE0 with the inflow, UTF-16 below 0x800, UTF-32 in [0, 0x7FF]; none for
+// Latin-1: decode2 and analyze2, with the Keiser-Lemire check still run
+// under validate, since stray continuations and C0/C1 overlongs are
+// errors in this class) and the general body.  Each class is lanewise
+// equal to the general body on the tiles it admits, so the triples are
+// those of the general body.  The bodies are instantiated per errors=
+// policy and validate flag, and evaluate CROUND lanes per unrolled round.
+constexpr int CTILES = THREADS / 32;     // tiles per count block
+constexpr int CITEMS = TILE / 32;        // consecutive elements per lane
+constexpr int CROUND = 8;                // lanes per unrolled round
+
+// A lane's elements of format S packed into 32-bit words.
+template <int S>
+struct Words {
+  using T = typename Storage<S>::T;
+  static constexpr int PER = 4 / static_cast<int>(sizeof(T));
+  static constexpr int N = CITEMS / PER;         // words per lane
+  static constexpr int ROUND = CROUND / PER;     // words per round
+  static constexpr int BITS = 8 * static_cast<int>(sizeof(T));
+  // Element k of word w, widened to int32 as load_tile widens it.
+  static __device__ __forceinline__ int32_t get(uint32_t w, int k) {
+    if constexpr (PER == 1) {
+      return static_cast<int32_t>(w);
+    } else {
+      return static_cast<int32_t>((w >> (BITS * k)) & ((1u << BITS) - 1));
+    }
+  }
+  // Every element of w in the ASCII class: [0, 0x80).
+  static __device__ __forceinline__ bool ascii(uint32_t w) {
+    return (w & (PER == 4 ? 0x80808080u : PER == 2 ? 0xFF80FF80u
+                                                    : 0xFFFFFF80u)) == 0;
+  }
+  // Every element of w in the <=2-byte class.
+  static __device__ __forceinline__ bool class2(uint32_t w) {
+    if constexpr (S == UTF8) {
+      return (w & (w << 1) & (w << 2) & 0x80808080u) == 0;  // no byte >= E0
+    } else if constexpr (S == UTF16) {
+      return (w & 0xF800F800u) == 0;
+    } else if constexpr (S == UTF32) {
+      return (w & 0xFFFFF800u) == 0;
+    } else {
+      return false;
+    }
+  }
+};
+
+// The lane's CITEMS elements from `start`, those below `lim` elements on
+// (0 past it), packed into words.
+template <int S>
+__device__ __forceinline__ void load_words(
+    const typename Storage<S>::T* __restrict__ x, long long start,
+    long long lim, bool vec, uint32_t (&w)[Words<S>::N]) {
+  using W = Words<S>;
+  if (vec && lim >= CITEMS) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + start);
+#pragma unroll
+    for (int i = 0; i < W::N / 4; ++i) {
+      const uint4 v = p[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < W::N; ++i) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < W::PER; ++k) {
+      const int e = i * W::PER + k;
+      if (e < lim) acc |= static_cast<uint32_t>(x[start + e]) << (W::BITS * k);
+    }
+    w[i] = acc;
+  }
+}
+
+// Reach<S> halo elements from `first`, at word positions pos0 on; those
+// outside [0, lim) read 0.
+template <int S>
+__device__ __forceinline__ uint32_t halo_word(
+    const typename Storage<S>::T* __restrict__ x, long long first, int pos0,
+    long long lim) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < Reach<S>::value; ++k) {
+    const long long j = first + k;
+    if (j >= 0 && j < lim) {
+      acc |= static_cast<uint32_t>(x[j]) << (Words<S>::BITS * (pos0 + k));
+    }
+  }
+  return acc;
+}
+
+// One lane's CITEMS elements through the lane body of class C2 (the
+// <=2-byte class or the general one): its units, error flag and first
+// located error.  pw holds the Reach<S> elements before the lane in its
+// last positions, nw those after it in its first.
+template <int S, int D, bool C2, bool REPLACE, bool VALIDATE>
+__device__ __forceinline__ void count_body(
+    uint32_t pw, const uint32_t (&w0)[Words<S>::N], uint32_t nw, int g0,
+    int end, const int32_t* tab, int& tot, int& err, int& ferr) {
+  using W = Words<S>;
+  constexpr int H = Reach<S>::value;
+  uint32_t w[W::N + 1];
+#pragma unroll
+  for (int i = 0; i < W::N; ++i) w[i] = w0[i];
+  w[W::N] = nw;
+  uint32_t prev = pw;
+#pragma unroll 1
+  for (int r = 0; r < CITEMS / CROUND; ++r) {
+    int32_t e[CROUND + 2 * H];
+#pragma unroll
+    for (int k = 0; k < H; ++k) e[k] = W::get(prev, W::PER - H + k);
+#pragma unroll
+    for (int j = 0; j < CROUND; ++j) e[H + j] = W::get(w[j / W::PER], j % W::PER);
+#pragma unroll
+    for (int k = 0; k < H; ++k) e[H + CROUND + k] = W::get(w[W::ROUND], k);
+#pragma unroll
+    for (int j = 0; j < CROUND; ++j) {
+      const int g = g0 + r * CROUND + j;
+      const Lane l = eval_lane<S, D, C2>(e + H + j, g < end, REPLACE,
+                                         VALIDATE, tab);
+      tot += l.units;
+      err |= l.err;
+      if (l.sub) ferr = min(ferr, g);
+    }
+    prev = w[W::ROUND - 1];
+#pragma unroll
+    for (int i = 0; i + W::ROUND <= W::N; ++i) w[i] = w[i + W::ROUND];
+  }
+}
+
+template <int S, int D, bool C2>
+__device__ __forceinline__ void count_lane(
+    uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int g0,
+    int end, bool replace, bool validate, const int32_t* tab, int& tot,
+    int& err, int& ferr) {
+  if (replace) {
+    if (validate) {
+      count_body<S, D, C2, true, true>(pw, w, nw, g0, end, tab, tot, err, ferr);
+    } else {
+      count_body<S, D, C2, true, false>(pw, w, nw, g0, end, tab, tot, err, ferr);
+    }
+  } else if (validate) {
+    count_body<S, D, C2, false, true>(pw, w, nw, g0, end, tab, tot, err, ferr);
+  } else {
+    count_body<S, D, C2, false, false>(pw, w, nw, g0, end, tab, tot, err, ferr);
+  }
+}
+
 template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
-count_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
+count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
              int replace, int validate, int* __restrict__ tot_out,
              int* __restrict__ err_out, int* __restrict__ ferr_out) {
-  __shared__ int32_t s[TILE + 2 * MAX_HALO];
-  __shared__ int red[3 * WARPS];
-  const int tile = blockIdx.x;
-  load_tile<S>(x, geo, tile, s);
-  __syncthreads();
-  int32_t cps[ITEMS], units[ITEMS];
-  int err, ferr;
-  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, cps, units,
-                    err, ferr);
-  int tot = 0;
+  using W = Words<S>;
+  constexpr int H = Reach<S>::value;
+  __shared__ int32_t tab[KL_ENTRIES];
+  if constexpr (S == UTF8) {
+    load_kl_tables(tab);
+    __syncthreads();
+  }
+  const int tile = blockIdx.x * CTILES + (threadIdx.x >> 5);
+  if (tile >= nblk) return;
+  const int lane = threadIdx.x & 31;
+  const long long t0 = static_cast<long long>(tile) * TILE;
+  const long long start = t0 + lane * CITEMS;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  uint32_t w[W::N];
+  load_words<S>(x, start, geo.own_limit(tile) - start, vec, w);
+  uint32_t pw = 0, nw = 0;
+  if constexpr (H > 0) {
+    pw = __shfl_up_sync(0xffffffffu, w[W::N - 1], 1);
+    nw = __shfl_down_sync(0xffffffffu, w[0], 1);
+    if (lane == 0) pw = halo_word<S>(x, t0 - H, W::PER - H, geo.prev_limit(tile));
+    if (lane == 31) nw = halo_word<S>(x, t0 + TILE, 0, geo.next_limit(tile));
+  }
+
+  // The tile's class: its elements, and the Reach<S> elements before it
+  // (lane 0's pw; the other lanes' pw repeat their neighbours' elements).
+  bool ascii = true, c2 = true;
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) tot += units[k];
-  block_reduce(tot, err, ferr, red);
-  if (threadIdx.x == 0) {
+  for (int i = 0; i < W::N; ++i) {
+    ascii = ascii && W::ascii(w[i]);
+    c2 = c2 && W::class2(w[i]);
+  }
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const int32_t v = W::get(pw, W::PER - H + k);
+    ascii = ascii && v >= 0 && v < 0x80;
+    if (S == UTF8) c2 = c2 && v >= 0 && v < 0xE0;
+  }
+  ascii = __all_sync(0xffffffffu, ascii);
+  c2 = __all_sync(0xffffffffu, c2);
+
+  const int end = geo.end(tile);
+  const int g0 = static_cast<int>(start);
+  int tot = 0, err = 0, ferr = IMAX;
+  if (ascii) {
+    tot = max(0, min(CITEMS, end - g0));
+  } else if (c2) {
+    if constexpr (S != LATIN1) {
+      count_lane<S, D, true>(pw, w, nw, g0, end, replace, validate, tab, tot,
+                             err, ferr);
+    }
+  } else {
+    count_lane<S, D, false>(pw, w, nw, g0, end, replace, validate, tab, tot,
+                            err, ferr);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    err |= __shfl_xor_sync(0xffffffffu, err, o);
+    ferr = min(ferr, __shfl_xor_sync(0xffffffffu, ferr, o));
+  }
+  if (lane == 0) {
     tot_out[tile] = tot;
     err_out[tile] = err;
     ferr_out[tile] = ferr;
@@ -578,8 +863,8 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, geo.end(tile), tile, replace, false, cps, units, err,
-                    ferr);
+  eval_thread<S, D>(s, geo.end(tile), tile, replace, false, nullptr, cps,
+                    units, err, ferr);
   int mine = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) mine += units[k];
@@ -610,6 +895,7 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
                int* __restrict__ fin,
                typename Storage<D>::T* __restrict__ out) {
   __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int32_t tab[KL_ENTRIES];
   __shared__ int sums[WARPS];
   __shared__ int red[3 * WARPS];
   __shared__ int s_tile, s_base;
@@ -617,10 +903,11 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
   __syncthreads();
   const int tile = s_tile;
   load_tile<S>(x, geo, tile, s);
+  if constexpr (S == UTF8) load_kl_tables(tab);
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, geo.n, tile, replace, validate, cps, units, err,
+  eval_thread<S, D>(s, geo.n, tile, replace, validate, tab, cps, units, err,
                     ferr);
   int mine = 0;
 #pragma unroll
@@ -666,6 +953,7 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
                 int* __restrict__ err_out, int* __restrict__ ferr_out,
                 typename Storage<D>::T* __restrict__ out) {
   __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  __shared__ int32_t tab[KL_ENTRIES];
   __shared__ int sums[WARPS];
   __shared__ int red[3 * WARPS];
   __shared__ int s_tile, s_base;
@@ -673,11 +961,12 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
   __syncthreads();
   const int tile = s_tile;
   load_tile<S>(x, geo, tile, s);
+  if constexpr (S == UTF8) load_kl_tables(tab);
   __syncthreads();
   int32_t cps[ITEMS], units[ITEMS];
   int err, ferr;
-  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, cps, units,
-                    err, ferr);
+  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, tab, cps,
+                    units, err, ferr);
   int mine = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) mine += units[k];
@@ -751,21 +1040,16 @@ __device__ __forceinline__ int legacy_seq_len(int b) {
        : b < 0xF0 ? 3 : b < 0xF8 ? 4 : 0;
 }
 
-// Replaces utf8_validate.py::utf8_validate_kernel.  The nibble tables are
-// copied from constant memory into shared memory, where lanes that look
-// up different entries do not serialise.
+// Replaces utf8_validate.py::utf8_validate_kernel, on the block's shared
+// copy of the nibble tables.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 validate_kernel(const T* __restrict__ x, int n, int* __restrict__ errs) {
   __shared__ int32_t s[MAX_HALO + TILE];
-  __shared__ int32_t tab[48];
+  __shared__ int32_t tab[KL_ENTRIES];
   __shared__ int red[WARPS];
   const int tile = blockIdx.x;
-  if (threadIdx.x < 16) {
-    tab[threadIdx.x] = kByte1High[threadIdx.x];
-    tab[16 + threadIdx.x] = kByte1Low[threadIdx.x];
-    tab[32 + threadIdx.x] = kByte2High[threadIdx.x];
-  }
+  load_kl_tables(tab);
   load_legacy<T, MAX_HALO, 0>(x, n, tile, s);
   __syncthreads();
   int err = INT32_MIN;
@@ -873,9 +1157,9 @@ encode_kernel(const T* __restrict__ x, int n, int len,
 template <int S, int D, class G>
 int launch_count(const void* x, G geo, int nblk, int replace, int validate,
                  int* tot, int* err, int* ferr, cudaStream_t stream) {
-  count_kernel<S, D, G><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), geo, replace, validate,
-      tot, err, ferr);
+  count_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace,
+      validate, tot, err, ferr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -970,9 +1254,11 @@ extern "C" {
 int transcode_set_tables(const int32_t* byte_1_high, const int32_t* byte_1_low,
                          const int32_t* byte_2_high) {
   const size_t bytes = 16 * sizeof(int32_t);
-  cudaError_t rc = cudaMemcpyToSymbol(kByte1High, byte_1_high, bytes);
-  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kByte1Low, byte_1_low, bytes);
-  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kByte2High, byte_2_high, bytes);
+  cudaError_t rc = cudaMemcpyToSymbol(kKL, byte_1_high, bytes, 0);
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kKL, byte_1_low, bytes, bytes);
+  if (rc == cudaSuccess) {
+    rc = cudaMemcpyToSymbol(kKL, byte_2_high, bytes, 2 * bytes);
+  }
   return static_cast<int>(rc);
 }
 

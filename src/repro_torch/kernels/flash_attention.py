@@ -8,11 +8,14 @@ triangle and, under a window, the tiles wholly below it are skipped.  A
 row with no live key in that range gets the uniform average of its
 values (every score is ``NEG_INF``), as in the reference.
 
-The CUDA kernels (``kernels/csrc/flash_attention.cu``) run on a CUDA
-tensor, :func:`flash_plain` on a CPU tensor: bf16 on the tensor cores
-(wgmma, with K/V staged by TMA), f32 on the FMA pipes.  The wrapper keeps
-a launch count (``flash_kernel.launches``).  GQA is expanded by the caller
-(q head ``h`` reads KV head ``h // g``), as in the reference.
+A CPU tensor runs :func:`flash_plain`.  A CUDA tensor runs one of the two
+CUDA kernels (``kernels/csrc/flash_attention.cu``).  Both kernels run on
+the tensor cores, with Q, K and V staged by TMA: the bf16 kernel on bf16
+wgmma, the f32 kernel on TF32 wgmma with every operand split into a high
+and a low TF32 part (3xTF32, about 21 bits of each product).  The
+wrapper keeps a launch count (``flash_kernel.launches``).  GQA is
+expanded by the caller (q head ``h`` reads KV head ``h // g``), as in
+the reference.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ NEG_INF = -1e30
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 80, 128)
-KERNEL_ROWS = 64     # query rows per f32 block or bf16 warpgroup (bq must
-                     # be a multiple)
+KERNEL_ROWS = 64     # query rows per warpgroup (bq must be a multiple)
 KERNEL_KEYS = 32     # bk must be a multiple: the f32 kernel's key chunk
                      # (the bf16 kernel's 64-key chunks exclude keys
                      # outside [lo*bk, hi*bk) explicitly)
@@ -108,10 +110,10 @@ def flash_kernel(q, k, v, window=None, bq: int = BQ, bk: int = BK):
             raise ValueError(
                 f"flash_kernel: {name} must be a contiguous float32 or "
                 f"bfloat16 CUDA tensor like q, got {t.dtype} on {t.device}")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(
-                f"flash_kernel: bfloat16 {name} must start on a 16-byte "
-                f"boundary (the kernel's TMA copies need it)")
+                f"flash_kernel: {name} must start on a 16-byte boundary "
+                f"(the kernels' TMA copies need it)")
     if d not in KERNEL_HEAD_DIMS or bq % KERNEL_ROWS or bk % KERNEL_KEYS:
         raise ValueError(
             f"flash_kernel: takes head dims {KERNEL_HEAD_DIMS}, bq a "

@@ -68,12 +68,13 @@ def status(errs, ferrs, validate: bool):
 def count_plain(x, n: int, *, src: str, dst: str, errors: str,
                 validate: bool):
     """Plain version of the count kernel: per-tile ``(total, err,
-    first_err)`` as three ``(nblk,)`` int32 tensors."""
+    first_err)`` as three ``(nblk,)`` int32 tensors, with the kernel's
+    per-tile class dispatch."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.tiles(x, n)
-    return stages.count_tile(codec_s, codec_d, t, tp, tn, gidx < n, gidx,
-                             validation_tables(codec_s, x.device),
-                             errors=errors, validate=validate)
+    return stages.count_classes(codec_s, codec_d, t, tp, tn, gidx < n, gidx,
+                                validation_tables(codec_s, x.device),
+                                errors=errors, validate=validate)
 
 
 def count_kernel(x, n: int, *, src: str, dst: str, errors: str,

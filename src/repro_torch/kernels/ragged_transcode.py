@@ -137,14 +137,15 @@ def _ptrs(own):
 def rcount_plain(x, own, *, src: str, dst: str, errors: str,
                  validate: bool):
     """Plain version of the ragged count kernel: per-tile ``(total, err,
-    first_err)`` as three ``(nblk,)`` int32 tensors.  ``own`` is the
-    4-tuple of :func:`repro_torch.core.packing.tile_ownership`."""
+    first_err)`` as three ``(nblk,)`` int32 tensors, with the kernel's
+    per-tile class dispatch.  ``own`` is the 4-tuple of
+    :func:`repro_torch.core.packing.tile_ownership`."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.ragged_tiles(x, *own[1:])
-    return stages.count_tile(codec_s, codec_d, t, tp, tn,
-                             gidx < own[1][:, None], gidx,
-                             ft.validation_tables(codec_s, x.device),
-                             errors=errors, validate=validate)
+    return stages.count_classes(codec_s, codec_d, t, tp, tn,
+                                gidx < own[1][:, None], gidx,
+                                ft.validation_tables(codec_s, x.device),
+                                errors=errors, validate=validate)
 
 
 def rcount_kernel(x, own, *, src: str, dst: str, errors: str,

@@ -18,8 +18,9 @@ from repro_torch.kernels.stages import utf16 as s_utf16
 from repro_torch.kernels.stages import utf32 as s_utf32
 from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import (  # noqa: F401  (re-export)
-    BLOCK, Codec, count_decoded, count_tile, decode_once, num_tiles,
-    place_units, ragged_tiles, stage_decoded, stage_units, tiles,
+    ASCII, BLOCK, CLASS2, GENERAL, Codec, ascii_tile_pred, count_classes,
+    count_decoded, count_tile, decode_once, num_tiles, place_units,
+    ragged_tiles, stage_decoded, stage_units, tile_class, tiles,
     write_stage)
 
 UTF8 = Codec(
@@ -35,6 +36,9 @@ UTF8 = Codec(
     tables=(T.BYTE_1_HIGH, T.BYTE_1_LOW, T.BYTE_2_HIGH),
     extra_err=s_utf8.kl_error_tile,
     max_lookback=3,
+    class2_pred=s_utf8.class2_pred,
+    decode2=s_utf8.decode2,
+    analyze2=s_utf8.analyze2,
 )
 
 UTF16 = Codec(
@@ -49,6 +53,9 @@ UTF16 = Codec(
     py_unit_len=s_utf16.py_unit_len,
     # Only a trailing high surrogate can reach across a tile boundary.
     max_lookback=1,
+    class2_pred=s_utf16.class2_pred,
+    decode2=s_utf16.decode2,
+    analyze2=s_utf16.analyze2,
 )
 
 UTF32 = Codec(
@@ -63,6 +70,9 @@ UTF32 = Codec(
     py_unit_len=s_utf32.py_unit_len,
     # Fixed-width source: characters never span a tile boundary.
     max_lookback=0,
+    class2_pred=s_utf32.class2_pred,
+    decode2=s_utf32.decode2,
+    analyze2=s_utf32.analyze2,
 )
 
 LATIN1 = Codec(
@@ -76,6 +86,8 @@ LATIN1 = Codec(
     max_speculative_cp=s_latin1.MAX_SPECULATIVE_CP,
     py_unit_len=s_latin1.py_unit_len,
     encode_bad=s_latin1.encode_bad,
+    # Fixed-width source; its general body is already 2-byte-max work, so
+    # it has no ≤2-byte class.
     max_lookback=0,
 )
 

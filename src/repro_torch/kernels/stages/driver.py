@@ -18,8 +18,19 @@ The bodies run on a batch of tiles at once: ``x``, ``xp`` and ``xn`` are
 ``(nblk, BLOCK)`` int32 tensors holding every tile, its previous tile and
 its next tile (zero beyond the stream).  They are the plain versions the
 CUDA kernels of ``repro_torch/kernels/csrc/transcode.cu`` are held
-against, lane for lane.  The reference's ≤2-byte and ASCII tile classes
-are lanewise identical to the general body and are not ported yet.
+against, lane for lane.
+
+  class side    ``max_lookback`` (how far a character can claim backward
+                across a tile boundary) and the optional ≤2-byte tile
+                class (``class2_pred`` / ``decode2`` / ``analyze2``):
+                a per-tile predicate plus bodies with no 3-/4-unit
+                assembly and no surrogate folding.
+
+:func:`count_classes` is the count pass with the reference's per-tile
+dispatch (``onepass_tile``): ASCII tiles (:func:`ascii_tile_pred`),
+≤2-byte tiles and the rest.  Each class is lanewise identical to the
+general body on the tiles it admits, so the per-tile triples equal
+:func:`count_tile`'s; the count kernels dispatch the same way.
 
 Stage widths are derived, never hand-sized: the speculative worst case is
 ``dst.py_unit_len(src.max_speculative_cp)`` units per source lane
@@ -61,6 +72,12 @@ class Codec(NamedTuple):
     # kernels' halo (``Reach<>`` in csrc/transcode.cu) is held equal to it
     # by tests/test_torch_contract.py.
     max_lookback: int = 3
+    # ≤2-byte tile class (None disables it, as for Latin-1):
+    # ``class2_pred(x, xp)`` is True per tile only where decode2/analyze2
+    # are lanewise identical to decode/analyze.
+    class2_pred: Optional[Callable] = None   # (x, xp) -> bool per tile
+    decode2: Optional[Callable] = None       # (x, xp, xn) -> (cp, is_lead)
+    analyze2: Optional[Callable] = None      # (x, xp, xn) -> analysis dict
 
 
 def stage_units(src: Codec, dst: Codec) -> int:
@@ -119,20 +136,25 @@ def _encode_err(dst: Codec, a, live):
     return (a["err"] | (dst.encode_bad(a["cp"]) & a["starts"])) & live
 
 
-def decode_once(src: Codec, x, xp, xn, *, errors: str, validate: bool):
+def decode_once(src: Codec, x, xp, xn, *, errors: str, validate: bool,
+                class2: bool = False):
     """The one speculative decode / analysis of the tiles.
 
     Returns ``(a, cp, lead)``: the maximal-subpart analysis (``None``
     when neither validation nor replacement needs it), the per-lane code
     point and the unit-start mask.  Under ``errors="replace"`` the code
     points and starts come from the analysis; under ``"strict"`` from the
-    raw speculative decode.
+    raw speculative decode.  ``class2`` runs the ≤2-byte class bodies
+    (``src.analyze2`` / ``src.decode2``), valid only on tiles where
+    ``src.class2_pred`` holds.
     """
+    analyze, decode = ((src.analyze2, src.decode2) if class2
+                       else (src.analyze, src.decode))
     need_analysis = validate or errors == "replace"
-    a = src.analyze(x, xp, xn) if need_analysis else None
+    a = analyze(x, xp, xn) if need_analysis else None
     if errors == "replace":
         return a, a["cp"], a["starts"]
-    cp, is_lead = src.decode(x, xp, xn)
+    cp, is_lead = decode(x, xp, xn)
     return a, cp, is_lead
 
 
@@ -159,6 +181,59 @@ def count_decoded(src: Codec, dst: Codec, a, cp, lead, x, xp, live, gidx,
         err_flag = torch.zeros_like(tot)
         ferr = torch.full_like(tot, _IMAX)
     return tot, err_flag, ferr
+
+
+def ascii_tile_pred(x, xp, lookback: int = 3):
+    """Per tile: every lane in ``[0, 0x80)`` and so are the last
+    ``lookback`` lanes of the previous tile (``src.max_lookback``), the
+    only ones whose characters or error subparts can reach into the tile.
+    The lower bound matters: a garbage UTF-32 scalar such as 0xFFFFFFFF
+    is negative as an int32 lane."""
+    ok = ((x >= 0) & (x < 0x80)).all(dim=-1)
+    if lookback > 0:
+        tail = xp[..., -lookback:]
+        ok = ok & ((tail >= 0) & (tail < 0x80)).all(dim=-1)
+    return ok
+
+
+ASCII, CLASS2, GENERAL = 0, 1, 2
+
+
+def tile_class(src: Codec, x, xp):
+    """Each tile's class, ``(nblk,)`` int64: :data:`ASCII`,
+    :data:`CLASS2` (the source's ≤2-byte class) or :data:`GENERAL`."""
+    cls = torch.full(x.shape[:-1], GENERAL, dtype=torch.int64,
+                     device=x.device)
+    if src.class2_pred is not None:
+        cls[src.class2_pred(x, xp)] = CLASS2
+    cls[ascii_tile_pred(x, xp, src.max_lookback)] = ASCII
+    return cls
+
+
+def count_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables, *,
+                  errors: str, validate: bool):
+    """:func:`count_tile` with the per-tile class dispatch of the count
+    kernels: an ASCII tile counts one unit per live lane and no error; a
+    ≤2-byte tile runs the class bodies (the Keiser-Lemire check still
+    rides along under ``validate``: the reference's one-pass class body
+    drops it, but the per-tile flag must stay :func:`count_tile`'s, since
+    KL flags a bad pair at its second byte, possibly in the next tile);
+    the rest the general body.  Equal to :func:`count_tile` per tile."""
+    cls = tile_class(src, x, xp)
+    tot = live.sum(dim=-1, dtype=torch.int32)
+    err = torch.zeros_like(tot)
+    ferr = torch.full_like(tot, _IMAX)
+    for c in (CLASS2, GENERAL):
+        sel = cls == c
+        if not bool(sel.any()):
+            continue
+        parts = [t[sel] for t in (x, xp, xn, live, gidx)]
+        a, cp, lead = decode_once(src, *parts[:3], errors=errors,
+                                  validate=validate, class2=c == CLASS2)
+        tot[sel], err[sel], ferr[sel] = count_decoded(
+            src, dst, a, cp, lead, parts[0], parts[1], parts[3], parts[4],
+            tables, validate=validate)
+    return tot, err, ferr
 
 
 def stage_decoded(src: Codec, dst: Codec, cp, lead, instream):

@@ -3,7 +3,8 @@
 Port of ``repro.kernels.stages.latin1``.  Decoding is a widening copy
 that can never fail; encoding substitutes ``?`` for code points above
 U+00FF (the offender's offset surfaces in ``status`` through the
-driver's encode-error map).
+driver's encode-error map).  It has no ≤2-byte tile class
+(``class2_pred`` is None): its general body is already that cheap.
 """
 
 from __future__ import annotations

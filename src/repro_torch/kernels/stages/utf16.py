@@ -1,8 +1,8 @@
 """UTF-16 codec stages: tile decode (surrogate-pair folding) + candidate
 code-unit encode.
 
-Port of ``repro.kernels.stages.utf16`` without the ≤2-byte tile class,
-with the legacy ``encode_tile`` of the standalone UTF-16 encode kernel.
+Port of ``repro.kernels.stages.utf16``, with its ≤2-byte tile class and
+the legacy ``encode_tile`` of the standalone UTF-16 encode kernel.
 """
 
 from __future__ import annotations
@@ -55,6 +55,29 @@ def encode_tile(u, up, un):
     prv_is_hi = (shift_right_flat(u, up, 1) >> 10) == 0x36
     err_map = (is_hi & ~nxt_is_lo) | (is_lo & ~prv_is_hi)
     return b0, b1, b2, b3, L, err_map
+
+
+# ---------------------------------------------------------------------------
+# ≤2-byte tile class: units below 0x800 carry no surrogate halves, so
+# decode is the identity and analysis is all-valid.  No inflow check is
+# needed: a unit below 0x800 is never a low surrogate, so a trailing high
+# surrogate of the previous tile cannot claim into the tile.
+
+
+def class2_pred(u, up):
+    del up
+    return ((u >= 0) & (u < 0x800)).all(dim=-1)
+
+
+def decode2(u, up, un):
+    del up, un
+    return u, torch.ones(u.shape, dtype=torch.bool, device=u.device)
+
+
+def analyze2(u, up, un):
+    del up, un
+    ones = torch.ones(u.shape, dtype=torch.bool, device=u.device)
+    return {"starts": ones, "valid": ones, "cp": u, "err": ~ones}
 
 
 def unit_len(cp):

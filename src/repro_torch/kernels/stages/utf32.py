@@ -1,7 +1,7 @@
 """UTF-32 codec stages.
 
-Port of ``repro.kernels.stages.utf32`` without the ≤2-byte tile class.
-Decoding is a per-lane scalar-range check; the strict decode substitutes
+Port of ``repro.kernels.stages.utf32``.  Decoding is a per-lane
+scalar-range check; the strict decode substitutes
 U+FFFD for invalid scalars in the buffer (``status`` still locates the
 first offender).  Encoding is the identity.
 """
@@ -32,6 +32,26 @@ def analyze_tile(x, xp, xn):
         "cp": torch.where(bad, 0xFFFD, x),
         "err": bad,
     }
+
+
+# ≤2-byte tile class: scalars in [0, 0x7FF] are always valid, so both class
+# bodies are the identity and the range check is the class predicate.
+
+
+def class2_pred(x, xp):
+    del xp
+    return ((x >= 0) & (x <= 0x7FF)).all(dim=-1)
+
+
+def decode2(x, xp, xn):
+    del xp, xn
+    return x, torch.ones(x.shape, dtype=torch.bool, device=x.device)
+
+
+def analyze2(x, xp, xn):
+    del xp, xn
+    ones = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    return {"starts": ones, "valid": ones, "cp": x, "err": ~ones}
 
 
 def unit_len(cp):

@@ -1,11 +1,12 @@
 """UTF-8 codec stages: tile decode (source side) + candidate-byte encode
 (destination side).
 
-Port of ``repro.kernels.stages.utf8`` without the ≤2-byte tile class.
-The decode side is the speculative block-parallel decode (every byte
-treated as a lead, paper Figs. 2-4 bit surgery) plus the shared
-maximal-subpart analysis, and the legacy per-position ``decode_tile``
-of the standalone decode kernel.  The encode side is the paper §5
+Port of ``repro.kernels.stages.utf8``.  The decode side is the
+speculative block-parallel decode (every byte treated as a lead, paper
+Figs. 2-4 bit surgery) plus the shared maximal-subpart analysis, their
+≤2-byte tile-class restrictions (``class2_pred``, ``decode2``,
+``analyze2``), and the legacy per-position ``decode_tile`` of the
+standalone decode kernel.  The encode side is the paper §5
 candidate byte production.  All are functions of int32 lanes.
 """
 
@@ -121,6 +122,50 @@ def kl_error_tile(b, bp, byte_1_high, byte_1_low, byte_2_high):
     :func:`kl_values`): the UTF-8 codec's extra validation, folded into
     the count pass's error flag."""
     return kl_values(b, bp, byte_1_high, byte_1_low, byte_2_high) != 0
+
+
+# ---------------------------------------------------------------------------
+# ≤2-byte tile class (the count kernel's per-tile dispatch): the
+# restriction of the bodies above to tiles where every byte, and the
+# 3-byte inflow window, is below 0xE0.  No 3-/4-byte assembly, one lane of
+# claim context instead of three.
+
+
+def class2_pred(b, bp):
+    """Per tile of ``(nblk, BLOCK)``: True when the tile and the last 3
+    lanes of its previous tile hold only ASCII, 2-byte leads, stray
+    continuations and the C0/C1 overlongs.  There :func:`decode2` and
+    :func:`analyze2` are lanewise equal to :func:`speculative_decode` and
+    :func:`analyze_tile`."""
+    tail = bp[..., -3:]
+    return (((b >= 0) & (b < 0xE0)).all(dim=-1)
+            & ((tail >= 0) & (tail < 0xE0)).all(dim=-1))
+
+
+def decode2(b, bp, bn):
+    """Class-specialized speculative decode: 1-/2-byte assembly only."""
+    del bp
+    b1 = shift_left_flat(b, bn, 1)
+    cp = torch.where(b < 0x80, b, ((b & 0x1F) << 6) | (b1 & 0x3F))
+    is_lead = (b < 0x80) | (b >= 0xC0)
+    return torch.where(is_lead, cp, 0), is_lead
+
+
+def analyze2(b, bp, bn):
+    """Class-specialized maximal-subpart analysis: with every byte below
+    0xE0, strict lead lengths are 0/1/2, only the 2-byte claim survives
+    and the first continuation's range is 80..BF."""
+    nxt1 = shift_left_flat(b, bn, 1)
+    prv1 = shift_right_flat(b, bp, 1)
+    L = torch.where(b < 0x80, 1, torch.where((b >= 0xC2) & (b < 0xE0), 2, 0))
+    is_cont = (b & 0xC0) == 0x80
+    starts = ~((prv1 >= 0xC2) & (prv1 <= 0xDF) & is_cont)
+    c1ok = (nxt1 & 0xC0) == 0x80
+    valid = starts & ((L == 1) | ((L == 2) & c1ok))
+    cp = torch.where(L == 2, ((b & 0x1F) << 6) | (nxt1 & 0x3F), b)
+    cp = torch.where(valid, cp, torch.where(starts, 0xFFFD, 0))
+    return {"starts": starts, "valid": valid, "cp": cp.to(torch.int32),
+            "err": starts & ~valid}
 
 
 # ---------------------------------------------------------------------------

@@ -17,31 +17,17 @@ from repro.core import transcode as tc
 from repro.data import synthetic
 
 import repro_torch
+from _torch_classes import DT, encode_text
 from repro_torch.core import transcode as ttc
 
 BLOCK = 1024
 N = 3 * BLOCK + 5          # fixed padded length of every test input
-DT = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
-      "latin1": np.uint8}
 GEN_HI = {"utf8": 256, "utf16": 1 << 16, "utf32": 0x110000, "latin1": 256}
 PROFILES = tuple(synthetic.LANG_PROFILES)
 
 
 def cells_from(src: str):
     return [p for p in tc.PAIRS if p[0] == src]
-
-
-def encode_text(cps: np.ndarray, fmt: str) -> np.ndarray:
-    """Code points -> the format's storage units (Latin-1 keeps the low
-    byte of each code point)."""
-    text = "".join(map(chr, cps))
-    if fmt == "utf8":
-        return np.frombuffer(text.encode("utf-8"), np.uint8)
-    if fmt == "utf16":
-        return np.frombuffer(text.encode("utf-16-le"), np.uint16)
-    if fmt == "utf32":
-        return np.asarray(cps, np.uint32)
-    return (np.asarray(cps) & 0xFF).astype(np.uint8)
 
 
 def padded(arr: np.ndarray, fmt: str):

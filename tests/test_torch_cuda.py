@@ -15,7 +15,10 @@ document), the ragged kernels must equal ``rcount_plain``,
 ``rwrite_plain`` and ``ronepass_plain``.  The legacy validate, decode and
 encode kernels must equal their plain versions bit for bit (narrow and
 int32 input, ``n`` below the length), and the flash kernel its plain
-version within the reference tests' tolerances.  The one-pass kernels'
+version within the reference tests' tolerances.  The count kernels are
+also held to theirs on tiles of each class (ASCII, ≤2-byte, general),
+with a class-breaking unit only in a tile's inflow, and on views that
+start 1-15 bytes past a 16-byte boundary (the vector loads' fallback).  The one-pass kernels'
 decoupled look-back is launched 20 times over at tile counts around its
 32-tile window, each launch bit-identical to fused and to plain.
 """
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_classes as C
 import repro_torch
 from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
@@ -85,6 +89,75 @@ def test_kernels_match_plain_on_card(src, dst):
                         op.onepass_plain(x, n, cap, src=src, dst=dst,
                                          errors=errors, validate=validate)):
                     assert torch.equal(a, b), ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_count_kernels_match_plain_on_tile_classes(src, dst):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    classes = set()
+    for name, arr in C.class_buffers(src, seed=65):
+        x = torch.from_numpy(arr)
+        t, tp, _tn, _g = stages.tiles(x, len(arr))
+        classes |= set(stages.tile_class(stages.get_codec(src), t,
+                                         tp).tolist())
+        size = x.element_size()
+        for n in (len(arr), len(arr) - 700):
+            for errors in ("strict", "replace"):
+                for validate in (True, False):
+                    kw = dict(src=src, dst=dst, errors=errors,
+                              validate=validate)
+                    plain = ft.count_plain(x, n, **kw)
+                    for shift in range(0, 16, size):
+                        # A view starting `shift` bytes past a 16-byte
+                        # boundary.
+                        raw = torch.zeros(len(arr) + 16 // size,
+                                          dtype=x.dtype, device="cuda")
+                        view = raw[shift // size: shift // size + len(arr)]
+                        view.copy_(x.cuda())
+                        assert view.data_ptr() % 16 == shift
+                        kern = ft.count_kernel(view, n, **kw)
+                        for a, b in zip(kern, plain):
+                            assert torch.equal(a.cpu(), b), \
+                                (name, shift, n, errors, validate)
+    want = {stages.ASCII, stages.GENERAL} | (
+        set() if src == "latin1" else {stages.CLASS2})
+    assert classes == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_rcount_kernel_matches_plain_on_tile_classes(src, dst):
+    """Documents of each class, some ending mid-tile (the next tile's
+    inflow reads 0) and one starting with a class-breaking unit; the
+    packed data also as a view 1-15 bytes past a 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    bufs = dict(C.class_buffers(src, seed=66))
+    docs = [bufs["ascii"][:1500], bufs["class2"][:2048],
+            bufs["mixed"][:700],
+            np.concatenate([[C.BREAK[src]], bufs["ascii"][:1200]]).astype(
+                DT[src]), bufs["ascii"][:0], bufs["class2"][:3000]]
+    pk = packing.pack_documents(docs, dtype=DT[src])
+    x = torch.from_numpy(pk.data)
+    nblk = stages.num_tiles(len(pk.data))
+    own_cpu = packing.tile_ownership(torch.from_numpy(pk.offsets),
+                                     torch.from_numpy(pk.lengths), nblk)
+    own = tuple(t.cuda() for t in own_cpu)
+    size = x.element_size()
+    for shift in (0, size, 16 - size):
+        raw = torch.zeros(len(pk.data) + 16 // size, dtype=x.dtype,
+                          device="cuda")
+        view = raw[shift // size: shift // size + len(pk.data)]
+        view.copy_(x.cuda())
+        for errors in ("strict", "replace"):
+            for validate in (True, False):
+                kw = dict(src=src, dst=dst, errors=errors, validate=validate)
+                kern = rt.rcount_kernel(view, own, **kw)
+                plain = rt.rcount_plain(x, own_cpu, **kw)
+                for a, b in zip(kern, plain):
+                    assert torch.equal(a.cpu(), b), (shift, errors, validate)
 
 
 @pytest.mark.cuda
@@ -348,8 +421,9 @@ def test_legacy_and_flash_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.flash_kernel(q, q, q)
-    # bf16 tensors reach the kernel through TMA, from 16-byte boundaries.
-    q = torch.zeros(128 * 2 * 64 + 1, device="cuda",
-                    dtype=torch.bfloat16)[1:].view(1, 128, 2, 64)
-    with pytest.raises(ValueError):
-        fa.flash_kernel(q, q, q)
+    # Both kernels read q, k and v through TMA, from 16-byte boundaries.
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(128 * 2 * 64 + 1, device="cuda",
+                        dtype=dtype)[1:].view(1, 128, 2, 64)
+        with pytest.raises(ValueError):
+            fa.flash_kernel(q, q, q)

@@ -6,9 +6,10 @@ version.
 Tolerances are the reference tests' (``tests/test_flash_attention.py``):
 ``atol=2e-5, rtol=1e-4`` in f32, where only the order of the f32 sums
 differs, and ``3e-2`` in bf16, where the output is rounded to 8 bits of
-mantissa.  Inputs are made with numpy from a seed.  A plain-torch model
-of the bf16 CUDA kernel's arithmetic is held to the kernel's on-card
-tolerance against ``flash_plain``.
+mantissa.  Inputs are made with numpy from a seed.  Plain-torch models
+of the CUDA kernels' arithmetic are held to the kernels' on-card
+tolerances against ``flash_plain``: the bf16 kernel's, and the f32
+kernel's error-compensated TF32 products (3xTF32).
 """
 
 import math
@@ -126,6 +127,99 @@ def test_tc_kernel_model_needs_p_split():
     got = _tc_kernel_model(q, k, v, None, split=False).float()
     want = fa.flash_plain(q, k, v).float()
     assert ((got - want).abs() > 1e-4 + 1e-2 * want.abs()).any()
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` in plain torch: an f32 rounded to 10 mantissa
+    bits, to nearest with ties away from zero (add half of the dropped
+    13 bits to the magnitude, then clear them)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_kernel_model(q, k, v, window, bq=fa.BQ, bk=fa.BK, split=True):
+    """The f32 tensor-core kernel's arithmetic (``flash_tf32_kernel`` in
+    ``kernels/csrc/flash_attention.cu``) in plain torch: q scaled in f32
+    first, then every operand split into hi = tf32(a) and lo = tf32(a -
+    hi), each product hi*lo + lo*hi + hi*hi (lo*lo dropped); 64-row query
+    blocks and 32-key chunks over the reference's key range, an online
+    softmax on exp2, P split like the operands.  With ``split`` false,
+    one TF32 product of the rounded operands."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    heads = lambda t: t.permute(0, 2, 1, 3).reshape(b * h, -1, d).float()  # noqa: E731
+    qf = heads(q) * (1.0 / math.sqrt(d))
+    kf, vf = heads(k), heads(v)
+    log2e = math.log2(math.e)
+
+    def parts(a):
+        hi = tf32_rna(a)
+        return hi, tf32_rna(a - hi) if split else torch.zeros_like(a)
+
+    def product(x, y):
+        (xh, xl), (yh, yl) = parts(x), parts(y)
+        return xh @ yl + xl @ yh + xh @ yh
+
+    out = torch.zeros(b * h, sq, d)
+    for r0 in range(0, sq, 64):
+        lo, hi = fa.tile_range(r0 // bq, bq, bk, sk // bk, window)
+        rows = torch.arange(r0, r0 + 64)[:, None]
+        m = torch.full((b * h, 64, 1), fa.NEG_INF)
+        l = torch.zeros(b * h, 64, 1)
+        acc = torch.zeros(b * h, 64, d)
+        for kc in range(lo * bk, hi * bk, 32):
+            keys = torch.arange(kc, kc + 32)[None]
+            s = product(qf[:, r0:r0 + 64], kf[:, kc:kc + 32].transpose(1, 2))
+            live = keys <= rows
+            if window is not None:
+                live &= rows - keys < window
+            s = torch.where(live, s, fa.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * log2e)
+            p = torch.exp2((s - m_new) * log2e)
+            m, l = m_new, l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + product(p, vf[:, kc:kc + 32])
+        out[:, r0:r0 + 64] = acc / l.clamp_min(1e-30)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                   # a TF32 ulp at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2e-7,
+                      one + 3 * ulp / 2, 3.0e-3, 0.0])
+    got = tf32_rna(x)
+    assert got.tolist()[:4] == [one + ulp, -(one + ulp), one, one + 2 * ulp]
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert abs(got[4].item() - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+    assert got[5].item() == 0.0
+
+
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 256, 256, 2, 64), (1, 384, 384, 2, 80), (1, 256, 256, 2, 128),
+    (1, 128, 256, 2, 64), (1, 256, 128, 1, 32)])
+def test_tf32_kernel_model_within_f32_tolerance(b, sq, sk, h, d, window):
+    """The 3xTF32 arithmetic stays within the reference tests' f32
+    tolerance (atol 2e-5, rtol 1e-4) of ``flash_plain`` and of the
+    reference's Pallas kernel."""
+    q, k, v = _qkv(b, sq, sk, h, d, seed=sq + d)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = _tf32_kernel_model(tq, tk, tv, window)
+    np.testing.assert_allclose(
+        got.numpy(), fa.flash_plain(tq, tk, tv, window).numpy(), **F32)
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_tf32_kernel_model_needs_the_split():
+    """One TF32 product (11 bits of each operand) leaves the f32
+    tolerance: the reason for the hi/lo split."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 256, 256, 2, 128, seed=5))
+    got = _tf32_kernel_model(q, k, v, None, split=False)
+    want = fa.flash_plain(q, k, v)
+    assert ((got - want).abs() > 2e-5 + 1e-4 * want.abs()).any()
 
 
 @pytest.mark.parametrize("bq,bk", [(128, 128), (64, 32), (128, 64)])

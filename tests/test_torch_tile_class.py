@@ -1,0 +1,203 @@
+"""The port's per-tile classes against the reference's, on the CPU.
+
+The count kernels dispatch each 1024-element tile to one of three
+bodies: ASCII, the ≤2-byte class and the general body.  Their plain
+versions (``count_plain``, ``rcount_plain``) dispatch the same way
+through ``stages.count_classes``.  Here the ported predicates
+(``ascii_tile_pred``, ``class2_pred``) and class bodies (``decode2``,
+``analyze2``) are held lane for lane against the reference's
+(``repro.kernels.stages``), tile by tile, on inputs made with numpy from
+a seed: tiles of each class, a tile whose only byte outside the class
+sits in the previous tile's last 3 bytes (UTF-8) or last unit (UTF-16),
+negative int32 garbage, and a 0xFF byte, C0/C1 overlongs and stray
+continuations inside ≤2-byte tiles.  Then the dispatching count passes
+must equal the general body per tile and the reference's ``scan`` /
+``ragged_scan`` on buffers that mix the classes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import transcode as tc
+from repro.kernels import stages as ref_stages
+from repro.kernels.stages import driver as ref_driver
+
+import _torch_classes as C
+import _torch_port as P
+from repro_torch.core import packing
+from repro_torch.core import transcode as ttc
+from repro_torch.kernels import fused_transcode as ft
+from repro_torch.kernels import ragged_transcode as rt
+from repro_torch.kernels import stages
+
+BLOCK = stages.BLOCK
+CLASS2_SOURCES = ("utf8", "utf16", "utf32")
+
+
+def _tiles(arr):
+    x = torch.from_numpy(arr)
+    return stages.tiles(x, len(arr))
+
+
+def _ref_tile(t):
+    return jnp.asarray(t.numpy().reshape(8, 128))
+
+
+@pytest.mark.parametrize("fmt", ["utf8", "utf16", "utf32", "latin1"])
+def test_predicates_match_reference_per_tile(fmt):
+    codec, ref = stages.get_codec(fmt), ref_stages.get_codec(fmt)
+    assert codec.max_lookback == ref.max_lookback
+    assert (codec.class2_pred is None) == (ref.class2_pred is None)
+    seen = set()
+    for name, arr in C.class_buffers(fmt, seed=21):
+        x, xp, _xn, _g = _tiles(arr)
+        asc = stages.ascii_tile_pred(x, xp, codec.max_lookback)
+        c2 = None if codec.class2_pred is None else codec.class2_pred(x, xp)
+        cls = stages.tile_class(codec, x, xp)
+        for t in range(x.shape[0]):
+            want_a = bool(ref_driver.ascii_tile_pred(
+                _ref_tile(x[t]), _ref_tile(xp[t]), ref.max_lookback))
+            assert bool(asc[t]) == want_a, (fmt, name, t)
+            if c2 is not None:
+                want_c2 = bool(ref.class2_pred(_ref_tile(x[t]),
+                                               _ref_tile(xp[t])))
+                assert bool(c2[t]) == want_c2, (fmt, name, t)
+            seen.add(int(cls[t]))
+    # Every class occurs (Latin-1 has no ≤2-byte class).
+    want = {stages.ASCII, stages.GENERAL} | (
+        {stages.CLASS2} if fmt in CLASS2_SOURCES else set())
+    assert seen == want
+
+
+def test_inflow_decides_the_class():
+    """A tile whose own bytes are ASCII leaves the ASCII class when one of
+    the previous tile's last 3 bytes (UTF-8) or its last unit (UTF-16) is
+    not ASCII, and the ≤2-byte class when that byte is 0xE0 or above;
+    a byte 4 back changes neither."""
+    for fmt, reach in (("utf8", 3), ("utf16", 1)):
+        codec = stages.get_codec(fmt)
+        for back in range(1, reach + 2):
+            for unit, want in ((C.IN_CLASS2[fmt], stages.CLASS2),
+                               (C.BREAK[fmt], stages.GENERAL)):
+                arr = np.full(3 * BLOCK, 0x41, C.DT[fmt])
+                arr[BLOCK - back] = unit
+                x, xp, _xn, _g = _tiles(arr)
+                cls = stages.tile_class(codec, x, xp)
+                if fmt == "utf16" and want == stages.GENERAL:
+                    # UTF-16's class-2 predicate reads no inflow: a unit
+                    # below 0x800 is never claimed by a high surrogate.
+                    want = stages.CLASS2
+                expect = want if back <= reach else stages.ASCII
+                assert int(cls[1]) == expect, (fmt, back, hex(unit))
+
+
+@pytest.mark.parametrize("fmt", CLASS2_SOURCES)
+def test_class2_bodies_match_reference_lane_for_lane(fmt):
+    codec, ref = stages.get_codec(fmt), ref_stages.get_codec(fmt)
+    n_class2 = 0
+    for name, arr in C.class_buffers(fmt, seed=22):
+        x, xp, xn, _g = _tiles(arr)
+        sel = codec.class2_pred(x, xp)
+        for t in torch.nonzero(sel).flatten().tolist():
+            args = [_ref_tile(v[t]) for v in (x, xp, xn)]
+            cp, lead = codec.decode2(x[t:t + 1], xp[t:t + 1], xn[t:t + 1])
+            rcp, rlead = ref.decode2(*args)
+            assert np.array_equal(cp[0].numpy(), np.asarray(rcp).ravel())
+            assert np.array_equal(lead[0].numpy(), np.asarray(rlead).ravel())
+            a = codec.analyze2(x[t:t + 1], xp[t:t + 1], xn[t:t + 1])
+            ra = ref.analyze2(*args)
+            for key in ("starts", "valid", "cp", "err"):
+                assert np.array_equal(a[key][0].numpy(),
+                                      np.asarray(ra[key]).ravel()), \
+                    (fmt, name, t, key)
+            # Lanewise identical to the general bodies on a class tile.
+            gcp, glead = codec.decode(x[t:t + 1], xp[t:t + 1], xn[t:t + 1])
+            assert torch.equal(gcp, cp) and torch.equal(glead, lead)
+            g = codec.analyze(x[t:t + 1], xp[t:t + 1], xn[t:t + 1])
+            for key in ("starts", "valid", "cp", "err"):
+                assert torch.equal(g[key], a[key]), (fmt, name, t, key)
+            n_class2 += 1
+    assert n_class2 > 0
+
+
+def test_class2_bad_bytes_are_located():
+    """0xFF takes a tile out of the ≤2-byte class; a C0/C1 overlong and a
+    stray continuation keep it there and are errors of its analysis."""
+    codec = stages.get_codec("utf8")
+    for bad, in_class in ((0xFF, False), (0xC0, True), (0xC1, True),
+                          (0x80, True)):
+        arr = np.full(2 * BLOCK, 0x41, np.uint8)
+        arr[BLOCK + 10] = bad
+        x, xp, xn, _g = _tiles(arr)
+        assert bool(codec.class2_pred(x, xp)[1]) == in_class
+        if in_class:
+            a = codec.analyze2(x, xp, xn)
+            assert bool(a["err"][1, 10]) and int(a["err"].sum()) == 1
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("validate", [True, False])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_count_dispatch_equals_general_body_per_tile(src, dst, errors,
+                                                     validate):
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    tables = ft.validation_tables(codec_s, torch.device("cpu"))
+    for name, arr in C.class_buffers(src, seed=23):
+        for n in (len(arr), len(arr) - 600):
+            x, xp, xn, g = stages.tiles(torch.from_numpy(arr), n)
+            got = stages.count_classes(codec_s, codec_d, x, xp, xn, g < n, g,
+                                       tables, errors=errors,
+                                       validate=validate)
+            want = stages.count_tile(codec_s, codec_d, x, xp, xn, g < n, g,
+                                     tables, errors=errors, validate=validate)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype == torch.int32
+                assert torch.equal(a, b), (src, dst, name, n)
+
+
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_scan_matches_reference_on_mixed_classes(src, dst):
+    for name, arr in C.class_buffers(src, seed=24)[:9]:
+        buf, n = P.padded(arr, src)
+        P.check_scan(buf, n, src, dst, ctx=(name,))
+
+
+@pytest.mark.parametrize("src", ["utf8", "utf16", "utf32", "latin1"])
+def test_ragged_scan_matches_reference_on_mixed_classes(src):
+    """Documents of each class, some ending mid-tile so the next tile's
+    inflow reads 0, and one starting with a class breaker."""
+    buffers = dict(C.class_buffers(src, seed=25))
+    rng = np.random.default_rng(26)
+
+    def piece(name, k):
+        a = buffers[name]
+        lo = int(rng.integers(0, len(a) - k))
+        return a[lo: lo + k]
+
+    docs = [piece("ascii", 1500), piece("class2", 2048), piece("mixed", 700),
+            np.concatenate([[C.BREAK[src]], piece("ascii", 1200)]).astype(
+                C.DT[src]), piece("ascii", 0), piece("class2", 3000)]
+    pk = packing.pack_documents(docs, dtype=C.DT[src])
+    for dst in (d for s, d in tc.PAIRS if s == src):
+        ref = tc.ragged_scan(pk.data, pk.offsets, pk.lengths, src_format=src,
+                             dst_format=dst)
+        got = ttc.ragged_scan(pk.data, pk.offsets, pk.lengths,
+                              src_format=src, dst_format=dst, device="cpu")
+        for mine, theirs in zip(got, ref):
+            assert np.array_equal(mine.numpy(), np.asarray(theirs))
+        own = packing.tile_ownership(torch.from_numpy(pk.offsets),
+                                     torch.from_numpy(pk.lengths),
+                                     stages.num_tiles(len(pk.data)))
+        x = torch.from_numpy(pk.data)
+        t, tp, tn, g = stages.ragged_tiles(x, *own[1:])
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        want = stages.count_tile(codec_s, codec_d, t, tp, tn,
+                                 g < own[1][:, None], g,
+                                 ft.validation_tables(codec_s, x.device),
+                                 errors="strict", validate=True)
+        got = rt.rcount_plain(x, own, src=src, dst=dst, errors="strict",
+                              validate=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (src, dst)

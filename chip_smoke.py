@@ -20,10 +20,12 @@ Phases, in order; any failure exits non-zero before the last line:
      ends, garbage in the slack and past ``offsets[-1]``, and the same
      documents at a fixed tile span with ``pad_to_docs`` padding, through
      ``ragged_transcode`` (onepass and fused) and ``ragged_scan``.  The
-     count kernels on tiles of each class of their dispatch (ASCII,
-     <=2-byte, general), with a class-breaking unit only in a tile's
-     inflow, on views 1-15 bytes past a 16-byte boundary, and the ragged
-     count kernel on packed documents of each class.  Each
+     count and write kernels on tiles of each class of their dispatch
+     (ASCII, <=2-byte, general), with a class-breaking unit only in a
+     tile's inflow, on views 1-15 bytes past a 16-byte boundary, and the
+     ragged count and write kernels on packed documents of each class;
+     the write passes' plain versions there equal the general lane body
+     alone (``stages.write_stage``, no class decision).  Each
      kernel is held bit-identical to its plain PyTorch version on the
      same inputs, onepass to fused, single-buffer outputs to CPython's
      codecs where they decode the input, and every document's slice of a
@@ -57,7 +59,9 @@ Phases, in order; any failure exits non-zero before the last line:
      False}, with invalid units at and across many tile boundaries; the
      one-pass kernels (their decoupled look-back) are launched 10 times
      over on each of these inputs, every launch bit-identical; the count
-     kernel also on the 64 MiB buffer 3 bytes past a 16-byte boundary.
+     and write kernels also on the 64 MiB buffer 3 bytes past a 16-byte
+     boundary, and the count, write, rcount and rwrite kernels against
+     the general lane body alone on the main and injected inputs.
      How many tiles of the 64 MiB buffer and of the ragged batch fall in
      each class, from the plain predicate on the host.
      The legacy ops on the 64 MiB buffer (``validate_utf8``,
@@ -660,6 +664,22 @@ def main(argv=None) -> int:
                                  ft.validation_tables(codec_s, x.device),
                                  errors=errors, validate=validate)
 
+    def general_write(x, base, cap, src, dst, errors, n=None, own=None):
+        """The write pass through the general lane body on every tile
+        (``stages.write_stage``), with no tile-class dispatch: a
+        yardstick for the write kernels that does not share their class
+        decision.  ``own`` for a packed batch, else ``n``."""
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        if own is None:
+            t, tp, tn, gidx = stages.tiles(x, n)
+            live = gidx < n
+        else:
+            t, tp, tn, gidx = stages.ragged_tiles(x, *own[1:])
+            live = gidx < own[1][:, None]
+        eff, planes = stages.write_stage(codec_s, codec_d, t, tp, tn, live,
+                                         errors=errors)
+        return stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
+
     def hold_legacy(x, n, fmt, *ctx):
         """The legacy kernels of one format against their plain versions
         on one input, narrow and widened to int32."""
@@ -815,21 +835,41 @@ def main(argv=None) -> int:
     log(f"phase 2: {n_ragged} ragged cases bit-identical (kernels = plain, "
         f"onepass = fused, every document = its single-buffer transcode)")
 
-    # The count kernels on tiles of each class, with a class-breaking unit
-    # only in a tile's inflow, and on views 1-15 bytes past a 16-byte
-    # boundary (the vector loads' fallback): every policy at the aligned
-    # start, strict with validation at every other; the plain versions
-    # run on the host.
-    n_class = 0
+    # The count and write kernels on tiles of each class, with a
+    # class-breaking unit only in a tile's inflow, and on views 1-15 bytes
+    # past a 16-byte boundary (the vector loads' fallback): count under
+    # every policy at the aligned start, strict with validation at every
+    # other, write under both errors= policies at the aligned start and
+    # strict at every other; the plain versions and the general body run
+    # on the host.
+    n_class, n_class_write = 0, 0
+    class_tiles = {"ascii": 0, "class2": 0, "general": 0, "tiles": 0}
     for src, dst in tc.PAIRS:
         size = np.dtype(NP_DTYPE[src]).itemsize
+        cap_factor = tc.CAP_FACTOR[(src, dst)]
         for name, arr in class_inputs(src, class_rng):
+            host = torch.from_numpy(arr)
+            for key, v in class_counts(stages, src, host).items():
+                class_tiles[key] += v
+            # The write pass's plain version and general body, per policy,
+            # on the host.
+            want = {}
+            for errors in ("strict", "replace"):
+                kw = dict(src=src, dst=dst, errors=errors)
+                base, _total = compaction.tile_base_offsets(
+                    ft.count_plain(host, len(arr), validate=False, **kw)[0])
+                cap = cap_factor * len(arr)
+                plain = ft.write_plain(host, len(arr), base, cap, **kw)
+                hold("write", plain, general_write(
+                    host, base, cap, src, dst, errors, n=len(arr)), max_err,
+                     "class plain vs general body", name, errors)
+                want[errors] = (base.cuda(), cap, plain)
             raw = torch.zeros(len(arr) + 16 // size,
                               dtype=getattr(torch, NP_DTYPE[src].__name__),
                               device="cuda")
             for shift in range(0, 16, size):
                 x = raw[shift // size: shift // size + len(arr)]
-                x.copy_(torch.from_numpy(arr).cuda())
+                x.copy_(host.cuda())
                 require(x.data_ptr() % 16 == shift, "view alignment", shift)
                 for errors, validate in ((("strict", True), ("strict", False),
                                           ("replace", True),
@@ -839,9 +879,16 @@ def main(argv=None) -> int:
                               validate=validate)
                     hold("count", tuple(t.cpu() for t in ft.count_kernel(
                         x, len(arr), **kw)), ft.count_plain(
-                            torch.from_numpy(arr), len(arr), **kw),
+                            host, len(arr), **kw),
                          max_err, "class", name, shift, *kw.values())
                     n_class += 1
+                    if validate:
+                        base, cap, plain = want[errors]
+                        hold("write", ft.write_kernel(
+                            x, len(arr), base, cap, src=src, dst=dst,
+                            errors=errors).cpu(), plain, max_err, "class",
+                             name, shift, errors)
+                        n_class_write += 1
         bufs = dict(class_inputs(src, class_rng))
         docs = [bufs["ascii"][:1500], bufs["class2"][:2048],
                 bufs["mixed"][:700], np.concatenate([
@@ -849,28 +896,50 @@ def main(argv=None) -> int:
                         NP_DTYPE[src]), bufs["ascii"][:0],
                 bufs["class2"][:3000]]
         pk = packing.pack_documents(docs, dtype=NP_DTYPE[src])
-        own, _span = ownership(pk.data, pk.offsets, pk.lengths)
+        own, span = ownership(pk.data, pk.offsets, pk.lengths)
         own_cpu = tuple(t.cpu() for t in own)
         raw = torch.zeros(len(pk.data) + 16 // size,
                           dtype=getattr(torch, NP_DTYPE[src].__name__),
                           device="cuda")
+        host = torch.from_numpy(pk.data)
+        rwant = {}
+        for errors in ("strict", "replace"):
+            kw = dict(src=src, dst=dst, errors=errors)
+            base, _total = compaction.tile_base_offsets(
+                rt.rcount_plain(host, own_cpu, validate=False, **kw)[0])
+            cap = cap_factor * span
+            plain = rt.rwrite_plain(host, own_cpu, base, cap, **kw)
+            hold("rwrite", plain, general_write(
+                host, base, cap, src, dst, errors, own=own_cpu), max_err,
+                 "class docs plain vs general body", errors)
+            rwant[errors] = (base.cuda(), cap, plain)
         for shift in (0, size, 16 - size):
             x = raw[shift // size: shift // size + len(pk.data)]
-            x.copy_(torch.from_numpy(pk.data).cuda())
+            x.copy_(host.cuda())
             for errors in ("strict", "replace"):
                 for validate in (True, False):
                     kw = dict(src=src, dst=dst, errors=errors,
                               validate=validate)
                     hold("rcount", tuple(t.cpu() for t in rt.rcount_kernel(
                         x, own, **kw)), rt.rcount_plain(
-                            torch.from_numpy(pk.data), own_cpu, **kw),
+                            host, own_cpu, **kw),
                          max_err, "class docs", shift, *kw.values())
                     n_class += 1
+                base, cap, plain = rwant[errors]
+                hold("rwrite", rt.rwrite_kernel(
+                    x, own, base, cap, src=src, dst=dst,
+                    errors=errors).cpu(), plain, max_err, "class docs",
+                     shift, errors)
+                n_class_write += 1
     torch.cuda.synchronize()
     report["class_cases"] = n_class
-    log(f"phase 2: {n_class} tile-class cases of count and rcount "
-        f"bit-identical (ASCII, <=2-byte and general tiles, class breakers "
-        f"in the inflow only, views 1-15 bytes past a 16-byte boundary)")
+    report["class_write_cases"] = n_class_write
+    report["class_input_tiles"] = class_tiles
+    log(f"phase 2: {n_class} tile-class cases of count and rcount and "
+        f"{n_class_write} of write and rwrite bit-identical to plain, whose "
+        f"write units equal the general body's (ASCII, <=2-byte and general "
+        f"tiles, class breakers in the inflow only, views 1-15 bytes past a "
+        f"16-byte boundary); class inputs' tiles by class {class_tiles}")
 
     # The legacy kernel surface (kernels/ops.py), against CPython.
     n_legacy = 0
@@ -1006,22 +1075,36 @@ def main(argv=None) -> int:
     x_off = raw[3: 3 + main_bytes]
     x_off.copy_(x_main)
     kw = dict(src="utf8", dst="utf16", errors="strict", validate=True)
-    hold("count", ft.count_kernel(x_off, main_bytes, **kw),
-         ft.count_plain(x_off, main_bytes, **kw), max_err, "64 MiB view +3")
-    del raw, x_off
+    k_cnt = ft.count_kernel(x_off, main_bytes, **kw)
+    hold("count", k_cnt, ft.count_plain(x_off, main_bytes, **kw), max_err,
+         "64 MiB view +3")
+    base, _total = compaction.tile_base_offsets(k_cnt[0])
+    kw = dict(src="utf8", dst="utf16", errors="strict")
+    hold("write", ft.write_kernel(x_off, main_bytes, base, main_bytes, **kw),
+         ft.write_plain(x_off, main_bytes, base, main_bytes, **kw), max_err,
+         "64 MiB view +3")
+    del raw, x_off, k_cnt
     for name, arr in main_inputs[:2]:
         x = torch.from_numpy(arr).cuda()
         for errors in ("strict", "replace"):
             kw = dict(src="utf8", dst="utf16", errors=errors, validate=True)
-            hold("count", ft.count_kernel(x, main_bytes, **kw),
-                 general_count(x, n=main_bytes, **kw), max_err,
+            k_cnt = ft.count_kernel(x, main_bytes, **kw)
+            hold("count", k_cnt, general_count(x, n=main_bytes, **kw),
+                 max_err, "64 MiB general body", name, errors)
+            base, _total = compaction.tile_base_offsets(k_cnt[0])
+            hold("write", ft.write_kernel(x, main_bytes, base, main_bytes,
+                                          src="utf8", dst="utf16",
+                                          errors=errors),
+                 general_write(x, base, main_bytes, "utf8", "utf16", errors,
+                               n=main_bytes), max_err,
                  "64 MiB general body", name, errors)
         del x
     main_classes = class_counts(stages, "utf8", torch.from_numpy(x8))
     report["main_path"]["tile_classes"] = main_classes
-    log(f"phase 3: 64 MiB tiles by class {main_classes}; count kernel on a "
-        f"view 3 bytes past a 16-byte boundary = plain; count kernel on the "
-        f"main and injected buffers = the general body (no class dispatch)")
+    log(f"phase 3: 64 MiB tiles by class {main_classes}; count and write "
+        f"kernels on a view 3 bytes past a 16-byte boundary = plain; count "
+        f"and write kernels on the main and injected buffers = the general "
+        f"body (no class dispatch)")
 
     # The main ragged batch: ragged_transcode (onepass, fused) and
     # ragged_scan, each with the counts set to 0 just before it.
@@ -1107,17 +1190,25 @@ def main(argv=None) -> int:
     rag_classes = class_counts(stages, "utf8", torch.from_numpy(pk.data),
                                rag_own)
     report["ragged_main"]["tile_classes"] = rag_classes
-    own_rag, _span = ownership(x_rag, pk.offsets, pk.lengths)
+    own_rag, span_rag = ownership(x_rag, pk.offsets, pk.lengths)
     for name, arr in (("main", None), ("injected", bad_data)):
         x = x_rag if arr is None else torch.from_numpy(arr).cuda()
         for errors in ("strict", "replace"):
             kw = dict(src="utf8", dst="utf16", errors=errors, validate=True)
-            hold("rcount", rt.rcount_kernel(x, own_rag, **kw),
-                 general_count(x, own=own_rag, **kw), max_err,
-                 "ragged general body", name, errors)
+            k_cnt = rt.rcount_kernel(x, own_rag, **kw)
+            hold("rcount", k_cnt, general_count(x, own=own_rag, **kw),
+                 max_err, "ragged general body", name, errors)
+            base, _total = compaction.tile_base_offsets(k_cnt[0])
+            hold("rwrite", rt.rwrite_kernel(x, own_rag, base, span_rag,
+                                            src="utf8", dst="utf16",
+                                            errors=errors),
+                 general_write(x, base, span_rag, "utf8", "utf16", errors,
+                               own=own_rag), max_err, "ragged general body",
+                 name, errors)
         del x
-    log(f"phase 3: ragged batch tiles by class {rag_classes}; rcount kernel "
-        f"on the main and injected batches = the general body")
+    log(f"phase 3: ragged batch tiles by class {rag_classes}; rcount and "
+        f"rwrite kernels on the main and injected batches = the general "
+        f"body")
     log(f"phase 3: ragged batch of {RAGGED_DOCS} documents "
         f"({int(pk.lengths.sum())} bytes, {len(pk.data) // BLOCK} tiles): "
         f"every valid document = encoder, {len(sample)} sampled = single "

@@ -17,7 +17,8 @@ Latin-1-unencodable code point) and still reports the first offset.
 Strategies (``strategy=``): ``"onepass"`` (the default: one launch, one
 decode) and ``"fused"`` (count launch, cumsum, write launch), both
 bit-identical to the reference.  ``"blockparallel"`` and ``"windowed"``
-are not ported yet.
+are not ported yet: a request the reference would run on them raises
+``NotImplementedError``, one it rejects raises its ``ValueError``.
 
 Devices (``device=``): ``None`` runs on the current CUDA device through
 the hand-written kernels and raises when there is none; ``"cpu"`` runs
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 from repro_torch.core import result as R
 from repro_torch.core.result import STATUS_OK, TranscodeResult  # noqa: F401  (re-export)
+from repro_torch.kernels import runtime
 
 # ---------------------------------------------------------------------------
 # The codec matrix: formats, aliases and static capacity conventions.
@@ -65,8 +67,9 @@ DEFAULT_STRATEGY = "onepass"
 # "sharded" is not ported yet.
 RAGGED_STRATEGIES = ("onepass", "fused", "sharded")
 
-# Strategies of the reference that this port does not run yet.
-_NOT_PORTED = ("blockparallel", "windowed")
+# The reference's serial paper baseline (strategy="windowed") exists for
+# the paper's own two directions, under errors="strict".
+_WINDOWED_PAIRS = {("utf8", "utf16"), ("utf16", "utf8")}
 
 
 def normalize_format(name: str) -> str:
@@ -89,15 +92,33 @@ def _check_pair(src: str, dst: str):
     return CAP_FACTOR[(src, dst)]
 
 
-def _check_strategy(strategy: str, what: str) -> None:
-    if strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{what}: strategy={strategy!r} is not ported to repro_torch "
-            f"yet; see ROADMAP.md queue 1 item 2 (the blockparallel and "
-            f"windowed strategies)")
-    if strategy not in STRATEGIES:
-        raise ValueError(
-            f"unknown strategy: {strategy} (supported: {list(STRATEGIES)})")
+def _not_ported(strategy: str, what: str):
+    return NotImplementedError(
+        f"{what}: strategy={strategy!r} is not ported to repro_torch yet; "
+        f"see ROADMAP.md queue 1 item 2 (the blockparallel and windowed "
+        f"strategies)")
+
+
+def _check_strategy(strategy: str, src: str, dst: str, errors: str) -> None:
+    """``transcode``'s strategy check, after the policy, input, format and
+    pair checks, as in the reference: a request the reference rejects
+    raises its ``ValueError``; one it would run on a strategy not ported
+    yet raises ``NotImplementedError``."""
+    if strategy in ("onepass", "fused"):
+        return
+    if strategy == "windowed":
+        if (src, dst) not in _WINDOWED_PAIRS:
+            raise ValueError(
+                f"strategy='windowed' (the paper-faithful serial baseline) "
+                f"supports utf8<->utf16 only, not {src!r} -> {dst!r}")
+        if errors != "strict":
+            raise ValueError(
+                "strategy='windowed' supports errors='strict' only "
+                "(the serial baseline has no replacement path)")
+    if strategy in ("blockparallel", "windowed"):
+        raise _not_ported(strategy, "transcode")
+    raise ValueError(
+        f"unknown strategy: {strategy} (supported: {list(STRATEGIES)})")
 
 
 def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
@@ -108,13 +129,17 @@ def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
     ``src`` is the input buffer (a tensor, numpy array or list of a
     narrow wire dtype or int32); ``n_valid`` its logical length, in
     ``[0, len(src)]``.  Returns a :class:`TranscodeResult` on ``device``.
-    The pair, the input and ``n_valid`` are checked where the strategy
-    prepares its launch (``fused_transcode.prepare``).
+    The request is checked in the reference's order: the ``errors=``
+    policy, the input, the formats, the pair, then the strategy;
+    ``n_valid`` and the size where the strategy prepares its launch
+    (``fused_transcode.prepare``).
     """
     R.check_errors_policy(errors)
+    src = runtime.check_input(src)
     s = normalize_format(src_format)
     d = normalize_format(dst_format)
-    _check_strategy(strategy, "transcode")
+    _check_pair(s, d)
+    _check_strategy(strategy, s, d, errors)
     if strategy == "onepass":
         from repro_torch.kernels import onepass_transcode
         return onepass_transcode.transcode_onepass(
@@ -129,10 +154,17 @@ def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
 def scan(x, dst_format, *, src_format: str = "utf8", n_valid=None,
          strategy: str = DEFAULT_STRATEGY, device=None):
     """Single-scan validation + destination capacity for any matrix cell:
-    ``(count, status)``, two 0-d int32 tensors on ``device``."""
+    ``(count, status)``, two 0-d int32 tensors on ``device``.  Checked in
+    the reference's order: the input, the formats, the pair, then the
+    strategy (the reference's ``scan`` has no windowed strategy)."""
+    x = runtime.check_input(x, "scan")
     src = normalize_format(src_format)
     dst = normalize_format(dst_format)
-    _check_strategy(strategy, "scan")
+    _check_pair(src, dst)
+    if strategy == "blockparallel":
+        raise _not_ported(strategy, "scan")
+    if strategy not in ("onepass", "fused"):
+        raise ValueError(f"scan: unknown strategy {strategy!r}")
     if strategy == "onepass":
         from repro_torch.kernels import onepass_transcode
         return onepass_transcode.scan_onepass(x, n_valid, src=src, dst=dst,

@@ -15,7 +15,10 @@
 //                         on the tile's class.
 //   write_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_write_kernel
 //                         per tile: re-decode and store the live units at
-//                         base[tile] + in-tile rank.
+//                         base[tile] + in-tile rank; one warp per tile,
+//                         dispatched on the tile's class, units compacted
+//                         in shared memory and stored coalesced, zeros
+//                         past the output's end (no zero-fill pass).
 //   onepass_kernel        replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
 //                         count and write off one decode, with the
 //                         inter-tile offset carried by a decoupled
@@ -55,20 +58,22 @@
 // 1024-element tile.  The lane bodies are tens of integer instructions
 // per element, well above the int32 ALU's few operations per byte of
 // memory bandwidth, so instruction issue, not memory, sets the time
-// (PERF.md).  The count kernel answers that with the reference's per-tile
-// classes (ASCII, <=2-byte, general) and registers in place of a staged
-// tile (see count_kernel); the write and one-pass kernels stage the tile
-// and its halo in shared memory as int32 lanes and run the general body
-// on every tile.  Every kernel reads the Keiser-Lemire nibble tables from
-// its block's shared-memory copy.
+// (PERF.md).  The count and write kernels answer that with the
+// reference's per-tile classes (ASCII, <=2-byte, general) and registers
+// in place of a staged tile (see count_kernel, write_kernel); the one-pass
+// kernels stage the tile and its halo in shared memory as int32 lanes and
+// run the general body on every tile.  Every kernel that validates reads
+// the Keiser-Lemire nibble tables from its block's shared-memory copy.
 //
 // Semantics are lane for lane those of the reference tile bodies
 // (src/repro/kernels/stages/*.py and src/repro/core/{utf8,utf16}.py):
 // int32 lanes, arithmetic shifts, and the same select trees.  The TPU
 // kernels stored a whole stage window (slack included) at base[tile] and
 // relied on the sequential grid to let the next tile overwrite the slack;
-// here each block stores only its own units, and only below cap, into an
-// output the wrapper zero-fills, which gives the same bytes with no race.
+// here each tile stores only its own units, and only below cap, which
+// gives the same bytes with no race: the one-pass kernels into an output
+// the wrapper zero-fills, the write kernel into an uninitialised one, of
+// which it also writes the zeros past the output's end.
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrappers raise when it is not 0.
@@ -617,9 +622,10 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
 // are a shared-memory copy.  Nothing is staged in shared memory, so there
 // are no bank conflicts and no block barrier after the tables.
 //
-// Each tile takes one of three classes, decided for the whole warp from
-// its words and the Reach<S> elements before the tile (the reference's
-// per-tile dispatch, src/repro/kernels/stages/driver.py): ASCII (every
+// Each tile takes one of three classes (tile_class, which write_kernel
+// shares), decided for the whole warp from its words and the Reach<S>
+// elements before the tile (the reference's per-tile dispatch,
+// src/repro/kernels/stages/driver.py): ASCII (every
 // element and the inflow in [0, 0x80): each live lane is one unit and no
 // error, ascii_tile_pred), the <=2-byte class (class2_pred: UTF-8 below
 // 0xE0 with the inflow, UTF-16 below 0x800, UTF-32 in [0, 0x7FF]; none for
@@ -629,7 +635,7 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
 // equal to the general body on the tiles it admits, so the triples are
 // those of the general body.  The bodies are instantiated per errors=
 // policy and validate flag, and evaluate CROUND lanes per unrolled round.
-constexpr int CTILES = THREADS / 32;     // tiles per count block
+constexpr int CTILES = THREADS / 32;     // tiles per count / write block
 constexpr int CITEMS = TILE / 32;        // consecutive elements per lane
 constexpr int CROUND = 8;                // lanes per unrolled round
 
@@ -716,6 +722,65 @@ __device__ __forceinline__ uint32_t halo_word(
   return acc;
 }
 
+// Lane `lane` of the warp that owns tile `tile`: its CITEMS elements in w,
+// loaded as load_words loads them below the tile's own limit, and the
+// Reach<S> elements on either side, in the last positions of pw and the
+// first of nw, taken from the neighbour lanes' words by shuffles; lane 0
+// and lane 31 read the previous and next tile's halo, masked as load_tile
+// masks it.  Every lane of the warp calls it.
+template <int S, class G>
+__device__ __forceinline__ void load_lane(
+    const typename Storage<S>::T* __restrict__ x, const G& geo, int tile,
+    int lane, uint32_t (&w)[Words<S>::N], uint32_t& pw, uint32_t& nw) {
+  using W = Words<S>;
+  constexpr int H = Reach<S>::value;
+  const long long t0 = static_cast<long long>(tile) * TILE;
+  const long long start = t0 + lane * CITEMS;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  load_words<S>(x, start, geo.own_limit(tile) - start, vec, w);
+  pw = 0;
+  nw = 0;
+  if constexpr (H > 0) {
+    pw = __shfl_up_sync(0xffffffffu, w[W::N - 1], 1);
+    nw = __shfl_down_sync(0xffffffffu, w[0], 1);
+    if (lane == 0) pw = halo_word<S>(x, t0 - H, W::PER - H, geo.prev_limit(tile));
+    if (lane == 31) nw = halo_word<S>(x, t0 + TILE, 0, geo.next_limit(tile));
+  }
+}
+
+// The classes of the reference's per-tile dispatch
+// (src/repro/kernels/stages/driver.py::onepass_tile).
+enum TileClass { CLASS_ASCII = 0, CLASS_2 = 1, CLASS_GENERAL = 2 };
+
+// The tile's class, the one decision count_kernel and write_kernel both
+// dispatch on, made for the whole warp (every lane calls it) from the
+// lanes' words and the Reach<S> elements before the tile (lane 0's pw; the
+// other lanes' pw repeat their neighbours' elements): ASCII when every
+// element and the inflow lie in [0, 0x80) (ascii_tile_pred), the <=2-byte
+// class when they pass class2_pred (UTF-8 below 0xE0 with the inflow,
+// UTF-16 below 0x800, UTF-32 in [0, 0x7FF]; never for Latin-1), else
+// general.
+template <int S>
+__device__ __forceinline__ int tile_class(const uint32_t (&w)[Words<S>::N],
+                                          uint32_t pw) {
+  using W = Words<S>;
+  constexpr int H = Reach<S>::value;
+  bool ascii = true, c2 = true;
+#pragma unroll
+  for (int i = 0; i < W::N; ++i) {
+    ascii = ascii && W::ascii(w[i]);
+    c2 = c2 && W::class2(w[i]);
+  }
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const int32_t v = W::get(pw, W::PER - H + k);
+    ascii = ascii && v >= 0 && v < 0x80;
+    if (S == UTF8) c2 = c2 && v >= 0 && v < 0xE0;
+  }
+  if (__all_sync(0xffffffffu, ascii)) return CLASS_ASCII;
+  return __all_sync(0xffffffffu, c2) ? CLASS_2 : CLASS_GENERAL;
+}
+
 // One lane's CITEMS elements through the lane body of class C2 (the
 // <=2-byte class or the general one): its units, error flag and first
 // located error.  pw holds the Reach<S> elements before the lane in its
@@ -779,7 +844,6 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
              int replace, int validate, int* __restrict__ tot_out,
              int* __restrict__ err_out, int* __restrict__ ferr_out) {
   using W = Words<S>;
-  constexpr int H = Reach<S>::value;
   __shared__ int32_t tab[KL_ENTRIES];
   if constexpr (S == UTF8) {
     load_kl_tables(tab);
@@ -788,42 +852,16 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   const int tile = blockIdx.x * CTILES + (threadIdx.x >> 5);
   if (tile >= nblk) return;
   const int lane = threadIdx.x & 31;
-  const long long t0 = static_cast<long long>(tile) * TILE;
-  const long long start = t0 + lane * CITEMS;
-  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  uint32_t w[W::N];
-  load_words<S>(x, start, geo.own_limit(tile) - start, vec, w);
-  uint32_t pw = 0, nw = 0;
-  if constexpr (H > 0) {
-    pw = __shfl_up_sync(0xffffffffu, w[W::N - 1], 1);
-    nw = __shfl_down_sync(0xffffffffu, w[0], 1);
-    if (lane == 0) pw = halo_word<S>(x, t0 - H, W::PER - H, geo.prev_limit(tile));
-    if (lane == 31) nw = halo_word<S>(x, t0 + TILE, 0, geo.next_limit(tile));
-  }
-
-  // The tile's class: its elements, and the Reach<S> elements before it
-  // (lane 0's pw; the other lanes' pw repeat their neighbours' elements).
-  bool ascii = true, c2 = true;
-#pragma unroll
-  for (int i = 0; i < W::N; ++i) {
-    ascii = ascii && W::ascii(w[i]);
-    c2 = c2 && W::class2(w[i]);
-  }
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const int32_t v = W::get(pw, W::PER - H + k);
-    ascii = ascii && v >= 0 && v < 0x80;
-    if (S == UTF8) c2 = c2 && v >= 0 && v < 0xE0;
-  }
-  ascii = __all_sync(0xffffffffu, ascii);
-  c2 = __all_sync(0xffffffffu, c2);
+  uint32_t w[W::N], pw, nw;
+  load_lane<S>(x, geo, tile, lane, w, pw, nw);
+  const int cls = tile_class<S>(w, pw);
 
   const int end = geo.end(tile);
-  const int g0 = static_cast<int>(start);
+  const int g0 = tile * TILE + lane * CITEMS;
   int tot = 0, err = 0, ferr = IMAX;
-  if (ascii) {
+  if (cls == CLASS_ASCII) {
     tot = max(0, min(CITEMS, end - g0));
-  } else if (c2) {
+  } else if (cls == CLASS_2) {
     if constexpr (S != LATIN1) {
       count_lane<S, D, true>(pw, w, nw, g0, end, replace, validate, tab, tot,
                              err, ferr);
@@ -846,31 +884,214 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
 }
 
 // write_kernel<Flat> replaces fused_transcode.py::_write_kernel and
-// write_kernel<Packed> replaces ragged_transcode.py::_rwrite_kernel.
-// Bytes bound: the input read plus the output units written.  It
-// re-decodes without validation (the cheap half of the lane body) and
-// ranks the units with one block scan; stores are per lane, into
-// consecutive addresses across a thread's four lanes.
-template <int S, int D, class G>
-__global__ void __launch_bounds__(THREADS)
-write_kernel(const typename Storage<S>::T* __restrict__ x, G geo,
-             int replace, const int* __restrict__ base, int cap,
-             typename Storage<D>::T* __restrict__ out) {
-  __shared__ int32_t s[TILE + 2 * MAX_HALO];
-  __shared__ int sums[WARPS];
-  const int tile = blockIdx.x;
-  load_tile<S>(x, geo, tile, s);
-  __syncthreads();
-  int32_t cps[ITEMS], units[ITEMS];
-  int err, ferr;
-  eval_thread<S, D>(s, geo.end(tile), tile, replace, false, nullptr, cps,
-                    units, err, ferr);
+// write_kernel<Packed> replaces ragged_transcode.py::_rwrite_kernel: each
+// tile's destination units, stored at base[tile] + in-tile rank, only
+// below cap, without validation.  Bytes bound: the input read once plus
+// the cap-unit output written once (and 4 bytes of base, 12 of ownership
+// when packed, per tile).
+//
+// One warp per tile, CTILES tiles a block, the tile in registers as
+// count_kernel holds it (load_lane), dispatched on the same class
+// (tile_class):
+//   ASCII     a widening copy: the live elements are a prefix of the tile
+//             and each is its own unit, at rank g - t0;
+//   <=2-byte  eval_lane<S, D, true> (the reference's decode_once2 /
+//             stage_decoded2), at most max_units2 units a lane;
+//   general   eval_lane<S, D, false>.
+// A lane keeps its 32 code points in registers (-1 at dead lanes), ranks
+// its total with one warp exclusive scan, and writes its units in the
+// narrow destination type into the warp's region of shared memory,
+// compacted.  After __syncwarp the warp copies the region to out with
+// 16-byte stores where the destination is aligned (the region is offset
+// so that its units share the destination's alignment mod 16), element by
+// element for the head and the tail: consecutive lanes of a store write
+// consecutive addresses.
+//
+// The kernel writes every element of out[0, cap) once, so the wrapper
+// allocates it uninitialised.  That needs base to be the exclusive scan
+// of this pass's tile totals (the count pass's, which every caller
+// passes): the tiles' units then cover [0, end), end = base[nblk - 1] +
+// the last tile's total.  The last tile's warp writes zeros from end to
+// the end of its window, base[nblk - 1] + TILE * max_units, and every
+// block zero-fills its grid-stride share of the rest of [0, cap).
+constexpr int STAGE_BYTES = 4 * TILE + 16;  // a warp's region: the widest
+                                            // window and the alignment pad
+
+// Destination units of one lane at most (the reference's stage_units:
+// the destination's length of the source's largest speculative code
+// point), and in the <=2-byte class (stage_units2: every code point of
+// the class fits 11 bits, and a UTF-8 source's analysis may substitute
+// U+FFFD).  TILE * units * sizeof(unit) <= 4 * TILE in every cell.
+template <int S, int D>
+__host__ __device__ constexpr int max_units() {
+  return D == UTF8 ? (S == LATIN1 ? 2 : 4)
+       : D == UTF16 ? (S == LATIN1 ? 1 : 2) : 1;
+}
+
+template <int S, int D>
+__host__ __device__ constexpr int max_units2() {
+  return D == UTF8 ? (S == UTF8 ? 3 : 2) : 1;
+}
+
+// Element k of a lane, k in [-Reach<S>, CITEMS + Reach<S>): from pw
+// before the lane, w inside it, nw after it.  k is a constant wherever the
+// loops that call it are unrolled.
+template <int S>
+__device__ __forceinline__ int32_t lane_element(
+    uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int k) {
+  using W = Words<S>;
+  if (k < 0) return W::get(pw, W::PER + k);
+  if (k >= CITEMS) return W::get(nw, k - CITEMS);
+  return W::get(w[k / W::PER], k % W::PER);
+}
+
+// One lane of a <=2-byte (C2) or general tile: evaluates its CITEMS
+// elements, ranks its unit total across the warp, and writes its units,
+// compacted, to st from the lane's rank on.  Returns the tile's total.
+template <int S, int D, bool C2, bool REPLACE>
+__device__ __forceinline__ int write_lane(
+    uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int g0,
+    int end, int lane, typename Storage<D>::T* st) {
+  using T = typename Storage<D>::T;
+  constexpr int H = Reach<S>::value;
+  constexpr int U = C2 ? max_units2<S, D>() : max_units<S, D>();
+  int32_t cps[CITEMS];
   int mine = 0;
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) mine += units[k];
+  for (int i = 0; i < CITEMS; ++i) {
+    int32_t e[2 * H + 1];
+#pragma unroll
+    for (int k = 0; k <= 2 * H; ++k) e[k] = lane_element<S>(pw, w, nw, i - H + k);
+    const Lane l = eval_lane<S, D, C2>(e + H, g0 + i < end, REPLACE, false,
+                                       nullptr);
+    cps[i] = l.units ? l.cp : -1;
+    mine += l.units;
+  }
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int pos = incl - mine;
+#pragma unroll
+  for (int i = 0; i < CITEMS; ++i) {
+    const int32_t cp = cps[i];
+    const int u = cp < 0 ? 0 : unit_len<D>(cp);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (j < u) st[pos + j] = static_cast<T>(encode_unit<D>(cp, j));
+    }
+    pos += u;
+  }
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+template <int S, int D, bool C2>
+__device__ __forceinline__ int write_lane(
+    uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int g0,
+    int end, int lane, bool replace, typename Storage<D>::T* st) {
+  return replace ? write_lane<S, D, C2, true>(pw, w, nw, g0, end, lane, st)
+                 : write_lane<S, D, C2, false>(pw, w, nw, g0, end, lane, st);
+}
+
+// Copy units [0, len) of a warp's region to out[at, at + len), only below
+// cap.  Unit i sits at st[i], and st shares out + at's alignment mod 16.
+template <typename T>
+__device__ __forceinline__ void copy_out(const T* st, T* __restrict__ out,
+                                         long long at, long long len,
+                                         long long cap, int lane) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const long long hi = min(at + len, cap);
+  if (hi <= at) return;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(out + at) & 15);
+  const long long a = min(hi, at + ((16 - skew) & 15) / static_cast<int>(sizeof(T)));
+  const long long chunks = (hi - a) / V;
+  const long long b = a + chunks * V;
+  if (lane < a - at) out[at + lane] = st[lane];
+  if (lane < hi - b) out[b + lane] = st[b - at + lane];
+  const uint4* src = reinterpret_cast<const uint4*>(st + (a - at));
+  uint4* dst = reinterpret_cast<uint4*>(out + a);
+  for (long long c = lane; c < chunks; c += 32) dst[c] = src[c];
+}
+
+// The block's grid-stride share of out[lo, cap) set to 0: 16-byte stores
+// from the first aligned element on, element stores before it and after
+// the last whole chunk.
+template <typename T>
+__device__ __forceinline__ void zero_fill(T* __restrict__ out, long long lo,
+                                          long long cap) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  if (lo >= cap) return;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(out + lo) & 15);
+  const long long a = min(cap, lo + ((16 - skew) & 15) / static_cast<int>(sizeof(T)));
+  const long long chunks = (cap - a) / V;
+  const long long b = a + chunks * V;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (tid < a - lo) out[lo + tid] = 0;
+  if (tid < cap - b) out[b + tid] = 0;
+  uint4* dst = reinterpret_cast<uint4*>(out + a);
+  for (long long c = tid; c < chunks; c += stride) dst[c] = make_uint4(0, 0, 0, 0);
+}
+
+// Three blocks an SM (at most 80 registers a thread, no spills): a warp
+// waits on its tile's loads, and more warps hide that wait better than
+// the registers a freer allocation would save.
+template <int S, int D, class G>
+__global__ void __launch_bounds__(THREADS, 3)
+write_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
+             int replace, const int* __restrict__ base, int cap,
+             typename Storage<D>::T* __restrict__ out) {
+  using T = typename Storage<D>::T;
+  using W = Words<S>;
+  constexpr int U = max_units<S, D>();
+  __shared__ __align__(16) unsigned char stage[CTILES][STAGE_BYTES];
+  zero_fill(out, static_cast<long long>(base[nblk - 1]) + TILE * U, cap);
+  const int tile = blockIdx.x * CTILES + (threadIdx.x >> 5);
+  if (tile >= nblk) return;
+  const int lane = threadIdx.x & 31;
+  uint32_t w[W::N], pw, nw;
+  load_lane<S>(x, geo, tile, lane, w, pw, nw);
+  const int cls = tile_class<S>(w, pw);
+
+  const long long t0 = static_cast<long long>(tile) * TILE;
+  const long long at = base[tile];
+  const int end = geo.end(tile);
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(out + at) & 15);
+  T* st = reinterpret_cast<T*>(stage[threadIdx.x >> 5] + skew);
   int total;
-  const int rank = block_exclusive_scan(mine, sums, total);
-  store_units<D>(out, cap, base[tile] + rank, cps, units);
+  if (cls == CLASS_ASCII) {
+    // Rank g - t0: lane l writes elements l, l + 32, ...  The tile is
+    // re-read from global memory (the cache lines this warp just loaded)
+    // so that consecutive lanes write consecutive units.
+    total = static_cast<int>(max(0LL, min(static_cast<long long>(TILE),
+                                          end - t0)));
+    const long long lim = geo.own_limit(tile);
+#pragma unroll 4
+    for (int i = lane; i < TILE; i += 32) {
+      st[i] = t0 + i < lim ? static_cast<T>(x[t0 + i]) : T(0);
+    }
+  } else if (cls == CLASS_2) {
+    if constexpr (S != LATIN1) {
+      total = write_lane<S, D, true>(pw, w, nw, tile * TILE + lane * CITEMS,
+                                     end, lane, replace, st);
+    } else {
+      total = 0;
+    }
+  } else {
+    total = write_lane<S, D, false>(pw, w, nw, tile * TILE + lane * CITEMS,
+                                    end, lane, replace, st);
+  }
+  long long len = total;
+  if (tile == nblk - 1) {
+    // The last tile's window ends in zeros; zero_fill writes past it.
+    __syncwarp();
+    for (int i = total + lane; i < TILE * U; i += 32) st[i] = T(0);
+    len = TILE * U;
+  }
+  __syncwarp();
+  copy_out(st, out, at, len, cap, lane);
 }
 
 // Replaces onepass_transcode.py::_onepass_kernel.  Bytes bound: the input
@@ -1166,9 +1387,9 @@ int launch_count(const void* x, G geo, int nblk, int replace, int validate,
 template <int S, int D, class G>
 int launch_write(const void* x, G geo, int nblk, int replace,
                  const int* base, int cap, void* out, cudaStream_t stream) {
-  write_kernel<S, D, G><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), geo, replace, base, cap,
-      static_cast<typename Storage<D>::T*>(out));
+  write_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0, stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace, base,
+      cap, static_cast<typename Storage<D>::T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -110,18 +110,27 @@ count_kernel.launches = 0
 def write_plain(x, n: int, base, cap: int, *, src: str, dst: str,
                 errors: str):
     """Plain version of the write kernel: the compact output buffer of
-    ``cap`` units in the destination's storage dtype."""
+    ``cap`` units in the destination's storage dtype, with the kernel's
+    per-tile class dispatch."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.tiles(x, n)
-    eff, planes = stages.write_stage(codec_s, codec_d, t, tp, tn, gidx < n,
-                                     errors=errors)
+    eff, planes = stages.write_classes(codec_s, codec_d, t, tp, tn,
+                                       gidx < n, errors=errors)
     return stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
 
 
 def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
                  errors: str):
     """The compact output buffer: the CUDA write kernel on a CUDA
-    tensor, :func:`write_plain` on a CPU tensor."""
+    tensor, :func:`write_plain` on a CPU tensor.
+
+    ``base`` must be the exclusive scan of the count pass's per-tile
+    totals for the same input, ``n`` and ``errors`` (what
+    :func:`transcode_fused` passes): the kernel writes every element of
+    the ``cap``-unit output exactly once, the tiles' units below their
+    end and zeros from there to ``cap``, so the output is allocated
+    uninitialised, and only that scan makes the tiles' units cover
+    everything below the end."""
     if x.device.type == "cpu":
         return write_plain(x, n, base, cap, src=src, dst=dst, errors=errors)
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
@@ -133,7 +142,7 @@ def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
         raise ValueError(
             f"write_kernel: base must hold {nblk} offsets on {x.device}, "
             f"and cap ({cap}) must not be negative")
-    out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
+    out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
     lib = _build.library(x.device)
     with torch.cuda.device(x.device):
         rc = lib.transcode_write(

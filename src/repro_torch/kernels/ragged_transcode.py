@@ -183,18 +183,27 @@ rcount_kernel.launches = 0
 def rwrite_plain(x, own, base, cap: int, *, src: str, dst: str,
                  errors: str):
     """Plain version of the ragged write kernel: the dense output buffer
-    of ``cap`` units in the destination's storage dtype."""
+    of ``cap`` units in the destination's storage dtype, with the
+    kernel's per-tile class dispatch."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.ragged_tiles(x, *own[1:])
-    eff, planes = stages.write_stage(codec_s, codec_d, t, tp, tn,
-                                     gidx < own[1][:, None], errors=errors)
+    eff, planes = stages.write_classes(codec_s, codec_d, t, tp, tn,
+                                       gidx < own[1][:, None], errors=errors)
     return stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
 
 
 def rwrite_kernel(x, own, base, cap: int, *, src: str, dst: str,
                   errors: str):
     """The dense output buffer: the CUDA write kernel on the packed
-    geometry for a CUDA tensor, :func:`rwrite_plain` for a CPU tensor."""
+    geometry for a CUDA tensor, :func:`rwrite_plain` for a CPU tensor.
+
+    ``base`` must be the exclusive scan of the rcount pass's per-tile
+    totals for the same batch and ``errors`` (what
+    :func:`transcode_ragged` passes): the kernel writes every element of
+    the ``cap``-unit output exactly once, the tiles' units below their
+    end and zeros from there to ``cap``, so the output is allocated
+    uninitialised, and only that scan makes the tiles' units cover
+    everything below the end."""
     if x.device.type == "cpu":
         return rwrite_plain(x, own, base, cap, src=src, dst=dst,
                             errors=errors)
@@ -207,7 +216,7 @@ def rwrite_kernel(x, own, base, cap: int, *, src: str, dst: str,
         raise ValueError(
             f"rwrite_kernel: base must hold {nblk} offsets on {x.device}, "
             f"and cap ({cap}) must not be negative")
-    out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
+    out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
     lib = _build.library(x.device)
     with torch.cuda.device(x.device):
         rc = lib.transcode_rwrite(

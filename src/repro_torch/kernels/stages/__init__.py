@@ -20,8 +20,8 @@ from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import (  # noqa: F401  (re-export)
     ASCII, BLOCK, CLASS2, GENERAL, Codec, ascii_tile_pred, count_classes,
     count_decoded, count_tile, decode_once, num_tiles, place_units,
-    ragged_tiles, stage_decoded, stage_units, tile_class, tiles,
-    write_stage)
+    ragged_tiles, stage_decoded, stage_decoded2, stage_units, stage_units2,
+    tile_class, tiles, write_classes, write_stage)
 
 UTF8 = Codec(
     name="utf8",
@@ -39,6 +39,7 @@ UTF8 = Codec(
     class2_pred=s_utf8.class2_pred,
     decode2=s_utf8.decode2,
     analyze2=s_utf8.analyze2,
+    class2_replaces=True,
 )
 
 UTF16 = Codec(

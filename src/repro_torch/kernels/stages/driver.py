@@ -26,11 +26,13 @@ against, lane for lane.
                 a per-tile predicate plus bodies with no 3-/4-unit
                 assembly and no surrogate folding.
 
-:func:`count_classes` is the count pass with the reference's per-tile
-dispatch (``onepass_tile``): ASCII tiles (:func:`ascii_tile_pred`),
-≤2-byte tiles and the rest.  Each class is lanewise identical to the
-general body on the tiles it admits, so the per-tile triples equal
-:func:`count_tile`'s; the count kernels dispatch the same way.
+:func:`count_classes` and :func:`write_classes` are the count and write
+passes with the reference's per-tile dispatch (``onepass_tile``): ASCII
+tiles (:func:`ascii_tile_pred`), ≤2-byte tiles and the rest.  Each class
+is lanewise identical to the general body on the tiles it admits, so the
+per-tile triples equal :func:`count_tile`'s and the placed units
+:func:`write_stage`'s; the count and write kernels dispatch the same
+way.
 
 Stage widths are derived, never hand-sized: the speculative worst case is
 ``dst.py_unit_len(src.max_speculative_cp)`` units per source lane
@@ -78,11 +80,24 @@ class Codec(NamedTuple):
     class2_pred: Optional[Callable] = None   # (x, xp) -> bool per tile
     decode2: Optional[Callable] = None       # (x, xp, xn) -> (cp, is_lead)
     analyze2: Optional[Callable] = None      # (x, xp, xn) -> analysis dict
+    # The class-2 analysis can substitute U+FFFD (stage sizing must then
+    # cover its encoding).
+    class2_replaces: bool = False
 
 
 def stage_units(src: Codec, dst: Codec) -> int:
     """Speculative worst-case destination units per source lane."""
     return int(dst.py_unit_len(src.max_speculative_cp))
+
+
+def stage_units2(src: Codec, dst: Codec) -> int:
+    """Destination units per lane inside the ≤2-byte tile class: every
+    in-class code point fits in 11 bits, plus, for sources whose class-2
+    analysis can substitute U+FFFD, room for its encoding."""
+    u = int(dst.py_unit_len(0x7FF))
+    if src.class2_replaces:
+        u = max(u, int(dst.py_unit_len(0xFFFD)))
+    return u
 
 
 def num_tiles(length: int) -> int:
@@ -246,6 +261,13 @@ def stage_decoded(src: Codec, dst: Codec, cp, lead, instream):
     return eff, dst.encode(cp)[:stage_units(src, dst)]
 
 
+def stage_decoded2(src: Codec, dst: Codec, cp, lead, instream):
+    """:func:`stage_decoded` for ≤2-byte tiles: the class bounds every
+    code point's encoding to :func:`stage_units2` planes."""
+    eff = torch.where(lead & instream, dst.unit_len(cp), 0).to(torch.int32)
+    return eff, dst.encode(cp)[:stage_units2(src, dst)]
+
+
 def place_units(eff, planes, base, cap: int):
     """Store each tile's units compactly at its base offset.
 
@@ -281,3 +303,29 @@ def write_stage(src: Codec, dst: Codec, x, xp, xn, instream, *,
     _a, cp, lead = decode_once(src, x, xp, xn, errors=errors,
                                validate=False)
     return stage_decoded(src, dst, cp, lead, instream)
+
+
+def write_classes(src: Codec, dst: Codec, x, xp, xn, instream, *,
+                  errors: str):
+    """:func:`write_stage` with the per-tile class dispatch of the write
+    kernels: ``(eff, planes)`` over :func:`stage_units` planes.  An ASCII
+    tile is a widening copy (one unit per live lane, the lane itself); a
+    ≤2-byte tile runs the class bodies over :func:`stage_units2` planes
+    (the planes above them stay 0, below ``eff``'s reach); the rest the
+    general body.  Equal to :func:`write_stage` wherever ``eff`` reaches."""
+    cls = tile_class(src, x, xp)
+    eff = instream.to(torch.int32)
+    planes = [x.clone()] + [torch.zeros_like(x)
+                            for _ in range(stage_units(src, dst) - 1)]
+    for c in (CLASS2, GENERAL):
+        sel = cls == c
+        if not bool(sel.any()):
+            continue
+        parts = [t[sel] for t in (x, xp, xn, instream)]
+        _a, cp, lead = decode_once(src, *parts[:3], errors=errors,
+                                   validate=False, class2=c == CLASS2)
+        stage = stage_decoded2 if c == CLASS2 else stage_decoded
+        eff[sel], cls_planes = stage(src, dst, cp, lead, parts[3])
+        for j, plane in enumerate(cls_planes):
+            planes[j][sel] = plane.to(torch.int32)
+    return eff, tuple(planes)

@@ -79,6 +79,14 @@ def test_stage_widths_equal_reference(src, dst):
     assert cs.dtype.itemsize == rs.itemsize
 
 
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_class2_stage_units_equal_reference(src, dst):
+    cs, cd, _factor = stages.get_pair(src, dst)
+    rs, rd, _rfactor = ref_stages.get_pair(src, dst)
+    assert cs.class2_replaces == rs.class2_replaces
+    assert stages.stage_units2(cs, cd) == ref_stages.stage_units2(rs, rd)
+
+
 @pytest.mark.parametrize("fmt", tc.FORMATS)
 def test_kernel_halo_is_max_lookback(fmt):
     """The CUDA kernels stage ``Reach<F>`` elements of halo each way
@@ -178,8 +186,51 @@ def test_unported_strategies_name_their_roadmap_item(strategy):
     x = np.full(8, 0x41, np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttc.transcode(x, "utf16", strategy=strategy, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttc.scan(x, "utf16", strategy=strategy, device="cpu")
+    if strategy == "windowed":
+        # The reference's scan has no windowed strategy.
+        with pytest.raises(ValueError, match="unknown strategy"):
+            ttc.scan(x, "utf16", strategy=strategy, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ttc.scan(x, "utf16", strategy=strategy, device="cpu")
+
+
+# Requests the reference rejects, checked in its order (policy, input,
+# formats, pair, strategy): (entry point, src, dst, keyword arguments).
+REJECTED = [
+    ("scan", "utf8", "utf16", dict(strategy="windowed")),
+    ("scan", "utf16", "utf8", dict(strategy="windowed")),
+    ("scan", "utf8", "utf16", dict(strategy="bogus")),
+    ("transcode", "utf8", "utf32", dict(strategy="windowed")),
+    ("transcode", "utf16", "latin1", dict(strategy="windowed")),
+    ("transcode", "latin1", "utf8", dict(strategy="windowed")),
+    ("transcode", "utf32", "utf16", dict(strategy="windowed")),
+    ("transcode", "utf8", "utf16", dict(strategy="windowed",
+                                        errors="replace")),
+    ("transcode", "utf16", "utf8", dict(strategy="windowed",
+                                        errors="replace")),
+    ("transcode", "utf8", "utf16", dict(strategy="windowed",
+                                        errors="ignore")),
+    ("transcode", "utf8", "utf16", dict(strategy="bogus")),
+] + [(fn, fmt, fmt, dict(strategy=strategy))
+     for fn in ("transcode", "scan") for fmt in ("utf8", "utf16")
+     for strategy in tc.STRATEGIES]
+
+
+@pytest.mark.parametrize("fn,src,dst,kw", REJECTED,
+                         ids=[f"{fn}-{s}-{d}-{'-'.join(kw.values())}"
+                              for fn, s, d, kw in REJECTED])
+def test_rejected_requests_raise_the_reference_exception(fn, src, dst, kw):
+    """On the 12-unit ASCII buffer, and on it as float32 (a bad input,
+    which the reference checks after the policy and before the rest)."""
+    ascii = np.full(12, 0x41, P.DT[src])
+    for x in (ascii, ascii.astype(np.float32)):
+        with pytest.raises(Exception) as ref:
+            getattr(tc, fn)(x, dst, src_format=src, **kw)
+        with pytest.raises(Exception) as got:
+            getattr(ttc, fn)(x, dst, src_format=src, device="cpu", **kw)
+        assert type(got.value) is type(ref.value), (x.dtype, ref.value,
+                                                     got.value)
 
 
 def test_input_checks():

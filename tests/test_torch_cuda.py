@@ -15,12 +15,16 @@ document), the ragged kernels must equal ``rcount_plain``,
 ``rwrite_plain`` and ``ronepass_plain``.  The legacy validate, decode and
 encode kernels must equal their plain versions bit for bit (narrow and
 int32 input, ``n`` below the length), and the flash kernel its plain
-version within the reference tests' tolerances.  The count kernels are
-also held to theirs on tiles of each class (ASCII, ≤2-byte, general),
-with a class-breaking unit only in a tile's inflow, and on views that
-start 1-15 bytes past a 16-byte boundary (the vector loads' fallback).  The one-pass kernels'
-decoupled look-back is launched 20 times over at tile counts around its
-32-tile window, each launch bit-identical to fused and to plain.
+version within the reference tests' tolerances.  The count and write
+kernels are also held to theirs on tiles of each class (ASCII, ≤2-byte,
+general), with a class-breaking unit only in a tile's inflow, and on
+views that start 1-15 bytes past a 16-byte boundary (the vector loads'
+fallback); the write kernels also with ``cap`` below the output's end,
+against the general lane body alone (no class dispatch), and on an
+output the allocator hands back dirty (they write every element, zeros
+past the end).  The one-pass kernels' decoupled look-back is launched 20
+times over at tile counts around its 32-tile window, each launch
+bit-identical to fused and to plain.
 """
 
 import numpy as np
@@ -91,6 +95,43 @@ def test_kernels_match_plain_on_card(src, dst):
                     assert torch.equal(a, b), ctx
 
 
+def _general_write(x, n, base, cap, src, dst, errors, own=None):
+    """The write pass through the general lane body on every tile
+    (``stages.write_stage``), with no class dispatch: ``n`` for one
+    buffer, ``own`` for a packed batch."""
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    if own is None:
+        t, tp, tn, g = stages.tiles(x, n)
+        live = g < n
+    else:
+        t, tp, tn, g = stages.ragged_tiles(x, *own[1:])
+        live = g < own[1][:, None]
+    eff, planes = stages.write_stage(codec_s, codec_d, t, tp, tn, live,
+                                     errors=errors)
+    return stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
+
+
+def _view(arr, shift):
+    """``arr`` on the card, as a view starting ``shift`` bytes past a
+    16-byte boundary."""
+    x = torch.from_numpy(arr)
+    size = x.element_size()
+    raw = torch.zeros(len(arr) + 16 // size, dtype=x.dtype, device="cuda")
+    view = raw[shift // size: shift // size + len(arr)]
+    view.copy_(x.cuda())
+    assert view.data_ptr() % 16 == shift
+    return view
+
+
+def _class_docs(src, seed):
+    """Documents of each tile class, some ending mid-tile (the next
+    tile's inflow reads 0) and one starting with a class-breaking unit."""
+    bufs = dict(C.class_buffers(src, seed=seed))
+    return [bufs["ascii"][:1500], bufs["class2"][:2048], bufs["mixed"][:700],
+            np.concatenate([[C.BREAK[src]], bufs["ascii"][:1200]]).astype(
+                DT[src]), bufs["ascii"][:0], bufs["class2"][:3000]]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("src,dst", tc.PAIRS)
 def test_count_kernels_match_plain_on_tile_classes(src, dst):
@@ -110,14 +151,7 @@ def test_count_kernels_match_plain_on_tile_classes(src, dst):
                               validate=validate)
                     plain = ft.count_plain(x, n, **kw)
                     for shift in range(0, 16, size):
-                        # A view starting `shift` bytes past a 16-byte
-                        # boundary.
-                        raw = torch.zeros(len(arr) + 16 // size,
-                                          dtype=x.dtype, device="cuda")
-                        view = raw[shift // size: shift // size + len(arr)]
-                        view.copy_(x.cuda())
-                        assert view.data_ptr() % 16 == shift
-                        kern = ft.count_kernel(view, n, **kw)
+                        kern = ft.count_kernel(_view(arr, shift), n, **kw)
                         for a, b in zip(kern, plain):
                             assert torch.equal(a.cpu(), b), \
                                 (name, shift, n, errors, validate)
@@ -128,18 +162,107 @@ def test_count_kernels_match_plain_on_tile_classes(src, dst):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_write_kernels_match_plain_on_tile_classes(src, dst):
+    """write_kernel on every tile-class buffer (full and 700 elements
+    short), as views 1-15 bytes past a 16-byte boundary, with cap at the
+    buffer's capacity and below the output's end; rwrite_kernel on packed
+    class documents, aligned and not.  Each equals its plain version and
+    the general body alone (no class dispatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for name, arr in C.class_buffers(src, seed=67):
+        x = torch.from_numpy(arr)
+        size = x.element_size()
+        for n in (len(arr), len(arr) - 700):
+            for errors in ("strict", "replace"):
+                kw = dict(src=src, dst=dst, errors=errors)
+                totals = ft.count_plain(x, n, validate=False, **kw)[0]
+                base, total = compaction.tile_base_offsets(totals)
+                full = tc.CAP_FACTOR[(src, dst)] * len(arr)
+                for cap in (full, int(total) // 2, int(total) - 1):
+                    plain = ft.write_plain(x, n, base, cap, **kw)
+                    assert torch.equal(plain, _general_write(
+                        x, n, base, cap, src, dst, errors)), (name, n, cap)
+                    for shift in range(0, 16, size):
+                        got = ft.write_kernel(_view(arr, shift), n,
+                                              base.cuda(), cap, **kw)
+                        assert torch.equal(got.cpu(), plain), \
+                            (name, n, errors, cap, shift)
+    pk = packing.pack_documents(_class_docs(src, seed=68), dtype=DT[src])
+    x = torch.from_numpy(pk.data)
+    nblk = stages.num_tiles(len(pk.data))
+    own = packing.tile_ownership(torch.from_numpy(pk.offsets),
+                                 torch.from_numpy(pk.lengths), nblk)
+    cap = tc.CAP_FACTOR[(src, dst)] * nblk * stages.BLOCK
+    size = x.element_size()
+    for errors in ("strict", "replace"):
+        kw = dict(src=src, dst=dst, errors=errors)
+        base, _total = compaction.tile_base_offsets(
+            rt.rcount_plain(x, own, validate=False, **kw)[0])
+        plain = rt.rwrite_plain(x, own, base, cap, **kw)
+        assert torch.equal(plain, _general_write(x, None, base, cap, src,
+                                                 dst, errors, own))
+        for shift in (0, size, 16 - size):
+            got = rt.rwrite_kernel(_view(pk.data, shift),
+                                   tuple(t.cuda() for t in own),
+                                   base.cuda(), cap, **kw)
+            assert torch.equal(got.cpu(), plain), (errors, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [("utf8", "utf16"), ("utf16", "utf8"),
+                                     ("latin1", "utf32")])
+def test_write_kernels_zero_the_tail_of_dirty_memory(src, dst):
+    """The write kernels allocate their output uninitialised and write
+    every element: after a block of the output's size was filled with
+    0xFF and freed, so that the allocator hands it back, ``[end, cap)``
+    reads zero and the rest equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    arr = np.concatenate([_inputs(src, seed=69)[0][1]] * 40)
+    x = torch.from_numpy(arr)
+    n = len(arr)
+    nblk = stages.num_tiles(n)
+    own = packing.tile_ownership(torch.tensor([0, nblk * stages.BLOCK]),
+                                 torch.tensor([n]), nblk)
+    cap = tc.CAP_FACTOR[(src, dst)] * nblk * stages.BLOCK
+    kw = dict(src=src, dst=dst, errors="strict")
+    flat = compaction.tile_base_offsets(
+        ft.count_plain(x, n, validate=False, **kw)[0])
+    packed = compaction.tile_base_offsets(
+        rt.rcount_plain(x, own, validate=False, **kw)[0])
+    xc, own_c = x.cuda(), tuple(t.cuda() for t in own)
+    cases = (
+        (flat, lambda b: ft.write_kernel(xc, n, b, cap, **kw),
+         lambda b: ft.write_plain(x, n, b, cap, **kw)),
+        (packed, lambda b: rt.rwrite_kernel(xc, own_c, b, cap, **kw),
+         lambda b: rt.rwrite_plain(x, own, b, cap, **kw)))
+    for (base, total), launch, plain_of in cases:
+        end = int(total)
+        assert end < cap
+        plain = plain_of(base)
+        base_c = base.cuda()
+        # Nothing is allocated on the card between the free and the launch.
+        junk = torch.empty(cap, dtype=plain.dtype, device="cuda")
+        junk.view(torch.uint8).fill_(0xFF)
+        ptr = junk.data_ptr()
+        del junk
+        got = launch(base_c)
+        assert got.data_ptr() == ptr, "the allocator did not reuse the block"
+        tail = got[end:].cpu().to(torch.int64)
+        assert tail.numel() > 0 and not bool(tail.any())
+        assert torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
 def test_rcount_kernel_matches_plain_on_tile_classes(src, dst):
     """Documents of each class, some ending mid-tile (the next tile's
     inflow reads 0) and one starting with a class-breaking unit; the
     packed data also as a view 1-15 bytes past a 16-byte boundary."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
-    bufs = dict(C.class_buffers(src, seed=66))
-    docs = [bufs["ascii"][:1500], bufs["class2"][:2048],
-            bufs["mixed"][:700],
-            np.concatenate([[C.BREAK[src]], bufs["ascii"][:1200]]).astype(
-                DT[src]), bufs["ascii"][:0], bufs["class2"][:3000]]
-    pk = packing.pack_documents(docs, dtype=DT[src])
+    pk = packing.pack_documents(_class_docs(src, seed=66), dtype=DT[src])
     x = torch.from_numpy(pk.data)
     nblk = stages.num_tiles(len(pk.data))
     own_cpu = packing.tile_ownership(torch.from_numpy(pk.offsets),
@@ -147,10 +270,7 @@ def test_rcount_kernel_matches_plain_on_tile_classes(src, dst):
     own = tuple(t.cuda() for t in own_cpu)
     size = x.element_size()
     for shift in (0, size, 16 - size):
-        raw = torch.zeros(len(pk.data) + 16 // size, dtype=x.dtype,
-                          device="cuda")
-        view = raw[shift // size: shift // size + len(pk.data)]
-        view.copy_(x.cuda())
+        view = _view(pk.data, shift)
         for errors in ("strict", "replace"):
             for validate in (True, False):
                 kw = dict(src=src, dst=dst, errors=errors, validate=validate)

@@ -12,9 +12,18 @@ sits in the previous tile's last 3 bytes (UTF-8) or last unit (UTF-16),
 negative int32 garbage, and a 0xFF byte, C0/C1 overlongs and stray
 continuations inside ≤2-byte tiles.  Then the dispatching count passes
 must equal the general body per tile and the reference's ``scan`` /
-``ragged_scan`` on buffers that mix the classes.
+``ragged_scan`` on buffers that mix the classes.  The write passes'
+plain versions dispatch the same way (``stages.write_classes``): their
+units must equal the general body's (``write_stage``) tile by tile, the
+compacted units of every ASCII and ≤2-byte tile the live part of the
+reference's one-pass stage window (``onepass_tile``, which dispatches on
+the same classes), and ``transcode`` / ``ragged_transcode`` with
+``strategy="fused"`` the reference's on mixed-class buffers.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +35,9 @@ from repro.kernels.stages import driver as ref_driver
 
 import _torch_classes as C
 import _torch_port as P
+import repro_torch
 from repro_torch.core import packing
+from repro_torch.core import result as R
 from repro_torch.core import transcode as ttc
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import ragged_transcode as rt
@@ -166,20 +177,8 @@ def test_scan_matches_reference_on_mixed_classes(src, dst):
 
 @pytest.mark.parametrize("src", ["utf8", "utf16", "utf32", "latin1"])
 def test_ragged_scan_matches_reference_on_mixed_classes(src):
-    """Documents of each class, some ending mid-tile so the next tile's
-    inflow reads 0, and one starting with a class breaker."""
-    buffers = dict(C.class_buffers(src, seed=25))
-    rng = np.random.default_rng(26)
-
-    def piece(name, k):
-        a = buffers[name]
-        lo = int(rng.integers(0, len(a) - k))
-        return a[lo: lo + k]
-
-    docs = [piece("ascii", 1500), piece("class2", 2048), piece("mixed", 700),
-            np.concatenate([[C.BREAK[src]], piece("ascii", 1200)]).astype(
-                C.DT[src]), piece("ascii", 0), piece("class2", 3000)]
-    pk = packing.pack_documents(docs, dtype=C.DT[src])
+    """Documents of each class (:func:`_class_docs`)."""
+    pk = packing.pack_documents(_class_docs(src, seed=25), dtype=C.DT[src])
     for dst in (d for s, d in tc.PAIRS if s == src):
         ref = tc.ragged_scan(pk.data, pk.offsets, pk.lengths, src_format=src,
                              dst_format=dst)
@@ -201,3 +200,142 @@ def test_ragged_scan_matches_reference_on_mixed_classes(src):
                               validate=True)
         for a, b in zip(got, want):
             assert torch.equal(a, b), (src, dst)
+
+
+def _class_docs(src, seed):
+    """Documents of each class, some ending mid-tile so the next tile's
+    inflow reads 0, and one starting with a class breaker."""
+    buffers = dict(C.class_buffers(src, seed=seed))
+    rng = np.random.default_rng(seed + 1)
+
+    def piece(name, k):
+        a = buffers[name]
+        lo = int(rng.integers(0, len(a) - k))
+        return a[lo: lo + k]
+
+    return [piece("ascii", 1500), piece("class2", 2048), piece("mixed", 700),
+            np.concatenate([[C.BREAK[src]], piece("ascii", 1200)]).astype(
+                C.DT[src]), piece("ascii", 0), piece("class2", 3000)]
+
+
+def _geometry_tiles(src, geometry, seed):
+    """``(name, x, xp, xn, live)`` tiles of the class buffers (each at its
+    full length and 600 elements short) or of a packed batch of class
+    documents."""
+    if geometry == "flat":
+        for name, arr in C.class_buffers(src, seed=seed):
+            for n in (len(arr), len(arr) - 600):
+                x, xp, xn, g = stages.tiles(torch.from_numpy(arr), n)
+                yield f"{name} n={n}", x, xp, xn, g < n
+    else:
+        pk = packing.pack_documents(_class_docs(src, seed), dtype=C.DT[src])
+        own = packing.tile_ownership(torch.from_numpy(pk.offsets),
+                                     torch.from_numpy(pk.lengths),
+                                     stages.num_tiles(len(pk.data)))
+        x, xp, xn, g = stages.ragged_tiles(torch.from_numpy(pk.data),
+                                           *own[1:])
+        yield "packed", x, xp, xn, g < own[1][:, None]
+
+
+def _placed_per_tile(src, dst, eff, planes):
+    """Each tile's units compacted into a window of its own."""
+    width = BLOCK * stages.stage_units(src, dst)
+    nblk = eff.shape[0]
+    base = torch.arange(nblk, dtype=torch.int32) * width
+    return stages.place_units(eff, planes, base, nblk * width).view(nblk,
+                                                                    width)
+
+
+@pytest.mark.parametrize("geometry", ["flat", "packed"])
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_write_dispatch_equals_general_body_per_tile(src, dst, errors,
+                                                     geometry):
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    for name, x, xp, xn, live in _geometry_tiles(src, geometry, seed=27):
+        got = stages.write_classes(codec_s, codec_d, x, xp, xn, live,
+                                   errors=errors)
+        want = stages.write_stage(codec_s, codec_d, x, xp, xn, live,
+                                  errors=errors)
+        assert got[0].dtype == want[0].dtype == torch.int32
+        assert torch.equal(got[0], want[0]), (src, dst, name)
+        assert len(got[1]) == stages.stage_units(codec_s, codec_d)
+        assert torch.equal(_placed_per_tile(codec_s, codec_d, *got),
+                           _placed_per_tile(codec_s, codec_d, *want)), \
+            (src, dst, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_stage_windows(src, dst, errors):
+    """The reference's ``onepass_tile`` (class dispatch on) over a stack
+    of tiles: ``(total, stage window)`` per tile."""
+    rs, rd = ref_stages.get_codec(src), ref_stages.get_codec(dst)
+    tables = tuple(jnp.asarray(t) for t in rs.tables)
+
+    def one(x, xp, xn, live, gidx):
+        tot, _err, _ferr, stage = ref_driver.onepass_tile(
+            rs, rd, x, xp, xn, live, gidx, tables, errors=errors,
+            validate=False, ascii_skip=True)
+        return tot, stage
+
+    return jax.jit(jax.vmap(one))
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_class_units_equal_reference_stage_window(src, dst, errors):
+    """Every ASCII and ≤2-byte tile of the class buffers and of a packed
+    batch: its units, compacted, equal the live part of the reference's
+    stage window for that tile."""
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    tiles = [t for geometry in ("flat", "packed")
+             for t in _geometry_tiles(src, geometry, seed=28)]
+    x, xp, xn, live = (torch.cat([t[k] for t in tiles])
+                       for k in range(1, 5))
+    sel = stages.tile_class(codec_s, x, xp) != stages.GENERAL
+    x, xp, xn, live = x[sel], xp[sel], xn[sel], live[sel]
+    eff, planes = stages.write_classes(codec_s, codec_d, x, xp, xn, live,
+                                       errors=errors)
+    got = _placed_per_tile(codec_s, codec_d, eff, planes)
+    gidx = torch.arange(BLOCK, dtype=torch.int32).expand(x.shape[0], BLOCK)
+    tot, stage = _ref_stage_windows(src, dst, errors)(
+        *(jnp.asarray(t.numpy().reshape(-1, 8, 128))
+          for t in (x, xp, xn, live, gidx)))
+    tot, stage = np.asarray(tot), np.asarray(stage)
+    assert np.array_equal(eff.sum(dim=-1).numpy(), tot)
+    for t in range(x.shape[0]):
+        assert np.array_equal(got[t, :tot[t]].numpy(), stage[t, :tot[t]]), \
+            (src, dst, errors, t)
+    assert x.shape[0] > 0
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_fused_transcode_matches_reference_on_mixed_classes(src, dst,
+                                                            errors):
+    for name, arr in C.class_buffers(src, seed=29)[:6]:
+        buf, n = P.padded(arr, src)
+        ref = tc.transcode(buf, dst, src_format=src, n_valid=n,
+                           errors=errors, strategy="fused")
+        got = ttc.transcode(buf, dst, src_format=src, n_valid=n,
+                            errors=errors, strategy="fused", device="cpu")
+        P.assert_same_result(got, ref, (name, src, dst, errors))
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src", ["utf8", "utf16", "utf32", "latin1"])
+def test_ragged_fused_matches_reference_on_mixed_classes(src, errors):
+    pk = packing.pack_documents(_class_docs(src, seed=30), dtype=C.DT[src])
+    for dst in (d for s, d in tc.PAIRS if s == src):
+        ref = tc.ragged_transcode(pk.data, pk.offsets, pk.lengths,
+                                  src_format=src, dst_format=dst,
+                                  errors=errors, strategy="fused")
+        got = repro_torch.to_numpy(ttc.ragged_transcode(
+            pk.data, pk.offsets, pk.lengths, src_format=src, dst_format=dst,
+            errors=errors, strategy="fused", device="cpu"))
+        assert isinstance(got, R.RaggedTranscodeResult)
+        for field in ("buffer", "offsets", "counts", "statuses"):
+            mine, theirs = getattr(got, field), np.asarray(getattr(ref,
+                                                                   field))
+            assert mine.dtype == theirs.dtype and np.array_equal(
+                mine, theirs), (src, dst, errors, field)

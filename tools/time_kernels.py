@@ -6,7 +6,8 @@ of ``--reps`` calls after warm-up):
 
 - the count, write and one-pass kernels on a 64 MiB UTF-8 buffer of each
   chosen lipsum profile (paper Table 4a, ``chip_smoke.py``'s generator),
-  transcoded to UTF-16 (strict, validate);
+  transcoded to UTF-16 (strict, validate), and the legacy validate and
+  decode kernels on it and the encode kernel on its UTF-16 transcode;
 - with ``--ragged``, the rcount, rwrite and ronepass kernels on
   ``chip_smoke.py``'s main batch of 8,192 UTF-8 documents.
 
@@ -14,9 +15,9 @@ The checkouts are loaded side by side in one process and timed in turns
 for ``--rounds`` rounds (the order reversed every other round), so an A/B
 of two trees shares the card's state; each count kernel is first held to
 its plain version on the same input.  Each input's line gives how many
-tiles fall in each class of the count kernels' dispatch (ASCII, <=2-byte,
-general; computed here with numpy), so that a time can be read against
-the lane body its tiles run::
+tiles fall in each class of the count and write kernels' dispatch (ASCII,
+<=2-byte, general; computed here with numpy), so that a time can be read
+against the lane body its tiles run::
 
     python3 tools/time_kernels.py --trees .checkout/parent . --rounds 4 \\
         --ragged --out chiprun_out/kernels_ab.json
@@ -63,8 +64,8 @@ def utf8_buffer(lang: str, n_bytes: int, rng) -> np.ndarray:
 
 
 def tile_classes(x8: np.ndarray, same_prev=None) -> dict:
-    """Tiles per class of the count kernels' dispatch on UTF-8: ASCII
-    when every byte of the tile and of the 3 before it is below 0x80,
+    """Tiles per class of the count and write kernels' dispatch on UTF-8:
+    ASCII when every byte of the tile and of the 3 before it is below 0x80,
     <=2-byte when below 0xE0, general otherwise.  Bytes past the end,
     and in a packed batch the inflow of a tile whose previous tile holds
     another document (``same_prev`` 0), read 0, as in the kernels."""
@@ -95,7 +96,10 @@ def load_tree(tree: Path) -> SimpleNamespace:
                 ("tc", "core.transcode"), ("build", "kernels._build"),
                 ("ft", "kernels.fused_transcode"),
                 ("op", "kernels.onepass_transcode"),
-                ("rt", "kernels.ragged_transcode"))})
+                ("rt", "kernels.ragged_transcode"),
+                ("kval", "kernels.utf8_validate"),
+                ("kdec", "kernels.utf8_decode"),
+                ("kenc", "kernels.utf16_encode"))})
     finally:
         sys.path.remove(src)
     if not Path(mods.ft.__file__).resolve().is_relative_to(tree):
@@ -113,10 +117,15 @@ def single_calls(m, x, n: int) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(cnt, plain)):
         raise RuntimeError("count kernel != count_plain")
     base, _total = m.compaction.tile_base_offsets(cnt[0])
+    res = m.ft.transcode_fused(x, n, src="utf8", dst="utf16")
+    u16 = res.buffer[:int(res.count)].contiguous()
     return {"count": lambda: m.ft.count_kernel(x, n, validate=True, **KW),
             "write": lambda: m.ft.write_kernel(x, n, base, cap, **KW),
             "onepass": lambda: m.op.onepass_kernel(x, n, cap, validate=True,
-                                                   **KW)}
+                                                   **KW),
+            "validate": lambda: m.kval.validate_kernel(x, n),
+            "decode": lambda: m.kdec.decode_kernel(x, n),
+            "encode": lambda: m.kenc.encode_kernel(u16, u16.shape[0])}
 
 
 def ragged_calls(m, x, own) -> dict:

@@ -37,7 +37,16 @@ Phases, in order; any failure exits non-zero before the last line:
      ``n`` (tile-aligned and not), ``n_valid < len``, an empty input and a
      lone high surrogate at ``n - 1``: its validate, decode and encode
      kernels bit-identical to their plain versions (narrow and int32
-     input), its outputs and flags equal to CPython's codecs.  Flash
+     input), its outputs and flags equal to CPython's codecs.  The
+     validate kernel on ``tools/inputs.py``'s tiles of each class
+     of its dispatch (ASCII, <=2-byte, general: class breakers in the
+     inflow only, ``n`` cut mid-tile and mid-character, int32 outside
+     [0, 256)), on views 1-15 bytes past a 16-byte boundary and on all
+     65,536 byte pairs, bit-identical to ``validate_plain`` and to
+     ``validate_classes``.  ``transcode(strategy="blockparallel")`` and
+     its ``scan`` on every single-buffer input, cell, policy and
+     validate flag: an int32 buffer equal to fused's, zeros past the
+     count, the same count and status.  Flash
      attention at (B, S, H, D) in {(2, 256, 4, 128), (1, 384, 2, 80),
      (2, 128, 2, 64)} x window {None, 128} x {f32, bf16}, Sq = 128 with
      Sk = 256, and edge cases at bk = 32 (a window whose first key tile
@@ -54,7 +63,9 @@ Phases, in order; any failure exits non-zero before the last line:
      ``transcode_stream`` in chunks of seeded random sizes, split
      mid-character.  Outputs are checked against an independent encoder,
      the whole-buffer transcode and, for a sample of documents, the
-     single-buffer path.  Each kernel is held bit-identical to its plain
+     single-buffer path; blockparallel ``transcode`` and ``scan`` of
+     the 64 MiB buffer equal the default ``transcode`` (no kernel
+     launched).  Each kernel is held bit-identical to its plain
      version at these sizes under {strict, replace} × validate {True,
      False}, with invalid units at and across many tile boundaries; the
      one-pass kernels (their decoupled look-back) are launched 10 times
@@ -72,14 +83,20 @@ Phases, in order; any failure exits non-zero before the last line:
      the attention width of qwen3-8b (S = 4096, 32 heads of 128, causal,
      bf16 and f32) and h2o-danube-1.8b (S = 8192, 32 heads of 80, window
      4096, bf16), k/v expanded from 8 KV heads: kernel vs plain.
-  4. Timing with CUDA events (median after warm-up): each kernel and its
-     plain version at the main paths' shapes, the entry points there,
-     and the single-buffer entry points at 1<<17 characters of each
-     lipsum profile (paper Tables 5 and 6); the timed kernel and plain
-     outputs are held equal too.  For flash attention also
+  4. Timing with CUDA events (median of one call after warm-up, host
+     time in the call included: ``ms``): each kernel and its plain
+     version at the main paths' shapes, the entry points there, and the
+     single-buffer entry points (onepass, fused, blockparallel
+     ``transcode`` and ``scan``) at 1<<17 characters of each lipsum
+     profile (paper Tables 5 and 6); the timed kernel and plain outputs
+     are held equal too.  The validate kernel also on 64 MiB of the
+     latin, arabic and chinese profiles (all tiles ASCII, <=2-byte,
+     general).  For flash attention also
      ``torch.nn.functional.scaled_dot_product_attention`` on the same
-     inputs, as the library yardstick (the port never calls it); the f32
-     kernel's bound is its three TF32 products at the TF32 peak.
+     inputs, as the library yardstick (the port never calls it); the
+     f32 kernel's bound is its three TF32 products at the TF32 peak.
+     Beside ``ms``, each kernel (and SDPA) also reports its device time
+     per call, ``device_ms`` (:func:`device_ms`).
   5. The ``kernels`` line (all ten kernels), then ``{"ok": true,
      "device": ...}`` last.
 
@@ -100,6 +117,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+try:
+    from tools import inputs    # seeded numpy text and tile-class buffers
+except ImportError:             # run without the rest of the repo
+    inputs = None
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 # Dense tensor-core peaks of the same data sheet.  The f32 flash kernel
 # runs three TF32 products (hi*lo, lo*hi, hi*hi) per product of the
@@ -164,28 +186,6 @@ RAGGED_DOCS = 8192
 RAGGED_LONG, RAGGED_SHORT = 16_384, 2_048     # characters per document
 STREAM_MAX_CHUNK = 4 << 20     # stream chunk sizes: log-uniform in [1, this]
 
-# Paper Table 4a lipsum profiles: percentage of characters per UTF-8
-# length (1/2/3/4 bytes) and the code-point pools of each class (a copy of
-# the reference's synthetic-data profiles).
-_ASCII = (0x20, 0x7E)
-_POOLS = {
-    "arabic2": (0x0621, 0x064A), "hebrew2": (0x05D0, 0x05EA),
-    "cyrillic2": (0x0410, 0x044F), "latin2": (0x00C0, 0x00FF),
-    "cjk3": (0x4E00, 0x9FA5), "kana3": (0x3041, 0x30FE),
-    "hangul3": (0xAC00, 0xD7A3), "devanagari3": (0x0901, 0x0963),
-    "emoji4": (0x1F300, 0x1F6FF),
-}
-PROFILES = {
-    "arabic": ((22, 78, 0, 0), "arabic2", "cjk3"),
-    "chinese": ((1, 0, 99, 0), "latin2", "cjk3"),
-    "emoji": ((0, 0, 0, 100), "latin2", "cjk3"),
-    "hebrew": ((22, 78, 0, 0), "hebrew2", "cjk3"),
-    "hindi": ((16, 0, 84, 0), "latin2", "devanagari3"),
-    "japanese": ((5, 0, 95, 0), "latin2", "kana3"),
-    "korean": ((27, 1, 72, 0), "latin2", "hangul3"),
-    "latin": ((100, 0, 0, 0), "latin2", "cjk3"),
-    "russian": ((19, 81, 0, 0), "cyrillic2", "cjk3"),
-}
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
 NP_DTYPE = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
@@ -198,32 +198,6 @@ def log(*parts):
 
 # ---------------------------------------------------------------------------
 # Inputs, made with numpy from --seed.
-
-
-def codepoints(lang: str, n_chars: int, rng) -> np.ndarray:
-    pct, pool2, pool3 = PROFILES[lang]
-    p = np.asarray(pct, np.float64) / sum(pct)
-    cls = rng.choice(4, size=n_chars, p=p)
-    cps = np.empty(n_chars, np.int64)
-    for k, (lo, hi) in enumerate([_ASCII, _POOLS[pool2], _POOLS[pool3],
-                                  _POOLS["emoji4"]]):
-        m = cls == k
-        cps[m] = rng.integers(lo, hi + 1, size=int(m.sum()))
-    return cps
-
-
-def utf8_encode(cps: np.ndarray) -> np.ndarray:
-    """Vectorised UTF-8 encoder (checked against CPython in phase 2)."""
-    cps = cps.astype(np.int64)
-    L = 1 + (cps >= 0x80) + (cps >= 0x800) + (cps >= 0x10000)
-    start = np.cumsum(L) - L
-    out = np.empty(int(L.sum()), np.uint8)
-    lead_mark = np.array([0, 0, 0xC0, 0xE0, 0xF0])[L]
-    out[start] = np.where(L == 1, cps, lead_mark | (cps >> (6 * (L - 1))))
-    for j in (1, 2, 3):
-        m = L > j
-        out[start[m] + j] = 0x80 | ((cps[m] >> (6 * (L[m] - 1 - j))) & 0x3F)
-    return out
 
 
 def utf16_encode(cps: np.ndarray) -> np.ndarray:
@@ -241,7 +215,7 @@ def utf16_encode(cps: np.ndarray) -> np.ndarray:
 
 def encode(cps: np.ndarray, fmt: str) -> np.ndarray:
     if fmt == "utf8":
-        return utf8_encode(cps)
+        return inputs.utf8_encode(cps)
     if fmt == "utf16":
         return utf16_encode(cps)
     if fmt == "utf32":
@@ -341,15 +315,15 @@ def main_ragged_docs(rng):
     ``i % 8 == 0`` and ``RAGGED_SHORT`` otherwise, empty when
     ``i % 64 == 63``, and with one byte set to 0xFF when ``i % 32 == 7``.
     Returns ``(docs, code points of each document, {doc: 0xFF position})``."""
-    langs = list(PROFILES)
+    langs = list(inputs.PROFILES)
     i_all = np.arange(RAGGED_DOCS)
     n_chars = np.where(i_all % 8 == 0, RAGGED_LONG, RAGGED_SHORT)
     n_chars[i_all % 64 == 63] = 0
     docs, cps_of = [None] * RAGGED_DOCS, [None] * RAGGED_DOCS
     for k, lang in enumerate(langs):
         idx = i_all[k::len(langs)]
-        cps = codepoints(lang, int(n_chars[idx].sum()), rng)
-        u8 = utf8_encode(cps)
+        cps = inputs.codepoints(lang, int(n_chars[idx].sum()), rng)
+        u8 = inputs.utf8_encode(cps)
         byte_at = np.concatenate([[0], np.cumsum(
             1 + (cps >= 0x80) + (cps >= 0x800) + (cps >= 0x10000))])
         c0 = 0
@@ -382,7 +356,7 @@ def legacy_inputs(text_cps: np.ndarray, rng):
                 (fmt, "n_valid<len", text, len(text) - 777),
                 (fmt, "empty", text[:0], None)]
     tail = text_cps[:5000]
-    out.append(("utf8", "4-byte char across a tile", utf8_encode(
+    out.append(("utf8", "4-byte char across a tile", inputs.utf8_encode(
         np.concatenate([np.full(2 * BLOCK - 2, 0x41), [0x1F389], tail])),
         None))
     out.append(("utf16", "pair across a tile", utf16_encode(
@@ -527,12 +501,55 @@ def hold_close(name: str, kern, plain, dtype: str, max_err: dict, *ctx):
             diff.max().item())
 
 
+def hold_blockparallel(bp, fused, *ctx):
+    """A ``strategy="blockparallel"`` result against fused's, the
+    reference's own pin: an int32 buffer of the same capacity, equal to
+    fused's widened (``buffer[:count]``, and zeros past it), and the same
+    count and status."""
+    import torch
+    require(bp.buffer.dtype == bp.count.dtype == bp.status.dtype
+            == torch.int32 and bp.buffer.shape == fused.buffer.shape,
+            "blockparallel dtype/shape", bp.buffer.dtype, *ctx)
+    require(int(bp.count) == int(fused.count)
+            and int(bp.status) == int(fused.status),
+            "blockparallel count/status vs fused", int(bp.count),
+            int(fused.count), int(bp.status), int(fused.status), *ctx)
+    k = min(int(bp.count), bp.buffer.shape[0])
+    require(not bool(bp.buffer[k:].any()), "blockparallel past count", *ctx)
+    require(equal(bp.buffer.long(), fused.buffer.long()),
+            "blockparallel buffer vs fused", *ctx)
+
+
 # ---------------------------------------------------------------------------
 # Timing.
 
 
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds of device time per call of ``fn``: CUDA events around
+    ``reps`` calls queued back to back behind a 20 ms sleep kernel, so
+    that the host has issued every call before the card starts the
+    first and the card never waits on the host between them.  Unlike
+    :func:`cuda_ms`, it leaves out the host time of a call, which for a
+    short kernel can exceed the kernel's own.  ``fn`` must not
+    synchronise."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` between two CUDA events."""
+    """Median milliseconds of one call of ``fn`` between two CUDA events
+    (host time in the call included)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -566,6 +583,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     try:
+        if inputs is None:
+            raise ImportError("tools/inputs.py")
         import repro_torch
         from repro_torch.core import compaction, packing
         from repro_torch.core import transcode as tc
@@ -579,7 +598,8 @@ def main(argv=None) -> int:
         from repro_torch.kernels import utf8_validate as kval
         from repro_torch.kernels import utf16_encode as kenc
     except ImportError as exc:
-        print(f"chip_smoke: the repro_torch package is missing ({exc}); "
+        print(f"chip_smoke: the repro_torch package or tools/inputs.py is "
+              f"missing ({exc}); "
               f"run from the root of a checkout", file=sys.stderr)
         return 3
 
@@ -747,19 +767,19 @@ def main(argv=None) -> int:
                     "ragged vs single buffer", d, *ctx)
 
     # -- 2. correctness on the card ------------------------------------------
-    text_cps = np.concatenate([codepoints(lang, TEXT_CHARS, rng)
-                               for lang in PROFILES])
+    text_cps = np.concatenate([inputs.codepoints(lang, TEXT_CHARS, rng)
+                               for lang in inputs.PROFILES])
     for fmt in ("utf8", "utf16"):
         require(np.array_equal(
             encode(text_cps, fmt),
             np.frombuffer("".join(map(chr, text_cps)).encode(PY_CODEC[fmt]),
                           NP_DTYPE[fmt])), "numpy encoder", fmt)
-    inputs = {fmt: correctness_inputs(fmt, text_cps, rng)
+    one_inputs = {fmt: correctness_inputs(fmt, text_cps, rng)
               for fmt in PY_CODEC}
-    n_cases = 0
+    n_cases = n_blockparallel = 0
     for src, dst in tc.PAIRS:
         cap_factor = tc.CAP_FACTOR[(src, dst)]
-        for name, arr, n_valid in inputs[src]:
+        for name, arr, n_valid in one_inputs[src]:
             x = torch.from_numpy(arr).cuda()
             n = len(arr) if n_valid is None else n_valid
             cap = cap_factor * len(arr)
@@ -774,6 +794,11 @@ def main(argv=None) -> int:
                         errors=errors, validate=validate, strategy="fused")
                     for a, b in zip(one, fused):
                         require(equal(a, b), "onepass vs fused", *ctx)
+                    hold_blockparallel(repro_torch.transcode(
+                        x, dst, src_format=src, n_valid=n_valid,
+                        errors=errors, validate=validate,
+                        strategy="blockparallel"), fused, *ctx)
+                    n_blockparallel += 1
                     k_o = hold_kernels(x, n, cap, src, dst, errors, validate,
                                        *ctx)
                     require(equal(one.buffer, k_o[0]), "entry", *ctx)
@@ -796,10 +821,20 @@ def main(argv=None) -> int:
                                         n_valid=n_valid, strategy="fused")
             require(int(cnt) == int(ref.count) and int(st) == int(ref.status),
                     "scan", src, dst, name)
+            cnt, st = repro_torch.scan(x, dst, src_format=src,
+                                       n_valid=n_valid,
+                                       strategy="blockparallel")
+            require(cnt.dtype == st.dtype == torch.int32
+                    and int(cnt) == int(ref.count)
+                    and int(st) == int(ref.status),
+                    "blockparallel scan", src, dst, name)
     torch.cuda.synchronize()
     report["correctness_cases"] = n_cases
+    report["blockparallel_cases"] = n_blockparallel
     log(f"phase 2: {n_cases} single-buffer cases bit-identical (kernels = "
-        f"plain, onepass = fused, codecs agree)")
+        f"plain, onepass = fused, codecs agree); {n_blockparallel} "
+        f"blockparallel transcodes and their scans = fused (int32 buffer, "
+        f"zeros past count)")
 
     r_inputs = {fmt: ragged_inputs(fmt, text_cps, rng) for fmt in PY_CODEC}
     n_ragged = 0
@@ -977,6 +1012,47 @@ def main(argv=None) -> int:
     log(f"phase 2: {n_legacy} legacy-ops cases (validate, decode, encode "
         f"kernels = plain on narrow and int32 input; ops = codecs)")
 
+    # The validation kernel on tiles of each class of its dispatch
+    # (tools/inputs.py's buffers: class breakers in the inflow
+    # only, n cut mid-tile and mid-character, int32 outside [0, 256)),
+    # narrow and int32, at the aligned start and 1-15 bytes past a
+    # 16-byte boundary; then one tile per byte pair, all 65,536.  Held to
+    # validate_plain (no dispatch), which validate_classes (the dispatch
+    # in torch) must equal too.
+    n_val = 0
+    for name, arr, n in inputs.validate_buffers(args.seed):
+        host = torch.from_numpy(arr)
+        want = kval.validate_plain(host, n)
+        require(equal(kval.validate_classes(host, n), want),
+                "validate_classes vs plain", name)
+        narrow = arr.dtype == np.uint8
+        raw = torch.zeros(len(arr) + 16, dtype=host.dtype, device="cuda")
+        for shift in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+                      15, "int32") if narrow else (0,):
+            if shift == "int32":
+                xx = host.to(torch.int32).cuda()
+            else:
+                xx = raw[shift: shift + len(arr)]
+                xx.copy_(host.cuda())
+            hold("validate", kval.validate_kernel(xx, n).cpu(), want,
+                 max_err, "validate classes", name, shift)
+            n_val += 1
+    pairs = torch.from_numpy(inputs.byte_pairs()).cuda()
+    for xx in (pairs, pairs.to(torch.int32)):
+        want = kval.validate_plain(xx, xx.shape[0])
+        require(equal(kval.validate_classes(xx, xx.shape[0]), want),
+                "validate_classes vs plain on byte pairs", xx.dtype)
+        hold("validate", kval.validate_kernel(xx, xx.shape[0]), want,
+             max_err, "validate byte pairs", xx.dtype)
+        n_val += 1
+    del pairs
+    torch.cuda.synchronize()
+    report["validate_class_cases"] = n_val
+    log(f"phase 2: {n_val} validate-kernel cases bit-identical to plain and "
+        f"to validate_classes (tiles of each class, inflow-only breakers, "
+        f"cut n, int32 outside [0, 256), views 1-15 bytes past a 16-byte "
+        f"boundary, all 65,536 byte pairs)")
+
     # Flash attention at small shapes, kernel vs plain, and causality.
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1008,8 +1084,8 @@ def main(argv=None) -> int:
 
     # -- 3. the main path, with launch counts --------------------------------
     main_bytes = MAIN_BYTES
-    main_cps = codepoints("arabic", main_bytes * 10 // 17, rng)
-    u8 = utf8_encode(main_cps)
+    main_cps = inputs.codepoints("arabic", main_bytes * 10 // 17, rng)
+    u8 = inputs.utf8_encode(main_cps)
     ends = np.cumsum(1 + (main_cps >= 0x80) + (main_cps >= 0x800)
                      + (main_cps >= 0x10000))
     k = int(np.searchsorted(ends, main_bytes, side="right"))
@@ -1039,6 +1115,23 @@ def main(argv=None) -> int:
     require(int(cnt) == len(want16) and int(st) == -1, "main path scan")
     report["main_path"] = {"bytes": main_bytes, "units_out": len(want16),
                            "launches": launches}
+
+    # The blockparallel strategy on the same buffer: whole-array torch ops
+    # on the card, no hand kernel (its counts must stay 0).
+    zero_counts()
+    bp_res = repro_torch.transcode(x_main, "utf16", strategy="blockparallel")
+    bp_cnt, bp_st = repro_torch.scan(x_main, "utf16",
+                                     strategy="blockparallel")
+    bp_launches = read_counts()
+    require(bp_launches == {}, "blockparallel launched a kernel",
+            bp_launches)
+    hold_blockparallel(bp_res, res, "64 MiB blockparallel")
+    require(int(bp_cnt) == int(res.count) and int(bp_st) == int(res.status),
+            "64 MiB blockparallel scan")
+    del bp_res
+    report["main_path"]["blockparallel_launches"] = bp_launches
+    log("phase 3: 64 MiB blockparallel transcode = default transcode "
+        "(int32 buffer), its scan = scan; no kernel launched")
 
     # Every kernel against its plain version at the main path's size.
     nblk_main = main_bytes // BLOCK
@@ -1354,7 +1447,7 @@ def main(argv=None) -> int:
             hold(name, kern_fn(), plain_fn(), max_err, "timed", src, dst,
                  n)
             ms = cuda_ms(kern_fn, reps=reps)
-            out[name] = {"ms": ms,
+            out[name] = {"ms": ms, "device_ms": device_ms(kern_fn, reps),
                          "plain_ms": cuda_ms(plain_fn, reps=plain_reps,
                                              warmup=1),
                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1369,7 +1462,11 @@ def main(argv=None) -> int:
                     x, dst, src_format=src)),
                 ("transcode fused", lambda: repro_torch.transcode(
                     x, dst, src_format=src, strategy="fused")),
-                ("scan", lambda: repro_torch.scan(x, dst, src_format=src))):
+                ("scan", lambda: repro_torch.scan(x, dst, src_format=src)),
+                ("transcode blockparallel", lambda: repro_torch.transcode(
+                    x, dst, src_format=src, strategy="blockparallel")),
+                ("scan blockparallel", lambda: repro_torch.scan(
+                    x, dst, src_format=src, strategy="blockparallel"))):
             ms = cuda_ms(fn, reps=reps)
             out[label] = {"ms": ms, "GB_per_s_in": n / ms / 1e6}
         return out
@@ -1406,7 +1503,7 @@ def main(argv=None) -> int:
             hold(name, kern_fn(), plain_fn(), max_err, "timed ragged", src,
                  dst)
             ms = cuda_ms(kern_fn, reps=reps)
-            out[name] = {"ms": ms,
+            out[name] = {"ms": ms, "device_ms": device_ms(kern_fn, reps),
                          "plain_ms": cuda_ms(plain_fn, reps=plain_reps,
                                              warmup=1),
                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1449,10 +1546,35 @@ def main(argv=None) -> int:
     for name, (kern_fn, plain_fn, nbytes) in legacy_calls.items():
         hold(name, kern_fn(), plain_fn(), max_err, "timed legacy")
         ms = cuda_ms(kern_fn, reps=10)
-        legacy_t[name] = {"ms": ms,
+        legacy_t[name] = {"ms": ms, "device_ms": device_ms(kern_fn, 10),
                           "plain_ms": cuda_ms(plain_fn, reps=3, warmup=1),
                           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                           "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
+    # The validation kernel on 64 MiB of each class of its dispatch: the
+    # latin (all tiles ASCII), arabic (<=2-byte) and chinese (general)
+    # profiles.
+    validate_rng = np.random.default_rng([args.seed, 3])
+    validate_t = {}
+    for lang in ("latin", "arabic", "chinese"):
+        host8 = x8 if lang == "arabic" else inputs.utf8_buffer(
+            lang, main_bytes, validate_rng)
+        xv = torch.from_numpy(host8).cuda()
+        want = kval.validate_plain(xv, main_bytes)
+        require(equal(kval.validate_classes(xv, main_bytes), want),
+                "validate_classes vs plain", lang)
+        hold("validate", kval.validate_kernel(xv, main_bytes), want, max_err,
+             "timed validate", lang)
+        call = lambda: kval.validate_kernel(xv, main_bytes)  # noqa: E731
+        ms = cuda_ms(call, reps=10)
+        validate_t[lang] = {
+            "ms": ms, "device_ms": device_ms(call, 10),
+            "bound_ms": legacy_t["validate"]["bound_ms"],
+            "tiles": class_counts(stages, "utf8", torch.from_numpy(host8))}
+        log(f"phase 4: validate 64 MiB {lang:8s} {ms:.4f} ms a call "
+            f"({validate_t[lang]['device_ms']:.4f} ms on the device)  bound "
+            f"{validate_t[lang]['bound_ms']:.4f} ms  tiles "
+            f"{validate_t[lang]['tiles']}  [{smi}]")
+        del xv
     legacy_entry = {}
     for label, fn in (
             ("validate_utf8", lambda: ops.validate_utf8(x_main)),
@@ -1461,10 +1583,12 @@ def main(argv=None) -> int:
             ("utf16_to_utf8", lambda: ops.utf16_to_utf8(u16_main))):
         legacy_entry[label] = {"ms": cuda_ms(fn, reps=10)}
     timing["legacy ops, 64MiB arabic utf8 / its utf16"] = {
-        "kernels": legacy_t, "entry": legacy_entry}
+        "kernels": legacy_t, "entry": legacy_entry,
+        "validate by class": validate_t}
     for name, t in legacy_t.items():
         log(f"phase 4: legacy {name:8s} {t['ms']:.4f} ms "
-            f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "
+            f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "
+            f"bound {t['bound_ms']:.4f} ms  "
             f"plain {t['plain_ms']:.3f} ms  [{smi}]")
     for name, t in legacy_entry.items():
         log(f"phase 4: ops.{name:14s} {t['ms']:.4f} ms  [{smi}]")
@@ -1494,7 +1618,11 @@ def main(argv=None) -> int:
         lib_diff = (sdpa().transpose(1, 2).float()
                     - fa.flash_kernel(q, k, v, window).float()).abs().max()
         flash_t[label] = {"ms": ms, "plain_ms": plain_ms,
-                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "device_ms": device_ms(lambda: fa.flash_kernel(
+                              q, k, v, window), 5),
+                          "library_ms": library_ms,
+                          "library_device_ms": device_ms(sdpa, 5),
+                          "bound_ms": bound_ms,
                           "bound_by": bound_by,
                           "bound_label": BOUND_LABEL[dt] if bound_by
                           == "operations" else bound_by, "flops": flops,
@@ -1503,7 +1631,9 @@ def main(argv=None) -> int:
         log(f"phase 4: flash {label:34s} {ms:.3f} ms ({flops / ms / 1e9:.1f} "
             f"TFLOP/s)  bound {bound_ms:.4f} ms "
             f"({flash_t[label]['bound_label']})  plain "
-            f"{plain_ms:.3f} ms  sdpa {library_ms:.3f} ms (max |diff| "
+            f"{plain_ms:.3f} ms  sdpa {library_ms:.3f} ms; device: kernel "
+            f"{flash_t[label]['device_ms']:.3f}, sdpa "
+            f"{flash_t[label]['library_device_ms']:.3f} ms (max |diff| "
             f"{lib_diff.item():.3g})  [{smi}]")
         del qt, kt, vt
     timing["flash attention"] = flash_t
@@ -1518,25 +1648,28 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "bit_identical": max_err[name] == 0,
             "max_abs_err": max_err[name], "ms": t["ms"],
+            "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t.get("library_ms")})
     for name, t in main_t["kernels"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:8s} {t['ms']:.4f} ms "
-            f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "
+            f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "
+            f"bound {t['bound_ms']:.4f} ms  "
             f"plain {t['plain_ms']:.3f} ms  [{smi}]")
     for name, t in main_t["entry"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:18s} {t['ms']:.4f} ms "
             f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")
     for name, t in rag_t["kernels"].items():
         log(f"phase 4: {rag_label} {name:8s} {t['ms']:.4f} ms "
-            f"({t['GB_per_s']:.1f} GB/s)  bound {t['bound_ms']:.4f} ms  "
+            f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "
+            f"bound {t['bound_ms']:.4f} ms  "
             f"plain {t['plain_ms']:.3f} ms  [{smi}]")
     for name, t in rag_t["entry"].items():
         log(f"phase 4: {rag_label} {name:22s} {t['ms']:.4f} ms "
             f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")
-    for lang in PROFILES:
-        cps = codepoints(lang, LIPSUM_CHARS, rng)
+    for lang in inputs.PROFILES:
+        cps = inputs.codepoints(lang, LIPSUM_CHARS, rng)
         for src, dst in (("utf8", "utf16"), ("utf16", "utf8")):
             x = torch.from_numpy(encode(cps, src)).cuda()
             cell = {"input_bytes": x.numel() * x.element_size(),

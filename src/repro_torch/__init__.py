@@ -1,17 +1,21 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` (public surface).
 
-The port covers single-buffer ``transcode`` and ``scan``, the ragged
-packed-batch ``ragged_transcode`` and ``ragged_scan`` (over
-``pack_documents``) and the chunked ``transcode_stream``, over the 12
-cells of the {utf8, utf16, utf32, latin1} matrix under
-``errors="strict"`` and ``"replace"``.  Results are bit-identical to
-``repro`` on the same inputs.  Outside ``__all__``, as in ``repro``:
-the legacy kernel surface ``repro_torch.kernels.ops`` (``validate_utf8``,
+The port covers single-buffer ``transcode`` and ``scan`` (strategies
+``onepass``, ``fused`` and ``blockparallel``), the ragged packed-batch
+``ragged_transcode`` and ``ragged_scan`` (over ``pack_documents``) and
+the chunked ``transcode_stream``, over the 12 cells of the {utf8, utf16,
+utf32, latin1} matrix under ``errors="strict"`` and ``"replace"``.
+Results are bit-identical to ``repro`` on the same inputs.  Outside
+``__all__``, as in ``repro``: the whole-array helpers of
+``repro_torch.core.transcode`` (``validate_utf8``, ``validate_utf16``,
+the length queries, the little-endian byte conversions), the legacy
+kernel surface ``repro_torch.kernels.ops`` (``validate_utf8``,
 ``decode_utf8``, ``utf8_to_utf16``, ``utf16_to_utf8``), bit-identical
 too, and ``repro_torch.kernels.flash_attention.flash_attention``, within
 the reference tests' tolerances.  Entry points run on the card
 (``device="cuda"``, the default) through hand-written CUDA kernels, one
-for each of the reference's ten Pallas kernels, or on the CPU
+for each of the reference's ten Pallas kernels (the blockparallel
+strategy and the helpers as whole-array torch ops), or on the CPU
 (``device="cpu"``) through the kernels' plain PyTorch versions.
 
 Attributes resolve lazily (PEP 562): ``import repro_torch`` pulls in no

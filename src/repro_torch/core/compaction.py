@@ -1,10 +1,12 @@
 """Stream compaction: global (cumsum + scatter) and hierarchical.
 
-Port of ``repro.core.compaction`` without ``compact_gather``.
-:func:`compact` and :func:`compact_offsets` are the global form that
-the legacy kernel surface (``kernels/ops.py``) runs after its kernels, as
-the reference leaves it to XLA outside any kernel: plain torch ops on the
-device.  The transcode compacts each tile's output units with an in-tile
+Port of ``repro.core.compaction``.  :func:`compact` and
+:func:`compact_offsets` are the global form that the legacy kernel
+surface (``kernels/ops.py``) runs after its kernels and the
+blockparallel strategy runs on the whole buffer, as the reference leaves
+it to XLA outside any kernel: plain torch ops on the device.
+:func:`compact_gather` is the same compaction as a stable sort, with no
+scatter.  The transcode compacts each tile's output units with an in-tile
 exclusive scan and places the tile at the exclusive scan of the per-tile
 totals; only the last two helpers see per-tile state.
 """
@@ -74,3 +76,22 @@ def tile_base_offsets(tile_totals):
     total = incl[-1] if tile_totals.shape[0] > 0 else \
         torch.zeros((), dtype=torch.int32, device=tile_totals.device)
     return incl - tile_totals, total
+
+
+def compact_gather(values, mask, capacity: int, fill=0):
+    """Sort-based compaction (no scatter): ``values[mask]`` to the front
+    of a ``capacity``-sized buffer, by a stable sort of the lanes on
+    ``~mask``.  Returns ``(out, count)``, ``count`` int32."""
+    n = values.shape[0]
+    order = torch.argsort((~mask).to(torch.int32), stable=True)
+    gathered = values[order]
+    count = mask.sum(dtype=torch.int32)
+    if capacity <= n:
+        out = gathered[:capacity]
+    else:
+        out = torch.cat([gathered, torch.full(
+            (capacity - n,) + tuple(values.shape[1:]), fill,
+            dtype=values.dtype, device=values.device)])
+    idx = torch.arange(capacity, device=values.device)
+    keep = (idx < count).reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(keep, out, fill).to(values.dtype), count

@@ -73,6 +73,16 @@ class RaggedTranscodeResult(NamedTuple):
         return self.statuses < 0
 
 
+def first_error_status(err_map, n):
+    """Min-reduce a per-position error map into a 0-d int32 status: the
+    first set index in the live region ``[0, n)``, or ``STATUS_OK``.
+    The reduce the blockparallel strategy derives its status from."""
+    idx = torch.arange(err_map.shape[0], device=err_map.device)
+    errpos = torch.where(err_map & (idx < n), idx, NO_ERR_SENTINEL)
+    return status_from_first(torch.cat([
+        errpos, errpos.new_full((1,), NO_ERR_SENTINEL)]).amin())
+
+
 def status_from_first(first_index, err_any=None):
     """Fold a min-reduced first-error index (NO_ERR_SENTINEL = clean) and
     an optional independent error flag into one 0-d int32 status.

@@ -1,19 +1,22 @@
 """Lookup tables for SIMD-style UTF-8 validation (Lemire & Mula 2021).
 
-A copy of the tables of ``repro.core.tables`` that this slice uses: the
+A copy of the tables of ``repro.core.tables`` that the port uses: the
 Keiser-Lemire three-nibble validation tables (``BYTE_1_HIGH``,
-``BYTE_1_LOW``, ``BYTE_2_HIGH``).  The speculative decode computes the
-sequence length and overlong bounds as select trees, as the reference's
-stages do; ``LEAD_LENGTH_32`` and ``MIN_CP_FOR_LEN`` are copied for the
-whole-array oracles of ``kernels/ref.py`` only.  The CUDA kernels load
-the nibble tables from here into ``__constant__`` memory, so this file is
-their single definition in the port; the tests hold every table equal to
-the reference's.
+``BYTE_1_LOW``, ``BYTE_2_HIGH``), and the sequence-length and overlong
+tables (``LEAD_LENGTH_32``, ``MIN_CP_FOR_LEN``) that the whole-array
+codecs (``core/utf8.py``) and the oracles of ``kernels/ref.py`` read;
+the kernels' stages compute those two as select trees, as the
+reference's stages do.  The windowed strategy's tables are not copied
+yet.  :func:`take` reads a table with ``jnp.take``'s default semantics.
+The CUDA kernels load the nibble tables from here into ``__constant__``
+memory, so this file is their single definition in the port; the tests
+hold every table equal to the reference's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Error bit flags (one bit per class of structural error).
 TOO_SHORT = 1 << 0       # lead byte followed by another lead byte
@@ -96,3 +99,14 @@ LEAD_LENGTH_32[30] = 4            # 0xF0..0xF7
 
 # Minimum code point for a sequence of length L (overlong check), 1-indexed.
 MIN_CP_FOR_LEN = np.array([0, 0, 0x80, 0x800, 0x10000], dtype=np.int32)
+
+
+def take(table, idx):
+    """``jnp.take(table, idx)`` at its default mode, for int32 lanes: an
+    index in ``[-len, len)`` reads the table (negative ones from the
+    end), any other reads int32 min (the mode's fill value).  On bytes
+    it is plain indexing; the fill keeps wider garbage defined."""
+    size = table.shape[0]
+    ok = (idx >= -size) & (idx < size)
+    v = table[torch.remainder(torch.where(ok, idx, 0), size).long()]
+    return torch.where(ok, v, torch.iinfo(torch.int32).min)

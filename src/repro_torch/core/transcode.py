@@ -15,10 +15,16 @@ U+FFFD per maximal subpart of an ill-formed sequence (and ``?`` per
 Latin-1-unencodable code point) and still reports the first offset.
 
 Strategies (``strategy=``): ``"onepass"`` (the default: one launch, one
-decode) and ``"fused"`` (count launch, cumsum, write launch), both
-bit-identical to the reference.  ``"blockparallel"`` and ``"windowed"``
-are not ported yet: a request the reference would run on them raises
+decode) and ``"fused"`` (count launch, cumsum, write launch) run the
+hand-written kernels; ``"blockparallel"`` decodes every position
+speculatively and compacts globally, as whole-array torch ops on the
+device (the reference's pure-jnp semantic reference; its buffer is
+int32).  All three are bit-identical to the reference.  ``"windowed"``
+is not ported yet: a request the reference would run on it raises
 ``NotImplementedError``, one it rejects raises its ``ValueError``.
+Beside them, the whole-array helpers ``validate_utf8``,
+``validate_utf16``, the length queries and the little-endian byte
+conversions.
 
 Devices (``device=``): ``None`` runs on the current CUDA device through
 the hand-written kernels and raises when there is none; ``"cpu"`` runs
@@ -27,7 +33,10 @@ the kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
-from repro_torch.core import result as R
+import torch
+
+from repro_torch.core import compaction, latin1 as l1mod, result as R
+from repro_torch.core import utf16 as u16mod, utf32 as u32mod, utf8 as u8mod
 from repro_torch.core.result import STATUS_OK, TranscodeResult  # noqa: F401  (re-export)
 from repro_torch.kernels import runtime
 
@@ -92,19 +101,12 @@ def _check_pair(src: str, dst: str):
     return CAP_FACTOR[(src, dst)]
 
 
-def _not_ported(strategy: str, what: str):
-    return NotImplementedError(
-        f"{what}: strategy={strategy!r} is not ported to repro_torch yet; "
-        f"see ROADMAP.md queue 1 item 2 (the blockparallel and windowed "
-        f"strategies)")
-
-
 def _check_strategy(strategy: str, src: str, dst: str, errors: str) -> None:
     """``transcode``'s strategy check, after the policy, input, format and
     pair checks, as in the reference: a request the reference rejects
-    raises its ``ValueError``; one it would run on a strategy not ported
-    yet raises ``NotImplementedError``."""
-    if strategy in ("onepass", "fused"):
+    raises its ``ValueError``; one it would run on the windowed strategy,
+    not ported yet, raises ``NotImplementedError``."""
+    if strategy in ("onepass", "fused", "blockparallel"):
         return
     if strategy == "windowed":
         if (src, dst) not in _WINDOWED_PAIRS:
@@ -115,8 +117,10 @@ def _check_strategy(strategy: str, src: str, dst: str, errors: str) -> None:
             raise ValueError(
                 "strategy='windowed' supports errors='strict' only "
                 "(the serial baseline has no replacement path)")
-    if strategy in ("blockparallel", "windowed"):
-        raise _not_ported(strategy, "transcode")
+    if strategy == "windowed":
+        raise NotImplementedError(
+            "transcode: strategy='windowed' is not ported to repro_torch "
+            "yet; see ROADMAP.md queue 1 item 2 (the windowed strategy)")
     raise ValueError(
         f"unknown strategy: {strategy} (supported: {list(STRATEGIES)})")
 
@@ -140,6 +144,9 @@ def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
     d = normalize_format(dst_format)
     _check_pair(s, d)
     _check_strategy(strategy, s, d, errors)
+    if strategy == "blockparallel":
+        return _blockparallel_pair(src, n_valid, s, d, validate, errors,
+                                   device)
     if strategy == "onepass":
         from repro_torch.kernels import onepass_transcode
         return onepass_transcode.transcode_onepass(
@@ -162,7 +169,7 @@ def scan(x, dst_format, *, src_format: str = "utf8", n_valid=None,
     dst = normalize_format(dst_format)
     _check_pair(src, dst)
     if strategy == "blockparallel":
-        raise _not_ported(strategy, "scan")
+        return _blockparallel_count(x, n_valid, src, dst, device)
     if strategy not in ("onepass", "fused"):
         raise ValueError(f"scan: unknown strategy {strategy!r}")
     if strategy == "onepass":
@@ -172,6 +179,206 @@ def scan(x, dst_format, *, src_format: str = "utf8", n_valid=None,
     from repro_torch.kernels import fused_transcode
     return fused_transcode.scan_fused(x, n_valid, src=src, dst=dst,
                                       device=device)
+
+
+# ---------------------------------------------------------------------------
+# Block-parallel matrix body: whole-array speculative decode and analysis
+# per source format, candidate production per destination format, global
+# compaction (torch cumsum + scatter), all plain torch ops on the device.
+
+
+def _units(x, device, what: str, n_valid=None):
+    """The input on ``device`` as int32, as the reference's ``_as_i32``;
+    ``n_valid`` checked as every entry point checks it."""
+    x = runtime.check_input(x, what).to(runtime.resolve_device(device))
+    runtime.resolve_n(x.shape[0], n_valid)
+    return x.to(torch.int32)
+
+
+def _whole(x, n_valid, device, what: str):
+    """:func:`_units`, widened without a cast to the source's storage
+    dtype first (as the reference's ``astype``), with elements at and past
+    ``n_valid`` zeroed.  Returns ``(x, n)``."""
+    x = _units(x, device, what, n_valid)
+    runtime.check_size(x.shape[0])
+    return u8mod.mask_padding(x, n_valid)
+
+
+def _ones(x):
+    return torch.ones(x.shape, dtype=torch.bool, device=x.device)
+
+
+def _src_decode(src: str, x):
+    """Speculative whole-array decode: ``(cp, lead_mask)``."""
+    if src == "utf8":
+        cp, is_lead, _err = u8mod.decode_speculative(x)
+        return cp, is_lead
+    if src == "utf16":
+        cp, is_lead, _err = u16mod.decode_speculative(x)
+        return cp, is_lead
+    if src == "utf32":
+        # Unrepresentable scalars become U+FFFD in the buffer even under
+        # errors="strict" (status still locates them), as in every
+        # strategy.
+        return torch.where(u32mod.invalid_scalar(x), 0xFFFD, x), _ones(x)
+    return x, _ones(x)
+
+
+def _src_analyze(src: str, x):
+    """Whole-array maximal-subpart analysis: {starts, valid, cp, err}."""
+    if src == "utf8":
+        return u8mod.analyze(x)
+    if src == "utf16":
+        return u16mod.analyze(x)
+    if src == "utf32":
+        bad = u32mod.invalid_scalar(x)
+        return {"starts": _ones(x), "valid": ~bad,
+                "cp": torch.where(bad, 0xFFFD, x), "err": bad}
+    return {"starts": _ones(x), "valid": _ones(x), "cp": x,
+            "err": torch.zeros(x.shape, dtype=torch.bool, device=x.device)}
+
+
+def _dst_encode(dst: str, cp):
+    """Candidate production: ``(lengths, values[N, K], encode_bad)``,
+    ``encode_bad`` None where every code point encodes."""
+    if dst == "utf16":
+        units, u0, u1, _bad = u16mod.encode_candidates(cp)
+        return units, torch.stack([u0, u1], -1), None
+    if dst == "utf8":
+        L, cand, _bad = u32mod.encode_utf8_candidates(cp)
+        return L, cand, None
+    if dst == "utf32":
+        return torch.ones_like(cp), cp[..., None], None
+    L, byte, bad = l1mod.encode_candidates(cp)
+    return L, byte[..., None], bad
+
+
+def _blockparallel_pair(x, n_valid, src: str, dst: str, validate: bool,
+                        errors: str, device=None):
+    """Block-parallel (src, dst) transcode: an int32 buffer of ``CAP_FACTOR
+    * len(x)`` units, as the reference's."""
+    factor = _check_pair(src, dst)
+    x, n = _whole(x, n_valid, device, "transcode")
+    cap = factor * x.shape[0]
+    # Paper Algorithm 3's fast path: ASCII values are the same number in
+    # every format, so an all-ASCII buffer is a widening copy.  The
+    # reference decides it with lax.cond on the device; here it is a
+    # Python branch, one host sync per call.  The lower bound matters:
+    # a garbage UTF-32 scalar such as 0xFFFFFFFF is negative as int32.
+    if bool(((x >= 0) & (x < 0x80)).all()):
+        out = torch.cat([x, x.new_zeros(cap - x.shape[0])])
+        return TranscodeResult(out, _i32(n, x), _i32(STATUS_OK, x))
+    idx = torch.arange(x.shape[0], device=x.device)
+    a = _src_analyze(src, x) if validate or errors == "replace" else None
+    if errors == "replace":
+        cp, mask = a["cp"], a["starts"] & (idx < n)
+    else:
+        cp, is_lead = _src_decode(src, x)
+        mask = is_lead & (idx < n)
+    lens, vals, enc_bad = _dst_encode(dst, cp)
+    out, count = compaction.compact_offsets(vals, lens, mask, cap)
+    if not validate:
+        return TranscodeResult(out, count, _i32(STATUS_OK, x))
+    err_map = a["err"]
+    if enc_bad is not None:
+        _l, _v, a_bad = _dst_encode(dst, a["cp"])
+        err_map = err_map | (a_bad & a["starts"])
+    return TranscodeResult(out, count, R.first_error_status(err_map, n))
+
+
+def _blockparallel_count(x, n_valid, src: str, dst: str, device=None):
+    """Single-scan validation + capacity as whole-array torch ops:
+    ``(count, status)``."""
+    _check_pair(src, dst)
+    x, n = _whole(x, n_valid, device, "scan")
+    idx = torch.arange(x.shape[0], device=x.device)
+    cp, is_lead = _src_decode(src, x)
+    lens, _vals, _bad = _dst_encode(dst, cp)
+    count = torch.where(is_lead & (idx < n), lens, 0).sum(dtype=torch.int32)
+    a = _src_analyze(src, x)
+    err_map = a["err"]
+    _l, _v, a_bad = _dst_encode(dst, a["cp"])
+    if a_bad is not None:
+        err_map = err_map | (a_bad & a["starts"])
+    return count, R.first_error_status(err_map, n)
+
+
+def _i32(v, like):
+    return torch.tensor(v, dtype=torch.int32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Whole-array helpers: validation, length queries and the little-endian
+# byte conversions, on ``device`` (the card unless asked otherwise).
+
+
+def validate_utf8(b, n_valid=None, *, device=None):
+    """0-d bool: is the byte stream valid UTF-8 (Keiser-Lemire)."""
+    return u8mod.validate_kl(_units(b, device, "validate_utf8", n_valid),
+                             n_valid)
+
+
+def validate_utf16(u, n_valid=None, *, device=None):
+    """0-d bool: is the unit stream valid UTF-16."""
+    return u16mod.validate(_units(u, device, "validate_utf16", n_valid),
+                           n_valid)
+
+
+def utf16_length_from_utf8(b, n_valid=None, *, device=None):
+    """0-d int32: UTF-16 units a UTF-8 stream needs (padding reads as a
+    continuation byte, which counts nothing)."""
+    b, _n = u8mod.mask_padding(
+        _units(b, device, "utf16_length_from_utf8", n_valid), n_valid, 0x80)
+    return u8mod.utf16_length(b)
+
+
+def utf8_length_from_utf16(u, n_valid=None, *, device=None):
+    """0-d int32: UTF-8 bytes a UTF-16 stream needs.  Padding is zeroed
+    and its one byte per unit taken off again."""
+    u = _units(u, device, "utf8_length_from_utf16", n_valid)
+    masked, n = u8mod.mask_padding(u, n_valid)
+    return u16mod.utf8_length(masked) - (u.shape[0] - n)
+
+
+def count_utf8_chars(b, n_valid=None, *, device=None):
+    """0-d int32: characters of a UTF-8 stream."""
+    b, _n = u8mod.mask_padding(
+        _units(b, device, "count_utf8_chars", n_valid), n_valid, 0x80)
+    return u8mod.count_chars(b)
+
+
+def utf16le_bytes_to_units(by, *, device=None):
+    """UTF-16LE byte buffer -> int32 units (explicit little-endian)."""
+    by = _units(by, device, "utf16le_bytes_to_units")
+    if by.shape[0] % 2:
+        raise ValueError(
+            f"utf16le_bytes_to_units: odd byte length {by.shape[0]}")
+    return by[0::2] | (by[1::2] << 8)
+
+
+def units_to_utf16le_bytes(u, *, device=None):
+    """int32/uint16 units -> UTF-16LE int32 byte values."""
+    u = _units(u, device, "units_to_utf16le_bytes")
+    return torch.stack([u & 0xFF, (u >> 8) & 0xFF], -1).reshape(-1)
+
+
+def utf32le_bytes_to_cps(by, *, device=None):
+    """UTF-32LE byte buffer -> int32 code points (explicit little-endian;
+    a top byte >= 0x80 wraps negative, as in the reference)."""
+    by = _units(by, device, "utf32le_bytes_to_cps")
+    if by.shape[0] % 4:
+        raise ValueError(
+            f"utf32le_bytes_to_cps: byte length {by.shape[0]} not a "
+            f"multiple of 4")
+    return (by[0::4] | (by[1::4] << 8) | (by[2::4] << 16)
+            | (by[3::4] << 24))
+
+
+def cps_to_utf32le_bytes(cp, *, device=None):
+    """int32/uint32 code points -> UTF-32LE int32 byte values."""
+    cp = _units(cp, device, "cps_to_utf32le_bytes")
+    return torch.stack([cp & 0xFF, (cp >> 8) & 0xFF, (cp >> 16) & 0xFF,
+                        (cp >> 24) & 0xFF], -1).reshape(-1)
 
 
 # ---------------------------------------------------------------------------

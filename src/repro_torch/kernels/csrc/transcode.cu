@@ -40,7 +40,9 @@
 // and have no dependence across blocks:
 //
 //   validate_kernel       replaces src/repro/kernels/utf8_validate.py::utf8_validate_kernel
-//                         per tile: the Keiser-Lemire maximum of sc ^ must.
+//                         per tile: the Keiser-Lemire maximum of sc ^ must;
+//                         one warp per tile, dispatched on the tile's
+//                         class, the tables in registers.
 //   decode_kernel         replaces src/repro/kernels/utf8_decode.py::utf8_decode_kernel
 //                         per lane: the legacy speculative decode (cp,
 //                         lead, units) and per tile its error flag.
@@ -62,8 +64,10 @@
 // reference's per-tile classes (ASCII, <=2-byte, general) and registers
 // in place of a staged tile (see count_kernel, write_kernel); the one-pass
 // kernels stage the tile and its halo in shared memory as int32 lanes and
-// run the general body on every tile.  Every kernel that validates reads
-// the Keiser-Lemire nibble tables from its block's shared-memory copy.
+// run the general body on every tile.  Every transcode kernel that
+// validates reads the Keiser-Lemire nibble tables from its block's
+// shared-memory copy; the validation kernel holds them in registers as
+// bytes (validate_kernel).
 //
 // Semantics are lane for lane those of the reference tile bodies
 // (src/repro/kernels/stages/*.py and src/repro/core/{utf8,utf16}.py):
@@ -108,9 +112,12 @@ template <> struct Reach<UTF16> { static constexpr int value = 1; };
 
 // Keiser-Lemire nibble tables (byte_1_high, byte_1_low, byte_2_high, 16
 // entries each), loaded by transcode_set_tables from
-// src/repro_torch/core/tables.py.  Lane bodies never read them here: each
-// block copies them to shared memory (load_kl_tables), since lanes of a
-// warp that look up different constant-memory addresses serialise.
+// src/repro_torch/core/tables.py.  The transcode kernels' lane bodies
+// never read them here: each block copies them to shared memory
+// (load_kl_tables), since lanes of a warp that look up different
+// constant-memory addresses serialise.  Only validate_kernel's body for
+// int32 input outside the byte range, off every main path, reads them
+// here.
 constexpr int KL_ENTRIES = 48;
 __constant__ int32_t kKL[KL_ENTRIES];
 
@@ -1209,12 +1216,12 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
 }
 
 // ---------------------------------------------------------------------------
-// The legacy kernels (kernels/ops.py).  One block per 1024-element tile;
-// thread t handles lanes t, t + 256, t + 512 and t + 768, so each store
-// of a warp covers 32 consecutive int32 (128 bytes).  What bounds them is
-// the bytes they move: the decode and encode kernels write 12 and 20
-// bytes of int32 planes per input element, the validation kernel reads
-// the input and writes 4 bytes per tile.
+// The legacy kernels (kernels/ops.py).  What bounds them is the bytes
+// they move: the decode and encode kernels write 12 and 20 bytes of int32
+// planes per input element, one block per 1024-element tile, thread t
+// handling lanes t, t + 256, t + 512 and t + 768, so each store of a warp
+// covers 32 consecutive int32 (128 bytes); the validation kernel reads the
+// input and writes 4 bytes per tile, one warp per tile (below).
 
 // Stage tile `tile` with HB elements of look-back and HA of look-ahead
 // into shared memory as int32 lanes; elements at or past n, and before
@@ -1245,15 +1252,10 @@ __device__ __forceinline__ int block_max(int v, int* red) {
 }
 
 // jnp.take at its default mode on a 16-entry table: an index in [-16, 16)
-// reads it (negative ones from the end), any other reads int32 min.  A
-// byte always indexes in range; wider input keeps the reference's result.
-template <typename T>
+// reads it (negative ones from the end), any other reads int32 min, so
+// int32 input wider than a byte keeps the reference's result.
 __device__ __forceinline__ int32_t table_take(const int32_t* table, int i) {
-  if constexpr (sizeof(T) == 1) {
-    return table[i];
-  } else {
-    return (i >= -16 && i < 16) ? table[i & 15] : INT32_MIN;
-  }
+  return (i >= -16 && i < 16) ? table[i & 15] : INT32_MIN;
 }
 
 __device__ __forceinline__ int legacy_seq_len(int b) {
@@ -1261,31 +1263,311 @@ __device__ __forceinline__ int legacy_seq_len(int b) {
        : b < 0xF0 ? 3 : b < 0xF8 ? 4 : 0;
 }
 
-// Replaces utf8_validate.py::utf8_validate_kernel, on the block's shared
-// copy of the nibble tables.
+// validate_kernel replaces utf8_validate.py::utf8_validate_kernel: per
+// 1024-element tile, the maximum over its elements of the Keiser-Lemire
+// sc ^ must_be_cont, the previous tile's last three elements as look-back
+// (0 before the stream and at or past n).  Bytes bound: the input read
+// once and 4 bytes per tile written.
+//
+// One warp per tile, CTILES tiles a block, the tile in registers: a lane
+// holds VLane<T>::CHUNKS chunks of 16 bytes (ELEMS elements each), loaded
+// with 16-byte vector loads where the buffer starts on a 16-byte boundary
+// and the chunk lies below n (element by element otherwise).  Chunk c of
+// lane l starts at element (32 c + l) * ELEMS of the tile, so that each
+// load instruction of the warp reads 512 consecutive bytes (count_kernel's
+// layout, lane l holding elements [32 l, 32 l + 32), measured the same).
+// A chunk's look-back is the last elements of the chunk before it in the
+// stream, taken from the lane that holds it by a shuffle (vpred); lane 0
+// reads the previous tile's.
+//
+// Each tile takes one of three classes, decided for the whole warp by
+// __all_sync from its elements and the three before it:
+//   ASCII     every element in [0, 0x80): the maximum is 0, since
+//             byte_1_high[p1 >> 4] & byte_1_low[p1 & 15] &
+//             byte_2_high[b >> 4] is 0 on every pair of ASCII bytes and
+//             must_be_cont needs a byte >= 0xE0; no lookups.
+//   <=2-byte  every element in [0, 0xE0): must_be_cont is 0, the maximum
+//             is that of sc alone.
+//   general   the full body.
+// The bodies run on bytes packed four to a 32-bit word: the look-back
+// bytes come from funnel shifts of a word and the one before it, and the
+// three 16-entry tables sit in registers as four words each, read four
+// bytes at a time with PRMT (lookup16).  byte_1_high & byte_1_low is
+// looked up once per byte and serves as the next byte's look-back half
+// through a funnel shift; byte_2_high shares byte_1_high's selector.  The
+// lane keeps its bytewise maximum as two maxima of 16-bit lanes
+// (__vmaxu2, one VIMNMX each on sm_90, where __vmaxu4 compiles to six
+// instructions).  int32 input packs into bytes when every element of the
+// tile lies in [0, 0xE0); any other int32 tile runs a scalar body with
+// table_take's jnp.take semantics.  The warp's maximum comes from
+// __reduce_max_sync and one store; blocks share nothing.
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename T>
+struct VLane {
+  static constexpr int ELEMS = 16 / static_cast<int>(sizeof(T));
+  static constexpr int CHUNKS = TILE / 32 / ELEMS;
+  static constexpr int PER = 4 / static_cast<int>(sizeof(T));  // per word
+};
+
+// The three nibble tables as bytes, four entries a word: kKLB[4 t + k]
+// holds entries 4k..4k+3 of table t (byte_1_high, byte_1_low,
+// byte_2_high), set by transcode_set_tables with kKL.
+__constant__ uint32_t kKLB[12];
+
+// A 16-entry byte table read four bytes at a time.  PRMT picks each
+// result byte from the eight bytes of two words by a 3-bit selector, so
+// Sel holds the four indices' low three bits (entries 0-7 from t[0..1],
+// 8-15 from t[2..3]) and a byte mask of their bit 3 that picks between
+// the two reads.
+struct Sel {
+  uint32_t low3, upper;
+};
+
+// The selectors of the four bytes of v, each in [0, 16).
+__device__ __forceinline__ Sel nibble_sel(uint32_t v) {
+  const uint32_t s = __byte_perm(v | (v >> 4), 0, 0x4420);  // nibble k = byte k
+  return {s & 0x7777u, __byte_perm(0u, FULL, (s >> 1) & 0x4444u)};
+}
+
+__device__ __forceinline__ uint32_t lookup16(const uint32_t* t, Sel s) {
+  const uint32_t lo = __byte_perm(t[0], t[1], s.low3);
+  const uint32_t hi = __byte_perm(t[2], t[3], s.low3);
+  return (hi & s.upper) | (lo & ~s.upper);
+}
+
+// The lookups of the four bytes of w: f = byte_1_high[b >> 4] &
+// byte_1_low[b & 15], the half of sc that depends on the previous byte
+// (it becomes the next byte's), and g = byte_2_high[b >> 4], the half
+// that depends on the byte itself.
+__device__ __forceinline__ void kl_halves(uint32_t w, const uint32_t (&t)[12],
+                                          uint32_t& f, uint32_t& g) {
+  const Sel hi = nibble_sel((w >> 4) & 0x0F0F0F0Fu);
+  f = lookup16(t, hi) & lookup16(t + 4, nibble_sel(w & 0x0F0F0F0Fu));
+  g = lookup16(t + 8, hi);
+}
+
+// sc (and, when GENERAL, ^ must_be_cont) of the four bytes of w, bytewise:
+// fprev and prev are f and the bytes of the word before w in the stream.
+template <bool GENERAL>
+__device__ __forceinline__ uint32_t kl4(uint32_t fprev, uint32_t f,
+                                        uint32_t g, uint32_t prev,
+                                        uint32_t w) {
+  const uint32_t sc = __funnelshift_r(fprev, f, 24) & g;
+  if constexpr (!GENERAL) {
+    return sc;
+  } else {
+    const uint32_t p2 = __funnelshift_r(prev, w, 16);
+    const uint32_t p3 = __funnelshift_r(prev, w, 8);
+    const uint32_t must = ((p2 & (p2 << 1) & (p2 << 2)) |         // >= E0
+                           (p3 & (p3 << 1) & (p3 << 2) & (p3 << 3))) &  // F0
+                          0x80808080u;
+    return sc ^ must;
+  }
+}
+
+// The lane's chunks: r[c] holds chunk c's ELEMS elements, 0 at or past n.
+template <typename T>
+__device__ __forceinline__ void vload(const T* __restrict__ x, long long t0,
+                                      int n, int lane, bool vec,
+                                      uint4 (&r)[VLane<T>::CHUNKS]) {
+  using L = VLane<T>;
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c) {
+    const long long start = t0 + (32 * c + lane) * L::ELEMS;
+    const long long lim = n - start;
+    if (vec && lim >= L::ELEMS) {
+      r[c] = *reinterpret_cast<const uint4*>(x + start);
+      continue;
+    }
+    uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < L::ELEMS; ++k) {
+      if (k < lim) {
+        w[k / L::PER] |= static_cast<uint32_t>(x[start + k])
+                         << (8 * static_cast<int>(sizeof(T)) * (k % L::PER));
+      }
+    }
+    r[c] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// pred[c]: the value `last` takes for the chunk before chunk c in the
+// stream, held by lane - 1 (lane 31's chunk c - 1 for lane 0); `halo`
+// for the tile's first.
+template <int C>
+__device__ __forceinline__ void vpred(const uint32_t (&last)[C],
+                                      uint32_t halo, int lane,
+                                      uint32_t (&pred)[C]) {
+  uint32_t carry = halo;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const uint32_t s = __shfl_sync(FULL, last[c], (lane + 31) & 31);
+    pred[c] = lane ? s : carry;
+    carry = s;
+  }
+}
+
+// The lane's maximum on a tile of bytes (packed four to a word; int32
+// elements all in [0, 0xE0)).  halo holds the three elements before the
+// tile in bytes 1..3.
+template <typename T, bool GENERAL>
+__device__ __forceinline__ int kl_tile_bytes(
+    const uint4 (&r)[VLane<T>::CHUNKS], uint32_t halo, int lane) {
+  using L = VLane<T>;
+  constexpr int C = L::CHUNKS;
+  constexpr int WPC = L::ELEMS / 4;   // packed words per chunk
+  uint32_t t[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) t[i] = kKLB[i];
+  uint32_t w[C][WPC], f[C][WPC], g[C][WPC];
+  uint32_t lastw[C], lastf[C], predw[C], predf[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if constexpr (sizeof(T) == 1) {
+      w[c][0] = r[c].x;
+      w[c][1] = r[c].y;
+      w[c][2] = r[c].z;
+      w[c][3] = r[c].w;
+    } else {
+      w[c][0] = r[c].x | (r[c].y << 8) | (r[c].z << 16) | (r[c].w << 24);
+    }
+#pragma unroll
+    for (int j = 0; j < WPC; ++j) kl_halves(w[c][j], t, f[c][j], g[c][j]);
+    lastw[c] = w[c][WPC - 1];
+    lastf[c] = f[c][WPC - 1];
+  }
+  uint32_t fhalo, ghalo;
+  kl_halves(halo, t, fhalo, ghalo);
+  vpred<C>(lastf, fhalo, lane, predf);
+  if constexpr (GENERAL) vpred<C>(lastw, halo, lane, predw);
+  uint32_t even = 0, odd = 0;   // bytewise maxima, by 16-bit lanes
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int j = 0; j < WPC; ++j) {
+      const uint32_t fp = j ? f[c][j - 1] : predf[c];
+      const uint32_t wp = GENERAL ? (j ? w[c][j - 1] : predw[c]) : 0;
+      const uint32_t v = kl4<GENERAL>(fp, f[c][j], g[c][j], wp, w[c][j]);
+      even = __vmaxu2(even, v & 0x00FF00FFu);
+      odd = __vmaxu2(odd, v & 0xFF00FF00u);
+    }
+  }
+  const uint32_t m = __vmaxu2(even << 8, odd);
+  return static_cast<int>(max(m >> 24, (m >> 8) & 0xFF));
+}
+
+// sc ^ must_be_cont of one int32 element b after p3, p2, p1, with
+// jnp.take's semantics for the table indices.
+__device__ __forceinline__ int kl_value_i32(int p3, int p2, int p1, int b) {
+  const int sc = table_take(kKL, p1 >> 4) & table_take(kKL + 16, p1 & 0xF) &
+                 table_take(kKL + 32, b >> 4);
+  return sc ^ ((p2 >= 0xE0 || p3 >= 0xF0) ? 0x80 : 0);
+}
+
+// The lane's maximum on an int32 tile of the general class: element by
+// element, each chunk's look-back the last three elements of the chunk
+// before it (h on the tile's first).
+__device__ __forceinline__ int kl_tile_i32(
+    const uint4 (&r)[VLane<int32_t>::CHUNKS], const int32_t (&h)[3],
+    int lane) {
+  constexpr int C = VLane<int32_t>::CHUNKS;
+  uint32_t ly[C], lz[C], lw[C], py[C], pz[C], pw[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    ly[c] = r[c].y;
+    lz[c] = r[c].z;
+    lw[c] = r[c].w;
+  }
+  vpred<C>(ly, h[0], lane, py);
+  vpred<C>(lz, h[1], lane, pz);
+  vpred<C>(lw, h[2], lane, pw);
+  int v = INT32_MIN;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int e[7] = {static_cast<int>(py[c]), static_cast<int>(pz[c]),
+                      static_cast<int>(pw[c]), static_cast<int>(r[c].x),
+                      static_cast<int>(r[c].y), static_cast<int>(r[c].z),
+                      static_cast<int>(r[c].w)};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v = max(v, kl_value_i32(e[k], e[k + 1], e[k + 2], e[k + 3]));
+    }
+  }
+  return v;
+}
+
+// Tile `tile` for validate_kernel: the lane's chunks (vload) and, in
+// lane 0, the three elements before the tile (0 before the stream and at
+// or past n).
+template <typename T>
+__device__ __forceinline__ void vload_tile(const T* __restrict__ x, int tile,
+                                           int n, int lane, bool vec,
+                                           uint4 (&r)[VLane<T>::CHUNKS],
+                                           int32_t (&h)[3]) {
+  const long long t0 = static_cast<long long>(tile) * TILE;
+  vload<T>(x, t0, n, lane, vec, r);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const long long j = t0 - 3 + k;
+    h[k] = (lane == 0 && j >= 0 && j < n) ? static_cast<int32_t>(x[j]) : 0;
+  }
+}
+
+// The tile's maximum, in every lane: its class, decided for the warp, and
+// that class's body, reduced over the warp.
+template <typename T>
+__device__ __forceinline__ int validate_tile(
+    const uint4 (&r)[VLane<T>::CHUNKS], const int32_t (&h)[3], int lane) {
+  bool ascii = true, c2 = true;
+#pragma unroll
+  for (int c = 0; c < VLane<T>::CHUNKS; ++c) {
+    const uint32_t w[4] = {r[c].x, r[c].y, r[c].z, r[c].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 1) {
+        ascii = ascii && (w[i] & 0x80808080u) == 0;
+        c2 = c2 && (w[i] & (w[i] << 1) & (w[i] << 2) & 0x80808080u) == 0;
+      } else {
+        ascii = ascii && w[i] < 0x80u;
+        c2 = c2 && w[i] < 0xE0u;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ascii = ascii && static_cast<uint32_t>(h[k]) < 0x80u;
+    c2 = c2 && static_cast<uint32_t>(h[k]) < 0xE0u;
+  }
+  int v = 0;
+  if (!__all_sync(FULL, ascii)) {
+    const uint32_t halo = (static_cast<uint32_t>(h[0]) << 8) |
+                          (static_cast<uint32_t>(h[1]) << 16) |
+                          (static_cast<uint32_t>(h[2]) << 24);
+    if (__all_sync(FULL, c2)) {
+      v = kl_tile_bytes<T, false>(r, halo, lane);
+    } else if constexpr (sizeof(T) == 1) {
+      v = kl_tile_bytes<T, true>(r, halo, lane);
+    } else {
+      v = kl_tile_i32(r, h, lane);
+    }
+  }
+  return __reduce_max_sync(FULL, v);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-validate_kernel(const T* __restrict__ x, int n, int* __restrict__ errs) {
-  __shared__ int32_t s[MAX_HALO + TILE];
-  __shared__ int32_t tab[KL_ENTRIES];
-  __shared__ int red[WARPS];
-  const int tile = blockIdx.x;
-  load_kl_tables(tab);
-  load_legacy<T, MAX_HALO, 0>(x, n, tile, s);
-  __syncthreads();
-  int err = INT32_MIN;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int32_t* p = s + MAX_HALO + k * THREADS + threadIdx.x;
-    const int p3 = p[-3], p2 = p[-2], p1 = p[-1], b = p[0];
-    const int sc = table_take<T>(tab, p1 >> 4) &
-                   table_take<T>(tab + 16, p1 & 0xF) &
-                   table_take<T>(tab + 32, b >> 4);
-    const int must_be_cont = (p2 >= 0xE0 || p3 >= 0xF0) ? 0x80 : 0;
-    err = max(err, sc ^ must_be_cont);
-  }
-  err = block_max(err, red);
-  if (threadIdx.x == 0) errs[tile] = err;
+validate_kernel(const T* __restrict__ x, int n, int nblk,
+                int* __restrict__ errs) {
+  const int tile = blockIdx.x * CTILES + (threadIdx.x >> 5);
+  if (tile >= nblk) return;
+  const int lane = threadIdx.x & 31;
+  uint4 r[VLane<T>::CHUNKS];
+  int32_t h[3];
+  vload_tile<T>(x, tile, n, lane, (reinterpret_cast<uintptr_t>(x) & 15) == 0,
+                r, h);
+  const int v = validate_tile<T>(r, h, lane);
+  if (lane == 0) errs[tile] = v;
 }
 
 // Replaces utf8_decode.py::utf8_decode_kernel: stages/utf8.py::decode_tile
@@ -1419,8 +1701,8 @@ int launch_ronepass(const void* x, Packed geo, int replace, int validate,
 template <typename T>
 int launch_validate(const void* x, int n, int nblk, int* errs,
                     cudaStream_t stream) {
-  validate_kernel<T><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), n, errs);
+  validate_kernel<T><<<(nblk + CTILES - 1) / CTILES, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n, nblk, errs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1480,6 +1762,15 @@ int transcode_set_tables(const int32_t* byte_1_high, const int32_t* byte_1_low,
   if (rc == cudaSuccess) {
     rc = cudaMemcpyToSymbol(kKL, byte_2_high, bytes, 2 * bytes);
   }
+  // The same entries as bytes, four a word, for validate_kernel's PRMT
+  // lookups (every entry fits a byte).
+  uint32_t packed[12] = {};
+  const int32_t* tabs[3] = {byte_1_high, byte_1_low, byte_2_high};
+  for (int e = 0; e < KL_ENTRIES; ++e) {
+    packed[e / 4] |= (static_cast<uint32_t>(tabs[e / 16][e % 16]) & 0xFFu)
+                     << (8 * (e % 4));
+  }
+  if (rc == cudaSuccess) rc = cudaMemcpyToSymbol(kKLB, packed, sizeof packed);
   return static_cast<int>(rc);
 }
 

@@ -7,7 +7,10 @@ ANDed nibble-table lookups against the expected-continuation bit, with
 the previous tile's last three bytes as look-back (zero before the
 stream).  It is ``validate_kernel`` (``kernels/csrc/transcode.cu``) on a
 CUDA tensor and :func:`validate_plain` on a CPU tensor; the wrapper keeps
-a launch count (``validate_kernel.launches``).  The lane body
+a launch count (``validate_kernel.launches``).  The kernel dispatches
+each tile on its class (ASCII, ≤2-byte, general); :func:`validate_classes`
+is that dispatch in plain torch, held to :func:`validate_plain` tile by
+tile.  The lane body
 ``kl_values`` and ``kl_error_tile``, the same detector as a bool map that
 the count pass folds into its flag, live with the UTF-8 stages
 (``stages/utf8.py``) and are re-exported here.
@@ -19,9 +22,11 @@ import torch
 
 from repro_torch.core import tables as T
 from repro_torch.kernels import _build, runtime
-from repro_torch.kernels.stages.driver import BLOCK, num_tiles
+from repro_torch.kernels.stages.common import shift_right_flat, take
+from repro_torch.kernels.stages.driver import (
+    BLOCK, ascii_tile_pred, num_tiles)
 from repro_torch.kernels.stages.utf8 import (  # noqa: F401  (re-export)
-    kl_error_tile, kl_values)
+    class2_pred, kl_error_tile, kl_values)
 
 # Input dtypes the UTF-8 kernels read as they are (the launcher's element
 # code: 0 the wire type, 1 int32); the ops widen any other integer input
@@ -40,6 +45,32 @@ def validate_plain(x, n: int):
     read as 0."""
     x2, _nblk = runtime.tile_with_boundaries(x, n, BLOCK, boundary_tiles=1)
     return kl_values(x2[1:], x2[:-1], *_tables(x.device)).amax(dim=-1)
+
+
+def validate_classes(x, n: int):
+    """:func:`validate_plain` with the kernel's per-tile dispatch, on the
+    count kernels' class predicates: 0 on an ASCII tile (the three ANDed
+    lookups are 0 on every pair of ASCII bytes, and ``must`` needs a byte
+    >= 0xE0), the maximum of ``sc`` alone on a ≤2-byte tile (no byte
+    reaches 0xE0, so ``must`` is 0), the full body on the rest.  int32
+    input outside ``[0, 0xE0)`` is general.  Equal to
+    :func:`validate_plain` tile by tile."""
+    x2, _nblk = runtime.tile_with_boundaries(x, n, BLOCK, boundary_tiles=1)
+    b, bp = x2[1:], x2[:-1]
+    ascii = ascii_tile_pred(b, bp)
+    c2 = class2_pred(b, bp) & ~ascii
+    general = ~(ascii | c2)
+    t1h, t1l, t2h = _tables(x.device)
+    out = torch.zeros(b.shape[0], dtype=torch.int32, device=x.device)
+    if bool(c2.any()):
+        p1 = shift_right_flat(b[c2], bp[c2], 1)
+        sc = (take(t1h, p1 >> 4) & take(t1l, p1 & 0xF)
+              & take(t2h, b[c2] >> 4))
+        out[c2] = sc.amax(dim=-1)
+    if bool(general.any()):
+        out[general] = kl_values(b[general], bp[general], t1h, t1l,
+                                 t2h).amax(dim=-1)
+    return out
 
 
 def check_legacy_input(x, n: int, elements: dict, what: str) -> None:

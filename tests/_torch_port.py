@@ -11,14 +11,19 @@ format and passed with an explicit ``n_valid``, so that each reference
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import numpy as np
 
 from repro.core import transcode as tc
 from repro.data import synthetic
 
 import repro_torch
-from _torch_classes import DT, encode_text
 from repro_torch.core import transcode as ttc
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from tools.inputs import DT, encode_text  # noqa: E402
 
 BLOCK = 1024
 N = 3 * BLOCK + 5          # fixed padded length of every test input

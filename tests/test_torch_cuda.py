@@ -14,7 +14,9 @@ documents cut mid-character, garbage in the slack and past the last
 document), the ragged kernels must equal ``rcount_plain``,
 ``rwrite_plain`` and ``ronepass_plain``.  The legacy validate, decode and
 encode kernels must equal their plain versions bit for bit (narrow and
-int32 input, ``n`` below the length), and the flash kernel its plain
+int32 input, ``n`` below the length; the validate kernel also against
+``validate_classes`` on tiles of each class and on every byte pair),
+and the flash kernel its plain
 version within the reference tests' tolerances.  The count and write
 kernels are also held to theirs on tiles of each class (ASCII, ≤2-byte,
 general), with a class-breaking unit only in a tile's inflow, and on
@@ -27,11 +29,13 @@ times over at tile counts around its 32-tile window, each launch
 bit-identical to fused and to plain.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-import _torch_classes as C
 import repro_torch
 from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
@@ -43,6 +47,9 @@ from repro_torch.kernels import stages
 from repro_torch.kernels import utf8_decode as kdec
 from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels import utf16_encode as kenc
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from tools import inputs as C  # noqa: E402
 
 N = 5 * stages.BLOCK + 3
 GEN_HI = {"utf8": 256, "utf16": 1 << 16, "utf32": 0x110000, "latin1": 256}
@@ -486,6 +493,45 @@ def test_legacy_kernels_match_plain_on_card(fmt, kernel, plain):
         for a, b in zip(kern if isinstance(kern, tuple) else (kern,),
                         want if isinstance(want, tuple) else (want,)):
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+def test_validate_kernel_matches_both_plain_versions_on_tile_classes():
+    """The validation kernel's class dispatch (ASCII, <=2-byte, general)
+    against validate_plain (no dispatch) and validate_classes (the same
+    dispatch in torch), on uint8 and int32 input, at the aligned start
+    and on views 1-15 bytes past a 16-byte boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels have no CPU mode")
+    for name, arr, n in C.validate_buffers(67):
+        host = torch.from_numpy(arr)
+        want = kval.validate_plain(host, n)
+        assert torch.equal(kval.validate_classes(host, n), want), name
+        assert torch.equal(kval.validate_kernel(host.cuda(), n).cpu(),
+                           want), name
+        if arr.dtype == np.uint8:
+            wide = host.to(torch.int32)
+            assert torch.equal(kval.validate_kernel(wide.cuda(), n).cpu(),
+                               want), (name, "int32")
+            raw = torch.zeros(len(arr) + 16, dtype=torch.uint8,
+                              device="cuda")
+            for shift in (1, 7, 15):
+                view = raw[shift: shift + len(arr)]
+                view.copy_(host.cuda())
+                assert torch.equal(kval.validate_kernel(view, n).cpu(),
+                                   want), (name, shift)
+
+
+@pytest.mark.cuda
+def test_validate_kernel_reads_every_byte_pair():
+    """One tile per byte pair, all 65,536: the kernel's lookups (PRMT on
+    tables held in registers) against validate_plain's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels have no CPU mode")
+    x = torch.from_numpy(C.byte_pairs()).cuda()
+    for xx in (x, x.to(torch.int32)):
+        assert torch.equal(kval.validate_kernel(xx, x.shape[0]),
+                           kval.validate_plain(xx, x.shape[0])), xx.dtype
 
 
 @pytest.mark.cuda

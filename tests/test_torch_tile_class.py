@@ -18,10 +18,15 @@ units must equal the general body's (``write_stage``) tile by tile, the
 compacted units of every ASCII and ≤2-byte tile the live part of the
 reference's one-pass stage window (``onepass_tile``, which dispatches on
 the same classes), and ``transcode`` / ``ragged_transcode`` with
-``strategy="fused"`` the reference's on mixed-class buffers.
+``strategy="fused"`` the reference's on mixed-class buffers.  The
+validation kernel dispatches on the same UTF-8 classes:
+``validate_classes`` must equal ``validate_plain`` (no dispatch) and the
+reference's validation kernel tile by tile.
 """
 
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +35,11 @@ import pytest
 import torch
 
 from repro.core import transcode as tc
+from repro.kernels import runtime as ref_runtime
 from repro.kernels import stages as ref_stages
+from repro.kernels import utf8_validate as ref_kval
 from repro.kernels.stages import driver as ref_driver
 
-import _torch_classes as C
 import _torch_port as P
 import repro_torch
 from repro_torch.core import packing
@@ -41,7 +47,11 @@ from repro_torch.core import result as R
 from repro_torch.core import transcode as ttc
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import ragged_transcode as rt
-from repro_torch.kernels import stages
+from repro_torch.kernels import runtime, stages
+from repro_torch.kernels import utf8_validate as kval
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from tools import inputs as C  # noqa: E402
 
 BLOCK = stages.BLOCK
 CLASS2_SOURCES = ("utf8", "utf16", "utf32")
@@ -339,3 +349,31 @@ def test_ragged_fused_matches_reference_on_mixed_classes(src, errors):
                                                                    field))
             assert mine.dtype == theirs.dtype and np.array_equal(
                 mine, theirs), (src, dst, errors, field)
+
+
+@pytest.mark.parametrize("seed", [51, 52])
+def test_validate_dispatch_equals_plain_per_tile(seed):
+    """On tiles of each class, class breakers in the inflow only, ``n``
+    cut mid-tile and mid-character, and int32 input outside [0, 256)."""
+    seen = set()
+    for name, arr, n in C.validate_buffers(seed):
+        x = torch.from_numpy(arr)
+        want = kval.validate_plain(x, n)
+        assert torch.equal(kval.validate_classes(x, n), want), name
+        b = jnp.where(jnp.arange(len(arr)) < n,
+                      jnp.asarray(arr).astype(jnp.int32), 0)
+        ref = ref_kval._call(ref_runtime.tile_with_boundaries(
+            b, 8, 128, 1)[0])
+        assert np.array_equal(want.numpy(), np.asarray(ref)), name
+        x2, _nblk = runtime.tile_with_boundaries(x, n, C.BLOCK, 1)
+        seen |= set(stages.tile_class(stages.get_codec("utf8"), x2[1:],
+                                      x2[:-1]).tolist())
+    assert seen == {stages.ASCII, stages.CLASS2, stages.GENERAL}
+
+
+def test_validate_dispatch_on_byte_pairs():
+    """One tile per byte pair, every 16th pair, narrow and int32."""
+    x = torch.from_numpy(C.byte_pairs(16))
+    for xx in (x, x.to(torch.int32)):
+        assert torch.equal(kval.validate_classes(xx, x.shape[0]),
+                           kval.validate_plain(xx, x.shape[0]))

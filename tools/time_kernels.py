@@ -2,10 +2,12 @@
 
 For the ``repro_torch`` package of each checkout given (``--trees``, this
 one by default), builds the kernels and times, with CUDA events (median
-of ``--reps`` calls after warm-up):
+of ``--reps`` calls after warm-up, host time in a call included; the
+device time per call, ``chip_smoke.device_ms`` over ``--reps`` calls
+queued back to back, is reported beside it as ``device_ms``):
 
 - the count, write and one-pass kernels on a 64 MiB UTF-8 buffer of each
-  chosen lipsum profile (paper Table 4a, ``chip_smoke.py``'s generator),
+  chosen lipsum profile (paper Table 4a, ``tools/inputs.py``'s generator),
   transcoded to UTF-16 (strict, validate), and the legacy validate and
   decode kernels on it and the encode kernel on its UTF-16 transcode;
 - with ``--ragged``, the rcount, rwrite and ronepass kernels on
@@ -43,24 +45,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
+from tools import inputs  # noqa: E402
 
 TILE = 1024
 KW = dict(src="utf8", dst="utf16", errors="strict")
-
-
-def utf8_buffer(lang: str, n_bytes: int, rng) -> np.ndarray:
-    """``n_bytes`` of UTF-8 text of one profile, cut at a character
-    boundary and padded with spaces, as chip_smoke.py's main buffer."""
-    pct = np.asarray(cs.PROFILES[lang][0], np.float64)
-    mean = float((pct * np.arange(1, 5)).sum() / pct.sum())
-    cps = cs.codepoints(lang, int(n_bytes / mean * 1.05) + TILE, rng)
-    ends = np.cumsum(1 + (cps >= 0x80) + (cps >= 0x800) + (cps >= 0x10000))
-    k = int(np.searchsorted(ends, n_bytes, side="right"))
-    if k >= len(cps):
-        raise RuntimeError(f"{lang}: text too short for {n_bytes} bytes")
-    out = np.full(n_bytes, 0x20, np.uint8)
-    out[:ends[k - 1]] = cs.utf8_encode(cps[:k])
-    return out
 
 
 def tile_classes(x8: np.ndarray, same_prev=None) -> dict:
@@ -173,11 +161,11 @@ def main(argv=None) -> int:
                         for t, m in zip(trees, mods)], "inputs": {}}
 
     rng = np.random.default_rng(args.seed)
-    inputs = []
+    cases = []
     for lang in args.profiles:
-        x8 = utf8_buffer(lang, args.bytes, rng)
+        x8 = inputs.utf8_buffer(lang, args.bytes, rng)
         x = torch.from_numpy(x8).cuda()
-        inputs.append((f"64 MiB {lang}" if args.bytes == 64 << 20
+        cases.append((f"64 MiB {lang}" if args.bytes == 64 << 20
                        else f"{args.bytes} B {lang}", tile_classes(x8),
                        [single_calls(m, x, len(x8)) for m in mods]))
     if args.ragged:
@@ -189,28 +177,33 @@ def main(argv=None) -> int:
             torch.from_numpy(pk.offsets).cuda(),
             torch.from_numpy(pk.lengths).cuda(), nblk)
         classes = tile_classes(pk.data, own[2].cpu().numpy())
-        inputs.append((f"ragged {cs.RAGGED_DOCS} docs", classes,
+        cases.append((f"ragged {cs.RAGGED_DOCS} docs", classes,
                        [ragged_calls(m, x, own) for m in mods]))
 
-    for label, classes, per_tree in inputs:
-        cell = report["inputs"][label] = {"tiles": classes, "ms": [
-            {name: [] for name in calls} for calls in per_tree]}
+    for label, classes, per_tree in cases:
+        cell = report["inputs"][label] = {"tiles": classes, **{
+            key: [{name: [] for name in calls} for calls in per_tree]
+            for key in ("ms", "device_ms")}}
         for r in range(args.rounds):
             order = range(len(trees)) if r % 2 == 0 else \
                 reversed(range(len(trees)))
             for i in order:
-                ms = {name: cs.cuda_ms(fn, args.reps)
-                      for name, fn in per_tree[i].items()}
-                for name, v in ms.items():
-                    cell["ms"][i][name].append(v)
+                for name, fn in per_tree[i].items():
+                    cell["ms"][i][name].append(cs.cuda_ms(fn, args.reps))
+                    cell["device_ms"][i][name].append(cs.device_ms(
+                        fn, args.reps))
                 print(f"{label} tiles {classes} round {r} tree {i}: "
-                      + "  ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                      + "  ".join(f"{k} {v[-1]:.4f} ms (device "
+                                  f"{cell['device_ms'][i][k][-1]:.4f})"
+                                  for k, v in cell["ms"][i].items())
                       + f"  [{smi}]", flush=True)
         for i, t in enumerate(trees):
-            print(f"{label} tree {i} ({t.name}) median of rounds: "
-                  + "  ".join(f"{k} {statistics.median(v):.4f} ms "
-                              f"({min(v):.4f}-{max(v):.4f})"
-                              for k, v in cell["ms"][i].items()), flush=True)
+            for key, what in (("ms", "a call"), ("device_ms", "device")):
+                print(f"{label} tree {i} ({t.name}) {what}, median of "
+                      f"rounds: " + "  ".join(
+                          f"{k} {statistics.median(v):.4f} ms "
+                          f"({min(v):.4f}-{max(v):.4f})"
+                          for k, v in cell[key][i].items()), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -53,7 +53,18 @@ Phases, in order; any failure exits non-zero before the last line:
      starts inside the bf16 kernel's 64-key chunk), Sq > Sk under a
      window (rows with no live key), D = 80 and D = 32: kernel vs plain
      (f32 atol 2e-5 / rtol 1e-4, the reference tests'; bf16 atol 1e-4 /
-     rtol 1e-2, one bf16 rounding step; TF32 off), and causality.
+     rtol 1e-2, one bf16 rounding step; TF32 off), and causality.  The
+     windowed walks' kernels (UTF-8 -> UTF-16 and UTF-16 -> UTF-8, one
+     warp each) bit-identical to their plain versions on
+     ``tools/inputs.py``'s ``windowed_buffers`` (text of every profile,
+     injected errors, lone high surrogates whose count passes the
+     capacity, int32 values outside the byte and unit ranges, ``n_valid``
+     at 0, below one window and mid-character), validate on and off; and
+     windowed ``transcode`` equal to fused (``buffer[:count]``, count,
+     status) on text of every profile.  The fault harness on the card: an
+     error injected at the one-pass wrapper's second call (the third call
+     clean and equal to the first), and a truncated stream chunk (the
+     stream equal to a clean stream of what was kept).
   3. The main paths, each with every kernel's launch count set to 0 just
      before and read just after: a 64 MiB UTF-8 buffer (arabic profile)
      through ``transcode`` (onepass, the default), ``transcode
@@ -82,7 +93,14 @@ Phases, in order; any failure exits non-zero before the last line:
      invalid units at many tile boundaries too.  ``flash_attention`` at
      the attention width of qwen3-8b (S = 4096, 32 heads of 128, causal,
      bf16 and f32) and h2o-danube-1.8b (S = 8192, 32 heads of 80, window
-     4096, bf16), k/v expanded from 8 KV heads: kernel vs plain.
+     4096, bf16), k/v expanded from 8 KV heads: kernel vs plain.  The
+     windowed strategy on 1<<17 characters of each of the nine lipsum
+     profiles, both directions, equal to fused.  ``TextPipeline`` (a byte
+     LM's input: 64 documents of 8 KiB a step, ``emit="codepoints"``) for
+     3 steps on the card, each batch equal to the same step on the CPU
+     and its code points to CPython's decode; ``batch_transcode`` of a
+     [4096, 4096] UTF-8 batch (16 MiB) to UTF-16, ``packed`` (one ronepass
+     launch) equal to ``vmap`` (one onepass launch a document).
   4. Timing with CUDA events (median of one call after warm-up, host
      time in the call included: ``ms``): each kernel and its plain
      version at the main paths' shapes, the entry points there, and the
@@ -96,8 +114,12 @@ Phases, in order; any failure exits non-zero before the last line:
      inputs, as the library yardstick (the port never calls it); the
      f32 kernel's bound is its three TF32 products at the TF32 peak.
      Beside ``ms``, each kernel (and SDPA) also reports its device time
-     per call, ``device_ms`` (:func:`device_ms`).
-  5. The ``kernels`` line (all ten kernels), then ``{"ok": true,
+     per call, ``device_ms`` (:func:`device_ms`).  The windowed kernels
+     and ``transcode(strategy="windowed")`` on 1<<17 characters of each
+     profile and direction (ms, device ms, GB/s of input; the plain
+     version once, on arabic); ``TextPipeline.next_batch`` per step, and
+     ``batch_transcode`` packed and vmap.
+  5. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -131,6 +153,7 @@ PRODUCTS = {"bfloat16": 1, "float32": 3}
 BOUND_LABEL = {"bfloat16": "operations", "float32": "operations (3xTF32)"}
 SOURCE = "src/repro_torch/kernels/csrc/transcode.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+WINDOWED_SOURCE = "src/repro_torch/kernels/csrc/windowed.cu"
 REPLACES = {
     "count": "src/repro/kernels/fused_transcode.py:123",
     "write": "src/repro/kernels/fused_transcode.py:137",
@@ -142,7 +165,16 @@ REPLACES = {
     "decode": "src/repro/kernels/utf8_decode.py:58",
     "encode": "src/repro/kernels/utf16_encode.py:40",
     "flash": "src/repro/kernels/flash_attention.py:41",
+    # Not Pallas kernels: the reference's lax.while_loop walks.
+    "windowed_utf8": "src/repro/core/windowed.py:78",
+    "windowed_utf16": "src/repro/core/windowed.py:238",
 }
+WINDOWED = (("utf8", "utf16"), ("utf16", "utf8"))
+# The training-input pipeline of a byte LM: 64 documents of 8 KiB of
+# UTF-8 a step (512 KiB), decoded to code points on the card.
+PIPE = dict(seq_len=8192, global_batch=64, emit="codepoints")
+PIPE_STEPS = 3
+BATCH_DOCS, BATCH_LEN = 4096, 4096     # batch_transcode: 16 MiB of UTF-8
 # Flash attention at the attention width of two configurations of the
 # repo (src/repro/configs/qwen3_8b.py, h2o_danube_1_8b.py): 32 query
 # heads over 8 KV heads; (label, S, head_dim, window, dtype name).
@@ -520,6 +552,55 @@ def hold_blockparallel(bp, fused, *ctx):
             "blockparallel buffer vs fused", *ctx)
 
 
+def walk_steps(src: str, units: np.ndarray) -> int:
+    """Steps of the windowed walk over ``units``: 64-byte ASCII blocks,
+    12-byte windows and tail characters (UTF-8), or 8-unit registers, 7
+    where one ends in a lone high half (UTF-16); the walk's work, for its
+    time per step."""
+    from repro_torch.core import tables as T
+    n, p, steps = len(units), 0, 0
+    u = units.astype(np.int64)
+    if src == "utf16":
+        hi = (u >> 10) == 0x36
+        while p < n:
+            r = slice(p, min(p + 8, n))
+            surr = bool((((u[r] >> 10) & 0x3E) == 0x36).any())
+            take = 7 if (surr and p + 7 < n and hi[p + 7]
+                         and not hi[p + 6]) else 8
+            p, steps = p + min(take, n - p), steps + 1
+        return steps
+    ends = np.append((u[1:] & 0xC0) != 0x80, True)
+    weights = 1 << np.arange(12)
+    while p + 12 <= n:
+        if p + 64 <= n and bool((u[p: p + 64] < 0x80).all()):
+            p += 64
+        else:
+            key = int((ends[p: p + 12] * weights).sum())
+            p += max(int(T.WINDOW_CONSUMED[key]), 1)
+        steps += 1
+    while p < n:
+        p += min(max(int(T.LEAD_LENGTH_32[u[p] >> 3]), 1), n - p)
+        steps += 1
+    return steps
+
+
+def hold_windowed(w, fused, *ctx):
+    """A ``strategy="windowed"`` result against fused's on valid text: an
+    int32 buffer of the reference's capacity (``len + 80`` or ``3 * len +
+    24``), equal to fused's widened up to the count and zero past it, and
+    the same count and status."""
+    import torch
+    require(w.buffer.dtype == w.count.dtype == w.status.dtype
+            == torch.int32, "windowed dtypes", w.buffer.dtype, *ctx)
+    k = int(fused.count)
+    require(int(w.count) == k and int(w.status) == int(fused.status),
+            "windowed count/status vs fused", int(w.count), k,
+            int(w.status), int(fused.status), *ctx)
+    require(equal(w.buffer[:k].long(), fused.buffer[:k].long())
+            and not bool(w.buffer[k:].any()), "windowed buffer vs fused",
+            *ctx)
+
+
 # ---------------------------------------------------------------------------
 # Timing.
 
@@ -588,6 +669,9 @@ def main(argv=None) -> int:
         import repro_torch
         from repro_torch.core import compaction, packing
         from repro_torch.core import transcode as tc
+        from repro_torch.core import utf8 as u8mod, utf16 as u16mod
+        from repro_torch.core import windowed as win
+        from repro_torch.data import pipeline as dp
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import fused_transcode as ft
@@ -597,6 +681,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import utf8_decode as kdec
         from repro_torch.kernels import utf8_validate as kval
         from repro_torch.kernels import utf16_encode as kenc
+        from repro_torch.testing import faults
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package or tools/inputs.py is "
               f"missing ({exc}); "
@@ -630,7 +715,13 @@ def main(argv=None) -> int:
                "onepass": op.onepass_kernel, "rcount": rt.rcount_kernel,
                "rwrite": rt.rwrite_kernel, "ronepass": rt.ronepass_kernel,
                "validate": kval.validate_kernel, "decode": kdec.decode_kernel,
-               "encode": kenc.encode_kernel, "flash": fa.flash_kernel}
+               "encode": kenc.encode_kernel, "flash": fa.flash_kernel,
+               "windowed_utf8": win.windowed_utf8_kernel,
+               "windowed_utf16": win.windowed_utf16_kernel}
+    walks = {"utf8": (win.windowed_utf8_kernel, win.windowed_utf8_plain,
+                      u8mod.first_error_index),
+             "utf16": (win.windowed_utf16_kernel, win.windowed_utf16_plain,
+                       u16mod.first_error_index)}
     max_err = {name: 0 for name in kernels}
 
     def zero_counts():
@@ -1082,6 +1173,79 @@ def main(argv=None) -> int:
         f"(f32 atol 2e-5 rtol 1e-4, bf16 atol 1e-4 rtol 1e-2; TF32 off), "
         f"causal")
 
+    # The windowed walks (one warp each) on tools/inputs.py's windowed
+    # buffers: text of every profile, injected errors, lone high
+    # surrogates whose count passes the capacity, int32 values outside the
+    # byte and unit ranges, n_valid at 0, below a window and
+    # mid-character; validate on and off.  Kernel vs plain, then windowed
+    # transcode = fused on valid text of every profile.
+    n_win = 0
+    for fmt, (kern, plain, first_error) in walks.items():
+        for label, arr, n in inputs.windowed_buffers(fmt, args.seed + 5):
+            x = torch.from_numpy(arr).cuda()
+            status0 = first_error(win.masked_int32(x, n), n)
+            for validate in (True, False):
+                hold(f"windowed_{fmt}", kern(x, n, status0, validate),
+                     plain(x, n, status0, validate), max_err, fmt, label,
+                     validate)
+                n_win += 1
+    windowed_rng = np.random.default_rng([args.seed, 4])
+    for lang in inputs.PROFILES:
+        cps = inputs.codepoints(lang, 5000, windowed_rng)
+        for src, dst in WINDOWED:
+            x = torch.from_numpy(encode(cps, src)).cuda()
+            hold_windowed(
+                repro_torch.transcode(x, dst, src_format=src,
+                                      strategy="windowed"),
+                repro_torch.transcode(x, dst, src_format=src,
+                                      strategy="fused"), lang, src)
+            n_win += 1
+    torch.cuda.synchronize()
+    report["windowed_correctness_cases"] = n_win
+    log(f"phase 2: {n_win} windowed cases: both walks' kernels bit-identical "
+        f"to plain (text, injected errors, lone high surrogates past the "
+        f"capacity, int32 out of range, n_valid edges, validate on/off); "
+        f"windowed transcode = fused on text of every profile")
+
+    # The fault harness on the card: an error at the one-pass wrapper's
+    # second call (the next call clean and equal to the first), and a
+    # truncated stream chunk (the stream equals a clean stream of what
+    # the truncation left).
+    x = torch.from_numpy(encode(text_cps[:4000], "utf8")).cuda()
+    with faults.harness(faults.Fault(faults.KERNEL_ONEPASS,
+                                     times=(2,))) as fh:
+        first = repro_torch.transcode(x, "utf16")
+        raised = False
+        try:
+            repro_torch.transcode(x, "utf16")
+        except faults.FaultInjected:
+            raised = True
+        third = repro_torch.transcode(x, "utf16")
+    require(raised and fh.fired == [(faults.KERNEL_ONEPASS, "error", 2)]
+            and fh.calls == {faults.KERNEL_ONEPASS: 3},
+            "onepass fault", fh.fired, fh.calls)
+    for a, b in zip(first, third):
+        require(equal(a, b), "transcode after an injected fault")
+    data = encode(text_cps[:3000], "utf8")
+    step, cut = 701, 5
+    with faults.harness(faults.Fault(faults.STREAM_CHUNK, kind="truncate",
+                                     truncate_to=cut, times=(2,))) as fh:
+        tres, _st = repro_torch.transcode_stream(
+            [data[i: i + step] for i in range(0, len(data), step)],
+            src_format="utf8", dst_format="utf16")
+    kept = np.concatenate([data[:step + cut], data[2 * step:]])
+    cres, _st = repro_torch.transcode_stream(
+        [kept[i: i + step] for i in range(0, len(kept), step)],
+        src_format="utf8", dst_format="utf16")
+    require(fh.fired == [(faults.STREAM_CHUNK, "truncate", 2)]
+            and int(tres.count) == int(cres.count)
+            and int(tres.status) == int(cres.status)
+            and np.array_equal(tres.buffer, cres.buffer),
+            "truncated stream vs the stream of what was kept", fh.fired)
+    log(f"phase 2: fault harness on the card: onepass error at call 2 "
+        f"raised, call 3 = call 1; stream chunk 2 truncated to {cut} units "
+        f"= a clean stream of the kept units (status {int(tres.status)})")
+
     # -- 3. the main path, with launch counts --------------------------------
     main_bytes = MAIN_BYTES
     main_cps = inputs.codepoints("arabic", main_bytes * 10 // 17, rng)
@@ -1415,6 +1579,106 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"phase 3: flash at {', '.join(flash_in)} within tolerance of plain "
         f"(max abs err {max_err['flash']:.3g})")
+
+    # The windowed strategy at the size of the paper's Table 5/6 inputs:
+    # 1<<17 characters of each lipsum profile, both directions, through
+    # transcode(strategy="windowed"); each equal to fused.
+    win_in = {}
+    for lang in inputs.PROFILES:
+        cps = inputs.codepoints(lang, LIPSUM_CHARS, windowed_rng)
+        for src, dst in WINDOWED:
+            win_in[(lang, src)] = torch.from_numpy(encode(cps, src)).cuda()
+    torch.cuda.synchronize()
+    zero_counts()
+    win_out = {(lang, src): repro_torch.transcode(
+        x, dict(WINDOWED)[src], src_format=src, strategy="windowed")
+        for (lang, src), x in win_in.items()}
+    win_launches = read_counts()
+    log(f"phase 3: windowed path launches {win_launches}")
+    require(win_launches == {"windowed_utf8": len(inputs.PROFILES),
+                             "windowed_utf16": len(inputs.PROFILES)},
+            "windowed path launches", win_launches)
+    launches.update(win_launches)
+    for (lang, src), w in win_out.items():
+        hold_windowed(w, repro_torch.transcode(
+            win_in[(lang, src)], dict(WINDOWED)[src], src_format=src,
+            strategy="fused"), lang, src, LIPSUM_CHARS)
+    del win_out
+    log(f"phase 3: windowed transcode of {LIPSUM_CHARS} characters of "
+        f"{len(inputs.PROFILES)} profiles, utf8->utf16 and utf16->utf8, "
+        f"= fused")
+
+    # The data pipeline of a byte LM: PIPE_STEPS steps of TextPipeline on
+    # the card, each batch equal to the same step on the CPU; the code
+    # points of every document equal CPython's decode of its bytes.
+    pipe_card = dp.TextPipeline(dp.PipelineConfig(seed=args.seed, **PIPE))
+    pipe_host = dp.TextPipeline(dp.PipelineConfig(seed=args.seed, **PIPE),
+                                device="cpu")
+    torch.cuda.synchronize()
+    zero_counts()
+    batches = [pipe_card.next_batch() for _ in range(PIPE_STEPS)]
+    pipe_launches = read_counts()
+    log(f"phase 3: pipeline path launches {pipe_launches}")
+    require(pipe_launches == {"ronepass": PIPE_STEPS}, "pipeline launches",
+            pipe_launches)
+    for step, batch in enumerate(batches):
+        want = pipe_host.next_batch()
+        require(set(batch) == set(want), "pipeline keys", step)
+        for key, t in batch.items():
+            require(t.device == pipe_card.device
+                    and equal(t.cpu(), want[key]),
+                    "pipeline card vs cpu", step, key)
+        toks = batch["tokens"].cpu().numpy()
+        cps_dev = batch["codepoints"].cpu().numpy()
+        counts = batch["cp_counts"].cpu().numpy()
+        for d in range(toks.shape[0]):
+            n = int(np.argmax(toks[d] == 2)) - 1          # [BOS] doc [EOS]
+            text = (toks[d, 1:n + 1] - 3).astype(np.uint8).tobytes()
+            decoded = np.array([ord(c) for c in text.decode("utf-8")],
+                               np.uint32)
+            require(int(counts[d]) == len(decoded) and np.array_equal(
+                cps_dev[d, :len(decoded)], decoded)
+                and not cps_dev[d, len(decoded):].any(),
+                "pipeline code points vs CPython", step, d)
+    del batches
+    log(f"phase 3: TextPipeline seq_len {PIPE['seq_len']} x "
+        f"{PIPE['global_batch']} documents, {PIPE_STEPS} steps: card = "
+        f"cpu, code points = CPython's decode")
+
+    # batch_transcode on a [4096, 4096] UTF-8 batch (16 MiB) to UTF-16:
+    # one packed ronepass launch equal to the per-document onepass
+    # launches of strategy="vmap", as the reference's tests assert.
+    batch_rng = np.random.default_rng([args.seed, 5])
+    langs = list(inputs.PROFILES)
+    bt_docs = np.stack([inputs.utf8_buffer(langs[i % len(langs)],
+                                           BATCH_LEN, batch_rng)
+                        for i in range(BATCH_DOCS)])
+    bt_lens = batch_rng.integers(0, BATCH_LEN + 1, BATCH_DOCS).astype(
+        np.int32)
+    bt_lens[::4] = BATCH_LEN
+    bt_x = torch.from_numpy(bt_docs).cuda()
+    torch.cuda.synchronize()
+    bt_launches, bt_out = {}, {}
+    for strategy in ("packed", "vmap"):
+        zero_counts()
+        bt_out[strategy] = dp.batch_transcode(bt_x, bt_lens,
+                                              strategy=strategy)
+        bt_launches[strategy] = read_counts()
+    log(f"phase 3: batch_transcode launches {bt_launches}")
+    require(bt_launches == {"packed": {"ronepass": 1},
+                            "vmap": {"onepass": BATCH_DOCS}},
+            "batch_transcode launches", bt_launches)
+    for a, b in zip(bt_out["packed"], bt_out["vmap"]):
+        require(equal(a, b), "batch_transcode packed vs vmap")
+    bt_bad = int((bt_out["packed"].status >= 0).sum())
+    require(0 < bt_bad < BATCH_DOCS, "batch_transcode statuses", bt_bad)
+    del bt_out
+    log(f"phase 3: batch_transcode [{BATCH_DOCS}, {BATCH_LEN}] utf8->utf16 "
+        f"packed = vmap ({bt_bad} documents cut mid-character report "
+        f"their first error)")
+    report["data_path"] = {"windowed_launches": win_launches,
+                           "pipeline_launches": pipe_launches,
+                           "batch_transcode_launches": bt_launches}
     report["max_abs_err"] = max_err
 
     # -- 4. timing -------------------------------------------------------------
@@ -1638,13 +1902,88 @@ def main(argv=None) -> int:
         del qt, kt, vt
     timing["flash attention"] = flash_t
 
+    # The windowed walks at 1<<17 characters of each profile: the kernel
+    # (ms a call, device_ms, and device time per step of the walk), and
+    # the entry point with its whole-array first-error pass.  The bytes bound: the input once, the int32 output
+    # buffer once, the 16 KiB window table (UTF-8) and 12 bytes of scalars.
+    # On the arabic profile, the kernels' line: also the plain version
+    # (one call), held equal.
+    windowed_t, win_lines = {}, {}
+    for (lang, src), x in win_in.items():
+        dst = dict(WINDOWED)[src]
+        kern, plain, first_error = walks[src]
+        name = f"windowed_{src}"
+        n = x.shape[0]
+        status0 = first_error(win.masked_int32(x, n), n)
+        call = lambda: kern(x, n, status0, True)  # noqa: E731
+        out_bytes = 4 * (win.utf8_capacity(n) if src == "utf8"
+                         else win.utf16_capacity(n))
+        nbytes = n * x.element_size() + out_bytes + 12 + (
+            4 << 12 if src == "utf8" else 0)
+        ms = cuda_ms(call, reps=5)
+        t = {"ms": ms, "device_ms": device_ms(call, 5),
+             "entry_ms": cuda_ms(lambda: repro_torch.transcode(
+                 x, dst, src_format=src, strategy="windowed"), reps=5),
+             "fused_entry_ms": cuda_ms(lambda: repro_torch.transcode(
+                 x, dst, src_format=src, strategy="fused"), reps=5),
+             "input_bytes": n * x.element_size(),
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        t["GB_per_s_in"] = t["input_bytes"] / t["device_ms"] / 1e6
+        t["steps"] = walk_steps(src, x.cpu().numpy())
+        t["ns_per_step"] = t["device_ms"] * 1e6 / t["steps"]
+        if lang == "arabic":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(x, n, status0, True)
+            end.record()
+            end.synchronize()
+            t["plain_ms"] = start.elapsed_time(end)
+            hold(name, call(), want, max_err, "timed", lang)
+            win_lines[name] = t
+        windowed_t[f"{lang} {src}->{dst}"] = t
+        log(f"phase 4: windowed {lang:9s} {src}->{dst} {LIPSUM_CHARS} chars "
+            f"({t['input_bytes']} B): kernel {ms:.3f} ms a call, "
+            f"{t['device_ms']:.3f} ms on the device "
+            f"({t['GB_per_s_in']:.3f} GB/s of input; {t['steps']} steps, "
+            f"{t['ns_per_step']:.0f} ns a step), bound "
+            f"{t['bound_ms']:.4f} ms; transcode windowed {t['entry_ms']:.3f} "
+            f"ms, fused {t['fused_entry_ms']:.4f} ms  [{smi}]")
+    timing[f"windowed {LIPSUM_CHARS} chars"] = windowed_t
+
+    # The data path: next_batch a step (host clock, ending in a
+    # synchronise), and batch_transcode packed and vmap (one call between
+    # CUDA events).
+    t0 = time.time()
+    for _ in range(PIPE_STEPS):
+        pipe_card.next_batch()
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) / PIPE_STEPS * 1e3
+    data_t = {"next_batch_ms_per_step": step_ms,
+              "pipeline_bytes_per_step": PIPE["seq_len"]
+              * PIPE["global_batch"]}
+    for strategy, reps in (("packed", 5), ("vmap", 2)):
+        data_t[f"batch_transcode {strategy} ms"] = cuda_ms(
+            lambda: dp.batch_transcode(bt_x, bt_lens, strategy=strategy),
+            reps=reps, warmup=1)
+    timing["data path"] = data_t
+    log(f"phase 4: TextPipeline next_batch {step_ms:.1f} ms a step "
+        f"({PIPE['global_batch']} x {PIPE['seq_len']} B, emit codepoints; "
+        f"host clock)  [{smi}]")
+    log(f"phase 4: batch_transcode [{BATCH_DOCS}, {BATCH_LEN}] utf8->utf16 "
+        f"packed {data_t['batch_transcode packed ms']:.3f} ms, vmap "
+        f"{data_t['batch_transcode vmap ms']:.1f} ms  [{smi}]")
+
     lines = []
     main_flash = flash_t[FLASH_MAIN[0][0]]
+    sources = {"flash": FLASH_SOURCE, "windowed_utf8": WINDOWED_SOURCE,
+               "windowed_utf16": WINDOWED_SOURCE}
     for name, t in [*main_t["kernels"].items(), *rag_t["kernels"].items(),
-                    *legacy_t.items(), ("flash", main_flash)]:
+                    *legacy_t.items(), ("flash", main_flash),
+                    *win_lines.items()]:
         lines.append({
             "name": name, "route": "cuda",
-            "source": FLASH_SOURCE if name == "flash" else SOURCE,
+            "source": sources.get(name, SOURCE),
             "replaces": REPLACES[name], "launches": launches[name],
             "bit_identical": max_err[name] == 0,
             "max_abs_err": max_err[name], "ms": t["ms"],

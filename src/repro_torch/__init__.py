@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` (public surface).
 
-The port covers single-buffer ``transcode`` and ``scan`` (strategies
-``onepass``, ``fused`` and ``blockparallel``), the ragged packed-batch
+The port covers single-buffer ``transcode`` (strategies ``onepass``,
+``fused``, ``blockparallel`` and ``windowed``, the paper's serial walk)
+and ``scan`` (the first three), the ragged packed-batch
 ``ragged_transcode`` and ``ragged_scan`` (over ``pack_documents``) and
 the chunked ``transcode_stream``, over the 12 cells of the {utf8, utf16,
 utf32, latin1} matrix under ``errors="strict"`` and ``"replace"``.
@@ -12,11 +13,15 @@ the length queries, the little-endian byte conversions), the legacy
 kernel surface ``repro_torch.kernels.ops`` (``validate_utf8``,
 ``decode_utf8``, ``utf8_to_utf16``, ``utf16_to_utf8``), bit-identical
 too, and ``repro_torch.kernels.flash_attention.flash_attention``, within
-the reference tests' tolerances.  Entry points run on the card
+the reference tests' tolerances; and the data path of
+``repro_torch.data`` (``batch_transcode``, ``TextPipeline``, the
+tokenizers, the synthetic corpora) with the fault-injection harness of
+``repro_torch.testing.faults``.  Entry points run on the card
 (``device="cuda"``, the default) through hand-written CUDA kernels, one
-for each of the reference's ten Pallas kernels (the blockparallel
-strategy and the helpers as whole-array torch ops), or on the CPU
-(``device="cpu"``) through the kernels' plain PyTorch versions.
+for each of the reference's ten Pallas kernels and one for each
+direction of the windowed walk (the blockparallel strategy and the
+helpers as whole-array torch ops), or on the CPU (``device="cpu"``)
+through the kernels' plain PyTorch versions.
 
 Attributes resolve lazily (PEP 562): ``import repro_torch`` pulls in no
 torch module of the package until a symbol is touched.

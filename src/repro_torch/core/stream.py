@@ -51,6 +51,7 @@ from repro_torch.core.result import (STATUS_OK, TranscodeResult,
                                      check_errors_policy)
 from repro_torch.kernels import onepass_transcode as op
 from repro_torch.kernels import runtime, stages
+from repro_torch.testing import faults
 
 # One tile of the kernels: each launch is padded to a tile multiple, as
 # the reference pads it.
@@ -229,7 +230,7 @@ def transcode_stream_chunk(
     """
     if state.finished:
         raise ValueError("transcode_stream_chunk: stream already finalized")
-    chunk = _as_units(chunk, state.src)
+    chunk = faults.fire(faults.STREAM_CHUNK, _as_units(chunk, state.src))
     buf = np.concatenate([state.pending, chunk]) \
         if state.pending.size else chunk
     h = _holdback(state.src, buf)

@@ -6,8 +6,10 @@ Keiser-Lemire three-nibble validation tables (``BYTE_1_HIGH``,
 tables (``LEAD_LENGTH_32``, ``MIN_CP_FOR_LEN``) that the whole-array
 codecs (``core/utf8.py``) and the oracles of ``kernels/ref.py`` read;
 the kernels' stages compute those two as select trees, as the
-reference's stages do.  The windowed strategy's tables are not copied
-yet.  :func:`take` reads a table with ``jnp.take``'s default semantics.
+reference's stages do; and the windowed strategy's 4096-entry window
+tables (``WINDOW_*``, paper Algorithm 2), with :func:`window_packed`,
+the one-word-per-key form the windowed kernel reads.  :func:`take` reads
+a table with ``jnp.take``'s default semantics.
 The CUDA kernels load the nibble tables from here into ``__constant__``
 memory, so this file is their single definition in the port; the tests
 hold every table equal to the reference's.
@@ -99,6 +101,97 @@ LEAD_LENGTH_32[30] = 4            # 0xF0..0xF7
 
 # Minimum code point for a sequence of length L (overlong check), 1-indexed.
 MIN_CP_FOR_LEN = np.array([0, 0, 0x80, 0x800, 0x10000], dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Windowed-mode tables (paper Algorithm 2/3).  Key = 12-bit end-of-character
+# bitset of the next 12 input bytes (bit i set <=> byte i ends a character).
+#
+# For each key we choose the paper's case:
+#   case 0: the first 6 characters each span 1-2 bytes       (Fig. 2)
+#   case 1: the first 4 characters each span 1-3 bytes       (Fig. 3)
+#   case 2: the first 2 characters span anything (1-4 bytes) (Fig. 4)
+# and store: consumed byte count, number of characters, per-character start
+# offsets and lengths (start/len of up to 6 characters, padded with zeros).
+#
+# Entries whose prefix cannot be parsed into whole characters (e.g. a window
+# beginning mid-character) are marked invalid; the transcoder only reaches
+# them on invalid input, which validation has already rejected.
+
+WINDOW_KEY_BITS = 12
+_N_KEYS = 1 << WINDOW_KEY_BITS
+
+
+def _build_window_tables():
+    consumed = np.zeros(_N_KEYS, dtype=np.int32)
+    nchars = np.zeros(_N_KEYS, dtype=np.int32)
+    case = np.zeros(_N_KEYS, dtype=np.int32)
+    starts = np.zeros((_N_KEYS, 6), dtype=np.int32)
+    lengths = np.zeros((_N_KEYS, 6), dtype=np.int32)
+    valid = np.zeros(_N_KEYS, dtype=bool)
+
+    for key in range(_N_KEYS):
+        # Decode character boundaries from the bitset.  Byte i ends a char
+        # iff bit i is set; characters are [prev_end+1 .. end].
+        ends = [i for i in range(WINDOW_KEY_BITS) if (key >> i) & 1]
+        chars = []
+        prev = -1
+        for e in ends:
+            chars.append((prev + 1, e - prev))  # (start, length)
+            prev = e
+        if not chars:
+            continue
+        lens = [l for (_, l) in chars]
+        if any(l > 4 for l in lens):
+            continue
+        # Pick the widest applicable case, mirroring Algorithm 2's order.
+        if len(chars) >= 6 and all(l <= 2 for l in lens[:6]):
+            c, n = 0, 6
+        elif len(chars) >= 4 and all(l <= 3 for l in lens[:4]):
+            c, n = 1, 4
+        elif len(chars) >= 2:
+            c, n = 2, 2
+        else:
+            # A single character in 12 bytes can only happen near the end of
+            # the buffer; consume it alone.
+            c, n = 2, 1
+        sel = chars[:n]
+        case[key] = c
+        nchars[key] = n
+        consumed[key] = sum(l for (_, l) in sel)
+        for j, (s, l) in enumerate(sel):
+            starts[key, j] = s
+            lengths[key, j] = l
+        valid[key] = True
+    return consumed, nchars, case, starts, lengths, valid
+
+
+(
+    WINDOW_CONSUMED,
+    WINDOW_NCHARS,
+    WINDOW_CASE,
+    WINDOW_STARTS,
+    WINDOW_LENGTHS,
+    WINDOW_VALID,
+) = _build_window_tables()
+
+
+def window_packed() -> np.ndarray:
+    """The window tables as one uint32 per key, the windowed kernel's form
+    (16 KiB): bits 0-2 the number of characters, bits 3+3j to 5+3j the
+    length of character j.  The rest follows from these, and is checked
+    here: the starts are the lengths' exclusive prefix sums, the consumed
+    count their sum, and a key is valid iff it has a character."""
+    shifts = 3 + 3 * np.arange(6)
+    packed = WINDOW_NCHARS.astype(np.uint32) | (
+        WINDOW_LENGTHS.astype(np.uint32) << shifts).sum(1, dtype=np.uint32)
+    live = np.arange(6) < WINDOW_NCHARS[:, None]
+    prefix = np.cumsum(WINDOW_LENGTHS, 1) - WINDOW_LENGTHS
+    assert (np.where(live, prefix, 0) == WINDOW_STARTS).all()
+    assert (WINDOW_LENGTHS.sum(1) == WINDOW_CONSUMED).all()
+    assert (WINDOW_VALID == (WINDOW_NCHARS > 0)).all()
+    assert not np.where(live, 0, WINDOW_LENGTHS).any()
+    return packed
 
 
 def take(table, idx):

@@ -19,9 +19,12 @@ decode) and ``"fused"`` (count launch, cumsum, write launch) run the
 hand-written kernels; ``"blockparallel"`` decodes every position
 speculatively and compacts globally, as whole-array torch ops on the
 device (the reference's pure-jnp semantic reference; its buffer is
-int32).  All three are bit-identical to the reference.  ``"windowed"``
-is not ported yet: a request the reference would run on it raises
-``NotImplementedError``, one it rejects raises its ``ValueError``.
+int32); and ``"windowed"``, the paper's serial walk (Algorithms 2-4,
+``core/windowed.py``: one warp walks the buffer on the card), UTF-8 <->
+UTF-16 under ``errors="strict"`` only, with the reference's int32 buffer
+of ``len + 80`` or ``3 * len + 24``; a request it does not take raises
+the reference's ``ValueError``.  All four are bit-identical to the
+reference.
 Beside them, the whole-array helpers ``validate_utf8``,
 ``validate_utf16``, the length queries and the little-endian byte
 conversions.
@@ -104,8 +107,7 @@ def _check_pair(src: str, dst: str):
 def _check_strategy(strategy: str, src: str, dst: str, errors: str) -> None:
     """``transcode``'s strategy check, after the policy, input, format and
     pair checks, as in the reference: a request the reference rejects
-    raises its ``ValueError``; one it would run on the windowed strategy,
-    not ported yet, raises ``NotImplementedError``."""
+    raises its ``ValueError``."""
     if strategy in ("onepass", "fused", "blockparallel"):
         return
     if strategy == "windowed":
@@ -117,10 +119,7 @@ def _check_strategy(strategy: str, src: str, dst: str, errors: str) -> None:
             raise ValueError(
                 "strategy='windowed' supports errors='strict' only "
                 "(the serial baseline has no replacement path)")
-    if strategy == "windowed":
-        raise NotImplementedError(
-            "transcode: strategy='windowed' is not ported to repro_torch "
-            "yet; see ROADMAP.md queue 1 item 2 (the windowed strategy)")
+        return
     raise ValueError(
         f"unknown strategy: {strategy} (supported: {list(STRATEGIES)})")
 
@@ -147,6 +146,11 @@ def transcode(src, dst_format, *, src_format: str = "utf8", n_valid=None,
     if strategy == "blockparallel":
         return _blockparallel_pair(src, n_valid, s, d, validate, errors,
                                    device)
+    if strategy == "windowed":
+        from repro_torch.core import windowed
+        walk = windowed.utf8_to_utf16_windowed if s == "utf8" \
+            else windowed.utf16_to_utf8_windowed
+        return walk(src, n_valid, validate, device=device)
     if strategy == "onepass":
         from repro_torch.kernels import onepass_transcode
         return onepass_transcode.transcode_onepass(

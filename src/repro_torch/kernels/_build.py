@@ -48,6 +48,8 @@ _SIGNATURES = {
     "legacy_validate": [_I, _P, _I, _I, _P, _P],
     "legacy_decode": [_I, _P, _I, _I, _I, _P, _P, _P],
     "legacy_encode": [_I, _P, _I, _I, _I, _P, _P, _P],
+    "windowed_utf8": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "windowed_utf16": [_I, _P, _I, _I, _P, _I, _P, _P, _P],
     "flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P],
 }

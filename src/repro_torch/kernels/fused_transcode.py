@@ -26,6 +26,7 @@ from repro_torch.core import compaction
 from repro_torch.core import result as R
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels import stages
+from repro_torch.testing import faults
 
 
 def replace_flag(errors: str) -> int:
@@ -172,6 +173,7 @@ def transcode_fused(x, n_valid=None, *, src: str, dst: str,
     are dropped.
     """
     R.check_errors_policy(errors)
+    faults.fire(faults.KERNEL_FUSED)     # fault-injection hook (no-op unarmed)
     x, n, cap = prepare(x, n_valid, src, dst, device)
     totals, errs, ferrs = count_kernel(x, n, src=src, dst=dst,
                                        errors=errors, validate=validate)
@@ -187,6 +189,7 @@ def scan_fused(x, n_valid=None, *, src: str, dst: str, device=None):
     else the input offset of the first invalid maximal subpart, and
     ``count`` is the number of destination units a transcode produces.
     """
+    faults.fire(faults.KERNEL_SCAN)      # fault-injection hook (no-op unarmed)
     x, n, _cap = prepare(x, n_valid, src, dst, device, "scan")
     totals, errs, ferrs = count_kernel(x, n, src=src, dst=dst,
                                        errors="strict", validate=True)

@@ -25,6 +25,7 @@ from repro_torch.core import result as R
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import stages
+from repro_torch.testing import faults
 
 
 def onepass_tiles(codec_s, codec_d, t, tp, tn, live, gidx, cap: int, *,
@@ -100,6 +101,7 @@ def transcode_onepass(x, n_valid=None, *, src: str, dst: str,
     transcode_fused`, but the input is read and decoded once, in one
     launch."""
     R.check_errors_policy(errors)
+    faults.fire(faults.KERNEL_ONEPASS)   # fault-injection hook (no-op unarmed)
     x, n, cap = ft.prepare(x, n_valid, src, dst, device)
     out, fin = onepass_kernel(x, n, cap, src=src, dst=dst, errors=errors,
                               validate=validate)

@@ -42,6 +42,7 @@ from repro_torch.core import result as R
 from repro_torch.kernels import _build, runtime, stages
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
+from repro_torch.testing import faults
 
 BLOCK = stages.BLOCK
 _IMAX = R.NO_ERR_SENTINEL
@@ -306,6 +307,7 @@ def transcode_ragged(data, offsets, lengths, *, src: str, dst: str,
     ``(offsets, counts, statuses)``, bit-identical to the reference.
     """
     R.check_errors_policy(errors)
+    faults.fire(faults.KERNEL_RAGGED)    # fault-injection hook (no-op unarmed)
     if strategy not in STRATEGIES:
         raise ValueError(
             f"transcode_ragged: unknown strategy {strategy!r} (expected "
@@ -329,6 +331,7 @@ def scan_ragged(data, offsets, lengths, *, src: str, dst: str, device=None):
     """Counting pass only, per document: ``(counts, statuses)`` — one read
     of the packed batch gives every document's destination capacity and
     first-error status."""
+    faults.fire(faults.KERNEL_RAGGED_SCAN)  # fault-injection hook (no-op)
     x, off, own, _cap = _prepare(data, offsets, lengths, src, dst, device,
                                  "ragged_scan")
     totals, errs, ferrs = rcount_kernel(x, own, src=src, dst=dst,

@@ -183,24 +183,22 @@ def test_result_types_and_devices():
 
 @pytest.mark.parametrize("strategy", ["blockparallel", "windowed"])
 def test_unported_strategies_name_their_roadmap_item(strategy):
-    """The windowed strategy is not ported and says where it is queued;
-    blockparallel is, and equals the reference on the same input."""
+    """Both strategies, once queued, are ported: each equals the
+    reference on the same inputs; the reference's scan has no windowed
+    strategy, and the port's rejects it with the reference's error."""
     x = np.full(8, 0x41, np.uint8)
-    if strategy == "blockparallel":
-        for buf in (x, np.frombuffer("añ中😀".encode(), np.uint8)):
-            ref = tc.transcode(buf, "utf16", strategy=strategy)
-            got = ttc.transcode(buf, "utf16", strategy=strategy,
-                                device="cpu")
-            P.assert_same_result(got, ref, (strategy, len(buf)))
-            count, status = tc.scan(buf, "utf16", strategy=strategy)
-            got = ttc.scan(buf, "utf16", strategy=strategy, device="cpu")
-            assert (int(got[0]), int(got[1])) == (int(count), int(status))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttc.transcode(x, "utf16", strategy=strategy, device="cpu")
-    # The reference's scan has no windowed strategy.
-    with pytest.raises(ValueError, match="unknown strategy"):
-        ttc.scan(x, "utf16", strategy=strategy, device="cpu")
+    for buf in (x, np.frombuffer("añ中😀".encode(), np.uint8)):
+        ref = tc.transcode(buf, "utf16", strategy=strategy)
+        got = ttc.transcode(buf, "utf16", strategy=strategy, device="cpu")
+        P.assert_same_result(got, ref, (strategy, len(buf)))
+        if strategy == "windowed":
+            continue
+        count, status = tc.scan(buf, "utf16", strategy=strategy)
+        got = ttc.scan(buf, "utf16", strategy=strategy, device="cpu")
+        assert (int(got[0]), int(got[1])) == (int(count), int(status))
+    if strategy == "windowed":
+        with pytest.raises(ValueError, match="unknown strategy"):
+            ttc.scan(x, "utf16", strategy=strategy, device="cpu")
 
 
 # Requests the reference rejects, checked in its order (policy, input,

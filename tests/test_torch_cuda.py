@@ -26,7 +26,13 @@ against the general lane body alone (no class dispatch), and on an
 output the allocator hands back dirty (they write every element, zeros
 past the end).  The one-pass kernels' decoupled look-back is launched 20
 times over at tile counts around its 32-tile window, each launch
-bit-identical to fused and to plain.
+bit-identical to fused and to plain.  The windowed walks' kernels (one
+warp each) must equal their plain versions on ``tools/inputs.py``'s
+``windowed_buffers`` (text, injected errors, lone high surrogates past
+the capacity, int32 values outside the ranges, ``n_valid`` edges), with
+validation on and off, and windowed ``transcode`` must equal fused's on
+text; the data pipeline on the card must give the batches it gives on
+the CPU.
 """
 
 import sys
@@ -39,6 +45,9 @@ import torch
 import repro_torch
 from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
+from repro_torch.core import utf8 as u8mod, utf16 as u16mod
+from repro_torch.core import windowed as win
+from repro_torch.data import pipeline as dp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
@@ -593,3 +602,69 @@ def test_legacy_and_flash_wrappers_reject_what_the_kernels_do_not_take():
                         dtype=dtype)[1:].view(1, 128, 2, 64)
         with pytest.raises(ValueError):
             fa.flash_kernel(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["utf8", "utf16"])
+def test_windowed_kernels_match_plain_on_card(fmt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    kernel, plain, first_error = (
+        (win.windowed_utf8_kernel, win.windowed_utf8_plain,
+         u8mod.first_error_index) if fmt == "utf8" else
+        (win.windowed_utf16_kernel, win.windowed_utf16_plain,
+         u16mod.first_error_index))
+    for name, arr, n in C.windowed_buffers(fmt, seed=71):
+        x = torch.from_numpy(arr).cuda()
+        status0 = first_error(win.masked_int32(x, n), n)
+        for validate in (True, False):
+            got = kernel(x, n, status0, validate)
+            want = plain(x, n, status0, validate)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (
+                    name, validate, int(got[1]), int(want[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [("utf8", "utf16"), ("utf16", "utf8")])
+def test_windowed_transcode_equals_fused_on_card(src, dst):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for lang in C.PROFILES:
+        cps = C.codepoints(lang, 20_000, np.random.default_rng(3))
+        x = torch.from_numpy(C.encode_text(cps, src).copy()).cuda()
+        w = repro_torch.transcode(x, dst, src_format=src,
+                                  strategy="windowed")
+        f = repro_torch.transcode(x, dst, src_format=src, strategy="fused")
+        k = int(f.count)
+        assert (int(w.count), int(w.status)) == (k, int(f.status)), lang
+        assert w.buffer.dtype == torch.int32
+        assert torch.equal(w.buffer[:k].long(), f.buffer[:k].long()), lang
+        assert not bool(w.buffer[k:].any()), lang
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", ["tokens", "codepoints"])
+def test_pipeline_on_card_equals_cpu(emit):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = dict(seq_len=512, global_batch=8, emit=emit, seed=2)
+    card = dp.TextPipeline(dp.PipelineConfig(**cfg))
+    host = dp.TextPipeline(dp.PipelineConfig(**cfg), device="cpu")
+    for _ in range(2):
+        a, b = card.next_batch(), host.next_batch()
+        assert set(a) == set(b)
+        for key in a:
+            assert a[key].device.type == "cuda"
+            assert torch.equal(a[key].cpu(), b[key]), key
+    docs = np.zeros((6, 700), np.uint8)
+    for i in range(6):
+        units = C.utf8_buffer("hindi", 700, np.random.default_rng(i))
+        docs[i] = units
+    lens = np.array([700, 300, 0, 699, 12, 1], np.int32)
+    for strategy in ("packed", "vmap", "fused", "blockparallel",
+                     "windowed"):
+        g = dp.batch_transcode(docs, lens, strategy=strategy)
+        h = dp.batch_transcode(docs, lens, strategy=strategy, device="cpu")
+        for a, b in zip(g, h):
+            assert torch.equal(a.cpu(), b), strategy

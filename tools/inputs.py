@@ -7,6 +7,9 @@
   1024-element tile to one of three bodies (ASCII, the <=2-byte class,
   the general body); :func:`class_buffers`, :func:`validate_buffers` and
   :func:`byte_pairs` make buffers that exercise that decision.
+- The windowed walks' inputs (:func:`windowed_buffers`): text, injected
+  errors, lone high surrogates past the capacity, int32 values outside
+  the byte and unit ranges, and ``n_valid`` edges.
 
 Imports only numpy, so the card tests (run where JAX may be missing) and
 the chip smoke use it as the CPU tests do.
@@ -181,3 +184,52 @@ def byte_pairs(stride: int = 1) -> np.ndarray:
     out[rows, off] = pairs >> 8
     out[rows, off + 1] = pairs & 0xFF
     return out.reshape(-1)
+
+
+def windowed_buffers(fmt: str, seed: int, size: int = 2048):
+    """Named ``(buffer, n_valid)`` inputs of the windowed walks for
+    ``fmt`` ("utf8" or "utf16"), ``size`` units each: text of every
+    lipsum profile; text with invalid units injected; uniform garbage;
+    runs of lone high surrogates (UTF-16: each counts 4 bytes, so the
+    count passes the capacity of ``3 * size + 24``) or a 0xF0 flood
+    (UTF-8); int32 buffers outside the byte and unit ranges (negative,
+    past 0xFF / 0xFFFF, past 0x10FFFF); and ``n_valid`` at 0, below one
+    12-byte window and mid-character."""
+    rng = np.random.default_rng(seed)
+    dt = DT[fmt]
+
+    def text(lang):
+        units = encode_text(codepoints(lang, size, rng), fmt)[:size]
+        buf = np.zeros(size, dt)
+        buf[:len(units)] = units
+        return buf, len(units)
+
+    out = [(f"text-{lang}", *text(lang)) for lang in PROFILES]
+    bad = [0xFF, 0xC0, 0x80, 0xED, 0xF4] if fmt == "utf8" \
+        else [0xD800, 0xDC00, 0xDBFF]
+    for lang in ("arabic", "chinese", "emoji"):
+        buf, n = text(lang)
+        for k, pos in enumerate(rng.integers(0, n, 8)):
+            buf[pos] = bad[k % len(bad)]
+        out.append((f"injected-{lang}", buf, n))
+    hi = 256 if fmt == "utf8" else 1 << 16
+    out.append(("garbage", rng.integers(0, hi, size).astype(dt), size - 3))
+    if fmt == "utf16":
+        out.append(("lone-high-run", np.full(size, 0xD800, dt), size))
+        buf, n = text("emoji")
+        buf[size // 4: size // 2] = 0xDBFF
+        out.append(("lone-high-in-text", buf, n))
+    else:
+        out.append(("f0-flood", np.full(size, 0xF0, dt), size))
+    wild = rng.integers(-2**31, 2**31 - 1, size, dtype=np.int64)
+    out.append(("int32-wild", wild.astype(np.int32), size))
+    out.append(("int32-mixed", np.resize(np.array(
+        [300, -5, 0x41, 0xD800, 0x1D800, 0x110000, -1], np.int32), size),
+        size))
+    big = text("korean")[0].astype(np.int32)
+    big[::97] = 70_000
+    out.append(("int32-text-with-big", big, size))
+    out.append(("n0", text("latin")[0], 0))
+    out.append(("n-below-window", text("emoji")[0], 11))
+    out.append(("n-mid-character", text("chinese")[0], size // 3 + 1))
+    return out

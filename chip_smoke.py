@@ -119,7 +119,23 @@ Phases, in order; any failure exits non-zero before the last line:
      profile and direction (ms, device ms, GB/s of input; the plain
      version once, on arabic); ``TextPipeline.next_batch`` per step, and
      ``batch_transcode`` packed and vmap.
-  5. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
+  5. The models (:func:`model_phase`), the launch counts set to 0 just
+     before the serving path and read just after: every arch of
+     ``repro_torch.configs``, reduced and float32, card = CPU on the
+     same weights (forward, prefill, 3 greedy decode steps; TF32 off);
+     then qwen3-8b at its published config (36 layers, d_model 4096,
+     vocab 151,936, bf16, 7.57 B random parameters from a seeded
+     generator) answering four lipsum prompts as the reference's serve
+     engine does at its boundary: one ``ragged_scan`` (rcount) launch at
+     ingress, byte tokens in a 512 bucket, one prefill and 32 greedy
+     decode steps in a context of 640, blockparallel ``transcode`` to
+     UTF-16 at egress.  Greedy tokens equal a teacher-forced forward's
+     argmax where its top-2 margin passes the bf16 tolerance, and bf16
+     logits stay within it of an f32 copy at depth 2.  Prefill and
+     decode times (host clock, synchronised) beside their bounds, the
+     device's busy time from ``torch.profiler``, peak memory, ingress
+     and egress times.
+  6. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -129,6 +145,7 @@ no CUDA device is present, and when run without the rest of the repo.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -217,6 +234,34 @@ LIPSUM_CHARS = 1 << 17         # paper Tables 5 and 6
 RAGGED_DOCS = 8192
 RAGGED_LONG, RAGGED_SHORT = 16_384, 2_048     # characters per document
 STREAM_MAX_CHUNK = 4 << 20     # stream chunk sizes: log-uniform in [1, this]
+
+# Phase 5, the models: every arch reduced (float32, card vs CPU), then
+# qwen3-8b at its published config answering four requests as
+# repro.serve.engine does (max_prompt 512 + max_new 128 = a context of
+# 640, its batch of 4 rows).
+MODEL_ARCH = "qwen3-8b"
+MODEL_LANGS = ("arabic", "chinese", "emoji", "latin")
+MODEL_PROMPT_BYTES = (64, 400)       # prompt sizes, uniform in this range
+MODEL_BUCKET, MODEL_NEW = 512, 128
+MODEL_STEPS = 32                     # greedy decode steps after the prefill
+MODEL_PREFILL_REPS = 3
+MODEL_DEPTH_CHECK = 2                # depth of the bf16-vs-f32 comparison
+MODEL_REDUCED_CTX, MODEL_REDUCED_STEPS = 32, 3
+# float32 on the card (TF32 off) against the CPU: only the order of the
+# f32 sums differs.
+MODEL_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# bf16: two computations of the same logits (the decode path against a
+# teacher-forced forward; bf16 against f32 weights) round the residual
+# stream to bf16 at different places.  This script's runs of qwen3-8b on
+# an H100 (700 W) measured up to 0.116 between decode and teacher-forced
+# logits whose standard deviation is 1.28 (0.02 * sqrt(4096)), and a
+# relative RMS error of 0.008 (max 0.068) for bf16 against f32 at depth
+# 2; the tolerances give each two to four times that.  Two logits each
+# off by at most d can swap only when their margin is below 2d, so
+# greedy tokens are held to the teacher-forced argmax where its top-2
+# margin passes BF16_LOGIT_TOL.
+BF16_LOGIT_TOL = 0.25
+BF16_REL_RMS = 2 ** -5
 
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
@@ -648,6 +693,366 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the models.
+
+
+def _reduced_run(model, fam, cfg, toks, lens, frames, device):
+    """One reduced model on one device: the forward logits, the
+    prefill's last logits and ``MODEL_REDUCED_STEPS`` greedy decode
+    steps ``(tokens, logits)``, all moved to the host."""
+    import torch
+    from repro_torch.serve import kvcache, serve_step
+    t = torch.from_numpy(toks).to(device)
+    lens_t = torch.from_numpy(lens).to(device)
+    with torch.no_grad():
+        if fam == "encdec":
+            fr = torch.from_numpy(frames).to(device)
+            fwd = model(fr, t)[0]
+            prefill, decode = serve_step.make_encdec_steps(model)
+            last, state = prefill(model, fr, t, MODEL_REDUCED_CTX)
+        else:
+            fwd = (model.apply_text(t) if fam == "vlm" else model(t))[0]
+            prefill = serve_step.make_prefill(model, fam)
+            decode = serve_step.make_decode(model, fam)
+            state = kvcache.init_state(model, cfg, len(toks),
+                                       MODEL_REDUCED_CTX)
+            last, state = prefill(model, t, lens_t, state)
+    cur, pos, steps = last.argmax(-1).to(torch.int32), lens_t, []
+    for _ in range(MODEL_REDUCED_STEPS):
+        if fam == "encdec":
+            cur, logits, state = decode(model, cur[:, None], state)
+        else:
+            cur, logits, state = decode(model, cur[:, None], pos, state,
+                                        None)
+            pos = pos + 1
+        steps.append((cur.cpu(), logits.cpu()))
+    return fwd.cpu(), last.cpu(), steps
+
+
+def model_bounds(cfg, n_params: int, batch: int, prompt: int,
+                 state_bytes: int) -> dict:
+    """Least times of the serving steps of a dense decoder: the prefill
+    by its operations (2 flops per weight of every product and token,
+    the unembedding included, and 4 * head_dim per causal pair and
+    head) at the bf16 peak; a decode step by its bytes (every weight
+    and the decode state read once) at the memory rate."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * cfg.d_ff)
+    tokens = batch * prompt
+    products = 2 * tokens * (cfg.n_layers * per_layer + cfg.vocab * d)
+    attention = (4 * hd * cfg.n_heads * cfg.n_layers * batch
+                 * prompt * (prompt + 1) // 2)
+    decode_bytes = n_params * 2 + state_bytes
+    return {"prefill_flops": products + attention,
+            "prefill_bound_ms": (products + attention)
+            / PEAK_FLOPS["bfloat16"] * 1e3,
+            "decode_bytes": decode_bytes,
+            "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def device_busy(fn, top: int = 6) -> dict:
+    """Device time of the kernels ``fn`` launches, from ``torch.profiler``:
+    ``{"busy_ms", "launches", "top"}``, ``top`` the kernels that take
+    most of it as ``[name, ms, calls]`` (``busy_ms`` None when the
+    profiler reports no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    return {"busy_ms": sum(r[1] for r in rows) or None,
+            "launches": sum(r[2] for r in rows),
+            "top": [[k[:80], ms, n] for k, ms, n in rows[:top]]}
+
+
+def model_phase(rng, smi: str, zero_counts, read_counts, device="cuda",
+                full_cfg=None) -> tuple:
+    """Phase 5.  (a) Every arch of ``repro_torch.configs.ARCH_IDS``,
+    reduced, float32: the same weights (from a generator seeded by
+    ``rng``) on the card and on the CPU, forward logits, the prefill's
+    last logits and greedy decode steps within ``MODEL_F32_TOL``, tokens
+    equal.  (b) qwen3-8b at its published config (``full_cfg`` shrinks
+    it for a rehearsal), bf16, weights from a seeded generator on the
+    card, answering four requests as ``repro.serve.engine`` does at its
+    boundary: ingress (four lipsum prompts packed, validated by one
+    ``ragged_scan`` launch, byte tokens padded to the 512 bucket), one
+    prefill and ``MODEL_STEPS`` greedy decode steps in a context of 640,
+    egress (the generated byte values through blockparallel
+    ``transcode`` to UTF-16).  Checked: the launch count, the greedy
+    tokens against a teacher-forced forward, and bf16 against an f32
+    copy of the same weights at depth ``MODEL_DEPTH_CHECK``.  Returns
+    ``(report, launches)``."""
+    import torch
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.core import packing
+    from repro_torch.core import transcode as tc
+    from repro_torch.data.tokenizer import (BOS_ID, EOS_ID, N_SPECIAL,
+                                            ByteTokenizer)
+    from repro_torch.models import registry
+    from repro_torch.serve import kvcache, serve_step
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def clock_ms(fn):
+        """Host clock around ``fn`` and a synchronise: ``(result, ms)``."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    report = {}
+    # (a) every arch, reduced, float32, TF32 off: card = CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reduced = {}
+    for arch in configs.ARCH_IDS:
+        seed = int(rng.integers(2**31))
+        fam, cfg, host = registry.get(
+            arch, reduced=True, device="cpu",
+            generator=torch.Generator().manual_seed(seed))
+        card = registry.build(cfg, device=dev)
+        card.load_state_dict(host.state_dict())
+        b, s = 2, 16
+        toks = rng.integers(3, cfg.vocab, (b, s)).astype(np.int32)
+        lens = np.array([s, s - 5], np.int32)
+        frames = (rng.standard_normal((b, cfg.n_audio_frames, cfg.d_model))
+                  .astype(np.float32) if fam == "encdec" else None)
+        want = _reduced_run(host, fam, cfg, toks, lens, frames, "cpu")
+        got = _reduced_run(card, fam, cfg, toks, lens, frames, dev)
+        pairs = [("forward", got[0], want[0]), ("prefill", got[1], want[1])]
+        for k, ((gt, gl), (wt, wl)) in enumerate(zip(got[2], want[2])):
+            require(torch.equal(gt, wt), "reduced decode tokens", arch, k)
+            pairs.append((f"decode {k}", gl, wl))
+        for what, g, w in pairs:
+            require(torch.allclose(g, w, **MODEL_F32_TOL), "reduced card vs "
+                    "cpu", arch, what, float((g - w).abs().max()))
+        reduced[arch] = max(float((g - w).abs().max()) for _, g, w in pairs)
+    report["reduced_max_abs_err"] = reduced
+    log(f"phase 5: {len(reduced)} archs reduced f32 (TF32 off), card = cpu "
+        f"within atol=rtol={MODEL_F32_TOL['atol']:g}: forward, prefill, "
+        f"{MODEL_REDUCED_STEPS} greedy steps, tokens equal; max abs err "
+        f"{max(reduced.values()):.3g}")
+
+    # (b) qwen3-8b, full width and depth, bf16, four requests.
+    cfg = full_cfg or configs.get_config(MODEL_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    model, build_ms = clock_ms(lambda: registry.build(
+        cfg, device=dev, generator=gen).requires_grad_(False))
+    n_params = model.param_count()
+    raws = [inputs.utf8_buffer(lang, int(rng.integers(
+        MODEL_PROMPT_BYTES[0], MODEL_PROMPT_BYTES[1] + 1)), rng)
+        for lang in MODEL_LANGS]
+    texts = [bytes(raw).decode("utf-8") for raw in raws]
+    b, ctx = len(raws), MODEL_BUCKET + MODEL_NEW
+    prefill = serve_step.make_prefill(model, "lm")
+    decode = serve_step.make_decode(model, "lm")
+    tokenizer = ByteTokenizer()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    # held before the path runs: the weights and what earlier phases keep
+    before = torch.cuda.memory_allocated() if cuda else None
+    sync()
+    zero_counts()
+
+    def ingress():
+        pk = packing.pack_documents(
+            raws, dtype=np.uint8, doc_tiles=-(-MODEL_BUCKET // BLOCK),
+            pad_to_docs=b)
+        _counts, statuses = repro_torch.ragged_scan(
+            pk.data, pk.offsets, pk.lengths, src_format="utf8",
+            dst_format="utf16", device=dev)
+        toks = torch.zeros((b, MODEL_BUCKET), dtype=torch.int32, device=dev)
+        lens = []
+        for r, raw in enumerate(raws):
+            ids = tokenizer.encode(torch.from_numpy(raw).to(dev))
+            toks[r, 0] = BOS_ID
+            toks[r, 1: 1 + len(ids)] = ids
+            lens.append(1 + len(ids))
+        return statuses.cpu().numpy(), toks, torch.tensor(
+            lens, dtype=torch.int32, device=dev)
+
+    (statuses, toks, lens), ingress_ms = clock_ms(ingress)
+    require(bool((statuses == -1).all()), "ingress statuses", statuses)
+    state = kvcache.init_state(model, cfg, b, ctx)
+    (last, state), prefill_first_ms = clock_ms(
+        lambda: prefill(model, toks, lens, state))
+    cur = last.argmax(-1).to(torch.int32)
+    gen_toks, gen_logits, pos, step_ms = [cur], [last], lens.clone(), []
+    for _ in range(MODEL_STEPS):
+        (cur, logits, state), ms = clock_ms(
+            lambda: decode(model, cur[:, None], pos, state, None))
+        pos = pos + 1
+        gen_toks.append(cur)
+        gen_logits.append(logits)
+        step_ms.append(ms)
+    gen_np = torch.stack(gen_toks, 1).cpu().numpy()
+
+    def to_wire(vals):
+        """UTF-8 byte values -> UTF-16LE wire bytes, as the engine's
+        egress (``engine.py:985-1001``)."""
+        res = repro_torch.transcode(
+            torch.from_numpy(vals).to(dev), "utf16", src_format="utf8",
+            n_valid=len(vals), strategy="blockparallel", device=dev)
+        wire = tc.units_to_utf16le_bytes(res.buffer[: int(res.count)],
+                                         device=dev)
+        return bytes(wire.cpu().numpy().astype(np.uint8))
+
+    def egress():
+        wires = []
+        for g in gen_np:
+            g = g[(g >= 0) & (g != EOS_ID)]
+            vals = g - N_SPECIAL
+            vals = vals[(vals >= 0) & (vals < 256)].astype(np.int32)
+            wires.append((vals, to_wire(vals)))
+        return wires
+
+    wires, egress_ms = clock_ms(egress)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    log(f"phase 5: model path launches {launches}")
+    require(launches == {"rcount": 1}, "model path launches", launches)
+    for vals, wire in wires:
+        try:
+            text = bytes(vals.astype(np.uint8)).decode("utf-8")
+        except UnicodeDecodeError:
+            continue                  # the engine's egress keeps a prefix
+        require(wire == text.encode("utf-16-le"), "egress vs CPython")
+    # Random weights seldom emit a byte token (256 of 151,936 ids), so the
+    # same egress also runs on responses as long as the prompts (their
+    # bytes echoed): times at a real size, checked against CPython.
+    echo, echo_ms = clock_ms(lambda: [to_wire(raw.astype(np.int32))
+                                      for raw in raws])
+    for wire, text in zip(echo, texts):
+        require(wire == text.encode("utf-16-le"), "echo egress vs CPython")
+
+    # Self-consistency: the generated tokens against the argmax of one
+    # teacher-forced forward over prompt + generated tokens, wherever its
+    # top-2 margin passes the bf16 tolerance; the decode path's logits
+    # against the forward's.
+    n_gen = MODEL_STEPS + 1
+    lens_np = lens.cpu().numpy()
+    full = torch.zeros((b, int(lens_np.max()) + MODEL_STEPS),
+                       dtype=torch.int32, device=dev)
+    for r, n in enumerate(lens_np):
+        full[r, :n] = toks[r, :n]
+        full[r, n: n + MODEL_STEPS] = torch.from_numpy(gen_np[r, :MODEL_STEPS])
+    with torch.no_grad():
+        tf_all = model(full)[0]
+    at = (lens.long()[:, None] - 1
+          + torch.arange(n_gen, device=dev)[None, :])
+    tf = torch.gather(tf_all, 1, at[:, :, None].expand(-1, -1, cfg.vocab))
+    del tf_all
+    top2 = tf.topk(2, -1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    agree = (tf.argmax(-1).cpu().numpy() == gen_np)
+    decided = (margin > BF16_LOGIT_TOL).numpy()
+    tf_err = float((torch.stack(gen_logits, 1) - tf).abs().max())
+    del tf, gen_logits
+    require(tf_err <= BF16_LOGIT_TOL, "decode vs teacher-forced logits",
+            tf_err)
+    require(bool(agree[decided].all()), "greedy vs teacher-forced tokens",
+            np.argwhere(decided & ~agree).tolist())
+
+    prefill_ms = statistics.median(clock_ms(lambda: prefill(
+        model, toks, lens, kvcache.init_state(model, cfg, b, ctx)))[1]
+        for _ in range(MODEL_PREFILL_REPS))
+    busy = {}
+    if cuda:
+        st = kvcache.init_state(model, cfg, b, ctx)
+        busy["prefill"] = device_busy(lambda: prefill(model, toks, lens, st))
+        busy["decode"] = device_busy(lambda: decode(
+            model, gen_toks[-1][:, None], pos, st, None))
+    busy_ms = {k: v["busy_ms"] for k, v in busy.items()}
+    bounds = model_bounds(cfg, n_params, b, MODEL_BUCKET,
+                          kvcache.state_bytes(cfg, b, ctx))
+    decode_ms = statistics.median(step_ms)
+    del model, state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # bf16 against an f32 copy of the same weights, at depth 2.
+    c2 = dataclasses.replace(cfg, n_layers=MODEL_DEPTH_CHECK)
+    m16 = registry.build(c2, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(int(rng.integers(2**31)))).requires_grad_(
+            False)
+    m32 = registry.build(dataclasses.replace(c2, dtype="float32"),
+                         device="meta").to_empty(device=dev)
+    m32.load_state_dict(m16.state_dict())
+    with torch.no_grad():
+        l16, l32 = m16(toks)[0], m32(toks)[0]
+    rel = float((l16 - l32).norm() / l32.norm())
+    mx = float((l16 - l32).abs().max())
+    del m16, m32, l16, l32
+    require(rel <= BF16_REL_RMS and mx <= BF16_LOGIT_TOL, "bf16 vs f32",
+            rel, mx)
+
+    report[MODEL_ARCH] = {
+        "config": dataclasses.asdict(cfg), "params": n_params,
+        "build_ms": build_ms, "batch": b, "bucket": MODEL_BUCKET,
+        "context": ctx, "prompt_bytes": [len(r) for r in raws],
+        "prompt_tokens": lens_np.tolist(),
+        "prompt_chars": [len(t) for t in texts],
+        "ingress_ms": ingress_ms, "prefill_first_ms": prefill_first_ms,
+        "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+        "decode_ms": decode_ms, "egress_ms": egress_ms,
+        "egress_bytes": [len(v) for v, _ in wires],
+        "egress_echo_ms": echo_ms,
+        "device_busy": busy, "peak_memory_bytes": peak,
+        "memory_before_bytes": before,
+        "launches": launches, **bounds,
+        "decode_vs_teacher_forced_max_abs": tf_err,
+        "tokens_agree": int(agree.sum()), "tokens": int(agree.size),
+        "tokens_decided": int(decided.sum()),
+        "min_margin": float(margin.min()),
+        "bf16_vs_f32_rel_rms": rel, "bf16_vs_f32_max_abs": mx,
+        "bf16_tolerance": {"logits_abs": BF16_LOGIT_TOL,
+                           "rel_rms": BF16_REL_RMS}}
+    peak_gb = ("not measured" if peak is None else
+               f"{peak / 1e9:.2f} GB ({before / 1e9:.2f} GB held before "
+               f"the path)")
+    log(f"phase 5: {MODEL_ARCH} {cfg.n_layers} layers d_model "
+        f"{cfg.d_model} vocab {cfg.vocab}, {n_params} parameters "
+        f"({cfg.dtype}), built in {build_ms:.0f} ms; 4 requests "
+        f"{[len(r) for r in raws]} bytes ({', '.join(MODEL_LANGS)}), "
+        f"tokens {lens_np.tolist()}")
+    log(f"phase 5: ingress {ingress_ms:.3f} ms (one ragged_scan); prefill "
+        f"{b} x {MODEL_BUCKET} {prefill_ms:.2f} ms (first call "
+        f"{prefill_first_ms:.2f}; device busy {busy_ms.get('prefill')}) "
+        f"bound "
+        f"{bounds['prefill_bound_ms']:.2f} ms "
+        f"({bounds['prefill_flops'] / 1e12:.2f} TFLOP at 989 TFLOP/s); "
+        f"decode {decode_ms:.2f} ms a step (median of {MODEL_STEPS}; "
+        f"device busy {busy_ms.get('decode')}) bound "
+        f"{bounds['decode_bound_ms']:.3f} ms "
+        f"({bounds['decode_bytes'] / 1e9:.2f} GB at 3.35 TB/s); egress "
+        f"{egress_ms:.3f} ms ({[len(v) for v, _ in wires]} bytes; the "
+        f"prompts echoed: {echo_ms:.3f} ms); peak "
+        f"{peak_gb}  [{smi}]")
+    log(f"phase 5: {int(agree.sum())}/{agree.size} greedy tokens = "
+        f"teacher-forced argmax, all {int(decided.sum())} with a top-2 "
+        f"margin > {BF16_LOGIT_TOL} (min margin {float(margin.min()):.4f}); "
+        f"decode vs teacher-forced logits max abs {tf_err:.4f}; bf16 vs "
+        f"f32 at depth {MODEL_DEPTH_CHECK}: rel rms {rel:.5f} "
+        f"(<= {BF16_REL_RMS}), max abs {mx:.4f} (<= {BF16_LOGIT_TOL})")
+    for step, prof in busy.items():
+        log(f"phase 5: {step} on the device: {prof['launches']} kernel "
+            f"launches, busy {prof['busy_ms']} ms; most time: "
+            + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -681,6 +1086,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import utf8_decode as kdec
         from repro_torch.kernels import utf8_validate as kval
         from repro_torch.kernels import utf16_encode as kenc
+        from repro_torch.models import registry  # noqa: F401  (phase 5)
         from repro_torch.testing import faults
     except ImportError as exc:
         print(f"chip_smoke: the repro_torch package or tools/inputs.py is "
@@ -1973,6 +2379,12 @@ def main(argv=None) -> int:
     log(f"phase 4: batch_transcode [{BATCH_DOCS}, {BATCH_LEN}] utf8->utf16 "
         f"packed {data_t['batch_transcode packed ms']:.3f} ms, vmap "
         f"{data_t['batch_transcode vmap ms']:.1f} ms  [{smi}]")
+
+    # -- 5. the models ---------------------------------------------------------
+    report["model"], model_launches = model_phase(rng, smi, zero_counts,
+                                                  read_counts)
+    for name, count in model_launches.items():
+        launches[name] = launches.get(name, 0) + count
 
     lines = []
     main_flash = flash_t[FLASH_MAIN[0][0]]

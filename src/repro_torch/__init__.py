@@ -16,12 +16,23 @@ too, and ``repro_torch.kernels.flash_attention.flash_attention``, within
 the reference tests' tolerances; and the data path of
 ``repro_torch.data`` (``batch_transcode``, ``TextPipeline``, the
 tokenizers, the synthetic corpora) with the fault-injection harness of
-``repro_torch.testing.faults``.  Entry points run on the card
-(``device="cuda"``, the default) through hand-written CUDA kernels, one
-for each of the reference's ten Pallas kernels and one for each
-direction of the windowed walk (the blockparallel strategy and the
-helpers as whole-array torch ops), or on the CPU (``device="cpu"``)
-through the kernels' plain PyTorch versions.
+``repro_torch.testing.faults``; and the model substrate:
+``repro_torch.models`` (the layers, ``DecoderLM`` over dense, MoE,
+Griffin, recurrent and Mamba layers, the VLM, the encoder-decoder, the
+registry, and ``weights.from_reference`` for the reference's
+parameters), ``repro_torch.configs`` (the eleven archs) and
+``repro_torch.serve`` (``kvcache`` and the prefill/decode steps), torch
+ops held to the reference within ``atol = rtol = 1e-4`` in float32.
+``__all__`` stays the reference's transcode surface; the serve engine
+and its ``Engine`` come later.
+
+Entry points run on the card (``device="cuda"``, the default) or on the
+CPU (``device="cpu"``).  On the card the transcoders run hand-written
+CUDA kernels, one for each of the reference's ten Pallas kernels and one
+for each direction of the windowed walk (the blockparallel strategy and
+the helpers as whole-array torch ops), and the models run torch ops, as
+the reference's reach no Pallas kernel; on the CPU the kernels' plain
+PyTorch versions stand in.
 
 Attributes resolve lazily (PEP 562): ``import repro_torch`` pulls in no
 torch module of the package until a symbol is touched.

@@ -1,0 +1,106 @@
+"""Prefill and decode step functions.
+
+Port of ``repro.serve.serve_step``.  ``make_prefill``/``make_decode``
+return plain functions with the reference's arguments.  The port's
+modules own their weights, so the ``params`` argument is the module
+whose weights run: the model itself, or another instance of its class
+(a bf16 and an f32 copy of one config, say); the sampling ``key`` is a
+``torch.Generator``.  Steps run without autograd and update the state's
+caches in place (``models.common.attention``); each still returns the
+state it filled.  Prompts in a batch may have different lengths:
+padding lanes carry position -1, which the attention mask treats as
+empty, and per-row cache cursors advance by the padded length so slot
+layout stays uniform.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _positions(family, tokens, lens=None, offset=None):
+    b, s = tokens.shape
+    base = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
+    if offset is not None:
+        pos = base + offset[:, None]
+    else:
+        pos = base.expand(b, s)
+    if lens is not None:
+        pos = torch.where(base < lens[:, None], pos, -1)  # padding -> masked
+    if family == "vlm":
+        pos = pos.expand(3, b, s)
+    return pos.to(torch.int32)
+
+
+def _net(model, params):
+    """The decoder that runs: ``params``' backbone, of ``model``'s
+    class."""
+    net = getattr(params, "lm", params)
+    want = type(getattr(model, "lm", model))
+    if not isinstance(net, want):
+        raise TypeError(f"params must be a {want.__name__} (the module "
+                        f"holding the weights), got {type(net).__name__}")
+    return net
+
+
+def make_prefill(model, family: str):
+    """prefill(params, tokens, lens, state) -> (last_logits, state).
+
+    tokens: (B, S) padded prompts; lens: (B,) true lengths.
+    last_logits: (B, vocab) at each prompt's final real token.
+    """
+
+    @torch.no_grad()
+    def prefill(params, tokens, lens, state):
+        pos = _positions(family, tokens, lens=lens)
+        logits, state, _ = _net(model, params)(tokens, pos=pos, state=state)
+        idx = (lens - 1).long()[:, None, None].expand(-1, 1, logits.shape[-1])
+        return torch.gather(logits, 1, idx)[:, 0], state
+
+    return prefill
+
+
+def make_decode(model, family: str, temperature: float = 0.0):
+    """decode(params, tok, pos, state, key) -> (next_tok, logits, state).
+
+    tok: (B, 1) current token; pos: (B,) its position.
+    Greedy when temperature == 0, else temperature sampling with the
+    generator ``key`` (``torch.multinomial``: the draws differ from
+    ``jax.random.categorical``'s).
+    """
+
+    @torch.no_grad()
+    def decode(params, tok, pos, state, key):
+        p = pos[:, None]
+        if family == "vlm":
+            p = p.expand(3, *p.shape)
+        logits, state, _ = _net(model, params)(tok, pos=p, state=state)
+        logits = logits[:, 0]                      # (B, V)
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, -1)
+            nxt = torch.multinomial(probs, 1, generator=key)[:, 0]
+        else:
+            nxt = torch.argmax(logits, -1)
+        return nxt.to(torch.int32), logits, state
+
+    return decode
+
+
+def make_encdec_steps(model):
+    """Whisper-style: (prefill, decode) against a fixed encoder output."""
+
+    @torch.no_grad()
+    def prefill(params, frames, tokens, capacity):
+        net = _net(model, params)
+        b, s = tokens.shape
+        state = net.init_state(frames, b, capacity)
+        logits, state, _ = net(frames, tokens, state=state)
+        return logits[:, -1], state
+
+    @torch.no_grad()
+    def decode(params, tok, state):
+        logits, state, _ = _net(model, params)(None, tok, state=state)
+        return (torch.argmax(logits[:, 0], -1).to(torch.int32),
+                logits[:, 0], state)
+
+    return prefill, decode

@@ -32,7 +32,14 @@ warp each) must equal their plain versions on ``tools/inputs.py``'s
 the capacity, int32 values outside the ranges, ``n_valid`` edges), with
 validation on and off, and windowed ``transcode`` must equal fused's on
 text; the data pipeline on the card must give the batches it gives on
-the CPU.
+the CPU.  The models (no hand kernel: torch ops, products through
+``torch.mm(out_dtype=float32)``): every arch, reduced and float32, on the
+card equal to the CPU within ``atol = rtol = 1e-4`` with TF32 off
+(forward, prefill, greedy decode, tokens equal); bf16 products
+accumulated in float32; and qwen3-8b at full width, depth 2, bf16:
+prefill and greedy decode against a teacher-forced forward, and bf16
+against an f32 copy of the same weights, within the bf16 tolerance that
+``chip_smoke.py`` states.
 """
 
 import sys
@@ -42,7 +49,10 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 import repro_torch
+from repro_torch import configs
 from repro_torch.core import compaction, packing
 from repro_torch.core import transcode as tc
 from repro_torch.core import utf8 as u8mod, utf16 as u16mod
@@ -56,6 +66,9 @@ from repro_torch.kernels import stages
 from repro_torch.kernels import utf8_decode as kdec
 from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels import utf16_encode as kenc
+from repro_torch.models import common as mc
+from repro_torch.models import registry
+from repro_torch.serve import kvcache, serve_step
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from tools import inputs as C  # noqa: E402
@@ -668,3 +681,135 @@ def test_pipeline_on_card_equals_cpu(emit):
         h = dp.batch_transcode(docs, lens, strategy=strategy, device="cpu")
         for a, b in zip(g, h):
             assert torch.equal(a.cpu(), b), strategy
+
+
+# ---------------------------------------------------------------------------
+# The models.
+
+MODEL_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# chip_smoke.py's bf16 tolerances, with their reason there: two bf16
+# computations of one set of logits (std 1.28 at qwen3-8b's width) differ
+# by up to 0.116 at full depth; greedy tokens are held where the margin
+# passes 0.25.
+BF16_LOGIT_TOL, BF16_REL_RMS = 0.25, 2 ** -5
+
+
+def _reduced_steps(model, fam, cfg, toks, lens, frames, device, n_steps=3):
+    t = torch.from_numpy(toks).to(device)
+    lens_t = torch.from_numpy(lens).to(device)
+    with torch.no_grad():
+        if fam == "encdec":
+            fr = torch.from_numpy(frames).to(device)
+            outs = [model(fr, t)[0]]
+            prefill, decode = serve_step.make_encdec_steps(model)
+            last, state = prefill(model, fr, t, 32)
+        else:
+            outs = [(model.apply_text(t) if fam == "vlm" else model(t))[0]]
+            prefill = serve_step.make_prefill(model, fam)
+            decode = serve_step.make_decode(model, fam)
+            state = kvcache.init_state(model, cfg, len(toks), 32)
+            last, state = prefill(model, t, lens_t, state)
+    outs.append(last)
+    cur, pos, tokens = last.argmax(-1).to(torch.int32), lens_t, []
+    for _ in range(n_steps):
+        if fam == "encdec":
+            cur, logits, state = decode(model, cur[:, None], state)
+        else:
+            cur, logits, state = decode(model, cur[:, None], pos, state,
+                                        None)
+            pos = pos + 1
+        outs.append(logits)
+        tokens.append(cur)
+    return [o.cpu() for o in outs], [tk.cpu() for tk in tokens]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_reduced_models_on_card_match_cpu(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg, host = registry.get(arch, reduced=True, device="cpu",
+                                  generator=torch.Generator().manual_seed(5))
+    card = registry.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(6)
+    toks = rng.integers(3, cfg.vocab, (3, 14)).astype(np.int32)
+    lens = np.array([14, 9, 3], np.int32)
+    frames = (rng.standard_normal((3, cfg.n_audio_frames, cfg.d_model))
+              .astype(np.float32) if fam == "encdec" else None)
+    want = _reduced_steps(host, fam, cfg, toks, lens, frames, "cpu")
+    got = _reduced_steps(card, fam, cfg, toks, lens, frames, "cuda")
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g, w, **MODEL_F32_TOL)
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w), arch
+
+
+@pytest.mark.cuda
+def test_bf16_products_accumulate_in_f32_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(3, 5, 4096, generator=g, device="cuda").bfloat16()
+    w = torch.randn(4096, 96, generator=g, device="cuda").bfloat16()
+    y = mc.dot32(x, w)
+    assert y.dtype == torch.float32 and y.shape == (3, 5, 96)
+    # Products of bf16 values are exact in f32; only the sum order differs.
+    torch.testing.assert_close(y, x.float() @ w.float(), atol=1e-3,
+                               rtol=1e-5)
+    xb, wb = x.reshape(3, 5, 4096), w[None].expand(3, -1, -1).contiguous()
+    yb = mc.bdot32(xb, wb)
+    assert yb.dtype == torch.float32
+    torch.testing.assert_close(yb, y, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_qwen3_full_width_bf16_decode_matches_teacher_forced():
+    """qwen3-8b at its published width, 2 layers, bf16: a padded prefill
+    and 8 greedy steps against one teacher-forced forward over prompt +
+    generated tokens; then bf16 against an f32 copy of the weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config("qwen3-8b"), n_layers=2)
+    model = registry.build(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(8)).requires_grad_(False)
+    b, s, steps = 4, 128, 8
+    g = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(3, 259, (b, s), generator=g, device="cuda",
+                         dtype=torch.int32)
+    lens = torch.tensor([128, 77, 100, 9], dtype=torch.int32, device="cuda")
+    state = kvcache.init_state(model, cfg, b, s + 16)
+    last, state = serve_step.make_prefill(model, "lm")(model, toks, lens,
+                                                       state)
+    decode = serve_step.make_decode(model, "lm")
+    cur, pos, gen, logits = last.argmax(-1).to(torch.int32), lens, [], [last]
+    gen.append(cur)
+    for _ in range(steps):
+        cur, lg, state = decode(model, cur[:, None], pos, state, None)
+        pos = pos + 1
+        gen.append(cur)
+        logits.append(lg)
+    gen = torch.stack(gen, 1)
+    full = torch.zeros((b, s + steps), dtype=torch.int32, device="cuda")
+    for r, n in enumerate(lens.tolist()):
+        full[r, :n] = toks[r, :n]
+        full[r, n: n + steps] = gen[r, :steps]
+    with torch.no_grad():
+        tf_all = model(full)[0]
+    at = lens.long()[:, None] - 1 + torch.arange(steps + 1, device="cuda")
+    tf = torch.gather(tf_all, 1, at[:, :, None].expand(-1, -1, cfg.vocab))
+    assert float((torch.stack(logits, 1) - tf).abs().max()) <= BF16_LOGIT_TOL
+    top2 = tf.topk(2, -1).values
+    decided = (top2[..., 0] - top2[..., 1]) > BF16_LOGIT_TOL
+    assert bool(decided.any())
+    assert torch.equal(tf.argmax(-1)[decided], gen[decided].long())
+    m32 = registry.build(dataclasses.replace(cfg, dtype="float32"),
+                         device="meta").to_empty(device="cuda")
+    m32.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        l16, l32 = model(toks)[0], m32(toks)[0]
+    assert float((l16 - l32).norm() / l32.norm()) <= BF16_REL_RMS
+    assert float((l16 - l32).abs().max()) <= BF16_LOGIT_TOL

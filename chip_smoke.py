@@ -135,7 +135,33 @@ Phases, in order; any failure exits non-zero before the last line:
      decode times (host clock, synchronised) beside their bounds, the
      device's busy time from ``torch.profiler``, peak memory, ingress
      and egress times.
-  6. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
+  6. The serve engine (:func:`engine_phase`), on phase 5's qwen3-8b,
+     which is freed after it: ``repro_torch.Engine`` at the
+     reference's defaults (8 slots, prompts to 512 bytes, 128 new
+     tokens, the continuous scheduler) serving 16 requests submitted up
+     front (UTF-8 lipsum prompts of 64-500 bytes over the length
+     buckets, UTF-16LE, UTF-32LE and Latin-1 prompts, a 0xFF byte under
+     ``strict``, a truncated sequence under ``replace``; ``max_new`` in
+     {4, 8, 16, 32}, every egress encoding), its decode step a CUDA
+     graph.  The drain runs under an unarmed fault harness with the
+     launch counts set to 0 just before and read just after: only
+     rcount, ronepass and onepass launch, as often as the harness saw
+     their wrappers called.  Codes, offsets and sanitized prompts equal
+     CPython's; no fallback, retry or breaker transition; a slot refills
+     mid-wave; every slot's tokens equal a teacher-forced forward's
+     argmax where its top-2 margin passes the bf16 tolerance; egress
+     equals CPython's encoding.  Then the engine's egress on the eight
+     UTF-8 prompts' bytes in each other encoding, with the counts set
+     to 0 just before and read just after: one onepass launch a call,
+     as the harness saw, and the wire bytes equal CPython's.  One graph
+     step equals each of 5 eager steps, each from a fresh copy of the
+     same state (tokens, and logits within the bf16 tolerance).  Wall
+     time, requests/s, tokens/s, decode ms a step (the graph's median
+     and the eager step's) beside the bytes bound, device busy time and
+     launches of a replay (``torch.profiler``), prefill ms per refill,
+     ingress ms per chunk, egress ms (the drain's and the echo's), time
+     to first token, latency p50/p99, capture ms and peak memory.
+  7. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -262,6 +288,14 @@ MODEL_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # margin passes BF16_LOGIT_TOL.
 BF16_LOGIT_TOL = 0.25
 BF16_REL_RMS = 2 ** -5
+# Phase 6, the serve engine over phase 5's qwen3-8b: 16 requests (see
+# engine_trace) at the reference engine's defaults; the graph-vs-eager
+# step runs at this position in every row.
+ENGINE_PROMPT_BYTES = (64, 500)
+ENGINE_MAX_NEW = (4, 8, 16, 32)
+ENGINE_ENCODINGS = ("utf-8", "utf-16-le", "utf-32-le", "latin-1")
+ENGINE_CHECK_POS = 300
+ENGINE_EAGER_REPS = 5                # eager decode steps timed, each fresh
 
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
@@ -786,7 +820,8 @@ def model_phase(rng, smi: str, zero_counts, read_counts, device="cuda",
     ``transcode`` to UTF-16).  Checked: the launch count, the greedy
     tokens against a teacher-forced forward, and bf16 against an f32
     copy of the same weights at depth ``MODEL_DEPTH_CHECK``.  Returns
-    ``(report, launches)``."""
+    ``(report, launches, model)``: the full-width model serves phase 6
+    before the caller frees it."""
     import torch
     import repro_torch
     from repro_torch import configs
@@ -977,8 +1012,9 @@ def model_phase(rng, smi: str, zero_counts, read_counts, device="cuda",
     bounds = model_bounds(cfg, n_params, b, MODEL_BUCKET,
                           kvcache.state_bytes(cfg, b, ctx))
     decode_ms = statistics.median(step_ms)
-    del model, state
+    del state
     if cuda:
+        del st
         torch.cuda.empty_cache()
 
     # bf16 against an f32 copy of the same weights, at depth 2.
@@ -1049,7 +1085,388 @@ def model_phase(rng, smi: str, zero_counts, read_counts, device="cuda",
         log(f"phase 5: {step} on the device: {prof['launches']} kernel "
             f"launches, busy {prof['busy_ms']} ms; most time: "
             + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
-    return report, launches
+    return report, launches, model
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the serve engine.
+
+
+def engine_trace(rng):
+    """The phase's 16 requests, as ``(request kwargs, text or None)``:
+    eight UTF-8 lipsum prompts (two each of ``MODEL_LANGS``, sizes spread
+    log-uniformly over ``ENGINE_PROMPT_BYTES``), three UTF-16LE, two
+    UTF-32LE and one Latin-1 prompt of the same profiles (their UTF-8 at
+    most 500 bytes), one UTF-8 prompt with a 0xFF byte under ``strict``
+    and one with a truncated 3-byte sequence under ``replace``.
+    ``max_new`` and ``out_encoding`` cycle over ``ENGINE_MAX_NEW`` and
+    the four encodings."""
+    sizes = np.geomspace(*ENGINE_PROMPT_BYTES, 8).round().astype(int)
+    specs = []
+    for k, n in enumerate(sizes):
+        lang = MODEL_LANGS[k % len(MODEL_LANGS)]
+        raw = bytes(inputs.utf8_buffer(lang, int(n), rng))
+        specs.append((dict(prompt_bytes=raw), raw.decode("utf-8")))
+    for enc, lang, n in (("utf-16-le", "arabic", 300),
+                         ("utf-16-le", "chinese", 450),
+                         ("utf-16-le", "emoji", 200),
+                         ("utf-32-le", "chinese", 240),
+                         ("utf-32-le", "emoji", 500)):
+        text = bytes(inputs.utf8_buffer(lang, n, rng)).decode("utf-8")
+        specs.append((dict(prompt_bytes=text.encode(enc), in_encoding=enc),
+                      text))
+    # Latin-1: ASCII lipsum with every 8th character from U+00C0-U+00FF.
+    chars = list(bytes(inputs.utf8_buffer("latin", 400, rng)).decode())
+    for i in range(0, len(chars), 8):
+        chars[i] = chr(int(rng.integers(0xC0, 0x100)))
+    text = "".join(chars)
+    specs.append((dict(prompt_bytes=text.encode("latin-1"),
+                       in_encoding="latin-1"), text))
+    bad = bytearray(inputs.utf8_buffer("latin", 120, rng))
+    bad[57] = 0xFF
+    specs.append((dict(prompt_bytes=bytes(bad)), None))
+    cut = bytes(inputs.utf8_buffer("arabic", 150, rng)).rstrip(b" ")
+    cut = cut + b" \xe4\xb8 " + cut[:40].decode("utf-8", "ignore").encode()
+    specs.append((dict(prompt_bytes=cut, errors="replace"), None))
+    for k, (kw, _text) in enumerate(specs):
+        kw["max_new"] = ENGINE_MAX_NEW[k % len(ENGINE_MAX_NEW)]
+        kw["out_encoding"] = ENGINE_ENCODINGS[k % len(ENGINE_ENCODINGS)]
+    return specs
+
+
+def _expected(kw: dict):
+    """What CPython's codecs make of a request: ``(ok, error_offset,
+    sanitized, the UTF-8 the engine serves)``."""
+    enc, width = kw.get("in_encoding", "utf-8"), {
+        "utf-8": 1, "utf-16-le": 2, "utf-32-le": 4, "latin-1": 1}[
+            kw.get("in_encoding", "utf-8")]
+    wire = kw["prompt_bytes"]
+    try:
+        wire.decode(enc)
+        off = -1
+    except UnicodeDecodeError as e:
+        off = e.start // width
+    if off >= 0 and kw.get("errors", "strict") == "strict":
+        return False, off, b"", None
+    served = wire.decode(enc, "replace").encode("utf-8")
+    return True, off, served if off >= 0 else b"", served
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def engine_phase(model, rng, smi: str, zero_counts, read_counts, faults,
+                 device="cuda") -> tuple:
+    """Phase 6.  ``repro_torch.Engine`` serving the 16 requests of
+    :func:`engine_trace` through ``model`` (qwen3-8b at full width in the
+    chip run) with the reference's defaults (``max_batch`` 8,
+    ``max_prompt`` 512, ``max_new`` 128, the continuous scheduler), all
+    submitted up front, then one drain under an unarmed fault harness
+    with the launch counts set to 0 just before and read just after;
+    then the engine's egress on the eight UTF-8 prompts echoed in each
+    other encoding, counted the same way on its own.  Checked: codes, offsets and sanitized prompts against CPython; no
+    fallback, retry or breaker transition; launches (rcount, ronepass,
+    onepass and nothing else) equal to the harness's calls of their
+    wrappers; a refill mid-wave; every slot's tokens against a
+    teacher-forced forward where its top-2 margin passes
+    ``BF16_LOGIT_TOL``; egress against CPython, and the echo's onepass
+    launches equal to its calls (one a call); one graph decode step
+    against ``ENGINE_EAGER_REPS`` eager steps, each from a fresh copy of
+    the same state.  Returns ``(report, launches)``: the drain's and the
+    echo's launches together."""
+    import torch
+    from repro_torch.data.tokenizer import BOS_ID, EOS_ID, N_SPECIAL
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import kvcache
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg, n_params = model.cfg, model.param_count()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    specs = engine_trace(rng)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    eng = E.Engine(model, cfg, "lm", model, device=dev)
+    B = eng.max_batch
+    # Instrumentation, on this engine instance only: every slot's tokens,
+    # and the host time of each decode step, prefill, ingress chunk and
+    # egress call (each already ends in a device-to-host copy, but the
+    # prefill, which gets a synchronise).
+    tokens, times = {}, {"decode": [], "prefill": [], "ingress": [],
+                         "egress": []}
+    finish, step_fn = eng._finish_slot, eng._decode_step
+    prefill_fn, ingress_fn, egress_fn = (eng._prefill_call,
+                                         eng._ingress_chunk, eng._egress)
+
+    def timed(kind, fn, label=None):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if kind == "prefill":
+                sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            times[kind].append(ms if label is None else [label(*a), ms])
+            return out
+        return run
+
+    def finish_slot(slots, j):
+        tokens[slots[j].ticket] = list(slots[j].tokens)
+        finish(slots, j)
+
+    eng._finish_slot = finish_slot
+    eng._decode_step = timed("decode", step_fn)
+    eng._prefill_call = timed("prefill", prefill_fn,
+                              lambda toks, lens: int(toks.shape[1]))
+    eng._ingress_chunk = timed(
+        "ingress", ingress_fn,
+        lambda group, bound, take: [eng._group_name(group), bound,
+                                    len(take)])
+    eng._egress = timed("egress", egress_fn,
+                        lambda ids, enc: [enc, int(len(ids))])
+
+    submit_t, tickets = {}, []
+    for kw, _text in specs:
+        t = time.monotonic()
+        tickets.append(eng.submit(E.Request(**kw)))
+        submit_t[tickets[-1]] = t
+    sync()
+    zero_counts()
+    with faults.harness() as h:
+        t0 = time.perf_counter()
+        eng.drain()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    calls = dict(h.calls)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    results = [eng.poll(t) for t in tickets]
+    log(f"phase 6: engine path launches {launches}; fault-hook calls "
+        f"{calls}")
+    want = {name: calls.get(point, 0) for name, point in (
+        ("rcount", faults.KERNEL_RAGGED_SCAN),
+        ("ronepass", faults.KERNEL_RAGGED),
+        ("onepass", faults.KERNEL_ONEPASS))}
+    require(launches == {k: v for k, v in want.items() if v},
+            "engine launches vs the wrappers' calls", launches, calls)
+    require(all(want.values()), "engine path: every ingress kernel",
+            want)
+
+    # Codes against CPython; no hidden fallback.
+    for (kw, _text), res in zip(specs, results):
+        ok, off, sanitized, _served = _expected(kw)
+        code = E.OK if ok else E.REJECTED_INVALID
+        require(res is not None and (res.ok, res.code, res.error_offset,
+                                     res.sanitized_prompt)
+                == (ok, code, off, sanitized), "engine result vs CPython",
+                kw.get("in_encoding", "utf-8"), kw.get("errors", "strict"),
+                None if res is None else (res.ok, str(res.code),
+                                          res.error_offset, res.error))
+    hidden = {k: v for k, v in eng.counters.items()
+              if k in ("fallback", "retries") or k.startswith("breaker_")}
+    require(not any(hidden.values()), "engine fallback/retries/breaker",
+            hidden)
+
+    # Continuous batching: an admit at a step > 0 into a slot that a
+    # finish freed before it.
+    freed = {}
+    refills = []
+    for kind, ticket, slot, step, _wall in eng.events:
+        if kind == "finish":
+            freed[slot] = step
+        elif kind == "admit" and step > 0 and slot in freed:
+            refills.append([ticket, slot, step])
+    require(bool(refills), "engine: no refill mid-wave", list(eng.events))
+    admit_wall = {t: w for kind, t, _s, _st, w in eng.events
+                  if kind == "admit"}
+    ttft_ms = {t: (admit_wall[t] - submit_t[t]) * 1e3 for t in admit_wall}
+
+    # Tokens against a teacher-forced forward over prompt + generated
+    # tokens, four rows at a time.
+    served = [(t, _expected(kw)[3]) for t, (kw, _x) in zip(tickets, specs)
+              if t in tokens]
+    agree = decided = n_tok = 0
+    min_margin = float("inf")
+    for i in range(0, len(served), 4):
+        rows = served[i: i + 4]
+        seqs = []
+        for t, prompt in rows:
+            ids = [BOS_ID] + [b + N_SPECIAL for b in prompt]
+            seqs.append((ids, tokens[t]))
+        width = max(len(ids) + len(gen) - 1 for ids, gen in seqs)
+        full = torch.zeros((len(seqs), width), dtype=torch.int32,
+                           device=dev)
+        for r, (ids, gen) in enumerate(seqs):
+            row = ids + gen[:-1]
+            full[r, :len(row)] = torch.tensor(row, dtype=torch.int32)
+        with torch.no_grad():
+            logits = model(full)[0]
+        for r, (ids, gen) in enumerate(seqs):
+            tf = logits[r, len(ids) - 1: len(ids) - 1 + len(gen)].float()
+            top2 = tf.topk(2, -1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            same = tf.argmax(-1).cpu().numpy() == np.asarray(gen)
+            sure = margin > BF16_LOGIT_TOL
+            require(bool(same[sure].all()), "engine tokens vs "
+                    "teacher-forced", np.argwhere(sure & ~same).tolist())
+            agree += int(same.sum())
+            decided += int(sure.sum())
+            n_tok += len(gen)
+            min_margin = min(min_margin, float(margin.min()))
+        del logits
+
+    # Egress: the responses whose bytes decode, against CPython (random
+    # weights seldom emit a byte token, so most responses are empty).
+    egress_checked = 0
+    for (kw, _text), t, res in zip(specs, tickets, results):
+        if t not in tokens:
+            continue
+        g = np.asarray(tokens[t], np.int64)
+        g = g[(g >= 0) & (g != EOS_ID)] - N_SPECIAL
+        vals = bytes(g[(g >= 0) & (g < 256)].astype(np.uint8))
+        try:
+            text = vals.decode("utf-8")
+        except UnicodeDecodeError:
+            continue
+        enc = kw["out_encoding"]
+        require(res.text_bytes == text.encode(
+            enc, "replace" if enc == "latin-1" else "strict"),
+            "engine egress vs CPython", enc)
+        egress_checked += len(vals) > 0
+    # The egress at prompt sizes: the eight UTF-8 prompts' bytes, as
+    # tokens, through the engine's egress in each other encoding, with
+    # the launch counts set to 0 just before and read just after.
+    echo = {enc: [] for enc in ENGINE_ENCODINGS[1:]}
+    sync()
+    zero_counts()
+    with faults.harness() as he:
+        for enc in echo:
+            for kw, text in specs[:8]:
+                ids = np.frombuffer(text.encode(), np.uint8).astype(
+                    np.int64) + N_SPECIAL
+                t0 = time.perf_counter()
+                wire = egress_fn(ids, enc)
+                echo[enc].append((time.perf_counter() - t0) * 1e3)
+                require(wire == text.encode(
+                    enc, "replace" if enc == "latin-1" else "strict"),
+                    "engine echo egress vs CPython", enc)
+    echo_launches = read_counts()
+    echo_calls = dict(he.calls)
+    n_echo = sum(len(v) for v in echo.values())
+    log(f"phase 6: echo egress launches {echo_launches}; fault-hook calls "
+        f"{echo_calls}")
+    require(echo_launches == {"onepass": n_echo}
+            and echo_calls == {faults.KERNEL_ONEPASS: n_echo},
+            "echo egress launches vs the wrappers' calls", echo_launches,
+            echo_calls)
+
+    # The graph against the eager step, from copies of the same state:
+    # one graph step, then ENGINE_EAGER_REPS eager steps, each from a
+    # fresh copy, each held to the graph's.
+    cur = rng.integers(N_SPECIAL, N_SPECIAL + 256, B).astype(np.int32)
+    pos = np.full(B, ENGINE_CHECK_POS, np.int32)
+    snapshot = _clone_tree(eng._live)
+    graph = eng._graph is not None
+    nxt_g = step_fn(cur, pos)
+    logits_g = eng._logits.float() if graph else None
+    tok = torch.from_numpy(cur[:, None]).to(dev)
+    pos_t = torch.from_numpy(pos).to(dev)
+    eager_ms, graph_err = [], 0.0
+    for _ in range(ENGINE_EAGER_REPS):
+        state = _clone_tree(snapshot)
+        sync()
+        t0 = time.perf_counter()
+        nxt_e, logits_e, _ = eng._decode_fn(model, tok, pos_t, state, None)
+        sync()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        require(np.array_equal(nxt_g, nxt_e.cpu().numpy()),
+                "graph vs eager decode tokens")
+        if graph:
+            graph_err = max(graph_err, float(
+                (logits_g - logits_e.float()).abs().max()))
+        del state, logits_e
+    if not graph:
+        graph_err = None
+    require(not cuda or (graph and graph_err <= BF16_LOGIT_TOL),
+            "graph vs eager decode logits", graph_err)
+    busy = device_busy(lambda: step_fn(cur, pos)) if cuda else {}
+    del snapshot, logits_g
+
+    bounds = model_bounds(cfg, n_params, B, eng.max_prompt,
+                          kvcache.state_bytes(cfg, B, eng._ctx))
+    n_gen = sum(len(v) for v in tokens.values())
+    decode_ms = statistics.median(times["decode"])
+    lat = {k: eng.counters[k] for k in ("latency_p50_ms",
+                                        "latency_p99_ms")}
+    report = {
+        "requests": len(specs), "max_batch": B, "context": eng._ctx,
+        "wall_ms": wall_ms, "requests_per_s": len(specs) / wall_ms * 1e3,
+        "generated_tokens": n_gen,
+        "tokens_per_s": n_gen / wall_ms * 1e3,
+        "decode_steps": len(times["decode"]),
+        "decode_ms": decode_ms, "decode_step_ms": times["decode"],
+        "decode_eager_ms": statistics.median(eager_ms),
+        "decode_eager_step_ms": eager_ms, "graph": graph,
+        "decode_bound_ms": bounds["decode_bound_ms"],
+        "decode_bytes": bounds["decode_bytes"],
+        "decode_busy": busy, "graph_vs_eager_max_abs": graph_err,
+        "capture_ms": eng.capture_ms,
+        "prefill_ms": times["prefill"], "ingress_ms": times["ingress"],
+        "egress_ms": times["egress"], "egress_checked": egress_checked,
+        "egress_echo_ms": echo, "egress_echo_launches": echo_launches,
+        "ttft_ms": {str(t): ms for t, ms in ttft_ms.items()},
+        **lat, "peak_memory_bytes": peak, "launches": launches,
+        "fault_hook_calls": calls, "refills_mid_wave": refills,
+        "counters": dict(eng.counters), "tokens_agree": agree,
+        "tokens": n_tok, "tokens_decided": decided,
+        "min_margin": min_margin,
+        "results": [[str(r.code), r.error_offset, len(r.text_bytes)]
+                    for r in results]}
+    peak_gb = "not measured" if peak is None else f"{peak / 1e9:.2f} GB"
+    log(f"phase 6: Engine({MODEL_ARCH}, max_batch {B}, max_prompt "
+        f"{eng.max_prompt}, max_new {eng.max_new}) served {len(specs)} "
+        f"requests in {wall_ms:.1f} ms ({report['requests_per_s']:.2f} "
+        f"requests/s, {n_gen} tokens, {report['tokens_per_s']:.1f} "
+        f"tokens/s); codes = CPython's; fallback/retries/breaker 0; "
+        f"{len(refills)} refills mid-wave  [{smi}]")
+    log(f"phase 6: decode {'graph' if graph else 'eager'} "
+        f"{decode_ms:.3f} ms a step (median of {len(times['decode'])}: "
+        f"copy in, replay, copy out), eager {statistics.median(eager_ms):.2f}"
+        f" ms a step (median of {len(eager_ms)}, each from a fresh copy of "
+        f"the state; {min(eager_ms):.2f}-{max(eager_ms):.2f}), bound "
+        f"{bounds['decode_bound_ms']:.3f} ms "
+        f"({bounds['decode_bytes'] / 1e9:.2f} GB at 3.35 TB/s); device "
+        f"busy {busy.get('busy_ms')} ms in {busy.get('launches')} "
+        f"launches; capture {eng.capture_ms} ms; graph vs eager logits max "
+        f"abs {graph_err}, tokens equal  [{smi}]")
+    log(f"phase 6: prefill ms [bucket, ms] {times['prefill']}; ingress "
+        f"[group, bucket, prompts, ms] {times['ingress']}; egress "
+        f"[encoding, tokens, ms] {times['egress']} ({egress_checked} "
+        f"responses with bytes)  [{smi}]")
+    log(f"phase 6: echo egress, the 8 UTF-8 prompts "
+        f"({[len(t.encode()) for _kw, t in specs[:8]]} bytes) a call, "
+        f"{n_echo} onepass launches: " + "; ".join(
+            f"{enc} median {statistics.median(v):.3f} ms "
+            f"({min(v):.3f}-{max(v):.3f})" for enc, v in echo.items())
+        + f"  [{smi}]")
+    log(f"phase 6: time to first token ms "
+        f"{[round(ms, 1) for ms in ttft_ms.values()]}; latency p50 "
+        f"{lat['latency_p50_ms']:.1f} ms, p99 {lat['latency_p99_ms']:.1f} "
+        f"ms; peak {peak_gb}; {agree}/{n_tok} tokens = teacher-forced "
+        f"argmax, all {decided} with a margin > {BF16_LOGIT_TOL}  [{smi}]")
+    del eng
+    if cuda:
+        torch.cuda.empty_cache()
+    total = dict(launches)
+    for name, n in echo_launches.items():
+        total[name] = total.get(name, 0) + n
+    return report, total
 
 
 # ---------------------------------------------------------------------------
@@ -2380,10 +2797,16 @@ def main(argv=None) -> int:
         f"packed {data_t['batch_transcode packed ms']:.3f} ms, vmap "
         f"{data_t['batch_transcode vmap ms']:.1f} ms  [{smi}]")
 
-    # -- 5. the models ---------------------------------------------------------
-    report["model"], model_launches = model_phase(rng, smi, zero_counts,
-                                                  read_counts)
-    for name, count in model_launches.items():
+    # -- 5. the models, and 6. the serve engine over phase 5's qwen3-8b ------
+    report["model"], model_launches, model = model_phase(
+        rng, smi, zero_counts, read_counts)
+    report["engine"], engine_launches = engine_phase(
+        model, np.random.default_rng([args.seed, 4]), smi, zero_counts,
+        read_counts, faults)
+    del model
+    torch.cuda.empty_cache()
+    for name, count in [*model_launches.items(),
+                        *engine_launches.items()]:
         launches[name] = launches.get(name, 0) + count
 
     lines = []

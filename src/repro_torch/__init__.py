@@ -22,9 +22,12 @@ Griffin, recurrent and Mamba layers, the VLM, the encoder-decoder, the
 registry, and ``weights.from_reference`` for the reference's
 parameters), ``repro_torch.configs`` (the eleven archs) and
 ``repro_torch.serve`` (``kvcache`` and the prefill/decode steps), torch
-ops held to the reference within ``atol = rtol = 1e-4`` in float32.
-``__all__`` stays the reference's transcode surface; the serve engine
-and its ``Engine`` come later.
+ops held to the reference within ``atol = rtol = 1e-4`` in float32; and
+the serving engine (``Engine``, ``Request``, ``Result``, ``ResultCode``:
+``submit``/``poll``/``drain``, length buckets, retries, the circuit
+breaker and the host fallbacks, its decode step a CUDA graph on the
+card) with its launcher ``repro_torch.launch.serve``.  ``__all__``
+holds every name of the reference's, and ``to_numpy``.
 
 Entry points run on the card (``device="cuda"``, the default) or on the
 CPU (``device="cpu"``).  On the card the transcoders run hand-written
@@ -46,6 +49,7 @@ __all__ = [
     "transcode", "scan", "ragged_transcode", "ragged_scan",
     "transcode_stream", "pack_documents",
     "TranscodeResult", "RaggedTranscodeResult", "StreamState", "to_numpy",
+    "Engine", "Request", "Result", "ResultCode",
 ]
 
 _EXPORTS = {
@@ -60,6 +64,10 @@ _EXPORTS = {
     "RaggedTranscodeResult": ("repro_torch.core.result",
                               "RaggedTranscodeResult"),
     "to_numpy": ("repro_torch.core.result", "to_numpy"),
+    "Engine": ("repro_torch.serve.engine", "Engine"),
+    "Request": ("repro_torch.serve.engine", "Request"),
+    "Result": ("repro_torch.serve.engine", "Result"),
+    "ResultCode": ("repro_torch.serve.engine", "ResultCode"),
 }
 
 

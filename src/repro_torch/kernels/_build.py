@@ -31,6 +31,16 @@ LIB_NAME = "libreprotorch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+class BuildError(RuntimeError):
+    """The kernel library could not be built (no ``nvcc``, or ``nvcc``
+    failed): no launch can succeed in this process."""
+
+
+class CudaError(RuntimeError):
+    """A C entry point returned a CUDA error code.  The error may be
+    sticky: the context is then unusable."""
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -67,7 +77,7 @@ def _nvcc() -> str:
     candidate = Path(home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError(
+    raise BuildError(
         "nvcc not found: the CUDA kernels are built at first use and need "
         "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
@@ -114,7 +124,7 @@ def build() -> Path:
     (out_dir / "nvcc.log").write_text("\n".join(log))
     if failed:
         shutil.rmtree(work, ignore_errors=True)
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise BuildError("nvcc failed: " + "\n".join(failed))
     os.replace(work / LIB_NAME, lib)
     shutil.rmtree(work, ignore_errors=True)
     return lib
@@ -153,7 +163,7 @@ def library(device: torch.device) -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
+        raise CudaError(f"{what}: CUDA error {rc}")
 
 
 def stream_of(device: torch.device) -> int:

@@ -101,7 +101,9 @@ def rmsnorm(params, x, eps=1e-6):
 
 def rope_freqs(head_dim, theta=10000.0, device=None):
     exps = torch.arange(0, head_dim, 2, device=device).to(F32) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=F32, device=device),
+    # ``full`` fills on the device: a CUDA graph can capture it, where
+    # ``torch.tensor`` would copy from the host.
+    return 1.0 / torch.pow(torch.full((), theta, dtype=F32, device=device),
                            exps)
 
 
@@ -372,13 +374,14 @@ def moe(params, cfg: MoEConfig, x):
     eid = idx.reshape(t * k)
     keep = slot < cap
 
-    # token ids into (e, cap) gather indices (t = the zero row); the
-    # reference sends each dropped copy to a sentinel slot it slices off,
-    # so only the kept copies, at distinct slots, are written here
+    # token ids into (e, cap) gather indices (t = the zero row); as in the
+    # reference, each dropped copy goes to a sentinel slot that is sliced
+    # off, so the kept copies, at distinct slots, are what remain (no
+    # boolean mask: a CUDA graph can capture it)
     src_token = torch.arange(t * k, device=dev) // k
-    gather_idx = torch.full((e * cap,), t, dtype=torch.long, device=dev)
-    gather_idx[(eid * cap + slot)[keep]] = src_token[keep]
-    gather_idx = gather_idx.reshape(e, cap)
+    gather_idx = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev)
+    gather_idx[torch.where(keep, eid * cap + slot, e * cap)] = src_token
+    gather_idx = gather_idx[: e * cap].reshape(e, cap)
 
     xg = torch.cat([xf, xf.new_zeros((1, d))])[gather_idx]  # (e, cap, d)
     xg = shardctx.act(xg, (None, "dp", None))

@@ -35,14 +35,19 @@ Fault points wired in the port (grep for ``faults.fire``):
   ``stream.chunk``        ``core.stream.transcode_stream_chunk`` (payload:
                           the incoming chunk — truncation-capable)
   ``pipeline.batch``      ``data.pipeline.batch_transcode``
+  ``engine.probe``        ``serve.engine.Engine._probe_launch`` (the
+                          circuit breaker's half-open probe, before its
+                          launch)
   ======================  ================================================
 
 Each fires once per call: the port has no traces, so unlike the
 reference's wrapper hooks inside an outer ``jit`` (which fire when the
-program is traced) they fire on every call.  ``shard.launch``,
-``feed.stage`` and ``engine.probe`` are named here for the modules that
-fire them (the sharded path, the shard feed and the serve engine), which
-are not ported yet.
+program is traced) they fire on every call.  The serve engine's ingress
+launches reach the ``kernel.ragged_scan`` and ``kernel.ragged`` hooks of
+the wrappers they call, once a launch; the engine fires no second hook
+of its own there, as the reference's does.  ``shard.launch`` and
+``feed.stage`` are named here for the modules that fire them (the
+sharded path and the shard feed), which are not ported yet.
 
 The harness is intentionally NOT thread-safe (a module-global active
 harness): arming and disarming happen only on the test thread.  The hook

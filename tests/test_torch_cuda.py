@@ -39,7 +39,12 @@ card equal to the CPU within ``atol = rtol = 1e-4`` with TF32 off
 accumulated in float32; and qwen3-8b at full width, depth 2, bf16:
 prefill and greedy decode against a teacher-forced forward, and bf16
 against an f32 copy of the same weights, within the bf16 tolerance that
-``chip_smoke.py`` states.
+``chip_smoke.py`` states.  The serve engine on the card (bytelm-100m
+reduced, float32, TF32 off) equals the same engine on the CPU on one
+trace (results and events), and raises from its constructor when the
+kernels do not build; for every decoder arch, reduced, the decode
+graph equals the eager step over 8 steps (tokens, logits within 1e-4),
+and after the capture the live state is what ``init_state`` makes.
 """
 
 import sys
@@ -813,3 +818,117 @@ def test_qwen3_full_width_bf16_decode_matches_teacher_forced():
         l16, l32 = model(toks)[0], m32(toks)[0]
     assert float((l16 - l32).norm() / l32.norm()) <= BF16_REL_RMS
     assert float((l16 - l32).abs().max()) <= BF16_LOGIT_TOL
+
+
+# ---------------------------------------------------------------------------
+# The serve engine on the card: its decode step is a CUDA graph.
+
+
+def _engine_pair():
+    """bytelm-100m reduced, float32, the same weights on the card and on
+    the CPU, each in an engine on its device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg, host = registry.get("bytelm-100m", reduced=True, device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    card = registry.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    kw = dict(max_batch=4, max_prompt=64, max_new=8)
+    return (repro_torch.Engine(card, cfg, fam, card, device="cuda", **kw),
+            repro_torch.Engine(host, cfg, fam, host, device="cpu", **kw))
+
+
+def _engine_trace():
+    R = repro_torch.Request
+    return [R(b"hello", max_new=2), R("café 中文".encode(), max_new=8,
+                                      out_encoding="utf-16-le"),
+            R("hé🎉".encode("utf-16-le"), in_encoding="utf-16-le",
+              out_encoding="utf-32-le", max_new=5),
+            R(b"bad \xff", max_new=3), R(b"hi \xe4\xb8 x", errors="replace",
+                                         out_encoding="latin-1"),
+            R("ÿü".encode("latin-1"), in_encoding="latin-1", max_new=1),
+            R(b"x" * 40, max_new=6), R(b"tail", max_new=4)]
+
+
+@pytest.mark.cuda
+def test_engine_on_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    card, host = _engine_pair()
+    got, want = card.serve(_engine_trace()), host.serve(_engine_trace())
+    fields = ("ok", "code", "text_bytes", "error", "error_offset",
+              "sanitized_prompt")
+    for g, w in zip(got, want):
+        assert [getattr(g, f) for f in fields] == [getattr(w, f)
+                                                   for f in fields]
+    assert [e[:4] for e in card.events] == [e[:4] for e in host.events]
+    assert card._graph is not None and host._graph is None
+    assert card.counters["fallback"] == card.counters["retries"] == 0
+
+
+@pytest.mark.cuda
+def test_engine_raises_when_the_kernels_do_not_build(monkeypatch, tmp_path):
+    """An engine on the card builds its kernels in its constructor: a
+    build that fails raises there, and nothing is served on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    from repro_torch.kernels import _build
+    fam, cfg, model = registry.get("bytelm-100m", reduced=True,
+                                   device="cuda", generator=torch.Generator(
+                                       "cuda").manual_seed(5))
+    # A fresh build directory, and a compiler that fails every source.
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    _build.load.cache_clear()
+    try:
+        with pytest.raises(_build.BuildError, match="nvcc failed"):
+            repro_torch.Engine(model, cfg, fam, model, max_batch=2,
+                               max_prompt=24, max_new=4, device="cuda")
+    finally:
+        _build.load.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
+                                  if configs.get_module(a).FAMILY != "encdec"])
+def test_engine_graph_decode_equals_eager(arch):
+    """Every decoder arch, reduced, float32: eight graph steps against
+    eight eager steps from a copy of the same state: tokens equal,
+    logits within 1e-4; after the capture the live state is what
+    ``init_state`` makes (cursors 0, positions -1, caches and recurrent
+    states 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg, model = registry.get(arch, reduced=True, device="cuda",
+                                   generator=torch.Generator(
+                                       "cuda").manual_seed(4))
+    card = repro_torch.Engine(model, cfg, fam, model, max_batch=4,
+                              max_prompt=24, max_new=8, device="cuda")
+    card._ensure_live()
+    assert card._graph is not None and card.capture_ms is not None
+    fresh = kvcache.init_state(card.model, card.cfg, card.max_batch,
+                               card._ctx)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k])
+        else:
+            yield tree
+
+    for got, want in zip(leaves(card._live), leaves(fresh)):
+        assert torch.equal(got, want)
+    state = fresh
+    rng = np.random.default_rng(11)
+    cur = rng.integers(3, min(cfg.vocab, 259),
+                       card.max_batch).astype(np.int32)
+    pos = np.arange(card.max_batch, dtype=np.int32)
+    for _ in range(8):
+        nxt = card._decode_step(cur, pos)
+        want_tok, want_logits, state = card._decode_fn(
+            card.model, torch.from_numpy(cur[:, None]).cuda(),
+            torch.from_numpy(pos).cuda(), state, None)
+        assert np.array_equal(nxt, want_tok.cpu().numpy())
+        torch.testing.assert_close(card._logits, want_logits, atol=1e-4,
+                                   rtol=1e-4)
+        cur, pos = nxt.astype(np.int32), pos + 1

@@ -5,8 +5,10 @@ The harness cases of ``tests/test_faults.py`` run on the port's copy;
 each of the seven points the port wires fires exactly once per call of
 its wrapper (the port has no traces, so a hook fires on every call); a
 fault surfaces as the reference's exception and the next call is clean;
-and a stream under a ``"truncate"`` fault equals the reference's stream
-under the same fault.
+a stream under a ``"truncate"`` fault equals the reference's stream
+under the same fault; and the serve engine reaches ``engine.probe``
+through its circuit breaker and fires ``kernel.ragged_scan`` exactly
+once per UTF-8 ingress launch.
 """
 
 import time
@@ -26,6 +28,8 @@ from repro_torch.data import pipeline as TP
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
 from repro_torch.kernels import ragged_transcode as rt
+from repro_torch.models import registry
+from repro_torch.serve.engine import Engine, Request
 from repro_torch.testing import faults
 
 HELLO = np.frombuffer(b"hello", np.uint8)
@@ -198,3 +202,52 @@ def test_truncated_stream_equals_reference(times, truncate_to):
     assert got.dtype == ref.dtype and np.array_equal(got, ref)
     assert (tst.out_count, tst.status, tst.consumed) == (
         rst.out_count, rst.status, rst.consumed)
+
+
+def _engine(**kw):
+    fam, cfg, model = registry.get("bytelm-100m", reduced=True,
+                                   device="cpu")
+    return Engine(model, cfg, fam, model, max_batch=2, max_prompt=64,
+                  max_new=4, backoff_base_s=0.0, sleep=lambda s: None,
+                  device="cpu", **kw)
+
+
+def test_engine_probe_reachable_through_the_breaker():
+    """The reference's ``_x_engine_probe``: trip the breaker under a
+    nested harness, then the half-open probe fires ``engine.probe``."""
+    e = _engine(breaker_threshold=1, breaker_cooldown_s=0.0)
+    with faults.harness() as h:
+        e.serve([Request(b"hello")])
+        with faults.harness(faults.Fault(faults.KERNEL_RAGGED_SCAN,
+                                         times=None)):
+            e.serve([Request(b"hello")])     # retries exhaust: open
+        e.serve([Request(b"hello")])         # cooldown 0: the probe
+    assert h.calls[faults.ENGINE_PROBE] == 1
+    assert e._breakers["utf-8"].state == "closed"
+
+
+def test_engine_fires_one_ragged_scan_per_utf8_ingress_launch():
+    """Counted against the calls of the rcount kernel's wrapper (on the
+    CPU it runs the kernel's plain version)."""
+    e = _engine()
+    launches = [0]
+    orig = rt.rcount_kernel
+
+    def counting(*a, **kw):
+        launches[0] += 1
+        return orig(*a, **kw)
+
+    rt.rcount_kernel = counting
+    try:
+        with faults.harness() as h:
+            res = e.serve([Request(b"aaaa", max_new=2),
+                           Request(b"bb" * 10, max_new=4),
+                           Request(b"cc" * 20, max_new=2),
+                           Request("é".encode("utf-16-le"),
+                                   in_encoding="utf-16-le")])
+    finally:
+        rt.rcount_kernel = orig
+    assert all(r.ok for r in res)
+    assert launches[0] == 3                  # three UTF-8 buckets
+    assert h.calls == {faults.KERNEL_RAGGED_SCAN: 3,
+                       faults.KERNEL_RAGGED: 1}

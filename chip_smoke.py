@@ -161,7 +161,35 @@ Phases, in order; any failure exits non-zero before the last line:
      launches of a replay (``torch.profiler``), prefill ms per refill,
      ingress ms per chunk, egress ms (the drain's and the echo's), time
      to first token, latency p50/p99, capture ms and peak memory.
-  7. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
+  7. The sharded path (:func:`shard_phase`), after phase 6's drain and
+     before phase 5's qwen3-8b is freed, each drive with the launch
+     counts set to 0 just before and read just after: phase 3's ragged
+     batch through ``ragged_transcode(strategy="sharded")`` at 1, 2, 4
+     and 8 shards (slots of one card, a CUDA stream each) under strict
+     and replace, and ``scan_ragged_sharded``: each bit-identical to the
+     unsharded call with exactly n ronepass (or rcount) launches; 10
+     more calls at 8 shards, each bit-identical; the streams of one
+     8-shard call's launches from ``torch.profiler``, and whether they
+     overlapped.  The 64 MiB buffer as one document among three small
+     ones at 4 shards, cut inside it: bit-identical for valid text under
+     both policies and for invalid units at tile starts under replace,
+     under strict but past the split document's first error (the
+     reference's caveat).  UTF-16, UTF-32 and Latin-1 batches of 300
+     documents to UTF-8 at 4 shards, both policies, bit-identical.  The
+     supervisor's 8 -> 7 -> 6 replan at full width (``shard.launch``
+     failing at calls 1-4) and a hang past its watchdog then a retried
+     success, both bit-identical.  ``run_sharded_waves`` over the batch
+     in 4 waves of 4 shards, each gathered wave bit-identical to its
+     unsharded transcode (transfer, compute and stall a wave, and the
+     hidden fraction, reported), and a ``feed.stage`` fault at wave 1
+     (a stage ``WaveFailure`` there, the other waves bit-identical).
+     ``Engine(ingress_shards=4)`` serving phase 6's 16 requests: results,
+     tokens and egress equal to phase 6's engine, rcount and ronepass
+     launches 4 a chunk.  Times, each beside the card's name and power
+     limit: the sharded call and scan at each shard count, whole and
+     split into plan, pinning, copy in, kernels and gather, each shard's
+     kernel alone, and the unsharded calls.
+  8. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -297,6 +325,16 @@ ENGINE_ENCODINGS = ("utf-8", "utf-16-le", "utf-32-le", "latin-1")
 ENGINE_CHECK_POS = 300
 ENGINE_EAGER_REPS = 5                # eager decode steps timed, each fresh
 
+# Phase 7, the sharded path: shard counts of the full-width batch, the
+# 8-shard call's repeats, documents of each other cell's batch, the
+# feeder's waves, the timed calls' repeats, and the hang fault against
+# the watchdog (s).
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_REPEATS = 10
+SHARD_CELL_DOCS = 300
+SHARD_WAVES = 4
+SHARD_TIME_REPS = 5
+SHARD_HANG_S, SHARD_WATCHDOG_S = 2.0, 1.0
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
 NP_DTYPE = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
@@ -1175,8 +1213,9 @@ def engine_phase(model, rng, smi: str, zero_counts, read_counts, faults,
     ``BF16_LOGIT_TOL``; egress against CPython, and the echo's onepass
     launches equal to its calls (one a call); one graph decode step
     against ``ENGINE_EAGER_REPS`` eager steps, each from a fresh copy of
-    the same state.  Returns ``(report, launches)``: the drain's and the
-    echo's launches together."""
+    the same state.  Returns ``(report, launches, served)``: the drain's
+    and the echo's launches together, and what the drain served
+    (:func:`served_by`), which phase 7's sharded engine must equal."""
     import torch
     from repro_torch.data.tokenizer import BOS_ID, EOS_ID, N_SPECIAL
     from repro_torch.serve import engine as E
@@ -1460,13 +1499,514 @@ def engine_phase(model, rng, smi: str, zero_counts, read_counts, faults,
         f"{lat['latency_p50_ms']:.1f} ms, p99 {lat['latency_p99_ms']:.1f} "
         f"ms; peak {peak_gb}; {agree}/{n_tok} tokens = teacher-forced "
         f"argmax, all {decided} with a margin > {BF16_LOGIT_TOL}  [{smi}]")
+    served = served_by(specs, results, tokens)
     del eng
     if cuda:
         torch.cuda.empty_cache()
     total = dict(launches)
     for name, n in echo_launches.items():
         total[name] = total.get(name, 0) + n
-    return report, total
+    return report, total, served
+
+
+def served_by(specs, results, tokens) -> dict:
+    """What an engine served for phase 6's trace: the requests, each
+    result's ``(ok, code, error_offset, sanitized_prompt, text_bytes)``
+    and every slot's tokens by ticket."""
+    return {"specs": specs, "tokens": dict(tokens),
+            "results": [None if r is None else (
+                r.ok, str(r.code), r.error_offset, r.sanitized_prompt,
+                r.text_bytes) for r in results]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the sharded path.
+
+
+def cell_docs(fmt: str, text_cps: np.ndarray, rng) -> list:
+    """``SHARD_CELL_DOCS`` documents of one source format for phase 7's
+    other cells: lipsum slices of 0-3,000 characters, every 50th empty,
+    and an invalid unit (``BAD_UNITS``) in every 16th."""
+    bad = BAD_UNITS[fmt]
+    docs = []
+    for i in range(SHARD_CELL_DOCS):
+        n = 0 if i % 50 == 49 else int(rng.integers(1, 3000))
+        lo = int(rng.integers(0, len(text_cps) - n))
+        d = encode(text_cps[lo: lo + n], fmt).copy()
+        if i % 16 == 5 and n:
+            d[int(rng.integers(0, len(d)))] = bad[i % len(bad)]
+        docs.append(d)
+    return docs
+
+
+def valid_utf16_units(b: np.ndarray) -> int:
+    """UTF-16 units of valid UTF-8 bytes: one per character, two per
+    4-byte character."""
+    return int(((b & 0xC0) != 0x80).sum() + (b >= 0xF0).sum())
+
+
+def hold_split(want, got, plan, docs, *ctx):
+    """A sharded UTF-8 -> UTF-16 result against the unsharded one under
+    ``strict``: offsets, counts and statuses equal, and the buffer equal
+    but past the first error of each document that the plan split and
+    that holds an error (the reference's strict caveat).  Returns the
+    documents relaxed."""
+    for name in ("offsets", "counts", "statuses"):
+        require(equal(getattr(want, name), getattr(got, name)),
+                "sharded split", name, *ctx)
+    require(want.buffer.shape == got.buffer.shape
+            and want.buffer.dtype == got.buffer.dtype, "sharded split "
+            "buffer shape", *ctx)
+    keep = np.ones(want.buffer.shape[0], bool)
+    off, cnt = want.offsets.cpu().numpy(), want.counts.cpu().numpy()
+    st = want.statuses.cpu().numpy()
+    relaxed = []
+    for d in range(plan.n_docs):
+        if st[d] >= 0 and int((plan.frag_doc == d).sum()) > 1:
+            lo = int(off[d]) + valid_utf16_units(docs[d][: st[d]])
+            keep[lo: int(off[d]) + int(cnt[d])] = False
+            relaxed.append(d)
+    a, b = want.buffer.cpu().numpy(), got.buffer.cpu().numpy()
+    require(np.array_equal(a[keep], b[keep]), "sharded split buffer",
+            *ctx)
+    return relaxed
+
+
+def shard_phase(model, served, docs, pk, big, text_cps, rng, smi: str,
+                zero_counts, read_counts, faults, out_dir: Path,
+                device="cuda") -> tuple:
+    """Phase 7, the sharded path (``core/shard.py``: one ragged launch
+    per shard, each shard on a CUDA stream of its own), with the launch
+    counts set to 0 just before each counted drive and read just after:
+
+      * phase 3's ragged batch (``docs``, packed ``pk``) through
+        ``ragged_transcode(strategy="sharded")`` at ``SHARD_COUNTS``
+        shards under strict and replace, and ``scan_ragged_sharded``:
+        each equal to the unsharded call, exactly n ronepass (or rcount)
+        launches and nothing else; ``SHARD_REPEATS`` more calls at 8
+        shards, each equal; one 8-shard call under ``torch.profiler``
+        (the streams its launches ran on, and whether they overlapped);
+      * ``big`` (phase 3's 64 MiB UTF-8 buffer) as one document among
+        three small ones at 4 shards, so cuts land inside it: valid text
+        under both policies and invalid units at tile starts under
+        replace equal to unsharded, under strict held by
+        :func:`hold_split`;
+      * UTF-16, UTF-32 and Latin-1 batches (:func:`cell_docs`) to UTF-8
+        at 4 shards, both policies, equal to unsharded;
+      * supervision: the reference's 8 -> 7 -> 6 replan at full width
+        (``shard.launch`` failing at calls 1-4), and a hang past the
+        watchdog, then a retried success;
+      * the feeder: the batch in ``SHARD_WAVES`` waves of 4 shards, each
+        gathered wave equal to the unsharded transcode of that wave, and
+        a ``feed.stage`` fault at wave 1;
+      * ``Engine(ingress_shards=4)`` on ``model`` serving phase 6's trace,
+        equal to what phase 6's engine ``served``, rcount and ronepass
+        launches 4 per chunk;
+      * on the card, the times of the sharded call and scan, split into
+        plan (host), pinning, the copy in, the kernels on their streams
+        and the gather, beside the unsharded calls.
+
+    Returns ``(report, launches)``."""
+    import threading
+
+    import torch
+    import repro_torch
+    from repro_torch.core import packing, recovery, shard
+    from repro_torch.data import shard_feed
+    from repro_torch.kernels import ragged_transcode as rt
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.serve import engine as E
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    launches, report = {}, {}
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; adds them to the phase's launches."""
+        sync()
+        zero_counts()
+        out = fn()
+        got = read_counts()
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        return out, got
+
+    def same(want, got, *ctx):
+        for name, a, b in zip(want._fields, want, got):
+            require(equal(a, b), "sharded vs unsharded", name, *ctx)
+
+    meshes = {n: launch_mesh.make_transcode_mesh(n, device=dev)
+              for n in SHARD_COUNTS}
+    args = (pk.data, pk.offsets, pk.lengths)
+    x = torch.from_numpy(pk.data).to(dev)
+
+    def unsharded(data, offsets, lengths, **kw):
+        return repro_torch.ragged_transcode(
+            torch.from_numpy(data).to(dev), offsets, lengths, device=dev,
+            **kw)
+
+    def sharded(data, offsets, lengths, n, **kw):
+        return repro_torch.ragged_transcode(
+            data, offsets, lengths, strategy="sharded",
+            shard_mesh=meshes[n], **kw)
+
+    # Full width: phase 3's batch at every shard count.
+    want = {e: unsharded(*args, errors=e) for e in ("strict", "replace")}
+    per_call = {}
+    for errors in ("strict", "replace"):
+        for n in SHARD_COUNTS:
+            got, cnt = counted(lambda: sharded(*args, n, errors=errors))
+            require(cnt == {"ronepass": n}, "sharded launches", n, errors,
+                    cnt)
+            same(want[errors], got, n, errors)
+            per_call[f"transcode {errors} n={n}"] = cnt
+    want_scan = repro_torch.ragged_scan(x, pk.offsets, pk.lengths,
+                                        device=dev)
+    for n in SHARD_COUNTS:
+        got, cnt = counted(lambda: shard.scan_ragged_sharded(
+            *args, mesh=meshes[n]))
+        require(cnt == {"rcount": n}, "sharded scan launches", n, cnt)
+        for a, b in zip(want_scan, got):
+            require(equal(a, b), "sharded scan vs ragged_scan", n)
+        per_call[f"scan n={n}"] = cnt
+    _out, cnt = counted(lambda: [
+        same(want["replace"], sharded(*args, 8, errors="replace"),
+             "repeat", r) for r in range(SHARD_REPEATS)])
+    require(cnt == {"ronepass": 8 * SHARD_REPEATS}, "repeat launches", cnt)
+    log(f"phase 7: {RAGGED_DOCS} documents ({len(pk.data)} bytes packed) "
+        f"at {list(SHARD_COUNTS)} shards, strict and replace, and the "
+        f"sharded scan: each = unsharded, launches per call {per_call}; "
+        f"{SHARD_REPEATS} more calls at 8 shards, each = unsharded")
+    report["full_width"] = {"docs": RAGGED_DOCS,
+                            "packed_bytes": int(len(pk.data)),
+                            "launches_per_call": per_call,
+                            "repeats_at_8": SHARD_REPEATS}
+
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sharded(*args, 8, errors="replace")
+            sync()
+        trace = out_dir / "shard_profile.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        kern = [e for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("cat") == "kernel"
+                and "ronepass" in e.get("name", "")]
+        streams = sorted({e.get("args", {}).get("stream") for e in kern})
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern)
+        overlap = any(b0 < a1 for (_a0, a1), (b0, _b1)
+                      in zip(spans, spans[1:]))
+        report["profile"] = {"ronepass_launches": len(kern),
+                             "streams": streams, "overlapped": overlap,
+                             "spans_us": spans}
+        log(f"phase 7: profiler, one 8-shard call: {len(kern)} ronepass "
+            f"launches on {len(streams)} streams {streams}; launches "
+            f"overlapped: {overlap}")
+        require(not kern or (len(kern) == 8 and len(streams) == 8),
+                "8 launches on 8 streams", len(kern), streams)
+
+    # Split documents: the 64 MiB buffer among three small documents.
+    split_docs = [docs[1], big, docs[2], docs[3]]
+    spk = packing.pack_documents(split_docs)
+    n_tiles = len(big) // BLOCK
+    tiles = np.sort(rng.choice(np.arange(1, n_tiles - 1), 64,
+                               replace=False))
+    bad = spk.data.copy()
+    lo = int(spk.offsets[1])
+    bad[lo: lo + len(big)] = inject(big, "utf8", tiles)
+    bad_docs = list(split_docs)
+    bad_docs[1] = bad[lo: lo + len(big)]
+    plan = shard.plan_shards(*spk, 4)
+    require(int((plan.frag_doc == 1).sum()) == 4, "64 MiB document split "
+            "over the 4 shards", plan.frag_doc.tolist())
+    split = {}
+    for name, data, dd in (("valid", spk.data, split_docs),
+                           ("invalid", bad, bad_docs)):
+        for errors in ("strict", "replace"):
+            w = unsharded(data, spk.offsets, spk.lengths, errors=errors)
+            g, cnt = counted(lambda: sharded(data, spk.offsets, spk.lengths,
+                                             4, errors=errors))
+            require(cnt == {"ronepass": 4}, "split launches", cnt)
+            if name == "invalid" and errors == "strict":
+                split[f"{name} {errors}"] = hold_split(
+                    w, g, plan, dd, name, errors)
+                require(split[f"{name} {errors}"] == [1], "strict caveat",
+                        split)
+            else:
+                same(w, g, "split", name, errors)
+                split[f"{name} {errors}"] = []
+    report["split"] = {"bytes": int(len(big)), "cuts_inside": [
+        int(b) for b in plan.frag_base[plan.frag_doc == 1]],
+        "relaxed_docs": split}
+    log(f"phase 7: a {len(big)}-byte document among 3 small ones at 4 "
+        f"shards, cut inside at {report['split']['cuts_inside']}: valid "
+        f"(both policies) and 64 invalid units at tile starts (replace) = "
+        f"unsharded; strict = unsharded but past the split document's "
+        f"first error")
+
+    # The other cells at 4 shards.
+    cells = {}
+    for src in ("utf16", "utf32", "latin1"):
+        cdocs = cell_docs(src, text_cps, rng)
+        cpk = packing.pack_documents(cdocs, dtype=NP_DTYPE[src])
+        for errors in ("strict", "replace"):
+            w = unsharded(*cpk, src_format=src, dst_format="utf8",
+                          errors=errors)
+            g, cnt = counted(lambda: sharded(
+                *cpk, 4, src_format=src, dst_format="utf8", errors=errors))
+            require(cnt == {"ronepass": 4}, "cell launches", src, cnt)
+            same(w, g, src, errors)
+        cells[src] = {"docs": len(cdocs), "packed": int(len(cpk.data)),
+                      "invalid_docs": int((w.statuses >= 0).sum())}
+    report["cells"] = cells
+    log(f"phase 7: utf16, utf32, latin1 -> utf8 at 4 shards, both "
+        f"policies = unsharded ({cells})")
+
+    # Supervision: the reference's replan, at full width.
+    pol = recovery.RetryPolicy(max_retries=1, backoff_base_s=0.0)
+    sup_log = recovery.SupervisionLog()
+    with faults.harness(faults.Fault(faults.SHARD_LAUNCH,
+                                     times=(1, 2, 3, 4))) as h:
+        res, cnt = counted(lambda: recovery.supervised_ragged_transcode(
+            *args, mesh=meshes[8], policy=pol, log=sup_log))
+    require(h.calls == {faults.SHARD_LAUNCH: 5} and sup_log.replans == 2
+            and sup_log.final_shards == 6 and sup_log.retries == 2,
+            "replan", h.calls, sup_log)
+    require(cnt == {"ronepass": 6}, "replan launches", cnt)
+    same(want["strict"], res, "replan")
+    # A hang past the watchdog, then a retried success (the UTF-16 cell).
+    hang_log = recovery.SupervisionLog()
+    cpk = packing.pack_documents(cell_docs("utf16", text_cps, rng),
+                                 dtype=np.uint16)
+    w = unsharded(*cpk, src_format="utf16", dst_format="utf8")
+    t0 = time.perf_counter()
+    with faults.harness(faults.Fault(faults.SHARD_LAUNCH, kind="hang",
+                                     hang_s=SHARD_HANG_S, times=(1,))):
+        res = recovery.supervised_ragged_transcode(
+            *cpk, src_format="utf16", dst_format="utf8", mesh=meshes[4],
+            log=hang_log, policy=recovery.RetryPolicy(
+                backoff_base_s=0.0, watchdog_s=SHARD_WATCHDOG_S,
+                poll_s=0.002))
+    hang_s = time.perf_counter() - t0
+    require(hang_log.attempts == [(4, 0, "WatchdogTimeout"), (4, 1, "ok")]
+            and hang_s < SHARD_HANG_S, "hang", hang_log, hang_s)
+    same(w, res, "hang retry")
+    for t in threading.enumerate():     # the abandoned attempt
+        if t.name.startswith("watchdog:"):
+            t.join(60.0)
+    sync()
+    report["supervision"] = {
+        "replan": {"calls": h.calls[faults.SHARD_LAUNCH],
+                   "attempts": sup_log.attempts, "launches": cnt},
+        "hang": {"attempts": hang_log.attempts, "seconds": hang_s}}
+    log(f"phase 7: replan 8 -> 7 -> 6 at full width: attempts "
+        f"{sup_log.attempts}, {cnt} = unsharded; hang past a "
+        f"{SHARD_WATCHDOG_S} s watchdog: {hang_log.attempts} in "
+        f"{hang_s:.2f} s = unsharded")
+
+    # The feeder: the batch in waves of 4 shards.
+    q = -(-len(docs) // SHARD_WAVES)
+    wave_pk = [packing.pack_documents(docs[k * q: (k + 1) * q])
+               for k in range(SHARD_WAVES)]
+    plans = [shard.plan_shards(*p, 4) for p in wave_pk]
+    wave_want = [unsharded(*p) for p in wave_pk]
+    (outs, stats), cnt = counted(lambda: shard_feed.run_sharded_waves(
+        meshes[4], plans, src="utf8", dst="utf16"))
+    require(cnt == {"ronepass": 4 * SHARD_WAVES}, "feeder launches", cnt)
+
+    def gather(k, out):
+        return shard._gather_result(plans[k], len(wave_pk[k].data),
+                                    torch.uint16, *out, True)
+
+    for k, out in enumerate(outs):
+        same(wave_want[k], gather(k, out), "feeder wave", k)
+    hidden = shard_feed.hidden_fraction(stats)
+    with faults.harness(faults.Fault(faults.FEED_STAGE, times=(2,))) as h:
+        (outs2, _st), cnt2 = counted(lambda: shard_feed.run_sharded_waves(
+            meshes[4], plans, src="utf8", dst="utf16"))
+    require(h.calls == {faults.FEED_STAGE: SHARD_WAVES}
+            and isinstance(outs2[1], shard_feed.WaveFailure)
+            and outs2[1].phase == "stage"
+            and cnt2 == {"ronepass": 4 * (SHARD_WAVES - 1)},
+            "feed.stage fault", h.calls, outs2[1], cnt2)
+    for k, out in enumerate(outs2):
+        if k != 1:
+            same(wave_want[k], gather(k, out), "feeder wave after fault", k)
+    report["feeder"] = {"waves": SHARD_WAVES, "shards": 4,
+                        "stats_s": [list(s) for s in stats],
+                        "hidden_fraction": hidden}
+    log(f"phase 7: feeder, {SHARD_WAVES} waves of 4 shards, each = "
+        f"unsharded; [transfer_s, compute_s, stall_s] a wave "
+        f"{[[round(v, 5) for v in s] for s in stats]}, hidden fraction "
+        f"{hidden:.3f}; feed.stage fault at wave 1: a stage WaveFailure, "
+        f"waves 0, 2, 3 = unsharded  [{smi}]")
+
+    # The engine, its ingress sharded over 4 slots.
+    eng = E.Engine(model, model.cfg, "lm", model, device=dev,
+                   ingress_shards=4)
+    tokens = {}
+    finish = eng._finish_slot
+
+    def finish_slot(slots, j):
+        tokens[slots[j].ticket] = list(slots[j].tokens)
+        finish(slots, j)
+
+    eng._finish_slot = finish_slot
+    ingress_ms, ingress_fn = [], eng._ingress_chunk
+
+    def timed_ingress(group, bound, take):
+        t0 = time.perf_counter()
+        out = ingress_fn(group, bound, take)
+        ingress_ms.append([eng._group_name(group), bound, len(take),
+                           (time.perf_counter() - t0) * 1e3])
+        return out
+
+    eng._ingress_chunk = timed_ingress
+    tickets = [eng.submit(E.Request(**kw)) for kw, _t in served["specs"]]
+    with faults.harness() as h:
+        t0 = time.perf_counter()
+        _out, cnt = counted(eng.drain)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    mine = served_by(served["specs"], [eng.poll(t) for t in tickets],
+                     tokens)
+    require(mine["results"] == served["results"], "sharded engine results",
+            mine["results"], served["results"])
+    require(mine["tokens"] == served["tokens"], "sharded engine tokens")
+    chunks = (h.calls.get(faults.KERNEL_RAGGED_SCAN, 0),
+              h.calls.get(faults.KERNEL_RAGGED, 0))
+    want_cnt = {"rcount": 4 * chunks[0], "ronepass": 4 * chunks[1],
+                "onepass": h.calls.get(faults.KERNEL_ONEPASS, 0)}
+    require(all(chunks) and cnt == {k: v for k, v in want_cnt.items() if v}
+            and h.calls.get(faults.SHARD_LAUNCH) == sum(chunks),
+            "sharded engine launches", cnt, h.calls)
+    report["engine"] = {"ingress_shards": 4, "launches": cnt,
+                        "fault_hook_calls": dict(h.calls),
+                        "counters": dict(eng.counters), "wall_ms": wall_ms,
+                        "ingress_ms": ingress_ms}
+    log(f"phase 7: Engine(ingress_shards=4) served phase 6's "
+        f"{len(tickets)} requests in {wall_ms:.1f} ms = the unsharded "
+        f"engine (codes, offsets, sanitized prompts, egress bytes, "
+        f"tokens); launches {cnt}, fault-hook calls {dict(h.calls)}; "
+        f"ingress [group, bucket, prompts, ms] {ingress_ms}  [{smi}]")
+    del eng
+    if cuda:
+        report["times"] = shard_times(meshes, pk, x, want, want_scan, smi)
+    return report, launches
+
+
+def shard_times(meshes, pk, x, want, want_scan, smi: str) -> dict:
+    """Phase 7's times on the card: at each of ``SHARD_COUNTS``, the
+    sharded call and the sharded scan of phase 3's batch, whole (host
+    clock, synchronised) and split: the plan (host: layout checks and
+    ``plan_shards``), pinning the plan's rows (host), the copy in, the
+    kernels (ownership, kernel, per-fragment reduce and stack on the
+    shards' streams) and the gather, the last three between CUDA events
+    on the caller's stream (each median of ``SHARD_TIME_REPS`` after a
+    warm-up); each shard's kernel alone (:func:`device_ms`); and the
+    unsharded calls (:func:`cuda_ms`)."""
+    import torch
+    import repro_torch
+    from repro_torch.core import shard
+    from repro_torch.kernels import ragged_transcode as rt
+
+    args = (pk.data, pk.offsets, pk.lengths)
+    out = {"unsharded": {
+        "ragged_transcode ms": cuda_ms(lambda: repro_torch.ragged_transcode(
+            x, pk.offsets, pk.lengths), SHARD_TIME_REPS),
+        "ragged_scan ms": cuda_ms(lambda: repro_torch.ragged_scan(
+            x, pk.offsets, pk.lengths), SHARD_TIME_REPS)}}
+    for scan in (False, True):
+        kind = "scan" if scan else "transcode"
+        for n, mesh in meshes.items():
+            parts = {k: [] for k in ("plan", "pin", "copy", "kernels",
+                                     "gather", "split_total", "whole")}
+            for r in range(SHARD_TIME_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _m, plan, length, _cd, _f = shard._plan(
+                    *args, "utf8", "utf16", None, mesh, None, None, kind)
+                t1 = time.perf_counter()
+                rows = [t.pin_memory() for t in shard.plan_rows(plan)]
+                t2 = time.perf_counter()
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(4)]
+                ev[0].record()
+                rows = [t.to(x.device, non_blocking=True) for t in rows]
+                ev[1].record()
+                if scan:
+                    outs = shard.sharded_scan_call(mesh, "utf8",
+                                                   "utf16")(*rows)
+                    ev[2].record()
+                    res = shard._doc_counts_statuses(plan, *outs, True)
+                else:
+                    outs = shard.sharded_call(mesh, "utf8", "utf16", True,
+                                              "strict")(*rows)
+                    ev[2].record()
+                    res = shard._gather_result(plan, length, torch.uint16,
+                                               *outs, True)
+                ev[3].record()
+                ev[3].synchronize()
+                t3 = time.perf_counter()
+                ref = want_scan if scan else want["strict"]
+                require(all(equal(a, b) for a, b in zip(ref, res)),
+                        "timed split", kind, n)
+                torch.cuda.synchronize()
+                t4 = time.perf_counter()
+                if scan:
+                    shard.scan_ragged_sharded(*args, mesh=mesh)
+                else:
+                    repro_torch.ragged_transcode(
+                        *args, strategy="sharded", shard_mesh=mesh)
+                torch.cuda.synchronize()
+                t5 = time.perf_counter()
+                if r == 0:
+                    continue                      # warm-up
+                for k, v in (("plan", (t1 - t0) * 1e3),
+                             ("pin", (t2 - t1) * 1e3),
+                             ("copy", ev[0].elapsed_time(ev[1])),
+                             ("kernels", ev[1].elapsed_time(ev[2])),
+                             ("gather", ev[2].elapsed_time(ev[3])),
+                             ("split_total", (t3 - t0) * 1e3),
+                             ("whole", (t5 - t4) * 1e3)):
+                    parts[k].append(v)
+            # Each shard's kernel alone, device time.
+            x_rows = rows[0]
+            alone = []
+            for k in range(n):
+                xk, off = x_rows[k], rows[1][k]
+                own = shard._ownership(xk, off, rows[2][k])
+                if scan:
+                    alone.append(device_ms(lambda: rt.rcount_kernel(
+                        xk, own, src="utf8", dst="utf16", errors="strict",
+                        validate=True), SHARD_TIME_REPS))
+                else:
+                    cap = own[0].shape[0] * BLOCK
+                    alone.append(device_ms(lambda: rt.ronepass_kernel(
+                        xk, own, cap, src="utf8", dst="utf16",
+                        errors="strict", validate=True), SHARD_TIME_REPS))
+            t = {f"{k} ms": statistics.median(v) for k, v in parts.items()}
+            t["per-shard kernel device ms"] = alone
+            out[f"{kind} n={n}"] = t
+            log(f"phase 7: sharded {kind} n={n}: whole {t['whole ms']:.3f} "
+                f"ms; plan {t['plan ms']:.3f} (host), pin {t['pin ms']:.3f} "
+                f"(host), copy in {t['copy ms']:.3f}, kernels "
+                f"{t['kernels ms']:.3f}, gather {t['gather ms']:.3f} ms; "
+                f"each shard's kernel alone (device ms) "
+                f"{[round(a, 4) for a in alone]}  [{smi}]")
+    u = out["unsharded"]
+    log(f"phase 7: unsharded ragged_transcode "
+        f"{u['ragged_transcode ms']:.4f} ms, ragged_scan "
+        f"{u['ragged_scan ms']:.4f} ms a call  [{smi}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2800,13 +3340,18 @@ def main(argv=None) -> int:
     # -- 5. the models, and 6. the serve engine over phase 5's qwen3-8b ------
     report["model"], model_launches, model = model_phase(
         rng, smi, zero_counts, read_counts)
-    report["engine"], engine_launches = engine_phase(
+    report["engine"], engine_launches, served = engine_phase(
         model, np.random.default_rng([args.seed, 4]), smi, zero_counts,
         read_counts, faults)
+    # -- 7. the sharded path, the engine's on phase 5's qwen3-8b too -------
+    report["shard"], shard_launches = shard_phase(
+        model, served, docs, pk, x8, text_cps,
+        np.random.default_rng([args.seed, 7]), smi, zero_counts,
+        read_counts, faults, Path(args.out).parent)
     del model
     torch.cuda.empty_cache()
-    for name, count in [*model_launches.items(),
-                        *engine_launches.items()]:
+    for name, count in [*model_launches.items(), *engine_launches.items(),
+                        *shard_launches.items()]:
         launches[name] = launches.get(name, 0) + count
 
     lines = []

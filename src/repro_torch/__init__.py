@@ -26,7 +26,12 @@ ops held to the reference within ``atol = rtol = 1e-4`` in float32; and
 the serving engine (``Engine``, ``Request``, ``Result``, ``ResultCode``:
 ``submit``/``poll``/``drain``, length buckets, retries, the circuit
 breaker and the host fallbacks, its decode step a CUDA graph on the
-card) with its launcher ``repro_torch.launch.serve``.  ``__all__``
+card) with its launcher ``repro_torch.launch.serve``; and the sharded
+path: ``ragged_transcode(strategy="sharded")``, ``repro_torch.core.shard``
+(one ragged launch per shard, each shard on a CUDA stream of its own),
+``repro_torch.core.recovery`` (retry, watchdog, degraded replan),
+``repro_torch.data.shard_feed`` (the double-buffered feeder) and
+``repro_torch.launch.mesh``.  ``__all__``
 holds every name of the reference's, and ``to_numpy``.
 
 Entry points run on the card (``device="cuda"``, the default) or on the

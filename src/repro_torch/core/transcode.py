@@ -75,8 +75,7 @@ STRATEGIES = ("onepass", "fused", "blockparallel", "windowed")
 
 DEFAULT_STRATEGY = "onepass"
 
-# The ragged (packed-batch) entry point's names, as in the reference;
-# "sharded" is not ported yet.
+# The ragged (packed-batch) entry point's names, as in the reference.
 RAGGED_STRATEGIES = ("onepass", "fused", "sharded")
 
 # The reference's serial paper baseline (strategy="windowed") exists for
@@ -402,14 +401,18 @@ def ragged_transcode(data, offsets, lengths, *, src_format: str = "utf8",
     whose per-document slices are bit-identical to the single-document
     transcode; ``errors=`` applies per document.  ``strategy="onepass"``
     (the default) is one launch, ``"fused"`` the count and write
-    launches.  ``n_shards``/``shard_mesh``/``chunk_budget`` apply only to
-    ``strategy="sharded"``, which is not ported yet.
+    launches.  ``strategy="sharded"`` splits the batch into shards
+    (``core/shard.py``), one ragged one-pass launch each on a stream of
+    its own, and gathers a bit-identical result; ``n_shards`` /
+    ``shard_mesh`` / ``chunk_budget`` apply only there.
     """
     if strategy == "sharded":
-        raise NotImplementedError(
-            "ragged_transcode: strategy='sharded' is not ported to "
-            "repro_torch yet; see ROADMAP.md queue 1 item 10 (multi-device "
-            "and fault tolerance)")
+        from repro_torch.core import shard
+        return shard.ragged_transcode_sharded(
+            data, offsets, lengths, src_format=src_format,
+            dst_format=dst_format, validate=validate, errors=errors,
+            n_shards=n_shards, mesh=shard_mesh, chunk_budget=chunk_budget,
+            device=device)
     if n_shards is not None or shard_mesh is not None:
         raise ValueError("n_shards/shard_mesh require strategy='sharded'")
     from repro_torch.kernels import ragged_transcode as rt

@@ -1,3 +1,4 @@
 """The data path of the port: synthetic corpora (``synthetic``), the
-tokenizers (``tokenizer``) and the batched-transcode ingest pipeline
-(``pipeline``)."""
+tokenizers (``tokenizer``), the batched-transcode ingest pipeline
+(``pipeline``) and the double-buffered feeder of the sharded path
+(``shard_feed``)."""

@@ -56,7 +56,9 @@ from repro_torch.testing import faults
 #     (the reference's ``vmap``, B grid dispatches).  A per-document
 #     strategy name ("onepass" / "fused" / "blockparallel" / "windowed")
 #     selects that transcoder instead.
-#   * ``strategy="sharded"`` — not ported yet.
+#   * ``strategy="sharded"`` — the same packed stream split into shards,
+#     one ragged one-pass launch per shard on a stream of its own
+#     (``core/shard.py``), gathered bit-identical, then re-padded.
 
 _TILE = packing.TILE
 
@@ -112,8 +114,9 @@ def batch_transcode(docs, lengths, *, in_encoding: str = "utf8",
     ONE tile-aligned packed stream and runs a single ragged one-pass
     launch; ``strategy="vmap"`` runs the single-document default
     (one-pass) transcoder on each document (a per-document strategy name
-    selects that transcoder instead); ``strategy="sharded"`` (with
-    ``n_shards``) is not ported yet.
+    selects that transcoder instead); ``strategy="sharded"`` splits the
+    packed stream into ``n_shards`` shards, one ragged one-pass launch
+    each (``n_shards`` applies only here).
     """
     faults.fire(faults.PIPELINE_BATCH)   # fault-injection hook (no-op unarmed)
     src = tc.normalize_format(in_encoding)
@@ -123,12 +126,17 @@ def batch_transcode(docs, lengths, *, in_encoding: str = "utf8",
     factor = tc.CAP_FACTOR[(src, dst)]
     if n_shards is not None and strategy != "sharded":
         raise ValueError("n_shards requires strategy='sharded'")
-    if strategy == "sharded":
-        raise NotImplementedError(
-            "batch_transcode: strategy='sharded' is not ported to "
-            "repro_torch yet; see ROADMAP.md queue 1 item 10 (multi-device "
-            "and fault tolerance)")
     dev = runtime.resolve_device(device)
+    if strategy == "sharded":
+        # The host-side splitter needs the rows on the host; the shards'
+        # rows go to the device from there.
+        docs, lens = _as_batch(docs, lengths, torch.device("cpu"))
+        data, offsets = _rows_as_packed(docs.to(stages.get_codec(src).dtype))
+        res = tc.ragged_transcode(data, offsets, lens, src_format=src,
+                                  dst_format=dst, validate=validate,
+                                  errors=errors, strategy="sharded",
+                                  n_shards=n_shards, device=dev)
+        return _repad(res, factor * docs.shape[1])
     docs, lens = _as_batch(docs, lengths, dev)
     if strategy == "packed":
         narrow = docs.to(stages.get_codec(src).dtype)

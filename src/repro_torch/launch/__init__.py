@@ -1,3 +1,3 @@
-"""Launchers of the port: ``serve`` (the serving demo).  The training,
-elastic, mesh and dry-run launchers come with ROADMAP queue 1 items 10
-and 11."""
+"""Launchers of the port: ``serve`` (the serving demo) and ``mesh`` (the
+transcode mesh of the sharded path).  The training, elastic and dry-run
+launchers come with ROADMAP queue 1 item 11."""

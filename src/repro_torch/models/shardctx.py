@@ -2,30 +2,47 @@
 
 Port of ``repro.models.shardctx``.  The reference wraps each weight and
 some activations in ``with_sharding_constraint`` under a mesh context
-(an explicit ZeRO-3 re-gather before use); outside a mesh ``act`` and
-``gather`` return their input unchanged.  The port has no mesh yet
-(ROADMAP queue 1 item 10), so ``use`` raises and the other two are
-always that identity.  The layers call them where the reference does,
-which is where a multi-device port will constrain.
+(an explicit ZeRO-3 re-gather before use); outside it ``act`` and
+``gather`` return their input unchanged.
+
+``use`` is the reference's context manager: a thread-local config that
+nests and restores the previous one on exit.  The port runs a model on
+one device, where there is no second card to constrain a tensor across,
+so ``act`` and ``gather`` are the identity under the context too.  The
+layers call them where the reference does, which is where placement
+over several cards would constrain.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 
+_state = threading.local()
+
+
+def _cfg():
+    return getattr(_state, "cfg", None)
+
+
+@contextlib.contextmanager
 def use(tp_axis="model", tp_size=16, dp_axes=("data",), dp_size=16):
-    """Enable weight re-gather constraints within a mesh context (the
-    reference's context manager): not ported yet, so it raises."""
-    raise NotImplementedError(
-        "repro_torch has no device mesh yet: sharding constraints come "
-        "with multi-device (ROADMAP queue 1 item 10)")
+    """Enable weight re-gather constraints within a mesh context."""
+    prev = _cfg()
+    _state.cfg = {"tp": tp_axis, "tp_n": tp_size,
+                  "dp": dp_axes, "dp_n": dp_size}
+    try:
+        yield
+    finally:
+        _state.cfg = prev
 
 
 def act(x, pattern):
-    """Constrain an activation: with no mesh, ``x`` unchanged."""
+    """Constrain an activation: on one device, ``x`` unchanged."""
     return x
 
 
 def gather(name: str, w):
-    """Constrain a weight to TP-only sharding: with no mesh, ``w``
+    """Constrain a weight to TP-only sharding: on one device, ``w``
     unchanged."""
     return w

@@ -54,9 +54,14 @@ What differs from the reference, by design:
     sampling with a ``torch.Generator`` seeded with 0 at each drain (its
     draws differ from ``jax.random``'s).
   * The kernel wrappers fire their own fault hooks once per call, so the
-    engine fires none at its ingress launches (the reference fires them
-    here because its jitted cells hide the wrappers' hooks); the
-    half-open probe still fires ``engine.probe``.
+    engine fires none at its single-launch ingress (the reference fires
+    them here because its jitted cells hide the wrappers' hooks); the
+    half-open probe still fires ``engine.probe``.  With
+    ``ingress_shards > 1`` a chunk goes through the sharded path
+    (``core/shard.py``), which calls the kernels past those hooks, so
+    there the engine fires ``kernel.ragged_scan`` or ``kernel.ragged``
+    once a chunk itself, as the reference does, and the sharded call
+    fires ``shard.launch``.
   * Egress runs the default strategy (the reference pins blockparallel
     to spare Pallas a compile per response length); the wire bytes are
     the same.
@@ -67,7 +72,6 @@ What differs from the reference, by design:
     transient, and serving its chunk with the host codecs would hide a
     device path that does not work.  On a CUDA device the constructor
     builds and loads the kernels, so a build that fails raises there.
-  * ``ingress_shards > 1`` (the sharded path) is not ported.
 
 Scheduling observability as in the reference: ``Engine.events`` records
 the slot lifecycle of the most recent :meth:`drain` as ``(kind, ticket,
@@ -275,11 +279,6 @@ class Engine:
         if breaker_threshold < 1:
             raise ValueError(
                 f"breaker_threshold must be >= 1, got {breaker_threshold}")
-        if ingress_shards > 1:
-            raise NotImplementedError(
-                "Engine: ingress_shards > 1 (the sharded ingress path) is "
-                "not ported to repro_torch yet; see ROADMAP.md queue 1 item "
-                "10 (multi-device and fault tolerance)")
         self.device = runtime.resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -346,7 +345,16 @@ class Engine:
         self.temperature = temperature
         self._decode_fn = serve_step.make_decode(model, family, temperature)
         self._ctx = max_prompt + max_new
+        # Sharded ingress: with ingress_shards > 1 a chunk's packed
+        # batch splits across the slots of a transcode mesh on the
+        # engine's device, one ragged launch per shard, instead of one
+        # launch per chunk.  The sharded calls are not cells.
         self.ingress_shards = ingress_shards
+        self._ingress_mesh = None
+        if ingress_shards > 1:
+            from repro_torch.launch import mesh as launch_mesh
+            self._ingress_mesh = launch_mesh.make_transcode_mesh(
+                ingress_shards, device=self.device)
         # The live decode state and the decode graph, made at the first
         # drain (see the module docstring).
         self._live = None
@@ -799,21 +807,35 @@ class Engine:
         return max(1, -(-bound // packing.TILE))
 
     def _ingress_utf8_chunk(self, bound: int, take):
-        """ONE ragged counting-scan launch for the chunk: fused
-        validation + per-document error location, no write pass.  The
-        wrapper fires the ``kernel.ragged_scan`` fault hook itself."""
+        """ONE ragged counting-scan launch for the chunk (one a shard
+        when sharded): fused validation + per-document error location,
+        no write pass.  The wrapper fires the ``kernel.ragged_scan``
+        fault hook itself, or the sharded branch does."""
         dt = self._doc_tiles(bound)
         dev = self.device
-        cell = self._cell(
-            ("scan_utf8", dt),
-            lambda: lambda d, o, l: tc.ragged_scan(
-                d, o, l, src_format="utf8", dst_format="utf16", device=dev))
+        if self._ingress_mesh is not None:
+            from repro_torch.core import shard
+
+            def call(d, o, l):
+                # Sharded fan-out, one counting launch per shard.  The
+                # kernels are called past the wrapper's hook, so the
+                # hook fires here, once a chunk, as in the reference.
+                faults.fire(faults.KERNEL_RAGGED_SCAN)
+                return shard.scan_ragged_sharded(
+                    d, o, l, src_format="utf8", dst_format="utf16",
+                    mesh=self._ingress_mesh)
+        else:
+            call = self._cell(
+                ("scan_utf8", dt),
+                lambda: lambda d, o, l: tc.ragged_scan(
+                    d, o, l, src_format="utf8", dst_format="utf16",
+                    device=dev))
 
         def _scan():
             pk = packing.pack_documents(
                 [u for _, _, u in take], dtype=np.uint8, doc_tiles=dt,
                 pad_to_docs=self.max_batch)
-            return cell(pk.data, pk.offsets, pk.lengths)
+            return call(pk.data, pk.offsets, pk.lengths)
 
         br, mode = self._breaker_route("utf-8")
         if mode == "skip":
@@ -933,21 +955,33 @@ class Engine:
         launch validates + locates per document AND produces the UTF-8
         the byte tokenizer consumes.  Covers utf-16-le, utf-32-le and
         latin-1 ingress (latin-1 can never reject).  The wrapper fires
-        the ``kernel.ragged`` fault hook itself."""
+        the ``kernel.ragged`` fault hook itself, or the sharded branch
+        does."""
         width, np_dtype, src, noun = self._UNIT_INGRESS[encoding]
         dt = self._doc_tiles(bound)
         dev = self.device
-        cell = self._cell(
-            ("unit", src, policy, dt),
-            lambda: lambda d, o, l: tc.ragged_transcode(
-                d, o, l, src_format=src, dst_format="utf8", errors=policy,
-                device=dev))
+        if self._ingress_mesh is not None:
+            def call(d, o, l):
+                # Sharded fan-out, one one-pass launch per shard; the
+                # gather is bit-identical to the single launch.  The hook
+                # fires here (see the UTF-8 chunk).
+                faults.fire(faults.KERNEL_RAGGED)
+                return tc.ragged_transcode(
+                    d, o, l, src_format=src, dst_format="utf8",
+                    errors=policy, strategy="sharded",
+                    shard_mesh=self._ingress_mesh)
+        else:
+            call = self._cell(
+                ("unit", src, policy, dt),
+                lambda: lambda d, o, l: tc.ragged_transcode(
+                    d, o, l, src_format=src, dst_format="utf8",
+                    errors=policy, device=dev))
 
         def _launch():
             pk = packing.pack_documents(
                 [u for _, _, u in take], dtype=np_dtype, doc_tiles=dt,
                 pad_to_docs=self.max_batch)
-            return cell(pk.data, pk.offsets, pk.lengths)
+            return call(pk.data, pk.offsets, pk.lengths)
 
         group = (encoding, policy)
         br, mode = self._breaker_route(group)

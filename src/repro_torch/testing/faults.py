@@ -35,6 +35,12 @@ Fault points wired in the port (grep for ``faults.fire``):
   ``stream.chunk``        ``core.stream.transcode_stream_chunk`` (payload:
                           the incoming chunk — truncation-capable)
   ``pipeline.batch``      ``data.pipeline.batch_transcode``
+  ``shard.launch``        ``core.shard.ragged_transcode_sharded`` and
+                          ``core.shard.scan_ragged_sharded`` (once a
+                          call, before the per-shard launches)
+  ``feed.stage``          ``data.shard_feed.DoubleBufferedFeeder`` (once
+                          a wave, on the stage thread; payload: the
+                          wave's arrays)
   ``engine.probe``        ``serve.engine.Engine._probe_launch`` (the
                           circuit breaker's half-open probe, before its
                           launch)
@@ -42,12 +48,14 @@ Fault points wired in the port (grep for ``faults.fire``):
 
 Each fires once per call: the port has no traces, so unlike the
 reference's wrapper hooks inside an outer ``jit`` (which fire when the
-program is traced) they fire on every call.  The serve engine's ingress
-launches reach the ``kernel.ragged_scan`` and ``kernel.ragged`` hooks of
-the wrappers they call, once a launch; the engine fires no second hook
-of its own there, as the reference's does.  ``shard.launch`` and
-``feed.stage`` are named here for the modules that fire them (the
-sharded path and the shard feed), which are not ported yet.
+program is traced) they fire on every call.  The serve engine's
+single-launch ingress reaches the ``kernel.ragged_scan`` and
+``kernel.ragged`` hooks of the wrappers it calls, once a launch; the
+engine fires no second hook of its own there.  Its sharded ingress
+(``ingress_shards > 1``) calls the kernels past those wrappers, so there
+the engine fires ``kernel.ragged_scan`` or ``kernel.ragged`` itself,
+once a chunk, as the reference's does, beside the sharded call's
+``shard.launch``.
 
 The harness is intentionally NOT thread-safe (a module-global active
 harness): arming and disarming happen only on the test thread.  The hook

@@ -58,11 +58,12 @@ import dataclasses
 
 import repro_torch
 from repro_torch import configs
-from repro_torch.core import compaction, packing
+from repro_torch.core import compaction, packing, shard
 from repro_torch.core import transcode as tc
 from repro_torch.core import utf8 as u8mod, utf16 as u16mod
 from repro_torch.core import windowed as win
 from repro_torch.data import pipeline as dp
+from repro_torch.data import shard_feed
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
@@ -71,6 +72,7 @@ from repro_torch.kernels import stages
 from repro_torch.kernels import utf8_decode as kdec
 from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels import utf16_encode as kenc
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import common as mc
 from repro_torch.models import registry
 from repro_torch.serve import kvcache, serve_step
@@ -932,3 +934,123 @@ def test_engine_graph_decode_equals_eager(arch):
         torch.testing.assert_close(card._logits, want_logits, atol=1e-4,
                                    rtol=1e-4)
         cur, pos = nxt.astype(np.int32), pos + 1
+
+
+# ---------------------------------------------------------------------------
+# The sharded path: one ragged launch per shard, each on its own stream.
+
+
+def _shard_batch(n_docs, seed):
+    """A packed UTF-8 batch of ``n_docs`` lipsum documents (1-4 MiB),
+    one long document of ~256 KiB and an 0xFF byte in every 7th."""
+    rng = np.random.default_rng(seed)
+    langs = list(C.PROFILES)
+    docs = []
+    for i in range(n_docs):
+        n = 256 << 10 if i == 3 else int(rng.integers(0, 6000))
+        d = C.utf8_buffer(langs[i % len(langs)], n, rng).copy()
+        if i % 7 == 6 and len(d):
+            d[int(rng.integers(0, len(d)))] = 0xFF
+        docs.append(d)
+    return packing.pack_documents(docs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 8])
+def test_sharded_transcode_equals_unsharded_on_card(n):
+    """2 and 8 shards on a 1-4 MiB batch, both policies, and the scan:
+    bit-identical to the unsharded calls, n launches a call; at 8 shards
+    the call is repeated 10 times, each bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    pk = _shard_batch(400, 81)
+    assert (1 << 20) <= len(pk.data) <= (4 << 20)
+    mesh = launch_mesh.make_transcode_mesh(n)
+    assert len({s.cuda_stream for s in mesh.streams}) == n
+    x = torch.from_numpy(pk.data).cuda()
+    for errors in ("strict", "replace"):
+        want = repro_torch.ragged_transcode(x, pk.offsets, pk.lengths,
+                                            errors=errors)
+        for _ in range(10 if n == 8 else 1):
+            before = rt.ronepass_kernel.launches
+            got = repro_torch.ragged_transcode(
+                pk.data, pk.offsets, pk.lengths, errors=errors,
+                strategy="sharded", shard_mesh=mesh)
+            torch.cuda.synchronize()
+            assert rt.ronepass_kernel.launches - before == n
+            for a, b in zip(want, got):
+                assert a.dtype == b.dtype and torch.equal(a, b), errors
+    before = rt.rcount_kernel.launches
+    got = shard.scan_ragged_sharded(*pk, mesh=mesh)
+    torch.cuda.synchronize()
+    assert rt.rcount_kernel.launches - before == n
+    for a, b in zip(repro_torch.ragged_scan(x, pk.offsets, pk.lengths), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_feeder_default_stage_places_rows_on_card():
+    """The default stage copies each row through pinned memory to the
+    card, on its own stream, and the waves' gathered results equal the
+    unsharded transcode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    pk = _shard_batch(120, 82)
+    mesh = launch_mesh.make_transcode_mesh(4)
+    plan = shard.plan_shards(*pk, 4)
+    with shard_feed.DoubleBufferedFeeder(mesh) as feeder:
+        staged = feeder._device_put((plan.data, plan.offsets, plan.lengths))
+        assert staged.ready is not None and staged.ready.query()
+        for t, a in zip(staged, (plan.data, plan.offsets, plan.lengths)):
+            assert t.is_cuda and np.array_equal(t.cpu().numpy(), a)
+        outs, stats = feeder.run([(plan.data, plan.offsets,
+                                   plan.lengths)] * 3,
+                                 shard.sharded_call(mesh, "utf8", "utf16",
+                                                    True, "strict"))
+    want = repro_torch.ragged_transcode(torch.from_numpy(pk.data).cuda(),
+                                        pk.offsets, pk.lengths)
+    assert len(stats) == 3
+    for out in outs:
+        got = shard._gather_result(plan, len(pk.data), torch.uint16, *out,
+                                   True)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_shard_outputs_survive_reuse_on_their_streams():
+    """Memory freed by a shard's stream after the call is not handed
+    back before the caller's stream has read it: with the caller held
+    back by a sleep, each slot allocates and overwrites buffers the size
+    of its outputs, and the stacked result is still right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    mesh = launch_mesh.make_transcode_mesh(4)
+    rows = torch.arange(4 * (4 << 20), dtype=torch.int32).reshape(4, -1)
+    for _ in range(5):
+        # The caller's stream waits behind a sleep, the slots wait for
+        # the caller, so the per-shard outputs are freed on their
+        # streams while the stack that reads them still waits.
+        torch.cuda._sleep(20_000_000)
+        stacked, = shard._run_shards(mesh, (rows,),
+                                     lambda r: (r * 3 + 1,))
+        for s in mesh.streams:
+            with torch.cuda.stream(s):
+                junk = torch.empty(rows.shape[1], dtype=torch.int32,
+                                   device="cuda")
+                junk.fill_(-7)
+        assert torch.equal(stacked.cpu(), rows * 3 + 1)
+    # And the full call, with reallocation between shards' outputs.
+    pk = _shard_batch(200, 83)
+    x = torch.from_numpy(pk.data).cuda()
+    want = repro_torch.ragged_transcode(x, pk.offsets, pk.lengths)
+    for _ in range(5):
+        torch.cuda._sleep(20_000_000)
+        got = repro_torch.ragged_transcode(*pk, strategy="sharded",
+                                           shard_mesh=mesh)
+        for s in mesh.streams:
+            with torch.cuda.stream(s):
+                torch.full((len(pk.data),), 0x41, dtype=torch.uint16,
+                           device="cuda")
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)

@@ -628,8 +628,11 @@ def test_constructor_errors_raise_the_reference_types(lm):
         with pytest.raises(ValueError) as got:
             TE.Engine(port, tcfg, fam, port, device="cpu", **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TE.Engine(port, tcfg, fam, port, device="cpu", ingress_shards=2)
+    sharded = TE.Engine(port, tcfg, fam, port, device="cpu",
+                        ingress_shards=2)
+    assert sharded._ingress_mesh.shape == {"data": 2}
+    assert TE.Engine(port, tcfg, fam, port, device="cpu")._ingress_mesh \
+        is None
     with pytest.raises(ValueError, match="lives on"):
         TE.Engine(port, tcfg, fam, port, device="meta")
 

@@ -2,8 +2,9 @@
 the hooks its wrappers fire.
 
 The harness cases of ``tests/test_faults.py`` run on the port's copy;
-each of the seven points the port wires fires exactly once per call of
-its wrapper (the port has no traces, so a hook fires on every call); a
+each of the nine points the port wires fires exactly once per call of
+its wrapper, or once a wave for the feeder's ``feed.stage`` (the port
+has no traces, so a hook fires on every call); a
 fault surfaces as the reference's exception and the next call is clean;
 a stream under a ``"truncate"`` fault equals the reference's stream
 under the same fault; and the serve engine reaches ``engine.probe``
@@ -25,9 +26,11 @@ from repro_torch.core import packing
 from repro_torch.core import stream as tstream
 from repro_torch.core import transcode as ttc
 from repro_torch.data import pipeline as TP
+from repro_torch.data import shard_feed
 from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import onepass_transcode as op
 from repro_torch.kernels import ragged_transcode as rt
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import registry
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.testing import faults
@@ -108,7 +111,16 @@ def _pipeline():
     TP.batch_transcode(docs, np.array([5], np.int32), device="cpu")
 
 
-# Each wired point and one call of the port that reaches it.
+def _feed_wave():
+    """One feeder wave; a stage failure surfaces as its error."""
+    mesh = launch_mesh.make_transcode_mesh(1, device="cpu")
+    with shard_feed.DoubleBufferedFeeder(mesh) as feeder:
+        (out,), _stats = feeder.run([(HELLO,)], lambda x: x)
+    if isinstance(out, shard_feed.WaveFailure):
+        raise out.error
+
+
+# Each wired point and one call (or wave) of the port that reaches it.
 EXERCISERS = {
     faults.KERNEL_ONEPASS: lambda: op.transcode_onepass(
         HELLO, src="utf8", dst="utf16", device="cpu"),
@@ -122,6 +134,9 @@ EXERCISERS = {
         *_packed()[:3], src="utf8", dst="utf16", device="cpu"),
     faults.STREAM_CHUNK: _stream,
     faults.PIPELINE_BATCH: _pipeline,
+    faults.SHARD_LAUNCH: lambda: ttc.ragged_transcode(
+        *_packed()[:3], strategy="sharded", n_shards=2, device="cpu"),
+    faults.FEED_STAGE: _feed_wave,
 }
 
 

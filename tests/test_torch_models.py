@@ -16,6 +16,8 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -297,13 +299,33 @@ def test_init_matches_the_reference_distributions():
                        torch.full((64,), 2.0))
 
 
-def test_shardctx_has_no_mesh_yet():
+def test_shardctx_use_nests_and_restores():
+    """``use`` nests and restores like the reference's; on one device
+    ``act`` and ``gather`` return their input, inside it too."""
+    from repro.models import shardctx as RS
     x = torch.ones(3, 4)
     assert TS.act(x, ("dp", None)) is x
     assert TS.gather("wq", x) is x
-    with pytest.raises(NotImplementedError, match="item 10"):
-        with TS.use():
-            pass
+    for mod in (RS, TS):
+        assert mod._cfg() is None
+        with mod.use(tp_size=4):
+            outer = dict(mod._cfg())
+            seen = []
+            t = threading.Thread(target=lambda: seen.append(mod._cfg()))
+            t.start()
+            t.join(10.0)
+            assert seen == [None]         # thread-local
+            with mod.use(tp_axis=None, dp_axes=("pod", "data"), dp_size=2):
+                inner = dict(mod._cfg())
+                assert TS.act(x, ("dp", "tp")) is x
+                assert TS.gather("wq", x) is x
+            assert mod._cfg() == outer
+        assert mod._cfg() is None
+        if mod is RS:
+            want = (outer, inner)
+    assert (outer, inner) == want
+    assert inner == {"tp": None, "tp_n": 16, "dp": ("pod", "data"),
+                     "dp_n": 2}
 
 
 # ---------------------------------------------------------------------------

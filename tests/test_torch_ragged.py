@@ -314,9 +314,10 @@ def test_ragged_strategy_and_policy_checks():
     pk = packing.pack_documents([b"abc"])
     args = (pk.data, pk.offsets, pk.lengths)
     assert ttc.RAGGED_STRATEGIES == tc.RAGGED_STRATEGIES
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                                                  "item 10"):
-        ttc.ragged_transcode(*args, strategy="sharded", device="cpu")
+    sharded = ttc.ragged_transcode(*args, strategy="sharded", n_shards=2,
+                                   device="cpu")
+    for a, b in zip(sharded, ttc.ragged_transcode(*args, device="cpu")):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="sharded"):
         ttc.ragged_transcode(*args, n_shards=2, device="cpu")
     with pytest.raises(ValueError, match="strategy"):

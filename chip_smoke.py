@@ -189,7 +189,28 @@ Phases, in order; any failure exits non-zero before the last line:
      limit: the sharded call and scan at each shard count, whole and
      split into plan, pinning, copy in, kernels and gather, each shard's
      kernel alone, and the unsharded calls.
-  8. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
+  8. Training (:func:`train_phase`), after phase 7 frees qwen3-8b:
+     bytelm-100m reduced, float32, TF32 off, 3 steps card = CPU within
+     the CPU tests' tolerance (loss, grad norm, learning rate, every
+     parameter); bytelm-100m at its published config (12 layers,
+     d_model 768, bf16) one step at 2 x 128 card against CPU, the
+     products' backward through their ``autograd.Function``; the
+     launcher (``launch.train.main``) at full width, 8 x 512: run A of
+     20 steps with a checkpoint every 10, run B of 10 steps then resumed
+     to 20 (the step-10 state restores bit-equal, B's batches after the
+     resume equal A's, B's parameters within ``TRAIN_RESUME_REL`` of
+     A's, A's loss falls), a subprocess stopped by SIGTERM after its
+     first log line (exit 0, a checkpoint); one step with remat off,
+     "full" and "dots" (loss equal, gradient norm within one bf16
+     step); h2o-danube-1.8b at full width (24 layers, d_model 2560,
+     vocab 32,000), 1 x 4096, remat "full", 3 steps on one batch (finite,
+     the loss not rising); and ``launch.serve --ckpt-dir`` on run A's
+     checkpoint (step 20 loaded, every response ok), its rcount, ronepass
+     and onepass launches counted.  Times: a step split into
+     ``next_batch``, forward, backward and optimizer, tokens/s, device
+     busy ms and launches (``torch.profiler``), peak memory, checkpoint
+     save and restore ms and bytes, remat's and danube's steps.
+  9. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -204,6 +225,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -220,6 +242,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 # runs three TF32 products (hi*lo, lo*hi, hi*hi) per product of the
 # function, so its bound is three times the work at the TF32 rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+F32_FLOPS = 67e12              # float32 outside the tensor cores (TF32 off)
 PRODUCTS = {"bfloat16": 1, "float32": 3}
 BOUND_LABEL = {"bfloat16": "operations", "float32": "operations (3xTF32)"}
 SOURCE = "src/repro_torch/kernels/csrc/transcode.cu"
@@ -335,6 +358,42 @@ SHARD_CELL_DOCS = 300
 SHARD_WAVES = 4
 SHARD_TIME_REPS = 5
 SHARD_HANG_S, SHARD_WATCHDOG_S = 2.0, 1.0
+# Phase 8, training: bytelm-100m at the launcher's defaults (8 x 512 a
+# step), run A of 20 steps with a checkpoint every 10, run B resumed at
+# 10; the timed step's warm-up and repeats; h2o-danube-1.8b at 1 x 4096.
+TRAIN_ARCH = "bytelm-100m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10
+TRAIN_WARMUP, TRAIN_REPS = 2, 5
+DANUBE_ARCH, DANUBE_SEQ, DANUBE_STEPS = "h2o-danube-1.8b", 4096, 3
+# float32, TF32 off, card against CPU: the CPU tests' tolerance
+# (tests/test_torch_train.py), the same as the port against the reference.
+TRAIN_F32_TOL = dict(atol=2e-5, rtol=1e-4)
+# bf16 at full width, one step, card against CPU.  Both compute every
+# product exactly and sum it in float32, in different orders, and round
+# activations and gradients to bf16 where the reference does; a sum that
+# lands near a bf16 rounding boundary rounds the other way on the other
+# device, and that difference propagates.  This script's first run on an
+# H100 (700 W) measured a relative difference of 5e-6 in the loss (a
+# float32 mean over 256 tokens) and 1.06e-4 in the gradient norm; the
+# tolerances give them about six and five times that.  Every parameter
+# after the update is held to 2 lr (the two devices' first Adam steps
+# may take opposite signs where a gradient is at its rounding noise)
+# plus one bf16 step (2**-7 of the value), the cast back to bf16.
+TRAIN_BF16_BATCH = (2, 128)
+TRAIN_BF16_TOL = {"loss_rel": 2 ** -15, "gnorm_rel": 2 ** -11,
+                  "param_rel": 2 ** -7}
+# Run B takes its first 10 steps under --steps 10's schedule (warm-up 5,
+# cosine to step 10), run A under --steps 20's, so the two differ by
+# design: their learning rates over steps 1-10 differ by 20 % of the sum
+# of A's over its 20 steps.  B's final parameters are held within
+# TRAIN_RESUME_REL of A's, relative to how far A's moved from the initial
+# weights; a resume that restarts the weights moves B by ~the whole of it.
+TRAIN_RESUME_REL = 0.5
+# remat changes what is kept, not what is computed: the loss is equal;
+# the gradients may be summed in another order where the backward uses
+# atomics, so the gradient norm is held to one bf16 rounding step.
+TRAIN_REMAT_REL = 2 ** -8
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
 NP_DTYPE = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
@@ -2010,6 +2069,485 @@ def shard_times(meshes, pk, x, want, want_scan, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: training.
+
+
+def _clock(fn, cuda: bool):
+    """``(fn(), ms)``: host clock around ``fn`` and a synchronise."""
+    import torch
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _train_batch(rng, vocab: int, b: int, s: int, device):
+    """Byte tokens and labels (B, S) from ``rng``; the last row's last
+    quarter of labels is padding (-1)."""
+    import torch
+    toks = rng.integers(3, vocab, (b, s)).astype(np.int32)
+    labels = np.roll(toks, -1, 1)
+    labels[-1, -(s // 4):] = -1
+    return {"tokens": torch.from_numpy(toks).to(device),
+            "labels": torch.from_numpy(labels).to(device)}
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations of one training step of a dense decoder with full remat,
+    and its least times.  The forward: 2 flops per weight of every product
+    and token, the unembedding included, and 4 * head_dim per live
+    (causal, windowed) pair and head; the step: the forward, its
+    recompute, and twice the forward for the backward.  ``bound_bf16_ms``
+    takes all of it at the bf16 peak; ``bound_ms`` takes the backward's
+    half as float32 products at the float32 peak (the products' gradient
+    is float32: ``models.common._Mm32``)."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 3 * d * cfg.d_ff)
+    products = 2 * batch * seq * (cfg.n_layers * per_layer + cfg.vocab * d)
+    attention = (4 * hd * cfg.n_heads * cfg.n_layers * batch
+                 * live_pairs(seq, cfg.window))
+    forward = products + attention
+    return {"forward_flops": forward, "step_flops": 4 * forward,
+            "bound_bf16_ms": 4 * forward / PEAK_FLOPS["bfloat16"] * 1e3,
+            "bound_ms": (2 * forward / PEAK_FLOPS["bfloat16"]
+                         + 2 * forward / F32_FLOPS) * 1e3}
+
+
+def train_phase(rng, smi: str, zero_counts, read_counts, work: Path,
+                device="cuda", danube_cfg=None) -> tuple:
+    """Phase 8, training (``repro_torch.train``, ``launch/train.py``),
+    after phase 7 frees qwen3-8b.  ``work`` holds the checkpoints (a
+    temporary directory; they are ~0.85 GB each at full width).
+
+      (a) bytelm-100m reduced, float32, TF32 off: the same weights (one
+          generator) on the card and on the CPU, 3 steps of the same
+          batches; loss, ``grad_norm``, ``lr`` and every parameter after
+          each step within ``TRAIN_F32_TOL``, the CPU tests' tolerance.
+      (b) bytelm-100m at its published config (bf16): one step at
+          ``TRAIN_BF16_BATCH`` on the card (the products' backward
+          through ``models.common``'s ``autograd.Function``) and on the
+          host's CPU from the same weights, within ``TRAIN_BF16_TOL``.
+      (c) The launcher in process (``launch.train.main``) at full width,
+          ``--batch 8 --seq 512``: run A, 20 steps with a checkpoint
+          every 10; run B, 10 steps then ``--steps 20 --resume``.  The
+          step-10 state restores bit-equal to what was saved; B's
+          batches of steps 11-20 equal A's; B's final parameters are
+          within ``TRAIN_RESUME_REL`` of A's; A's loss falls.  A
+          subprocess gets SIGTERM after its first log line: exit 0, the
+          message, one ``step_N``.
+      (d) One step with ``remat`` off, ``"full"`` and ``"dots"``: loss
+          equal, ``grad_norm`` within ``TRAIN_REMAT_REL``; peak memory
+          and step time each.
+      (e) h2o-danube-1.8b at full width (``danube_cfg`` shrinks it for a
+          rehearsal), 1 x 4096, remat ``"full"``: 3 steps on one batch
+          at the launcher's learning rate; loss and ``grad_norm``
+          finite, the loss not rising; peak memory.
+      (f) ``launch.serve.main --ckpt-dir`` on run A's checkpoint, the
+          launch counts set to 0 just before and read just after: it
+          loads step 20 and every response is ``ok=True``.
+      Times (card only): a step split into ``next_batch``, forward,
+      backward and optimizer, tokens/s, device busy ms and launches a
+      step (``torch.profiler``), peak memory, checkpoint save and
+      restore ms and bytes.
+
+    Returns ``(report, launches)``."""
+    import contextlib
+    import io
+    import os
+    import signal as signal_mod
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline as pipemod
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry, weights
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    report = {}
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else None
+
+    # (a) reduced, float32, TF32 off: card = CPU over 3 steps.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg_r, host = registry.get(
+        TRAIN_ARCH, reduced=True, device="cpu",
+        generator=torch.Generator().manual_seed(int(rng.integers(2**31))))
+    card = registry.build(cfg_r, device=dev)
+    card.load_state_dict(host.state_dict())
+    opt_cfg = O.AdamWConfig(lr=3e-4, total_steps=20, warmup_steps=5)
+    steps = (TS.make_train_step(host, fam, opt_cfg),
+             TS.make_train_step(card, fam, opt_cfg))
+    f32_err = {"metrics": 0.0, "params": 0.0}
+    for k in range(3):
+        b_np = _train_batch(rng, cfg_r.vocab, 4, 64, "cpu")
+        mh = steps[0](b_np)
+        mc = steps[1]({n: v.to(dev) for n, v in b_np.items()})
+        for key in ("loss", "grad_norm", "lr"):
+            g, w = float(mc[key]), float(mh[key])
+            f32_err["metrics"] = max(f32_err["metrics"], abs(g - w))
+            require(abs(g - w) <= TRAIN_F32_TOL["atol"]
+                    + TRAIN_F32_TOL["rtol"] * abs(w), "train f32 card vs "
+                    "cpu", key, k, g, w)
+        hp = dict(host.named_parameters())
+        for n, p in card.named_parameters():
+            g, w = p.detach().cpu(), hp[n].detach()
+            f32_err["params"] = max(f32_err["params"],
+                                    float((g - w).abs().max()))
+            require(torch.allclose(g, w, **TRAIN_F32_TOL), "train f32 "
+                    "params card vs cpu", n, k, float((g - w).abs().max()))
+    report["f32_card_vs_cpu_max_abs"] = f32_err
+    log(f"phase 8: {TRAIN_ARCH} reduced f32 (TF32 off), 3 steps card = cpu "
+        f"within atol {TRAIN_F32_TOL['atol']:g} rtol "
+        f"{TRAIN_F32_TOL['rtol']:g}: loss, grad_norm, lr max abs err "
+        f"{f32_err['metrics']:.3g}, parameters {f32_err['params']:.3g}")
+    del host, card, steps
+
+    # (b) full width, bf16, one step: card vs the host's CPU.
+    cfg = configs.get_config(TRAIN_ARCH)
+    seed = int(rng.integers(2**31))
+    host = registry.build(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(seed))
+    card = registry.build(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    b_np = _train_batch(rng, cfg.vocab, *TRAIN_BF16_BATCH, "cpu")
+    bf_cfg = O.AdamWConfig(lr=3e-4, total_steps=20, warmup_steps=5)
+    (mh, host_ms) = _clock(lambda: TS.make_train_step(host, fam, bf_cfg)(
+        b_np), False)
+    mc = TS.make_train_step(card, fam, bf_cfg)(
+        {n: v.to(dev) for n, v in b_np.items()})
+    bf = {k: (float(mc[k]), float(mh[k])) for k in ("loss", "grad_norm",
+                                                    "lr")}
+    lr1 = bf["lr"][1]
+    hp = dict(host.named_parameters())
+    excess = 0.0
+    for n, p in card.named_parameters():
+        g, w = p.detach().float().cpu(), hp[n].detach().float()
+        bound = 2 * lr1 + TRAIN_BF16_TOL["param_rel"] * w.abs()
+        excess = max(excess, float(((g - w).abs() - bound).max()))
+    bf_report = {k: {"card": g, "cpu": w, "rel": abs(g - w) / abs(w)}
+                 for k, (g, w) in bf.items()}
+    bf_report["param_excess_over_bound"] = excess
+    bf_report["cpu_step_ms"] = host_ms
+    report["bf16_card_vs_cpu"] = bf_report
+    log(f"phase 8: {TRAIN_ARCH} full width bf16, one step "
+        f"{TRAIN_BF16_BATCH[0]} x {TRAIN_BF16_BATCH[1]} card vs cpu: loss "
+        f"{bf['loss'][0]:.6f} / {bf['loss'][1]:.6f} (rel "
+        f"{bf_report['loss']['rel']:.3g}), grad_norm {bf['grad_norm'][0]:.5f}"
+        f" / {bf['grad_norm'][1]:.5f} (rel "
+        f"{bf_report['grad_norm']['rel']:.3g}); parameters within 2 lr + "
+        f"{TRAIN_BF16_TOL['param_rel']:g} |p| (largest excess {excess:.3g}); "
+        f"cpu step {host_ms:.0f} ms")
+    require(bf["lr"][0] == bf["lr"][1], "bf16 lr", bf["lr"])
+    require(bf_report["loss"]["rel"] <= TRAIN_BF16_TOL["loss_rel"],
+            "bf16 loss card vs cpu", bf["loss"])
+    require(bf_report["grad_norm"]["rel"] <= TRAIN_BF16_TOL["gnorm_rel"],
+            "bf16 grad_norm card vs cpu", bf["grad_norm"])
+    require(excess <= 0, "bf16 parameters card vs cpu", excess)
+    del host, card
+
+    # (c) the launcher at full width, in process.
+    saved, batches = {}, {}
+    real_save, real_next = CK.save, pipemod.TextPipeline.next_batch
+
+    def recording_save(ckpt_dir, step, tree, *a, **kw):
+        saved[(str(ckpt_dir), step)] = tree
+        return real_save(ckpt_dir, step, tree, *a, **kw)
+
+    def recording_next(self):
+        step = self.step
+        batch = real_next(self)
+        batches.setdefault(run, {})[step] = batch["tokens"].cpu()
+        return batch
+
+    def launch(name, *extra):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch_train.main(["--arch", TRAIN_ARCH, "--batch",
+                               str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                               "--device", str(dev.type), "--ckpt-dir",
+                               str(work / name), *extra])
+        return out.getvalue()
+
+    CK.save, pipemod.TextPipeline.next_batch = recording_save, recording_next
+    try:
+        run = "A"
+        out_a, a_ms = _clock(lambda: launch(
+            "a", "--steps", str(TRAIN_STEPS), "--ckpt-every",
+            str(TRAIN_CKPT_EVERY), "--log-every", "1"), cuda)
+        run = "B1"
+        launch("b", "--steps", str(TRAIN_CKPT_EVERY), "--ckpt-every",
+               str(TRAIN_CKPT_EVERY))
+        run = "B2"
+        out_b2 = launch("b", "--steps", str(TRAIN_STEPS), "--ckpt-every",
+                        str(TRAIN_CKPT_EVERY), "--resume")
+    finally:
+        CK.save, pipemod.TextPipeline.next_batch = real_save, real_next
+    losses_a = [float(ln.split()[3]) for ln in out_a.splitlines()
+                if ln.startswith("step ")]
+    require(len(losses_a) == TRAIN_STEPS, "run A log lines", out_a[-500:])
+    require(losses_a[-1] < losses_a[0], "run A loss falls", losses_a)
+    require("resumed from step 10" in out_b2, "run B resumed", out_b2)
+    for s in range(TRAIN_CKPT_EVERY, TRAIN_STEPS):
+        require(torch.equal(batches["B2"][s], batches["A"][s]),
+                "resumed batch vs run A", s)
+    require(sorted(batches["B2"]) == list(range(TRAIN_CKPT_EVERY,
+                                                  TRAIN_STEPS)),
+            "run B's steps after resume", sorted(batches["B2"]))
+    # the step-10 state restores bit-equal to what run A saved
+    _, _, model = registry.get(TRAIN_ARCH, device=dev)
+    state = O.init_opt_state(model)
+    like = launch_train.state_like(model)
+    launch_train.load_state(model, state, CK.restore(
+        str(work / "a"), TRAIN_CKPT_EVERY, like))
+    back = launch_train.state_tree(model, state)
+    want = saved[(str(work / "a"), TRAIN_CKPT_EVERY)]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+    got_leaves = dict(leaves(back))
+    for name, w in leaves(want):
+        require(got_leaves[name].dtype == w.dtype
+                and torch.equal(got_leaves[name], w),
+                "step-10 restore vs saved", name)
+    # B's final parameters against A's, relative to how far A moved
+    fin = {r: CK.restore(str(work / r), TRAIN_STEPS, like)["params"]
+           for r in ("a", "b")}
+    init = weights.to_reference(
+        registry.get(TRAIN_ARCH, device=dev)[2])
+    a_l, b_l, i_l = (dict(leaves(t)) for t in (fin["a"], fin["b"], init))
+    diff = sum(float((b_l[n].float() - a_l[n].float()).norm()) ** 2
+               for n in a_l) ** 0.5
+    moved = sum(float((a_l[n].float() - i_l[n].float()).norm()) ** 2
+                for n in a_l) ** 0.5
+    resume_rel = diff / moved
+    del model, state, back, want, saved, fin, init, a_l, b_l, i_l
+    require(resume_rel <= TRAIN_RESUME_REL, "run B vs run A parameters",
+            resume_rel)
+
+    # SIGTERM after the first log line, in a process of its own.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--steps", "100000", "--log-every", "1", "--ckpt-every", "100000",
+         "--device", str(dev.type), "--ckpt-dir", str(work / "sigterm")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+    try:
+        for line in proc.stdout:
+            if line.startswith("step "):
+                proc.send_signal(signal_mod.SIGTERM)
+                break
+        term_out, term_err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+        proc.wait()
+    term_dirs = sorted(os.listdir(work / "sigterm"))
+    require(proc.returncode == 0 and "SIGTERM: checkpointed, exiting"
+            in term_out and len(term_dirs) == 1
+            and term_dirs[0].startswith("step_")
+            and not term_dirs[0].endswith(".tmp"), "SIGTERM run",
+            proc.returncode, term_out[-300:], term_err[-1500:], term_dirs)
+    report["launcher"] = {
+        "run_a_losses": losses_a, "run_a_ms": a_ms,
+        "run_a_log": out_a.splitlines()[-3:], "run_b_log":
+        out_b2.splitlines(), "resume_rel_l2": resume_rel,
+        "sigterm_checkpoint": term_dirs[0]}
+    log(f"phase 8: launcher {TRAIN_ARCH} full width, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: run A {TRAIN_STEPS} steps in {a_ms:.0f} ms, loss "
+        f"{losses_a[0]:.4f} -> {losses_a[-1]:.4f}; run B resumed at "
+        f"{TRAIN_CKPT_EVERY}, its batches = A's, the step-"
+        f"{TRAIN_CKPT_EVERY} restore bit-equal, |B - A| / |A - init| "
+        f"{resume_rel:.4f} (<= {TRAIN_RESUME_REL}); SIGTERM: exit 0, "
+        f"{term_dirs[0]}")
+
+    # The step's times at full width: split, whole, profiler, memory,
+    # checkpoint save and restore.
+    _, _, model = registry.get(TRAIN_ARCH, device=dev)
+    cfg = model.cfg
+    opt_cfg = O.AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    step_fn = TS.make_train_step(model, fam, opt_cfg)
+    loss_fn = TS.make_loss_fn(model, fam)
+    params = dict(model.named_parameters())
+    decay = weights.decay_mask(model)
+    pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH), device=dev)
+    split = {k: [] for k in ("next_batch", "forward", "backward",
+                             "optimizer", "step")}
+    for i in range(TRAIN_WARMUP + TRAIN_REPS):
+        batch, t_nb = _clock(pipe.next_batch, cuda)
+        (loss, _m), t_fw = _clock(lambda: loss_fn(batch), cuda)
+        _, t_bw = _clock(loss.backward, cuda)
+        _, t_opt = _clock(lambda: O.adamw_update(
+            opt_cfg, params, {n: p.grad for n, p in params.items()},
+            step_fn.opt_state, decay), cuda)
+        model.zero_grad(set_to_none=True)
+        peak_reset()
+        before = torch.cuda.memory_allocated() if cuda else None
+        _, t_step = _clock(lambda: step_fn(batch), cuda)
+        if i >= TRAIN_WARMUP:
+            for k, v in zip(split, (t_nb, t_fw, t_bw, t_opt, t_step)):
+                split[k].append(v)
+    step_peak = peak()
+    times = {f"{k}_ms": statistics.median(v) for k, v in split.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    times["tokens_per_s"] = tokens / ((times["step_ms"]
+                                       + times["next_batch_ms"]) / 1e3)
+    times["peak_memory_bytes"] = step_peak
+    times["memory_before_bytes"] = before
+    times["busy"] = device_busy(lambda: step_fn(batch)) if cuda else None
+    _, times["checkpoint_save_ms"] = _clock(lambda: CK.save(
+        str(work / "timed"), 1, launch_train.state_tree(
+            model, step_fn.opt_state)), cuda)
+    times["checkpoint_bytes"] = sum(
+        f.stat().st_size for f in (work / "timed" / "step_1").iterdir())
+    _, times["checkpoint_restore_ms"] = _clock(
+        lambda: launch_train.load_state(model, step_fn.opt_state, CK.restore(
+            str(work / "timed"), 1, launch_train.state_like(model))), cuda)
+    n_params = model.param_count()
+    times["params"] = n_params
+    times.update(train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ))
+    report["step"] = times
+    busy = times["busy"] or {}
+    log(f"phase 8: {TRAIN_ARCH} step ({TRAIN_BATCH} x {TRAIN_SEQ}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, median of "
+        f"{TRAIN_REPS}): {times['step_ms']:.2f} ms (+ next_batch "
+        f"{times['next_batch_ms']:.2f}); split forward "
+        f"{times['forward_ms']:.2f}, backward {times['backward_ms']:.2f}, "
+        f"optimizer {times['optimizer_ms']:.2f} ms; "
+        f"{times['tokens_per_s']:,.0f} tokens/s; device busy "
+        f"{busy.get('busy_ms')} ms in {busy.get('launches')} launches; bound "
+        f"{times['bound_ms']:.2f} ms ({times['step_flops'] / 1e12:.2f} TFLOP,"
+        f" the backward in f32; all bf16 {times['bound_bf16_ms']:.2f}); "
+        f"peak {step_peak} B ({before} B held before the step); checkpoint "
+        f"save {times['checkpoint_save_ms']:.0f} "
+        f"ms, restore {times['checkpoint_restore_ms']:.0f} ms, "
+        f"{times['checkpoint_bytes']} B  [{smi}]")
+    if busy:
+        log("phase 8: step on the device, most time: " + "; ".join(
+            f"{k} {ms:.3f} ms x{n}" for k, ms, n in busy["top"]))
+    del model, step_fn, loss_fn, params, pipe, batch, loss
+
+    # (d) remat off, "full" and "dots": one step each from one set of
+    # weights on one batch, then TRAIN_REPS timed steps.
+    remat = {}
+    batch = _train_batch(rng, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, dev)
+    seed = int(rng.integers(2**31))
+    for label, kw in (("off", dict(remat=False)),
+                      ("full", dict(remat=True, remat_policy="full")),
+                      ("dots", dict(remat=True, remat_policy="dots"))):
+        m = registry.build(dataclasses.replace(cfg, **kw), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+        st = TS.make_train_step(m, fam, opt_cfg)
+        peak_reset()
+        first = st(batch)
+        ms = [_clock(lambda: st(batch), cuda)[1] for _ in range(TRAIN_REPS)]
+        remat[label] = {"loss": float(first["loss"]),
+                        "grad_norm": float(first["grad_norm"]),
+                        "step_ms": statistics.median(ms),
+                        "peak_memory_bytes": peak()}
+        del m, st
+    for label in ("full", "dots"):
+        r, o = remat[label], remat["off"]
+        require(r["loss"] == o["loss"], "remat loss", label, r["loss"],
+                o["loss"])
+        require(abs(r["grad_norm"] - o["grad_norm"])
+                <= TRAIN_REMAT_REL * o["grad_norm"], "remat grad_norm",
+                label, r["grad_norm"], o["grad_norm"])
+    report["remat"] = remat
+    log(f"phase 8: remat ({TRAIN_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ}): " +
+        "; ".join(f"{k}: loss {v['loss']:.6f} grad_norm "
+                  f"{v['grad_norm']:.6f} step {v['step_ms']:.2f} ms peak "
+                  f"{v['peak_memory_bytes']} B" for k, v in remat.items())
+        + f"  [{smi}]")
+
+    # (e) h2o-danube-1.8b at full width, remat "full", 3 steps.
+    dcfg = danube_cfg or configs.get_config(DANUBE_ARCH)
+    dcfg = dataclasses.replace(dcfg, remat=True, remat_policy="full")
+    peak_reset()
+    model = registry.build(dcfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(int(rng.integers(2**31))))
+    d_cfg = O.AdamWConfig(lr=3e-4, total_steps=DANUBE_STEPS,
+                          warmup_steps=max(DANUBE_STEPS // 20, 5))
+    st = TS.make_train_step(model, "lm", d_cfg)
+    dpipe = pipemod.TextPipeline(pipemod.PipelineConfig(
+        seq_len=DANUBE_SEQ, global_batch=1), device=dev)
+    dbatch = dpipe.next_batch()
+    d_runs = []
+    for _ in range(DANUBE_STEPS):
+        met, ms = _clock(lambda: st(dbatch), cuda)
+        d_runs.append({"loss": float(met["loss"]),
+                       "grad_norm": float(met["grad_norm"]),
+                       "lr": float(met["lr"]), "ms": ms})
+    d_peak = peak()
+    d_params = model.param_count()
+    # one more step under the profiler, after the checked three
+    d_busy = device_busy(lambda: st(dbatch)) if cuda else None
+    del model, st
+    if cuda:
+        torch.cuda.empty_cache()
+    d_losses = [r["loss"] for r in d_runs]
+    require(all(np.isfinite([r["loss"] for r in d_runs]
+                            + [r["grad_norm"] for r in d_runs])),
+            "danube finite", d_runs)
+    require(all(b <= a for a, b in zip(d_losses, d_losses[1:])),
+            "danube loss does not rise", d_losses)
+    report[DANUBE_ARCH] = {"steps": d_runs, "peak_memory_bytes": d_peak,
+                           "params": d_params, "seq": DANUBE_SEQ,
+                           "busy": d_busy, **train_flops(dcfg, 1, DANUBE_SEQ)}
+    log(f"phase 8: {DANUBE_ARCH} {dcfg.n_layers} layers d_model "
+        f"{dcfg.d_model} ({d_params} parameters, bf16), 1 x {DANUBE_SEQ}, "
+        f"remat full: losses {[round(x, 5) for x in d_losses]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in d_runs]}, step ms "
+        f"{[round(r['ms'], 1) for r in d_runs]}, bound "
+        f"{report[DANUBE_ARCH]['bound_ms']:.1f} ms (all bf16 "
+        f"{report[DANUBE_ARCH]['bound_bf16_ms']:.1f}), peak {d_peak} B  "
+        f"[{smi}]")
+    if d_busy:
+        log(f"phase 8: {DANUBE_ARCH} step on the device: "
+            f"{d_busy['launches']} launches, busy {d_busy['busy_ms']} ms; "
+            "most time: " + "; ".join(f"{k} {ms:.3f} ms x{n}"
+                                      for k, ms, n in d_busy["top"]))
+
+    # (f) serve run A's checkpoint through the launcher.
+    out = io.StringIO()
+    if cuda:
+        torch.cuda.synchronize()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", TRAIN_ARCH, "--ckpt-dir",
+                           str(work / "a"), "--device", str(dev.type)])
+    launches = read_counts()
+    lines = out.getvalue().splitlines()
+    require(lines[0] == f"loaded checkpoint step {TRAIN_STEPS}",
+            "served checkpoint", lines[:1])
+    require(len(lines) == 5 and all(" ok=True " in ln for ln in lines[1:]),
+            "served responses", lines)
+    require(launches.get("rcount", 0) >= 1, "serve launches", launches)
+    report["serve"] = {"lines": lines, "launches": launches}
+    log(f"phase 8: launch.serve --ckpt-dir run A: {lines[0]}, "
+        f"{len(lines) - 1} responses ok; launches {launches}")
+    return report, launches
 
 
 def main(argv=None) -> int:
@@ -3350,8 +3888,13 @@ def main(argv=None) -> int:
         read_counts, faults, Path(args.out).parent)
     del model
     torch.cuda.empty_cache()
+    # -- 8. training ---------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        report["train"], train_launches = train_phase(
+            np.random.default_rng([args.seed, 8]), smi, zero_counts,
+            read_counts, Path(work))
     for name, count in [*model_launches.items(), *engine_launches.items(),
-                        *shard_launches.items()]:
+                        *shard_launches.items(), *train_launches.items()]:
         launches[name] = launches.get(name, 0) + count
 
     lines = []

@@ -31,7 +31,10 @@ path: ``ragged_transcode(strategy="sharded")``, ``repro_torch.core.shard``
 (one ragged launch per shard, each shard on a CUDA stream of its own),
 ``repro_torch.core.recovery`` (retry, watchdog, degraded replan),
 ``repro_torch.data.shard_feed`` (the double-buffered feeder) and
-``repro_torch.launch.mesh``.  ``__all__``
+``repro_torch.launch.mesh``; and single-card training:
+``repro_torch.train`` (AdamW, microbatches, the chunked-CE step, atomic
+checkpoints in the reference's format) and ``repro_torch.launch.train``
+(resume, SIGTERM).  ``__all__``
 holds every name of the reference's, and ``to_numpy``.
 
 Entry points run on the card (``device="cuda"``, the default) or on the

@@ -1,3 +1,4 @@
-"""Launchers of the port: ``serve`` (the serving demo) and ``mesh`` (the
-transcode mesh of the sharded path).  The training, elastic and dry-run
-launchers come with ROADMAP queue 1 item 11."""
+"""Launchers of the port: ``train`` (the train loop with checkpoints,
+resume and SIGTERM), ``serve`` (the serving demo) and ``mesh`` (the
+transcode mesh of the sharded path).  The elastic and dry-run launchers
+come with multi-card training and the analysis modules."""

@@ -5,18 +5,19 @@
 
 Port of ``repro.launch.serve``: the same flags and printed lines, plus
 ``--device`` (``cuda`` unless asked otherwise).  The weights come from
-the registry's generator, seeded with 0.  Builds the Engine, serves a
-batch of UTF-8 prompts and prints UTF-8 and UTF-16LE responses — both
-egress encodings go through the transcoder.  ``--ckpt-dir`` needs the
-checkpoint module, which is not ported yet (ROADMAP queue 1 item 11).
+the registry's generator, seeded with 0, or from the latest checkpoint
+in ``--ckpt-dir`` (either package's: the format is the reference's).
+Builds the Engine, serves a batch of UTF-8 prompts and prints UTF-8 and
+UTF-16LE responses — both egress encodings go through the transcoder.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.models import registry
+from repro_torch.models import registry, weights
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.train import checkpoint as CK
 
 
 def main(argv=None):
@@ -30,14 +31,17 @@ def main(argv=None):
                     default=["hello world", "café 中文"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: checkpoints (train/checkpoint.py) are not "
-                 "ported to repro_torch yet; see ROADMAP.md queue 1 item "
-                 "11 (training, launchers and cost model)")
 
     family, cfg, model = registry.get(args.arch, reduced=args.reduced,
                                       device=args.device)
     model.requires_grad_(False)
+    if args.ckpt_dir:
+        last = CK.latest_step(args.ckpt_dir)
+        if last is not None:
+            tree = CK.restore(args.ckpt_dir, last,
+                              {"params": weights.reference_shapes(model)})
+            weights.from_reference(model, tree["params"])
+            print(f"loaded checkpoint step {last}")
     eng = Engine(model, cfg, family, model, max_new=args.max_new,
                  temperature=args.temperature, device=args.device)
     reqs = []

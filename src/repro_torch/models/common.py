@@ -17,8 +17,11 @@ equal the reference's come across through ``models.weights``.
 the result is used in float32 before the cast back, as in the
 reference.  On a CUDA device bf16 operands go to ``torch.mm``/``bmm``
 with ``out_dtype=torch.float32`` (the tensor cores' bf16 × bf16 → f32
-contract); on the CPU, which has no kernel for that, they are widened
-to float32 first, which gives the same exact products and f32 sums.
+contract), through an ``autograd.Function`` whose backward is JAX's
+(float32 products, each gradient cast to its operand's dtype); on the
+CPU, which has no kernel for that, they are widened to float32 first,
+which gives the same exact products and f32 sums, and autograd's own
+gradient.
 
 **State.**  The reference returns fresh caches.  Here ``attention``
 writes the new keys, values and positions into the cache it is given
@@ -49,13 +52,56 @@ def _narrow_on_card(x, w) -> bool:
     return x.device.type == "cuda" and x.dtype == w.dtype != F32
 
 
+class _Mm32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` for narrow ``x`` (m, k) and
+    ``w`` (k, n), with the gradient JAX gives ``dot_general(...,
+    preferred_element_type=float32)``: the cotangent stays float32, each
+    operand's gradient is a float32 product with the narrow operand
+    widened (``ct @ w.T``, ``x.T @ ct``), cast to that operand's dtype.
+    PyTorch defines no derivative for ``mm`` with ``out_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(ct, w.t().to(F32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.t().to(F32), ct).to(w.dtype)
+        return gx, gw
+
+
+class _Bmm32(torch.autograd.Function):
+    """:class:`_Mm32` for ``torch.bmm``: (n, a, k) @ (n, k, c)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.bmm(x, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.bmm(ct, w.transpose(1, 2).to(F32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.bmm(x.transpose(1, 2).to(F32), ct).to(w.dtype)
+        return gx, gw
+
+
 def dot32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in float32: ``x`` (..., k), ``w`` (k, n) -> (..., n).
 
     The reference's ``einsum(..., preferred_element_type=float32)``.
     Mixed operands promote to float32, as JAX promotes them."""
     if _narrow_on_card(x, w):
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+        y = _Mm32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(F32), w.to(F32))
 
@@ -63,7 +109,7 @@ def dot32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def bdot32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched ``x @ w`` in float32: (n, a, k) @ (n, k, c) -> (n, a, c)."""
     if _narrow_on_card(x, w):
-        return torch.bmm(x, w, out_dtype=F32)
+        return _Bmm32.apply(x, w)
     return torch.bmm(x.to(F32), w.to(F32))
 
 

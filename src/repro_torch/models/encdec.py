@@ -9,8 +9,10 @@ cached for decode.  The reference scans stacked layers; here ``enc`` and
 ``dec`` are ``nn.ModuleList``s run by a Python loop, and the decode
 state keeps the reference's stacked layout (``enc_kv`` a pair of
 (n_layers, B, T, KV, D) tensors, ``caches`` stacked (n_layers, B, …),
-``pos0`` a 0-d int32 tensor).  ``remat`` is kept and acts on nothing
-until training is ported (ROADMAP queue 1 item 11).
+``pos0`` a 0-d int32 tensor).  ``remat`` is the reference's
+``jax.checkpoint`` of each layer: under autograd, each encoder layer,
+and each decoder layer when there is no decode state, runs under
+``torch.utils.checkpoint`` (``lm.remat``), keeping only its inputs.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import runtime
 from repro_torch.models import common as C
-from repro_torch.models.lm import generator_for, layer_state, stacked
+from repro_torch.models.lm import generator_for, layer_state, remat, stacked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +78,28 @@ def _cross_attention(p, cfg: EncDecConfig, x, enc_kv):
     return C.dot32(y.reshape(b, s, -1), p.wo).to(x.dtype)
 
 
+def _enc_layer(cfg: EncDecConfig, lp, x, pos):
+    """One bidirectional encoder layer: every position queries every
+    position (qpos = t, past every key)."""
+    b, t, _ = x.shape
+    h = C.rmsnorm(lp.ln1, x)
+    q, k, v = C._project_qkv(lp.attn, cfg.attn_cfg(), h, pos)
+    y = C.chunked_attention(q, k, v, torch.full_like(pos, t), pos)
+    y = C.dot32(y.reshape(b, t, -1), lp.attn.wo).to(x.dtype)
+    x = x + y
+    return x + C.mlp(lp.mlp, C.rmsnorm(lp.ln2, x))
+
+
+def _dec_layer(cfg: EncDecConfig, lp, x, pos, cache, enc_kv):
+    """One decoder layer: causal self-attention (its cache updated in
+    place), cross-attention over ``enc_kv``, the MLP."""
+    h, _ = C.attention(lp.attn, cfg.attn_cfg(), C.rmsnorm(lp.ln1, x), pos,
+                       cache)
+    x = x + h
+    x = x + _cross_attention(lp.xattn, cfg, C.rmsnorm(lp.lnx, x), enc_kv)
+    return x + C.mlp(lp.mlp, C.rmsnorm(lp.ln2, x))
+
+
 class EncLayer(nn.Module):
     def __init__(self, cfg: EncDecConfig, dt, device, gen):
         super().__init__()
@@ -121,15 +145,11 @@ class EncDecLM(nn.Module):
         x = frames.to(cfg.torch_dtype) + self.enc_pos[None, : frames.shape[1]]
         b, t, _ = x.shape
         pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+        layer = _enc_layer
+        if cfg.remat and torch.is_grad_enabled():
+            layer = remat(_enc_layer)
         for lp in self.enc:
-            # bidirectional: query every position against every position
-            # by zeroing the causal comparison (qpos=t: sees all)
-            h = C.rmsnorm(lp.ln1, x)
-            q, k, v = C._project_qkv(lp.attn, cfg.attn_cfg(), h, pos)
-            y = C.chunked_attention(q, k, v, torch.full_like(pos, t), pos)
-            y = C.dot32(y.reshape(b, t, -1), lp.attn.wo).to(x.dtype)
-            x = x + y
-            x = x + C.mlp(lp.mlp, C.rmsnorm(lp.ln2, x))
+            x = layer(cfg, lp, x, pos)
         return x
 
     def _enc_kv(self, enc_out):
@@ -164,14 +184,12 @@ class EncDecLM(nn.Module):
         pos = base + pos0 if state is not None else base
 
         caches = state["caches"] if state is not None else None
+        layer = _dec_layer
+        if cfg.remat and state is None and torch.is_grad_enabled():
+            layer = remat(_dec_layer)
         for j, lp in enumerate(self.dec):
             cache = layer_state(caches, j) if caches is not None else None
-            h, _ = C.attention(lp.attn, cfg.attn_cfg(),
-                               C.rmsnorm(lp.ln1, x), pos, cache)
-            x = x + h
-            x = x + _cross_attention(lp.xattn, cfg, C.rmsnorm(lp.lnx, x),
-                                     (enc_kv[0][j], enc_kv[1][j]))
-            x = x + C.mlp(lp.mlp, C.rmsnorm(lp.ln2, x))
+            x = layer(cfg, lp, x, pos, cache, (enc_kv[0][j], enc_kv[1][j]))
         x = C.rmsnorm(self.ln_f, x)
         logits = C.unembed(self.embed, x)
         new_state = None

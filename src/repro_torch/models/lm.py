@@ -17,18 +17,24 @@ Layer kinds:
 
 Every kind threads an explicit per-layer state (KV cache / recurrent
 state), so one code path serves train (state=None), prefill and decode.
-``remat``/``remat_policy`` are kept with the reference's values and act
-on nothing yet: they matter only under autograd, which comes with
-training (ROADMAP queue 1 item 11).
+``remat`` is the reference's ``jax.checkpoint`` of each layer: under
+autograd and without a decode state, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps its input and
+recomputes the rest in the backward.  ``remat_policy="dots"`` keeps the
+outputs of the 2-D products too (``dot32``'s ``aten.mm``) and recomputes
+the batched ones (``bdot32``'s ``aten.bmm``), as JAX's
+``dots_with_no_batch_dims_saveable``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import runtime
 from repro_torch.models import common as C
@@ -253,6 +259,29 @@ def _apply_layer(cfg: LMConfig, kind: str, p, x, pos, state):
     raise ValueError(kind)
 
 
+def _save_2d_products(ctx, func, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep
+    the 2-D products' outputs, recompute everything else."""
+    if func._overloadpacket is torch.ops.aten.mm:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return ckpt.create_selective_checkpoint_contexts(_save_2d_products)
+
+
+def remat(fn, policy: str = "full"):
+    """``fn`` run under activation checkpointing (the reference's
+    ``jax.checkpoint``): ``"full"`` keeps only its inputs, ``"dots"``
+    the outputs of its 2-D products too."""
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: full | dots")
+    kw = {"context_fn": _dots_contexts} if policy == "dots" else {}
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             **kw)
+
+
 def layer_state(tree, j):
     """Row ``j`` of a stacked state tree (views, so writes land in it)."""
     if isinstance(tree, dict):
@@ -330,13 +359,16 @@ class DecoderLM(nn.Module):
             pos = torch.arange(s, dtype=torch.int32,
                                device=x.device).expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        apply_layer = _apply_layer
+        if cfg.remat and state is None and torch.is_grad_enabled():
+            apply_layer = remat(_apply_layer, cfg.remat_policy)
 
         for i, (kind, _count) in enumerate(cfg.segments()):
             name = f"seg{i}_{kind}"
             seg_state = state[name] if state is not None else None
             for j, layer in enumerate(getattr(self, name)):
                 ls = layer_state(seg_state, j) if state is not None else None
-                x, ns, a = _apply_layer(cfg, kind, layer, x, pos, ls)
+                x, ns, a = apply_layer(cfg, kind, layer, x, pos, ls)
                 if state is not None:
                     _store(ls, ns)
                 aux = aux + a

@@ -1054,3 +1054,81 @@ def test_shard_outputs_survive_reuse_on_their_streams():
                            device="cuda")
         for a, b in zip(want, got):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Training: the products' gradient and a step on the card
+
+
+@pytest.mark.cuda
+def test_bf16_products_backward_matches_f32_formulas_on_card():
+    """``dot32``/``bdot32`` on bf16 operands carry JAX's gradient of
+    ``dot_general(..., preferred_element_type=float32)``: the float32
+    cotangent times the other operand widened to float32, cast to the
+    operand's dtype; within one bf16 rounding step of those formulas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(3, 40, 512, generator=g, device="cuda").bfloat16()
+    w = torch.randn(512, 96, generator=g, device="cuda").bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    y = mc.dot32(x, w)
+    ct = torch.randn(y.shape, generator=g, device="cuda")
+    y.backward(ct)
+    c2 = ct.reshape(-1, 96)
+    want_x = (c2 @ w.detach().float().t()).reshape(x.shape)
+    want_w = x.detach().reshape(-1, 512).float().t() @ c2
+    tol = dict(atol=1e-3, rtol=2 ** -7)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(x.grad.float(), want_x, **tol)
+    torch.testing.assert_close(w.grad.float(), want_w, **tol)
+
+    xb = torch.randn(4, 40, 64, generator=g, device="cuda").bfloat16()
+    wb = torch.randn(4, 64, 32, generator=g, device="cuda").bfloat16()
+    xb.requires_grad_(True)
+    wb.requires_grad_(True)
+    yb = mc.bdot32(xb, wb)
+    ctb = torch.randn(yb.shape, generator=g, device="cuda")
+    yb.backward(ctb)
+    torch.testing.assert_close(
+        xb.grad.float(), torch.bmm(ctb, wb.detach().float().transpose(1, 2)),
+        **tol)
+    torch.testing.assert_close(
+        wb.grad.float(), torch.bmm(xb.detach().float().transpose(1, 2), ctb),
+        **tol)
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_on_card_matches_cpu():
+    """bytelm-100m reduced, float32, TF32 off: two steps (loss, AdamW) on
+    the card and on the CPU from the same weights and batches agree within
+    the CPU tests' tolerance (``tests/test_torch_train.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg, host = registry.get("bytelm-100m", reduced=True, device="cpu",
+                                  generator=torch.Generator().manual_seed(22))
+    card = registry.build(cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    opt = O.AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    steps = (TS.make_train_step(host, fam, opt),
+             TS.make_train_step(card, fam, opt))
+    rng = np.random.default_rng(23)
+    tol = dict(atol=2e-5, rtol=1e-4)
+    for _ in range(2):
+        toks = rng.integers(3, cfg.vocab, (4, 48)).astype(np.int32)
+        labels = np.roll(toks, -1, 1)
+        labels[-1, -8:] = -1
+        batch = {"tokens": torch.from_numpy(toks),
+                 "labels": torch.from_numpy(labels)}
+        mh = steps[0](batch)
+        mcard = steps[1]({k: v.cuda() for k, v in batch.items()})
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            torch.testing.assert_close(mcard[key].cpu(), mh[key], **tol)
+    hp = dict(host.named_parameters())
+    for n, p in card.named_parameters():
+        torch.testing.assert_close(p.detach().cpu(), hp[n].detach(), **tol)

@@ -637,7 +637,7 @@ def test_constructor_errors_raise_the_reference_types(lm):
         TE.Engine(port, tcfg, fam, port, device="meta")
 
 
-def test_launcher_serves_every_prompt():
+def test_launcher_serves_every_prompt(tmp_path):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         launch_serve.main(["--device", "cpu", "--reduced", "--max-new", "4",
@@ -647,11 +647,22 @@ def test_launcher_serves_every_prompt():
     assert all(line.startswith("prompt=") and " ok=True " in line
                for line in lines)
     assert sum("enc=utf-16-le" in line for line in lines) == 3
-    with pytest.raises(SystemExit):
-        with contextlib.redirect_stderr(io.StringIO()) as err:
-            launch_serve.main(["--device", "cpu", "--reduced",
-                               "--ckpt-dir", "ckpt"])
-    assert "item 11" in err.getvalue()
+    # --ckpt-dir: the latest step's parameters, in the reference's format
+    import torch
+    from repro_torch.train import checkpoint as CK
+    _, _, other = TR.get("bytelm-100m", reduced=True, device="cpu",
+                         generator=torch.Generator().manual_seed(1))
+    CK.save(str(tmp_path), 2, {"params": weights.to_reference(other)})
+    CK.save(str(tmp_path), 3, {"params": weights.to_reference(other)})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(["--device", "cpu", "--reduced", "--max-new", "4",
+                           "--ckpt-dir", str(tmp_path)])
+    lines = buf.getvalue().splitlines()
+    assert lines[0] == "loaded checkpoint step 3"
+    assert len(lines) == 5
+    assert all(line.startswith("prompt=") and " ok=True " in line
+               for line in lines[1:])
 
 
 def test_exports_cover_the_reference():

@@ -210,7 +210,15 @@ Phases, in order; any failure exits non-zero before the last line:
      ``next_batch``, forward, backward and optimizer, tokens/s, device
      busy ms and launches (``torch.profiler``), peak memory, checkpoint
      save and restore ms and bytes, remat's and danube's steps.
-  9. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
+  9. The analysis stack (:func:`analysis_phase`): the steps phases 5, 6
+     and 8 timed, costed on the meta device by ``launch/dryrun`` (FLOPs
+     by class, bytes, the roofline's least time against the measured
+     time, predicted against measured peak memory), their products
+     outside attention equal to the closed forms of ``model_bounds`` and
+     ``train_flops``; each transcode kernel's charge under ``CostMode``
+     on phase 3's 64 MiB inputs beside the bytes behind its bound; the
+     dry-run CLI on qwen3-8b ``decode_32k`` as a subprocess.
+ 10. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
      "device": ...}`` last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
@@ -222,6 +230,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -233,16 +242,17 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
 try:
     from tools import inputs    # seeded numpy text and tile-class buffers
+    # the card's rates (H100 SXM data sheet): ``BF16_FLOPS``,
+    # ``TF32_FLOPS``, ``F32_FLOPS`` (TF32 off), ``HBM_BW``
+    from repro_torch import roofline
 except ImportError:             # run without the rest of the repo
-    inputs = None
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-# Dense tensor-core peaks of the same data sheet.  The f32 flash kernel
-# runs three TF32 products (hi*lo, lo*hi, hi*hi) per product of the
-# function, so its bound is three times the work at the TF32 rate.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
-F32_FLOPS = 67e12              # float32 outside the tensor cores (TF32 off)
+    inputs = roofline = None
+# The f32 flash kernel runs three TF32 products (hi*lo, lo*hi, hi*hi) per
+# product of the function, so its bound is three times the work at the
+# TF32 rate.
 PRODUCTS = {"bfloat16": 1, "float32": 3}
 BOUND_LABEL = {"bfloat16": "operations", "float32": "operations (3xTF32)"}
 SOURCE = "src/repro_torch/kernels/csrc/transcode.cu"
@@ -640,8 +650,10 @@ def flash_bound(s: int, d: int, window, dtype: str):
     or written once."""
     flops = 4 * d * FLASH_HEADS * live_pairs(s, window)
     nbytes = 4 * s * FLASH_HEADS * d * (2 if dtype == "bfloat16" else 4)
-    ops_ms = PRODUCTS[dtype] * flops / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = roofline.BF16_FLOPS if dtype == "bfloat16" \
+        else roofline.TF32_FLOPS
+    ops_ms = PRODUCTS[dtype] * flops / peak * 1e3
+    bytes_ms = nbytes / roofline.HBM_BW * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops)
 
@@ -860,26 +872,35 @@ def _reduced_run(model, fam, cfg, toks, lens, frames, device):
     return fwd.cpu(), last.cpu(), steps
 
 
-def model_bounds(cfg, n_params: int, batch: int, prompt: int,
-                 state_bytes: int) -> dict:
-    """Least times of the serving steps of a dense decoder: the prefill
-    by its operations (2 flops per weight of every product and token,
-    the unembedding included, and 4 * head_dim per causal pair and
-    head) at the bf16 peak; a decode step by its bytes (every weight
-    and the decode state read once) at the memory rate."""
+def dense_products(cfg, tokens: int) -> dict:
+    """Product FLOPs of a dense decoder's forward over ``tokens``, 2 per
+    weight of a product and token: ``layers`` (the attention
+    projections and the MLP of every layer) and ``unembed`` (the tied
+    unembedding)."""
     d, hd = cfg.d_model, cfg.hd
     per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
                  + 3 * d * cfg.d_ff)
-    tokens = batch * prompt
-    products = 2 * tokens * (cfg.n_layers * per_layer + cfg.vocab * d)
-    attention = (4 * hd * cfg.n_heads * cfg.n_layers * batch
+    return {"layers": 2 * tokens * cfg.n_layers * per_layer,
+            "unembed": 2 * tokens * cfg.vocab * d}
+
+
+def model_bounds(cfg, n_params: int, batch: int, prompt: int,
+                 state_bytes: int) -> dict:
+    """Least times of the serving steps of a dense decoder: the prefill
+    by its operations (:func:`dense_products`, the unembedding included,
+    and 4 * head_dim per causal pair and head) at the bf16 peak; a
+    decode step by its bytes (every weight and the decode state read
+    once) at the memory rate."""
+    p = dense_products(cfg, batch * prompt)
+    products = p["layers"] + p["unembed"]
+    attention = (4 * cfg.hd * cfg.n_heads * cfg.n_layers * batch
                  * prompt * (prompt + 1) // 2)
     decode_bytes = n_params * 2 + state_bytes
     return {"prefill_flops": products + attention,
             "prefill_bound_ms": (products + attention)
-            / PEAK_FLOPS["bfloat16"] * 1e3,
+            / roofline.BF16_FLOPS * 1e3,
             "decode_bytes": decode_bytes,
-            "decode_bound_ms": decode_bytes / HBM_BYTES_PER_S * 1e3}
+            "decode_bound_ms": decode_bytes / roofline.HBM_BW * 1e3}
 
 
 def device_busy(fn, top: int = 6) -> dict:
@@ -2097,24 +2118,27 @@ def _train_batch(rng, vocab: int, b: int, s: int, device):
 
 def train_flops(cfg, batch: int, seq: int) -> dict:
     """Operations of one training step of a dense decoder with full remat,
-    and its least times.  The forward: 2 flops per weight of every product
-    and token, the unembedding included, and 4 * head_dim per live
-    (causal, windowed) pair and head; the step: the forward, its
-    recompute, and twice the forward for the backward.  ``bound_bf16_ms``
-    takes all of it at the bf16 peak; ``bound_ms`` takes the backward's
-    half as float32 products at the float32 peak (the products' gradient
-    is float32: ``models.common._Mm32``)."""
-    d, hd = cfg.d_model, cfg.hd
-    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-                 + 3 * d * cfg.d_ff)
-    products = 2 * batch * seq * (cfg.n_layers * per_layer + cfg.vocab * d)
-    attention = (4 * hd * cfg.n_heads * cfg.n_layers * batch
+    and its least times.  The forward: :func:`dense_products`, the
+    unembedding included, and 4 * head_dim per live (causal, windowed)
+    pair and head; the recompute: the layers again (the unembedding is
+    outside the checkpointed layers); the backward: twice the forward.
+    ``products`` is the step's product FLOPs outside attention.
+    ``bound_bf16_ms`` takes all of it at the bf16 peak; ``bound_ms``
+    takes the backward as float32 products at the float32 rate (the
+    products' gradient is float32: ``models.common._Mm32``)."""
+    p = dense_products(cfg, batch * seq)
+    attention = (4 * cfg.hd * cfg.n_heads * cfg.n_layers * batch
                  * live_pairs(seq, cfg.window))
-    forward = products + attention
-    return {"forward_flops": forward, "step_flops": 4 * forward,
-            "bound_bf16_ms": 4 * forward / PEAK_FLOPS["bfloat16"] * 1e3,
-            "bound_ms": (2 * forward / PEAK_FLOPS["bfloat16"]
-                         + 2 * forward / F32_FLOPS) * 1e3}
+    forward = p["layers"] + p["unembed"] + attention
+    recompute = p["layers"] + attention
+    step = forward + recompute + 2 * forward
+    return {"forward_flops": forward, "recompute_flops": recompute,
+            "step_flops": step,
+            "products": 4 * p["layers"] + 3 * p["unembed"],
+            "attention": 4 * attention,
+            "bound_bf16_ms": step / roofline.BF16_FLOPS * 1e3,
+            "bound_ms": ((forward + recompute) / roofline.BF16_FLOPS
+                         + 2 * forward / roofline.F32_FLOPS) * 1e3}
 
 
 def train_phase(rng, smi: str, zero_counts, read_counts, work: Path,
@@ -2550,6 +2574,152 @@ def train_phase(rng, smi: str, zero_counts, read_counts, work: Path,
     return report, launches
 
 
+def analysis_phase(report: dict, smi: str, kernel_calls: dict,
+                   table_bytes: dict, out_dir: Path) -> dict:
+    """Phase 9, the analysis stack (``costmodel``, ``roofline``,
+    ``launch/dryrun``), after phase 8.
+
+      (a) The steps phases 5, 6 and 8 timed, costed on the meta device
+          by ``dryrun.dryrun_cell`` at their shapes: qwen3-8b's prefill
+          (phase 5's batch x bucket, its cache of bucket + new slots) and
+          its decode step at the engine's batch and context (phase 6's
+          graph step), bytelm-100m's and h2o-danube-1.8b's training
+          steps (phase 8).  Each: FLOPs by class, bytes, the roofline's
+          least time against the phase's measured time (``fraction`` =
+          least / measured), and the predicted peak memory beside the
+          measured one.  The products outside attention must equal
+          :func:`dense_products`' closed forms (``model_bounds``,
+          ``train_flops``) exactly, and attention must be at least the
+          live pairs' products (the ratio printed).
+      (b) Each transcode kernel of ``kernel_calls`` run on the card under
+          ``CostMode``: its charge (operands + results, one launch)
+          beside ``table_bytes``, the bytes behind its bound.
+      (c) ``python -m repro_torch.launch.dryrun`` as a subprocess on
+          qwen3-8b ``decode_32k``: exit 0 and a record that reads."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import costmodel as CM
+    from repro_torch.launch import dryrun
+    t0 = time.time()
+    m, e, tr = (report["model"][MODEL_ARCH], report["engine"],
+                report["train"])
+    danube = tr[DANUBE_ARCH]
+    steps = {
+        "qwen3-8b prefill": (
+            MODEL_ARCH, dict(kind="prefill", seq_len=m["bucket"],
+                             global_batch=m["batch"], context=m["context"]),
+            m["prefill_ms"], m["peak_memory_bytes"], None),
+        "qwen3-8b decode graph step": (
+            MODEL_ARCH, dict(kind="decode", seq_len=e["context"],
+                             global_batch=e["max_batch"]),
+            e["decode_ms"], e["peak_memory_bytes"], None),
+        f"{TRAIN_ARCH} step": (
+            TRAIN_ARCH, dict(kind="train", seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH),
+            tr["step"]["step_ms"], tr["step"]["peak_memory_bytes"],
+            tr["step"]["memory_before_bytes"]),
+        f"{DANUBE_ARCH} step": (
+            DANUBE_ARCH, dict(kind="train", seq_len=DANUBE_SEQ,
+                              global_batch=1),
+            statistics.median(r["ms"] for r in danube["steps"]),
+            danube["peak_memory_bytes"], None),
+    }
+    out = {"steps": {}, "kernels": {}}
+    for label, (arch, shape, ms, peak, before) in steps.items():
+        rec = dryrun.dryrun_cell(arch, label, shape=shape, verbose=False)
+        cfg = configs.get_config(arch)
+        b, s = shape["global_batch"], shape["seq_len"]
+        ops = rec["flops_by_op"]
+        if shape["kind"] == "train":
+            want = train_flops(cfg, b, s)
+            products, live = want["products"], want["attention"]
+        else:
+            p = dense_products(cfg, b * (s if shape["kind"] == "prefill"
+                                         else 1))
+            products = p["layers"] + p["unembed"]
+            pairs = (s * (s + 1) // 2 if shape["kind"] == "prefill"
+                     else s)             # a decode row sees its context
+            live = 4 * cfg.hd * cfg.n_heads * cfg.n_layers * b * pairs
+        require(ops.get("mm") == products, "products outside attention",
+                label, ops, products)
+        require(ops.get("bmm", 0) >= live, "attention products", label,
+                ops, live)
+        least = rec["t_bound_s"] * 1e3
+        row = {"shape": shape, "flops_by_class": rec["flops_by_class"],
+               "flops": rec["hlo_flops"], "bytes": rec["hlo_bytes"],
+               "bottleneck": rec["bottleneck"], "least_ms": least,
+               "measured_ms": ms, "fraction": least / ms,
+               "products_outside_attention": products,
+               "attention_over_live_pairs": ops.get("bmm", 0) / live,
+               "predicted_peak_bytes": rec["mem_peak_bytes"],
+               "predicted_argument_bytes":
+                   rec["mem_argument_size_in_bytes"],
+               "measured_peak_bytes": peak,
+               "measured_before_bytes": before}
+        if shape["kind"] == "decode":
+            row["model_bounds_decode_bytes"] = e["decode_bytes"]
+            row["bytes_over_model_bounds"] = rec["hlo_bytes"] \
+                / e["decode_bytes"]
+        out["steps"][label] = row
+        cls = rec["flops_by_class"]
+        measured_peak = ("not measured" if peak is None else
+                         f"{peak / 1e9:.2f} GB" + (
+                             "" if before is None else
+                             f" ({before / 1e9:.2f} GB held before: "
+                             f"{(peak - before) / 1e9:.2f} GB for the "
+                             f"step)"))
+        log(f"phase 9: {label} {b} x {s}: FLOPs bf16 products "
+            f"{cls['products_bf16']:.4e}, f32 products "
+            f"{cls['products_f32']:.4e}, other {cls['other']:.4e}; bytes "
+            f"{rec['hlo_bytes']:.4e}; least {least:.3f} ms "
+            f"({rec['bottleneck']}), measured {ms:.3f} ms, fraction "
+            f"{least / ms:.4f}; products outside attention {products} = "
+            f"closed form, attention {row['attention_over_live_pairs']:.3f}"
+            f" x the live pairs'"
+            + ("" if shape["kind"] != "decode" else
+               f"; bytes {row['bytes_over_model_bounds']:.4f} x "
+               f"model_bounds' decode_bytes")
+            + f"; peak predicted {rec['mem_peak_bytes'] / 1e9:.2f} GB "
+            f"({rec['mem_argument_size_in_bytes'] / 1e9:.2f} GB of "
+            f"arguments), measured {measured_peak}  [{smi}]")
+
+    for name, fn in kernel_calls.items():
+        with CM.CostMode() as mode:
+            fn()
+        torch.cuda.synchronize()
+        launches, charged = mode.cost.kernels[name]
+        require(launches == 1 and list(mode.cost.kernels) == [name],
+                "one kernel charged", name, mode.cost.kernels)
+        out["kernels"][name] = {"charged_bytes": charged,
+                                "table_bytes": table_bytes[name]}
+        log(f"phase 9: {name:8s} charged {charged:.0f} B (operands + "
+            f"results), bound's bytes {table_bytes[name]} B, difference "
+            f"{charged - table_bytes[name]:.0f} B")
+
+    path = out_dir / "dryrun_qwen3-8b_decode_32k.json"
+    t1 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-8b", "--shape", "decode_32k", "--out", str(path)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    require(proc.returncode == 0, "dryrun CLI exit", proc.returncode,
+            proc.stderr[-2000:])
+    (rec,) = json.loads(path.read_text())
+    require(rec["ok"] and rec["arch"] == "qwen3-8b", "dryrun record", rec)
+    out["cli"] = {k: rec[k] for k in (
+        "t_bound_s", "bottleneck", "hlo_flops", "hlo_bytes",
+        "mem_peak_bytes", "fits_one_card")}
+    out["cli"]["seconds"] = time.time() - t1
+    out["seconds"] = time.time() - t0
+    log(f"phase 9: dryrun CLI qwen3-8b decode_32k: exit 0 in "
+        f"{out['cli']['seconds']:.1f} s, least {rec['t_bound_s'] * 1e3:.3f}"
+        f" ms ({rec['bottleneck']}), peak {rec['mem_peak_bytes'] / 1e9:.1f}"
+        f" GB, fits one card: {rec['fits_one_card']}; phase 9 took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2562,10 +2732,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     try:
         if inputs is None:
-            raise ImportError("tools/inputs.py")
+            raise ImportError("tools/inputs.py or src/repro_torch")
         import repro_torch
         from repro_torch.core import compaction, packing
         from repro_torch.core import transcode as tc
@@ -3615,7 +3784,7 @@ def main(argv=None) -> int:
             out[name] = {"ms": ms, "device_ms": device_ms(kern_fn, reps),
                          "plain_ms": cuda_ms(plain_fn, reps=plain_reps,
                                              warmup=1),
-                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bound_ms": nbytes / roofline.HBM_BW * 1e3,
                          "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
         return out
 
@@ -3671,7 +3840,7 @@ def main(argv=None) -> int:
             out[name] = {"ms": ms, "device_ms": device_ms(kern_fn, reps),
                          "plain_ms": cuda_ms(plain_fn, reps=plain_reps,
                                              warmup=1),
-                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bound_ms": nbytes / roofline.HBM_BW * 1e3,
                          "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
         return out
 
@@ -3713,7 +3882,7 @@ def main(argv=None) -> int:
         ms = cuda_ms(kern_fn, reps=10)
         legacy_t[name] = {"ms": ms, "device_ms": device_ms(kern_fn, 10),
                           "plain_ms": cuda_ms(plain_fn, reps=3, warmup=1),
-                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_ms": nbytes / roofline.HBM_BW * 1e3,
                           "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6}
     # The validation kernel on 64 MiB of each class of its dispatch: the
     # latin (all tiles ASCII), arabic (<=2-byte) and chinese (general)
@@ -3828,7 +3997,7 @@ def main(argv=None) -> int:
              "fused_entry_ms": cuda_ms(lambda: repro_torch.transcode(
                  x, dst, src_format=src, strategy="fused"), reps=5),
              "input_bytes": n * x.element_size(),
-             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+             "bound_ms": nbytes / roofline.HBM_BW * 1e3, "bytes": nbytes}
         t["GB_per_s_in"] = t["input_bytes"] / t["device_ms"] / 1e6
         t["steps"] = walk_steps(src, x.cpu().numpy())
         t["ns_per_step"] = t["device_ms"] * 1e6 / t["steps"]
@@ -3896,6 +4065,34 @@ def main(argv=None) -> int:
     for name, count in [*model_launches.items(), *engine_launches.items(),
                         *shard_launches.items(), *train_launches.items()]:
         launches[name] = launches.get(name, 0) + count
+    # -- 9. the analysis stack ---------------------------------------------
+    kw = dict(src="utf8", dst="utf16", errors="strict")
+    n8, n16 = x_main.shape[0], u16_main.shape[0]
+    cap8 = tc.CAP_FACTOR[("utf8", "utf16")] * n8
+    base8, _ = compaction.tile_base_offsets(
+        ft.count_kernel(x_main, n8, validate=True, **kw)[0])
+    own, span = ownership(x_rag, pk.offsets, pk.lengths)
+    capr = tc.CAP_FACTOR[("utf8", "utf16")] * span
+    baser, _ = compaction.tile_base_offsets(
+        rt.rcount_kernel(x_rag, own, validate=True, **kw)[0])
+    kernel_calls = {
+        "count": lambda: ft.count_kernel(x_main, n8, validate=True, **kw),
+        "write": lambda: ft.write_kernel(x_main, n8, base8, cap8, **kw),
+        "onepass": lambda: op.onepass_kernel(x_main, n8, cap8,
+                                             validate=True, **kw),
+        "rcount": lambda: rt.rcount_kernel(x_rag, own, validate=True, **kw),
+        "rwrite": lambda: rt.rwrite_kernel(x_rag, own, baser, capr, **kw),
+        "ronepass": lambda: rt.ronepass_kernel(x_rag, own, capr,
+                                               validate=True, **kw),
+        "validate": lambda: kval.validate_kernel(x_main, n8),
+        "decode": lambda: kdec.decode_kernel(x_main, n8),
+        "encode": lambda: kenc.encode_kernel(u16_main, n16),
+    }
+    table_bytes = {name: t["bytes"] for name, t in [
+        *main_t["kernels"].items(), *rag_t["kernels"].items(),
+        *legacy_t.items()]}
+    report["analysis"] = analysis_phase(report, smi, kernel_calls,
+                                        table_bytes, Path(args.out).parent)
 
     lines = []
     main_flash = flash_t[FLASH_MAIN[0][0]]

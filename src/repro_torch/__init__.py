@@ -34,7 +34,10 @@ path: ``ragged_transcode(strategy="sharded")``, ``repro_torch.core.shard``
 ``repro_torch.launch.mesh``; and single-card training:
 ``repro_torch.train`` (AdamW, microbatches, the chunked-CE step, atomic
 checkpoints in the reference's format) and ``repro_torch.launch.train``
-(resume, SIGTERM).  ``__all__``
+(resume, SIGTERM); and the analysis stack: ``repro_torch.costmodel``
+(an aten-level FLOP and byte count), ``repro_torch.roofline`` (the H100
+roofline) and ``repro_torch.launch.dryrun`` (a cell costed on the meta
+device).  ``__all__``
 holds every name of the reference's, and ``to_numpy``.
 
 Entry points run on the card (``device="cuda"``, the default) or on the

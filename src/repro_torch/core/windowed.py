@@ -53,6 +53,7 @@ import functools
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.core import result as R
 from repro_torch.core import tables as T
 from repro_torch.core import utf16 as u16mod, utf8 as u8mod
@@ -327,13 +328,14 @@ def windowed_utf8_kernel(x, n: int, status0, validate: bool):
     """``(buffer, count, status)`` of the UTF-8 -> UTF-16 walk: the CUDA
     kernel (one warp walks the buffer) on a CUDA tensor (uint8 or int32),
     :func:`windowed_utf8_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return windowed_utf8_plain(x, n, status0, validate)
-    res = _launch("windowed_utf8", x, n, status0, validate, UTF8_ELEMENTS,
-                  utf8_capacity(x.shape[0]),
-                  _packed_table(x.device).data_ptr())
-    windowed_utf8_kernel.launches += 1
-    return res
+    with costmodel.kernel("windowed_utf8", (x, status0)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(windowed_utf8_plain(x, n, status0, validate))
+        res = _launch("windowed_utf8", x, n, status0, validate,
+                      UTF8_ELEMENTS, utf8_capacity(x.shape[0]),
+                      _packed_table(x.device).data_ptr())
+        windowed_utf8_kernel.launches += 1
+        return kc.result(res)
 
 
 windowed_utf8_kernel.launches = 0
@@ -343,12 +345,13 @@ def windowed_utf16_kernel(x, n: int, status0, validate: bool):
     """``(buffer, count, status)`` of the UTF-16 -> UTF-8 walk: the CUDA
     kernel on a CUDA tensor (uint16 or int32),
     :func:`windowed_utf16_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return windowed_utf16_plain(x, n, status0, validate)
-    res = _launch("windowed_utf16", x, n, status0, validate, UTF16_ELEMENTS,
-                  utf16_capacity(x.shape[0]))
-    windowed_utf16_kernel.launches += 1
-    return res
+    with costmodel.kernel("windowed_utf16", (x, status0)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(windowed_utf16_plain(x, n, status0, validate))
+        res = _launch("windowed_utf16", x, n, status0, validate,
+                      UTF16_ELEMENTS, utf16_capacity(x.shape[0]))
+        windowed_utf16_kernel.launches += 1
+        return kc.result(res)
 
 
 windowed_utf16_kernel.launches = 0

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.kernels import _build, runtime
 
 BQ = 128
@@ -99,42 +100,45 @@ def flash_kernel(q, k, v, window=None, bq: int = BQ, bk: int = BK):
     """Attention output ``(B, Sq, H, D)``: the CUDA flash kernel on CUDA
     tensors (float32 or bfloat16, head dim 32, 64, 80 or 128),
     :func:`flash_plain` on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_plain(q, k, v, window, bq, bk)
-    check_shapes(q, k, v, bq, bk)
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device != q.device or t.dtype != q.dtype \
-                or t.dtype not in KERNEL_DTYPES or not t.is_contiguous():
+    with costmodel.kernel("flash", (q, k, v)) as kc:
+        if q.device.type == "cpu":
+            return kc.result(flash_plain(q, k, v, window, bq, bk))
+        check_shapes(q, k, v, bq, bk)
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            if t.device != q.device or t.dtype != q.dtype \
+                    or t.dtype not in KERNEL_DTYPES or not t.is_contiguous():
+                raise ValueError(
+                    f"flash_kernel: {name} must be a contiguous float32 or "
+                    f"bfloat16 CUDA tensor like q, got {t.dtype} on "
+                    f"{t.device}")
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"flash_kernel: {name} must start on a 16-byte boundary "
+                    f"(the kernels' TMA copies need it)")
+        if d not in KERNEL_HEAD_DIMS or bq % KERNEL_ROWS or bk % KERNEL_KEYS:
             raise ValueError(
-                f"flash_kernel: {name} must be a contiguous float32 or "
-                f"bfloat16 CUDA tensor like q, got {t.dtype} on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"flash_kernel: {name} must start on a 16-byte boundary "
-                f"(the kernels' TMA copies need it)")
-    if d not in KERNEL_HEAD_DIMS or bq % KERNEL_ROWS or bk % KERNEL_KEYS:
-        raise ValueError(
-            f"flash_kernel: takes head dims {KERNEL_HEAD_DIMS}, bq a "
-            f"multiple of {KERNEL_ROWS} and bk of {KERNEL_KEYS}; got D={d}, "
-            f"bq={bq}, bk={bk}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    # A window past the sequence lengths masks nothing more, and one
-    # below -(Sq + Sk) leaves no live tile: clamp into int range.
-    win = 0 if window is None else max(-(sq + sk), min(int(window), sq + sk))
-    lib = _build.library(q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
-            KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, h, sq, sk, bq, bk,
-            int(window is not None), win, 1.0 / math.sqrt(d),
-            _build.stream_of(q.device))
-    _build.check(rc, "flash_kernel")
-    flash_kernel.launches += 1
-    return out
+                f"flash_kernel: takes head dims {KERNEL_HEAD_DIMS}, bq a "
+                f"multiple of {KERNEL_ROWS} and bk of {KERNEL_KEYS}; got "
+                f"D={d}, bq={bq}, bk={bk}")
+        out = torch.empty_like(q)
+        if out.numel() == 0:
+            return out
+        # A window past the sequence lengths masks nothing more, and one
+        # below -(Sq + Sk) leaves no live tile: clamp into int range.
+        win = 0 if window is None else max(-(sq + sk),
+                                           min(int(window), sq + sk))
+        lib = _build.library(q.device)
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attention_fwd(
+                KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, h, sq, sk, bq, bk,
+                int(window is not None), win, 1.0 / math.sqrt(d),
+                _build.stream_of(q.device))
+        _build.check(rc, "flash_kernel")
+        flash_kernel.launches += 1
+        return kc.result(out)
 
 
 flash_kernel.launches = 0

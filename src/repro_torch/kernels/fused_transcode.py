@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.core import compaction
 from repro_torch.core import result as R
 from repro_torch.kernels import _build, runtime
@@ -82,23 +83,25 @@ def count_kernel(x, n: int, *, src: str, dst: str, errors: str,
                  validate: bool):
     """Per-tile ``(total, err, first_err)``: the CUDA count kernel on a
     CUDA tensor, :func:`count_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return count_plain(x, n, src=src, dst=dst, errors=errors,
-                           validate=validate)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    _build.check_tensor(x, codec_s.dtype, "count_kernel")
-    _build.check_length(x, n, "count_kernel")
-    nblk = stages.num_tiles(x.shape[0])
-    out = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_count(
-            codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-            replace_flag(errors), int(validate), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), _build.stream_of(x.device))
-    _build.check(rc, "count_kernel")
-    count_kernel.launches += 1
-    return out[0], out[1], out[2]
+    with costmodel.kernel("count", (x,)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(count_plain(x, n, src=src, dst=dst,
+                                         errors=errors, validate=validate))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        _build.check_tensor(x, codec_s.dtype, "count_kernel")
+        _build.check_length(x, n, "count_kernel")
+        nblk = stages.num_tiles(x.shape[0])
+        out = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_count(
+                codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
+                replace_flag(errors), int(validate), out[0].data_ptr(),
+                out[1].data_ptr(), out[2].data_ptr(),
+                _build.stream_of(x.device))
+        _build.check(rc, "count_kernel")
+        count_kernel.launches += 1
+        return kc.result(out[0], out[1], out[2])
 
 
 count_kernel.launches = 0
@@ -132,27 +135,29 @@ def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
     end and zeros from there to ``cap``, so the output is allocated
     uninitialised, and only that scan makes the tiles' units cover
     everything below the end."""
-    if x.device.type == "cpu":
-        return write_plain(x, n, base, cap, src=src, dst=dst, errors=errors)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    nblk = stages.num_tiles(x.shape[0])
-    _build.check_tensor(x, codec_s.dtype, "write_kernel")
-    _build.check_length(x, n, "write_kernel")
-    _build.check_tensor(base, torch.int32, "write_kernel base")
-    if base.shape[0] != nblk or base.device != x.device or cap < 0:
-        raise ValueError(
-            f"write_kernel: base must hold {nblk} offsets on {x.device}, "
-            f"and cap ({cap}) must not be negative")
-    out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_write(
-            codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-            replace_flag(errors), base.data_ptr(), cap, out.data_ptr(),
-            _build.stream_of(x.device))
-    _build.check(rc, "write_kernel")
-    write_kernel.launches += 1
-    return out
+    with costmodel.kernel("write", (x, base)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(write_plain(x, n, base, cap, src=src, dst=dst,
+                                         errors=errors))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        nblk = stages.num_tiles(x.shape[0])
+        _build.check_tensor(x, codec_s.dtype, "write_kernel")
+        _build.check_length(x, n, "write_kernel")
+        _build.check_tensor(base, torch.int32, "write_kernel base")
+        if base.shape[0] != nblk or base.device != x.device or cap < 0:
+            raise ValueError(
+                f"write_kernel: base must hold {nblk} offsets on {x.device}, "
+                f"and cap ({cap}) must not be negative")
+        out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_write(
+                codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
+                replace_flag(errors), base.data_ptr(), cap, out.data_ptr(),
+                _build.stream_of(x.device))
+        _build.check(rc, "write_kernel")
+        write_kernel.launches += 1
+        return kc.result(out)
 
 
 write_kernel.launches = 0

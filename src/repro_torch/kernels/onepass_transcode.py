@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.core import compaction
 from repro_torch.core import result as R
 from repro_torch.kernels import _build
@@ -64,30 +65,31 @@ def onepass_kernel(x, n: int, cap: int, *, src: str, dst: str, errors: str,
                    validate: bool):
     """``(buffer, fin)``: the CUDA one-pass kernel on a CUDA tensor,
     :func:`onepass_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return onepass_plain(x, n, cap, src=src, dst=dst, errors=errors,
-                             validate=validate)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    _build.check_tensor(x, codec_s.dtype, "onepass_kernel")
-    _build.check_length(x, n, "onepass_kernel")
-    if cap < 0:
-        raise ValueError(f"onepass_kernel: negative cap {cap}")
-    nblk = stages.num_tiles(x.shape[0])
-    out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
-    state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
-    ctl = torch.zeros(3, dtype=torch.int32, device=x.device)
-    ctl[2] = R.NO_ERR_SENTINEL       # [ticket, err, first error]
-    fin = torch.empty(2, dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_onepass(
-            codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-            ft.replace_flag(errors), int(validate), cap, state.data_ptr(),
-            ctl.data_ptr(), fin.data_ptr(), out.data_ptr(),
-            _build.stream_of(x.device))
-    _build.check(rc, "onepass_kernel")
-    onepass_kernel.launches += 1
-    return out, fin
+    with costmodel.kernel("onepass", (x,)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(onepass_plain(x, n, cap, src=src, dst=dst,
+                                           errors=errors, validate=validate))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        _build.check_tensor(x, codec_s.dtype, "onepass_kernel")
+        _build.check_length(x, n, "onepass_kernel")
+        if cap < 0:
+            raise ValueError(f"onepass_kernel: negative cap {cap}")
+        nblk = stages.num_tiles(x.shape[0])
+        out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
+        state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
+        ctl = torch.zeros(3, dtype=torch.int32, device=x.device)
+        ctl[2] = R.NO_ERR_SENTINEL       # [ticket, err, first error]
+        fin = torch.empty(2, dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_onepass(
+                codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
+                ft.replace_flag(errors), int(validate), cap, state.data_ptr(),
+                ctl.data_ptr(), fin.data_ptr(), out.data_ptr(),
+                _build.stream_of(x.device))
+        _build.check(rc, "onepass_kernel")
+        onepass_kernel.launches += 1
+        return kc.result(out, fin)
 
 
 onepass_kernel.launches = 0

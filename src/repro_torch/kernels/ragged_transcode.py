@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import costmodel
 from repro_torch.core import compaction, packing
 from repro_torch.core import result as R
 from repro_torch.kernels import _build, runtime, stages
@@ -154,24 +155,25 @@ def rcount_kernel(x, own, *, src: str, dst: str, errors: str,
     """Per-tile ``(total, err, first_err)``: the CUDA count kernel on the
     packed geometry for a CUDA tensor, :func:`rcount_plain` for a CPU
     tensor."""
-    if x.device.type == "cpu":
-        return rcount_plain(x, own, src=src, dst=dst, errors=errors,
-                            validate=validate)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    _build.check_tensor(x, codec_s.dtype, "rcount_kernel")
-    runtime.check_size(x.shape[0])
-    nblk = _check_own(x, own, "rcount_kernel")
-    out = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_rcount(
-            codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
-            *_ptrs(own), ft.replace_flag(errors), int(validate),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            _build.stream_of(x.device))
-    _build.check(rc, "rcount_kernel")
-    rcount_kernel.launches += 1
-    return out[0], out[1], out[2]
+    with costmodel.kernel("rcount", (x, own[1:])) as kc:
+        if x.device.type == "cpu":
+            return kc.result(rcount_plain(x, own, src=src, dst=dst,
+                                          errors=errors, validate=validate))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        _build.check_tensor(x, codec_s.dtype, "rcount_kernel")
+        runtime.check_size(x.shape[0])
+        nblk = _check_own(x, own, "rcount_kernel")
+        out = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_rcount(
+                codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
+                *_ptrs(own), ft.replace_flag(errors), int(validate),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                _build.stream_of(x.device))
+        _build.check(rc, "rcount_kernel")
+        rcount_kernel.launches += 1
+        return kc.result(out[0], out[1], out[2])
 
 
 rcount_kernel.launches = 0
@@ -205,28 +207,29 @@ def rwrite_kernel(x, own, base, cap: int, *, src: str, dst: str,
     end and zeros from there to ``cap``, so the output is allocated
     uninitialised, and only that scan makes the tiles' units cover
     everything below the end."""
-    if x.device.type == "cpu":
-        return rwrite_plain(x, own, base, cap, src=src, dst=dst,
-                            errors=errors)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    _build.check_tensor(x, codec_s.dtype, "rwrite_kernel")
-    runtime.check_size(x.shape[0])
-    nblk = _check_own(x, own, "rwrite_kernel")
-    _build.check_tensor(base, torch.int32, "rwrite_kernel base")
-    if base.shape[0] != nblk or base.device != x.device or cap < 0:
-        raise ValueError(
-            f"rwrite_kernel: base must hold {nblk} offsets on {x.device}, "
-            f"and cap ({cap}) must not be negative")
-    out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_rwrite(
-            codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
-            *_ptrs(own), ft.replace_flag(errors), base.data_ptr(), cap,
-            out.data_ptr(), _build.stream_of(x.device))
-    _build.check(rc, "rwrite_kernel")
-    rwrite_kernel.launches += 1
-    return out
+    with costmodel.kernel("rwrite", (x, own[1:], base)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(rwrite_plain(x, own, base, cap, src=src, dst=dst,
+                                          errors=errors))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        _build.check_tensor(x, codec_s.dtype, "rwrite_kernel")
+        runtime.check_size(x.shape[0])
+        nblk = _check_own(x, own, "rwrite_kernel")
+        _build.check_tensor(base, torch.int32, "rwrite_kernel base")
+        if base.shape[0] != nblk or base.device != x.device or cap < 0:
+            raise ValueError(
+                f"rwrite_kernel: base must hold {nblk} offsets on {x.device}, "
+                f"and cap ({cap}) must not be negative")
+        out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_rwrite(
+                codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
+                *_ptrs(own), ft.replace_flag(errors), base.data_ptr(), cap,
+                out.data_ptr(), _build.stream_of(x.device))
+        _build.check(rc, "rwrite_kernel")
+        rwrite_kernel.launches += 1
+        return kc.result(out)
 
 
 rwrite_kernel.launches = 0
@@ -252,30 +255,32 @@ def ronepass_kernel(x, own, cap: int, *, src: str, dst: str, errors: str,
                     validate: bool):
     """``(buffer, totals, errs, ferrs)``: the CUDA ragged one-pass kernel
     for a CUDA tensor, :func:`ronepass_plain` for a CPU tensor."""
-    if x.device.type == "cpu":
-        return ronepass_plain(x, own, cap, src=src, dst=dst, errors=errors,
-                              validate=validate)
-    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    _build.check_tensor(x, codec_s.dtype, "ronepass_kernel")
-    runtime.check_size(x.shape[0])
-    nblk = _check_own(x, own, "ronepass_kernel")
-    if cap < 0:
-        raise ValueError(f"ronepass_kernel: negative cap {cap}")
-    out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
-    state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
-    per_tile = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.transcode_ronepass(
-            codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
-            *_ptrs(own), ft.replace_flag(errors), int(validate), cap,
-            state.data_ptr(), ticket.data_ptr(), per_tile[0].data_ptr(),
-            per_tile[1].data_ptr(), per_tile[2].data_ptr(), out.data_ptr(),
-            _build.stream_of(x.device))
-    _build.check(rc, "ronepass_kernel")
-    ronepass_kernel.launches += 1
-    return out, per_tile[0], per_tile[1], per_tile[2]
+    with costmodel.kernel("ronepass", (x, own[1:])) as kc:
+        if x.device.type == "cpu":
+            return kc.result(ronepass_plain(x, own, cap, src=src, dst=dst,
+                                            errors=errors,
+                                            validate=validate))
+        codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+        _build.check_tensor(x, codec_s.dtype, "ronepass_kernel")
+        runtime.check_size(x.shape[0])
+        nblk = _check_own(x, own, "ronepass_kernel")
+        if cap < 0:
+            raise ValueError(f"ronepass_kernel: negative cap {cap}")
+        out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
+        state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
+        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+        per_tile = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.transcode_ronepass(
+                codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
+                *_ptrs(own), ft.replace_flag(errors), int(validate), cap,
+                state.data_ptr(), ticket.data_ptr(), per_tile[0].data_ptr(),
+                per_tile[1].data_ptr(), per_tile[2].data_ptr(), out.data_ptr(),
+                _build.stream_of(x.device))
+        _build.check(rc, "ronepass_kernel")
+        ronepass_kernel.launches += 1
+        return kc.result(out, per_tile[0], per_tile[1], per_tile[2])
 
 
 ronepass_kernel.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels.stages import utf16 as s_utf16
 from repro_torch.kernels.stages.driver import BLOCK, num_tiles
@@ -40,21 +41,22 @@ def encode_plain(x, n: int):
 def encode_kernel(x, n: int):
     """``(b0, b1, b2, b3, L, errs)``: the CUDA encode kernel on a CUDA
     tensor (uint16 or int32), :func:`encode_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return encode_plain(x, n)
-    check_legacy_input(x, n, ELEMENTS, "encode_kernel")
-    length = x.shape[0]
-    nblk = num_tiles(length)
-    planes = torch.empty((5, length), dtype=torch.int32, device=x.device)
-    errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.legacy_encode(ELEMENTS[x.dtype], x.data_ptr(), n,
-                               length, nblk, planes.data_ptr(),
-                               errs.data_ptr(), _build.stream_of(x.device))
-    _build.check(rc, "encode_kernel")
-    encode_kernel.launches += 1
-    return (*planes.unbind(0), errs)
+    with costmodel.kernel("encode", (x,)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(encode_plain(x, n))
+        check_legacy_input(x, n, ELEMENTS, "encode_kernel")
+        length = x.shape[0]
+        nblk = num_tiles(length)
+        planes = torch.empty((5, length), dtype=torch.int32, device=x.device)
+        errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.legacy_encode(ELEMENTS[x.dtype], x.data_ptr(), n,
+                                   length, nblk, planes.data_ptr(),
+                                   errs.data_ptr(), _build.stream_of(x.device))
+        _build.check(rc, "encode_kernel")
+        encode_kernel.launches += 1
+        return kc.result((*planes.unbind(0), errs))
 
 
 encode_kernel.launches = 0

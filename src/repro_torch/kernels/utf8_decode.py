@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import BLOCK, num_tiles
@@ -54,21 +55,22 @@ def decode_plain(x, n: int):
 def decode_kernel(x, n: int):
     """``(cp, lead, units, errs)``: the CUDA decode kernel on a CUDA
     tensor (uint8 or int32), :func:`decode_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return decode_plain(x, n)
-    check_legacy_input(x, n, ELEMENTS, "decode_kernel")
-    length = x.shape[0]
-    nblk = num_tiles(length)
-    planes = torch.empty((3, length), dtype=torch.int32, device=x.device)
-    errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.legacy_decode(ELEMENTS[x.dtype], x.data_ptr(), n,
-                               length, nblk, planes.data_ptr(),
-                               errs.data_ptr(), _build.stream_of(x.device))
-    _build.check(rc, "decode_kernel")
-    decode_kernel.launches += 1
-    return planes[0], planes[1], planes[2], errs
+    with costmodel.kernel("decode", (x,)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(decode_plain(x, n))
+        check_legacy_input(x, n, ELEMENTS, "decode_kernel")
+        length = x.shape[0]
+        nblk = num_tiles(length)
+        planes = torch.empty((3, length), dtype=torch.int32, device=x.device)
+        errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.legacy_decode(ELEMENTS[x.dtype], x.data_ptr(), n,
+                                   length, nblk, planes.data_ptr(),
+                                   errs.data_ptr(), _build.stream_of(x.device))
+        _build.check(rc, "decode_kernel")
+        decode_kernel.launches += 1
+        return kc.result(planes[0], planes[1], planes[2], errs)
 
 
 decode_kernel.launches = 0

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import costmodel
 from repro_torch.core import tables as T
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels.stages.common import shift_right_flat, take
@@ -87,19 +88,20 @@ def validate_kernel(x, n: int):
     """Per-tile Keiser-Lemire maxima: the CUDA validation kernel on a
     CUDA tensor (uint8 or int32), :func:`validate_plain` on a CPU
     tensor."""
-    if x.device.type == "cpu":
-        return validate_plain(x, n)
-    check_legacy_input(x, n, ELEMENTS, "validate_kernel")
-    nblk = num_tiles(x.shape[0])
-    errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
-    lib = _build.library(x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.legacy_validate(ELEMENTS[x.dtype], x.data_ptr(), n,
-                                 nblk, errs.data_ptr(),
-                                 _build.stream_of(x.device))
-    _build.check(rc, "validate_kernel")
-    validate_kernel.launches += 1
-    return errs
+    with costmodel.kernel("validate", (x,)) as kc:
+        if x.device.type == "cpu":
+            return kc.result(validate_plain(x, n))
+        check_legacy_input(x, n, ELEMENTS, "validate_kernel")
+        nblk = num_tiles(x.shape[0])
+        errs = torch.empty(nblk, dtype=torch.int32, device=x.device)
+        lib = _build.library(x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.legacy_validate(ELEMENTS[x.dtype], x.data_ptr(), n,
+                                     nblk, errs.data_ptr(),
+                                     _build.stream_of(x.device))
+        _build.check(rc, "validate_kernel")
+        validate_kernel.launches += 1
+        return kc.result(errs)
 
 
 validate_kernel.launches = 0

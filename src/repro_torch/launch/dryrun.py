@@ -1,0 +1,260 @@
+"""One-card dry run: cost every (arch x shape) cell without a card or data.
+
+Port of ``repro.launch.dryrun``.  For each cell the step (train step,
+prefill or decode) is built over a model on the meta device, with meta
+stand-ins for its inputs (no allocation, no data), and run once under
+:class:`repro_torch.costmodel.CostMode` and a tracker of live storages
+(:class:`LiveBytes`, the counterpart of ``memory_analysis()``).  The
+record is the reference's: the three-term roofline of
+:mod:`repro_torch.roofline` and the memory (arguments, outputs, the
+temporaries' peak), plus ``fits_one_card``.
+
+The mesh is ``1xH100``, one card.  The reference's multi-card meshes and
+its ``--multipod``, ``--both-meshes``, ``--layout`` and ``--opt`` need the
+sharding specs of multi-card training (``train/sharding.py``,
+``zero1_specs``), which the port does not have yet; they are left out.
+
+Usage:
+    python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
+    python -m repro_torch.launch.dryrun --all [--out results.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import configs as cfgmod
+from repro_torch import costmodel as CM
+from repro_torch import roofline as RL
+from repro_torch.configs import shapes as shp
+from repro_torch.models import registry
+from repro_torch.serve import kvcache, serve_step
+from repro_torch.train import optimizer as O
+from repro_torch.train import train_step as TS
+
+MESH = "1xH100"
+CHIPS = 1
+
+
+def _shape(shape_name: str, shape=None) -> dict:
+    return dict(shape) if shape is not None else shp.SHAPES[shape_name]
+
+
+def input_specs(arch: str, shape_name: str, *, reduced: bool = False,
+                shape=None):
+    """Meta-tensor stand-ins for every model input of the
+    cell, in the reference's shapes and dtypes.  ``shape``: a dict of
+    ``kind``, ``seq_len`` and ``global_batch`` in place of
+    ``shapes.SHAPES[shape_name]``, and optionally ``context``, the
+    decode state's context when it is not ``seq_len``."""
+    mod = cfgmod.get_module(arch)
+    family = mod.FAMILY
+    cfg = mod.reduced() if reduced else mod.CONFIG
+    s = _shape(shape_name, shape)
+    seq, gb, kind = s["seq_len"], s["global_batch"], s["kind"]
+
+    def ints(*dims):
+        return torch.zeros(dims, dtype=torch.int32, device="meta")
+
+    specs = {}
+    if kind == "train":
+        specs["tokens"] = ints(gb, seq)
+        specs["labels"] = ints(gb, seq)
+    elif kind == "prefill":
+        specs["tokens"] = ints(gb, seq)
+        specs["lens"] = torch.full((gb,), seq, dtype=torch.int32,
+                                   device="meta")
+    else:
+        specs["tok"] = ints(gb, 1)
+        specs["pos"] = torch.full((gb,), seq - 1, dtype=torch.int32,
+                                  device="meta")
+    if family == "encdec":
+        specs["frames"] = torch.zeros(
+            (gb, cfg.n_audio_frames, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    return specs
+
+
+def build_cell(arch: str, shape_name: str, *, remat=True,
+               remat_policy: str = "full", reduced: bool = False,
+               shape=None):
+    """Returns ``(fn, args, model_flops)``: ``fn(*args)`` runs the
+    cell's step once over a model on the meta device; ``args`` holds the
+    step's arguments (the parameters, the optimizer state and the batch,
+    or the parameters, inputs and decode state)."""
+    mod = cfgmod.get_module(arch)
+    family = mod.FAMILY
+    cfg = mod.reduced() if reduced else mod.CONFIG
+    if hasattr(cfg, "remat") and (not remat or remat_policy != "full"):
+        kw = {"remat": remat}
+        if hasattr(cfg, "remat_policy"):
+            kw["remat_policy"] = remat_policy
+        cfg = dataclasses.replace(cfg, **kw)
+    model = registry.build(cfg, device="meta")
+    s = _shape(shape_name, shape)
+    seq, gb, kind = s["seq_len"], s["global_batch"], s["kind"]
+    n_active = RL.active_params(cfg, RL.count_params(model))
+    ins = input_specs(arch, shape_name, reduced=reduced, shape=shape)
+
+    if kind == "train":
+        step = TS.make_train_step(model, family, O.AdamWConfig())
+
+        def fn(params, opt_state, batch):
+            return step(batch)
+        return (fn, (dict(model.named_parameters()), step.opt_state, ins),
+                6.0 * n_active * gb * seq)
+
+    ctx = s.get("context", seq)
+    cap = kvcache.capacity_for(cfg, ctx)
+    if family == "encdec":
+        pre, dec = serve_step.make_encdec_steps(model)
+        if kind == "prefill":
+            def fn(params, frames, tokens):
+                return pre(params, frames, tokens, cap)[0]
+            return (fn, (model, ins["frames"], ins["tokens"]),
+                    2.0 * n_active * gb * seq)
+        with torch.no_grad():
+            state = model.init_state(ins["frames"], gb, cap)
+        return dec, (model, ins["tok"], state), 2.0 * n_active * gb
+
+    state = kvcache.init_state(model, cfg, gb, ctx)
+    if kind == "prefill":
+        return (serve_step.make_prefill(model, family),
+                (model, ins["tokens"], ins["lens"], state),
+                2.0 * n_active * gb * seq)
+    return (serve_step.make_decode(model, family),
+            (model, ins["tok"], ins["pos"], state, None),
+            2.0 * n_active * gb)
+
+
+def _arg_tensors(args):
+    out = []
+    for a in args:
+        if isinstance(a, torch.nn.Module):
+            out += list(a.parameters()) + list(a.buffers())
+        else:
+            out += CM.tensors(a)
+    return out
+
+
+def _storage_bytes(tensors) -> float:
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return float(sum(seen.values()))
+
+
+class LiveBytes(TorchDispatchMode):
+    """Bytes of the live storages: those of ``held`` (the arguments) and
+    every storage an op inside the mode makes, until it is freed.
+    ``peak`` is the most that were live at once."""
+
+    def __init__(self, held):
+        super().__init__()
+        self._alive = {}
+        self.args = self.live = self.peak = float(
+            sum(self._track(t) for t in held))
+
+    def _track(self, t) -> int:
+        """Bytes of ``t``'s storage if it is new, else 0."""
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._alive:
+            return 0
+        n = st.nbytes()
+
+        def freed(_ref, key=key, n=n):
+            self._alive.pop(key, None)
+            self.live -= n
+        self._alive[key] = (n, weakref.ref(st, freed))
+        return n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in CM.tensors(out):
+            self.live += self._track(t)
+        self.peak = max(self.peak, self.live)
+        return out
+
+
+def dryrun_cell(arch: str, shape_name: str, *, remat=True,
+                remat_policy: str = "full", reduced: bool = False,
+                shape=None, verbose=True):
+    """Cost one cell on the meta device; returns the result record."""
+    fn, args, model_flops = build_cell(
+        arch, shape_name, remat=remat, remat_policy=remat_policy,
+        reduced=reduced, shape=shape)
+    with CM.CostMode() as cm, LiveBytes(_arg_tensors(args)) as mem:
+        out = fn(*args)
+    rl = RL.analyze(arch, shape_name, MESH, CHIPS, cm.cost,
+                    model_flops=model_flops)
+    rec = rl.to_dict()
+    rec["ok"] = True
+    rec["remat"] = remat
+    rec["variant"] = "baseline"
+    rec["mem_temp_size_in_bytes"] = mem.peak - mem.args
+    rec["mem_argument_size_in_bytes"] = mem.args
+    rec["mem_output_size_in_bytes"] = _storage_bytes(CM.tensors(out))
+    rec["mem_generated_code_size_in_bytes"] = None
+    rec["mem_peak_bytes"] = mem.peak
+    rec["flops_by_op"] = cm.cost.flops_by_op
+    rec["fits_one_card"] = mem.peak <= RL.HBM_BYTES
+    if verbose:
+        print(f"[{arch} x {shape_name} x {MESH}] OK  "
+              f"flops={rec['hlo_flops']:.3e} bytes={rec['hlo_bytes']:.3e} "
+              f"coll={rec['coll_bytes']:.3e} bottleneck={rec['bottleneck']}")
+        print(f"  memory: temp={rec['mem_temp_size_in_bytes']:.0f} "
+              f"args={rec['mem_argument_size_in_bytes']:.0f} "
+              f"peak={mem.peak:.0f} fits_one_card={rec['fits_one_card']}")
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--remat-policy", default="full",
+                    choices=["full", "dots"])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    arch_ids = [a for a in cfgmod.ARCH_IDS if a != "bytelm-100m"]
+    if args.all:
+        todo = [(a, s) for (a, s, run, _) in shp.cells(arch_ids) if run]
+    elif args.arch and args.shape:
+        todo = [(args.arch, args.shape)]
+    else:
+        ap.error("give --arch and --shape, or --all")
+
+    results = []
+    for arch, shape in todo:
+        try:
+            rec = dryrun_cell(arch, shape, remat=not args.no_remat,
+                              remat_policy=args.remat_policy)
+        except Exception as e:  # noqa: BLE001  (the cell is recorded)
+            traceback.print_exc()
+            rec = {"arch": arch, "shape": shape, "mesh": MESH, "ok": False,
+                   "error": f"{type(e).__name__}: {e}"}
+        results.append(rec)
+
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    n_ok = sum(r["ok"] for r in results)
+    print(f"\n{n_ok}/{len(results)} cells OK")
+    return 0 if n_ok == len(results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

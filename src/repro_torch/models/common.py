@@ -49,7 +49,9 @@ F32 = torch.float32
 
 
 def _narrow_on_card(x, w) -> bool:
-    return x.device.type == "cuda" and x.dtype == w.dtype != F32
+    """Narrow operands of one dtype on the card, or on the meta device,
+    where the cost model traces the card's path."""
+    return x.device.type in ("cuda", "meta") and x.dtype == w.dtype != F32
 
 
 class _Mm32(torch.autograd.Function):

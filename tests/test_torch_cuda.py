@@ -1132,3 +1132,27 @@ def test_reduced_train_step_on_card_matches_cpu():
     hp = dict(host.named_parameters())
     for n, p in card.named_parameters():
         torch.testing.assert_close(p.detach().cpu(), hp[n].detach(), **tol)
+
+
+@pytest.mark.cuda
+def test_cost_region_charges_count_kernel_as_plain():
+    """Under ``CostMode`` the count kernel on the card is charged what
+    its plain version is charged on the CPU for the same buffer:
+    operands + results, and no per-op cost from either."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch import costmodel as CM
+    x = torch.from_numpy(C.utf8_buffer("chinese", 1 << 20,
+                                       np.random.default_rng(71)))
+    charged = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev)
+        with CM.CostMode() as mode:
+            ft.count_kernel(xd, len(x), src="utf8", dst="utf16",
+                            errors="strict", validate=True)
+        charged[dev] = mode.cost
+    nblk = stages.num_tiles(len(x))
+    assert charged["cuda"].kernels == charged["cpu"].kernels \
+        == {"count": [1, len(x) + 3 * 4 * nblk]}
+    assert charged["cuda"].bytes == charged["cpu"].bytes == len(x) + 12 * nblk
+    assert charged["cuda"].flops == charged["cpu"].flops == 0

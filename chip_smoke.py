@@ -218,8 +218,28 @@ Phases, in order; any failure exits non-zero before the last line:
      ``train_flops``; each transcode kernel's charge under ``CostMode``
      on phase 3's 64 MiB inputs beside the bytes behind its bound; the
      dry-run CLI on qwen3-8b ``decode_32k`` as a subprocess.
- 10. The ``kernels`` line (all twelve kernels), then ``{"ok": true,
-     "device": ...}`` last.
+ 10. Multi-rank training (:func:`multirank_phase`), after phase 9:
+     bytelm-100m at its published config and the launcher's 8 x 512
+     global batch, each rank a process.  (a) The launcher under
+     ``torch.distributed.run`` at world 1 under NCCL, mesh (1, 1): 3
+     steps bit-equal to the single-process launcher's (metrics and the
+     step-3 checkpoint's files).  (b) Four gloo ranks sharing the card,
+     meshes (2, 2) and (4, 1) (``train.sharding``: parameters and AdamW
+     moments kept as the reference's specs and ZeRO-1 say, gathered
+     before use): loss, grad norm and step-3 parameters within
+     ``MR_BF16_TOL`` of (a); each rank's resident bytes equal to its spec
+     shards; each rank's pipeline launches (one ronepass a batch); the
+     collectives' bytes (``CostMode``) beside the specs' closed form; the
+     step split into gathers, forward and backward, reductions and
+     update.  (c) The (2, 2) run's step-2 checkpoint resumed by two
+     ranks through the launcher on ``plan_remesh``'s (1, 2) mesh and 2
+     microbatches: steps 3-4 within ``MR_ELASTIC_REL`` of the four-rank
+     run's.  (d) ``hierarchical_grad_sync`` at (pod 2, data 2) within
+     0.02 of a plain float32 all-reduce, its int8 pod hop a quarter of
+     the float32 hop's payload.
+ 11. The ``kernels`` line (all twelve kernels; ronepass's launches
+     include phase 10's ranks'), then ``{"ok": true, "device": ...}``
+     last.
 
 Imports nothing of JAX or of the reference package ``repro``.  Fails when
 no CUDA device is present, and when run without the rest of the repo.
@@ -404,6 +424,28 @@ TRAIN_RESUME_REL = 0.5
 # the gradients may be summed in another order where the backward uses
 # atomics, so the gradient norm is held to one bf16 rounding step.
 TRAIN_REMAT_REL = 2 ** -8
+# Phase 10: four gloo ranks on one card against run (a), one rank under
+# NCCL, over 3 steps of bf16 training.  Step 1 starts from the same
+# weights, so only the order of the float32 sums differs (the CE over the
+# ranks' rows, the gradient summed over the data ranks after each rank's
+# bf16 cast, where (a) casts the whole batch's): the loss differs in its
+# last bits, the gradient norm by about phase 8's card-vs-CPU 1.06e-4 at
+# most.  Steps 2-3 start from parameters that may differ by one bf16 step
+# where a value lands near a rounding boundary.  Predicted before the
+# first run: loss within 2**-12 relative, grad norm within 2**-10; every
+# parameter after step 3 within twice the learning rates' sum (each Adam
+# step may take the other sign where a gradient is at its rounding noise)
+# plus one bf16 step (2**-7 of the value) for each of the three casts.
+MR_BF16_TOL = {"loss_rel": 2 ** -12, "gnorm_rel": 2 ** -10}
+# The elastic resume differs by design: two microbatches, each a mean over
+# its own label count (the reference's accumulate_microbatches), where the
+# four-rank run takes one mean over all 8 rows; the pipeline's rows count
+# 509-511 labels, so the halves' weights differ by up to ~0.4 %, and step
+# 3's update with them.  The first run on an H100 (700 W) measured 4.7e-6
+# at step 3 and 2.25e-4 at step 4, 0.92 of the predicted 2**-12, which left
+# the weighting out; 2**-10 gives step 4 about four times its measure.
+MR_ELASTIC_REL = 2 ** -10
+MR_PARAM_BOUND = {"lr_sum": 2 * 3e-4 * (1 + 2 + 3) / 5, "rel": 3 * 2 ** -7}
 PY_CODEC = {"utf8": "utf-8", "utf16": "utf-16-le", "utf32": "utf-32-le",
             "latin1": "latin-1"}
 NP_DTYPE = {"utf8": np.uint8, "utf16": np.uint16, "utf32": np.uint32,
@@ -2720,12 +2762,656 @@ def analysis_phase(report: dict, smi: str, kernel_calls: dict,
     return out
 
 
+# Phase 10, multi-rank training on the one card: bytelm-100m at full width
+# and the launcher's 8 x 512 global batch, its ranks subprocesses.
+MR_STEPS = 3                        # the steps (a) and (b) compare
+MR_MESHES = ((2, 2), (4, 1))
+MR_SAVE_AT, MR_TOTAL = 2, 4          # (c): the (2, 2) run's checkpoint, end
+MR_TIMEOUT = 600                     # a rank group's wall-clock limit, s
+MR_COLLECTIVES = ("all-gather", "reduce-scatter", "all-reduce", "broadcast")
+
+
+def _kernel_counters():
+    """The pipeline's hand kernels: name -> wrapper (its ``launches``)."""
+    from repro_torch.kernels import ragged_transcode as rt
+    from repro_torch.kernels import utf8_validate as kval
+    return {"validate": kval.validate_kernel, "ronepass": rt.ronepass_kernel,
+            "rcount": rt.rcount_kernel, "rwrite": rt.rwrite_kernel}
+
+
+def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
+                           rows_split: bool = True) -> dict:
+    """Bytes of one sharded step's collectives by kind, from the specs
+    alone, under ``CostMode``'s convention (a collective is charged its
+    output): per microbatch, each weight's gathers (``Leaf.uses`` in the
+    forward, again in a layer's remat recompute; a leaf the layers use
+    without ``gather`` once, when the microbatch starts), one backward
+    reduction per forward gather (reduce-scatter over the batch axes its
+    spec names, in float32, an all-reduce over those it does not), the
+    label count and the CE (4 B each); per step, the gradient norm (4 B)
+    and the ZeRO-1 update: an all-gather of each further-split slice, a
+    broadcast of each layer whose moments one data rank holds."""
+    mesh = rt.mesh
+    batch = set(rt.batch_axes)
+    out = dict.fromkeys(MR_COLLECTIVES, 0)
+
+    def size(axes):
+        return mesh.axis_size(axes) if axes else 1
+
+    for name, lf in rt.leaves.items():
+        b = dtype_bytes[name]
+        dims = lf.dims
+        n = 1
+        for s in lf.shape:
+            n *= s
+        shard = n
+        for axes in dims:
+            shard //= size(axes)
+        gathers, cur = 0, shard
+        for axes in dims:
+            if size(axes) > 1:
+                cur *= size(axes)
+                gathers += cur * b
+        if lf.reached:
+            inside = name.split(".")[0].startswith(("seg", "enc", "dec"))
+            uses = lf.uses * (2 if remat and inside else 1)
+            back = lf.uses
+        else:
+            uses = back = 1
+        out["all-gather"] += n_micro * uses * gathers
+        cur = n
+        for axes in dims:
+            if axes and not all(a in batch for a in axes):
+                cur //= size(axes)
+        rs = 0
+        for axes in dims:
+            if axes and all(a in batch for a in axes) and size(axes) > 1:
+                cur //= size(axes)
+                rs += cur * 4
+        out["reduce-scatter"] += n_micro * back * rs
+        named = {a for axes in dims for a in axes}
+        rest = tuple(a for a in rt.batch_axes if a not in named)
+        if rest and size(rest) > 1:
+            out["all-reduce"] += n_micro * back * cur * 4
+        ms = lf.moments()
+        if ms.dim is not None and size(ms.extra) > 1:
+            out["all-gather"] += shard * b
+        if ms.lead and size(ms.lead) > 1:
+            out["broadcast"] += shard * b
+    if rows_split:
+        out["all-reduce"] += n_micro * 2 * 4
+    out["all-reduce"] += 4
+    return out
+
+
+def rank_job(path: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --rank-job JOB``): joins the
+    process group of the job, runs its cases, and writes what it saw to
+    ``<work>/rank<r>.json``.  Cases:
+
+      * ``train``: ``arch`` at ``mesh`` (``launch.mesh.make_host_mesh``),
+        its weights the launcher's (the registry's, seed 0), the step
+        ``make_train_step(..., mesh=)`` at the launcher's learning rate
+        for ``total`` steps, each rank's batch from its own
+        ``TextPipeline`` (``host_id`` its data coordinate; the device's
+        UTF-8 -> UTF-32 decode on, one ronepass launch a batch), for
+        ``steps`` steps: each step's metrics; the pipeline's kernel
+        launches; the resident parameter and moment bytes after step 1
+        beside the specs'; the parameters after step ``compare_at``
+        against the checkpoint of run (a) (rank 0); a checkpoint after
+        ``save_at``; step ``time_at`` split into gathers, forward and
+        backward, backward reductions and update (each collective between
+        device synchronisations); step ``cost_at`` under ``CostMode``:
+        its collectives' bytes by kind beside ``collective_closed_form``;
+      * ``sync``: ``hierarchical_grad_sync`` over a (pod 2, data 2) mesh
+        on random gradients of the arch's parameter shapes: against a
+        plain float32 all-reduce, and the pod hop's bytes against the
+        uncompressed sync's (``CostMode``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    with open(path) as f:
+        job = json.load(f)
+    from repro_torch.launch import train as launch_train
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.set_num_threads(1)
+    dev = launch_train.rank_device(job["device"], job["backend"],
+                                   int(os.environ["LOCAL_RANK"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(job["backend"], init_method=job["init"],
+                            rank=rank, world_size=world)
+    res = {"rank": rank}
+    try:
+        for case in job["cases"]:
+            fn = _rank_train if case["kind"] == "train" else _rank_sync
+            res[case["label"]] = fn(case, job, dev)
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(job["work"]) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _sync_dev(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_train(case, job, dev) -> dict:
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, costmodel
+    from repro_torch.data import pipeline as pipemod
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import sharding as SH
+    from repro_torch.train import train_step as TS
+
+    rank = dist.get_rank()
+    mesh = meshmod.make_host_mesh(model=case["mesh"][1])
+    require(tuple(mesh.shape.values()) == tuple(case["mesh"]), "mesh",
+            dict(mesh.shape))
+    fam, cfg, model = registry.get(job["arch"], reduced=job["reduced"],
+                                   device=dev)
+    like = launch_train.state_like(model)
+    opt_cfg = O.AdamWConfig(lr=3e-4, total_steps=case["total"],
+                            warmup_steps=max(case["total"] // 20, 5))
+    step_fn = TS.make_train_step(model, fam, opt_cfg, mesh=mesh,
+                                 global_batch=job["batch"])
+    rt = step_fn.runtime
+    dp = meshmod.dp_axes(mesh)
+    pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
+        seq_len=job["seq"], global_batch=job["batch"],
+        host_id=mesh.index(dp), n_hosts=mesh.axis_size(dp),
+        emit="codepoints"), device=dev)
+    counters = _kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    out = {"mesh": dict(mesh.shape), "coord": mesh.coord, "steps": []}
+    dtype_bytes = {n: p.element_size() for n, p in rt.params().items()}
+    for i in range(1, case["steps"] + 1):
+        batch = pipe.next_batch()
+        batch = {k: batch[k] for k in ("tokens", "labels")}
+        timing = contextlib.nullcontext()
+        if i == case.get("time_at"):
+            timing = _timed_collectives(dev, SH, O)
+        cost = contextlib.nullcontext()
+        if i == case.get("cost_at"):
+            cost = costmodel.CostMode()
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        with timing as tm, cost as cm:
+            met = step_fn(batch)
+        _sync_dev(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out["steps"].append({"loss": float(met["loss"]),
+                             "grad_norm": float(met["grad_norm"]),
+                             "lr": float(met["lr"]), "ms": ms})
+        if tm is not None:
+            out["split_ms"] = tm.split(ms)
+        if cm is not None:
+            out["collectives"] = {
+                "costmode_bytes": {k: cm.cost.coll_bytes[k]
+                                   for k in MR_COLLECTIVES},
+                "costmode_counts": {k: cm.cost.coll_counts[k]
+                                    for k in MR_COLLECTIVES},
+                "closed_form_bytes": collective_closed_form(
+                    rt, 1, bool(getattr(cfg, "remat", False)), dtype_bytes)}
+        if i == 1:
+            out["resident_bytes"] = rt.resident_bytes(step_fn.opt_state)
+            out["spec_bytes"] = rt.spec_bytes()
+        if i == case.get("compare_at"):
+            out["vs_a"] = _compare_whole(rt, case["a_ckpt"], case["compare_at"],
+                                         like, rank)
+        if i == case.get("save_at"):
+            launch_train.save_checkpoint(case["ckpt_dir"], i, step_fn, model)
+    _sync_dev(dev)
+    out["launches"] = {n: k.launches for n, k in counters.items()}
+    del step_fn, model
+    return out
+
+
+def _compare_whole(rt, ckpt_dir, step, like, rank) -> dict:
+    """Every parameter gathered whole (a collective), and on rank 0 held
+    against run (a)'s checkpoint at ``step``: the largest excess over
+    ``MR_PARAM_BOUND`` and the largest difference."""
+    import torch
+    from repro_torch.models import weights
+    from repro_torch.train import checkpoint as CK
+
+    whole = {n: rt.full(n, p.detach()) for n, p in rt.params().items()}
+    if rank != 0:
+        return None
+    tree = CK.restore(ckpt_dir, step, {"params": like["params"]})
+    want = weights.unstack_reference(rt.model, tree["params"])
+    excess, diff, n_diff = -1.0, 0.0, 0
+    for n, w in want.items():
+        g = whole[n].float().cpu()
+        w = w.float()
+        d = (g - w).abs()
+        bound = MR_PARAM_BOUND["lr_sum"] + MR_PARAM_BOUND["rel"] * w.abs()
+        excess = max(excess, float((d - bound).max()))
+        diff = max(diff, float(d.max()))
+        n_diff += int((d > 0).sum())
+    return {"param_excess_over_bound": excess, "param_max_abs_diff": diff,
+            "params_differing": n_diff}
+
+
+class _timed_collectives:
+    """Times a step's collectives, each between device synchronisations:
+    ``train.sharding``'s all-gathers, reduce-scatters, all-reduces and
+    broadcasts, and ``optimizer.adamw_update_sharded`` as a whole."""
+
+    def __init__(self, dev, SH, O):
+        self.dev, self.SH, self.O = dev, SH, O
+        self.t = {"all_gather": 0.0, "reduce_scatter": 0.0,
+                  "all_reduce": 0.0, "broadcast": 0.0, "update": 0.0}
+        self.in_update = False
+
+    def _wrap(self, mod, name, key):
+        real = getattr(mod, name)
+
+        def run(*a, **k):
+            _sync_dev(self.dev)
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            _sync_dev(self.dev)
+            dt = (time.perf_counter() - t0) * 1e3
+            if key == "update":
+                self.t["update"] += dt
+            elif not self.in_update:
+                self.t[key] += dt
+            return out
+        return real, run
+
+    def __enter__(self):
+        self.saved = []
+        for name in ("all_gather", "reduce_scatter", "all_reduce",
+                     "broadcast"):
+            real, run = self._wrap(self.SH, name, name)
+            self.saved.append((self.SH, name, real))
+            setattr(self.SH, name, run)
+        real, run = self._wrap(self.O, "adamw_update_sharded", "update")
+        outer = self
+
+        def update(*a, **k):
+            outer.in_update = True
+            try:
+                return run(*a, **k)
+            finally:
+                outer.in_update = False
+        self.saved.append((self.O, "adamw_update_sharded", real))
+        self.O.adamw_update_sharded = update
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+        return False
+
+    def split(self, step_ms: float) -> dict:
+        t = self.t
+        reduce = t["reduce_scatter"] + t["all_reduce"]
+        return {"step_ms": step_ms, "gather_ms": t["all_gather"],
+                "reduce_ms": reduce, "update_ms": t["update"],
+                "forward_backward_ms": step_ms - t["all_gather"] - reduce
+                - t["update"]}
+
+
+def _rank_sync(case, job, dev) -> dict:
+    import torch
+    import torch.distributed as dist
+    from repro_torch import costmodel
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import registry
+    from repro_torch.train import grad as G
+
+    rank = dist.get_rank()
+    mesh = meshmod.make_mesh({"pod": 2, "data": dist.get_world_size() // 2})
+    _, _, meta = registry.get(job["arch"], reduced=job["reduced"],
+                              device="meta")
+    gen = torch.Generator(device=dev).manual_seed(1000 + rank)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+             for n, p in meta.named_parameters()}
+    n_ici = mesh.axis_size("data")
+    err = G.init_error_feedback(grads, ici_axis_size=n_ici)
+    out = {}
+    for compress in (True, False):
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        with costmodel.CostMode() as cm:
+            got, _ = G.hierarchical_grad_sync(grads, err, mesh=mesh,
+                                              compress=compress)
+        _sync_dev(dev)
+        out["int8" if compress else "f32"] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": {k: cm.cost.coll_bytes[k] for k in MR_COLLECTIVES}}
+        if compress:
+            synced = got
+    rel = 0.0
+    for n, g in grads.items():
+        plain = g.clone()
+        dist.all_reduce(plain)
+        rel = max(rel, float((synced[n] - plain).abs().max()
+                             / (plain.abs().max() + 1e-12)))
+    shard = sum(e.numel() for e in err.values())
+    i8, f32 = out["int8"]["bytes"], out["f32"]["bytes"]
+    out.update({
+        "max_rel_err": rel, "shard_elements": shard,
+        "pod_hop_int8_bytes": i8["all-gather"] - f32["all-gather"],
+        "pod_hop_f32_bytes": f32["all-reduce"],
+        "pod_hop_int8_payload": shard, "pod_hop_f32_payload": 4 * shard})
+    return out
+
+
+def spawn_ranks(n: int, job: dict, work: Path, env: dict) -> list:
+    """Run ``job`` on ``n`` rank processes (``--rank-job``); every rank
+    must exit 0 within ``MR_TIMEOUT`` (a failed rank kills the others and
+    fails the phase).  Returns each rank's result."""
+    path = work / f"job_{time.monotonic_ns()}.json"
+    path.write_text(json.dumps(job))
+    procs = []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job",
+                 str(path)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                                      WORLD_SIZE=str(n)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=str(ROOT)))
+        deadline = time.monotonic() + MR_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            require(not failed and time.monotonic() < deadline,
+                    "phase 10 rank failed or timed out",
+                    [(p.returncode, p.communicate()[0][-3000:])
+                     for p in failed])
+            time.sleep(0.1)
+        logs = [p.communicate()[0] for p in procs]
+        require(all(p.returncode == 0 for p in procs), "phase 10 ranks",
+                [(p.returncode, lg[-3000:]) for p, lg in zip(procs, logs)])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [json.loads((Path(job["work"]) / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def torchrun(n: int, args: list, env: dict, timeout: int = MR_TIMEOUT):
+    """``python -m torch.distributed.run --standalone`` with ``n`` ranks of
+    the train launcher, in a session of its own (a timeout kills the
+    ranks too); fails the phase unless it exits 0."""
+    import signal as signal_mod
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=str(ROOT), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal_mod.SIGKILL)
+            proc.wait()
+    require(proc.returncode == 0, "torch.distributed.run", n, args,
+            out[-2000:], err[-3000:])
+    return out
+
+
+def _metrics(path: Path) -> list:
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def multirank_phase(smi: str, work: Path, device="cuda",
+                    reduced: bool = False, backend1: str = "nccl") -> dict:
+    """Phase 10, multi-rank training (``train.sharding``, the launcher
+    under ``torch.distributed.run``), on bytelm-100m at its published
+    config and the launcher's 8 x 512 global batch; ``reduced`` and
+    ``backend1`` (gloo for the world of one) rehearse it on the CPU.
+
+      (a) World 1 under NCCL, mesh (1, 1), through the launcher: 3 steps
+          against the single-process launcher's 3 (phase 8's path) on the
+          same batches: the metrics and the step-3 checkpoints (every
+          parameter and moment) byte for byte.
+      (b) World 4 under gloo, all four ranks on the one card, meshes
+          (2, 2) and (4, 1), from the launcher's weights: each step's loss
+          and grad norm, and the step-3 parameters, within ``MR_BF16_TOL``
+          of (a); each rank's resident parameter and moment bytes equal to
+          its spec shards; each rank's pipeline launches; the
+          collectives' bytes by kind under ``CostMode`` beside
+          ``collective_closed_form``; a step split into gathers, forward
+          and backward, reductions and update.
+      (c) Elastic: the (2, 2) run checkpoints at step 2 and runs on to
+          step 4; ``plan_remesh((2, 2), 1, 8)`` gives (1, 2) with 2
+          microbatches; two ranks resume the step-2 checkpoint through the
+          launcher with that plan and take steps 3-4, their losses within
+          ``MR_ELASTIC_REL`` of the four-rank run's.
+      (d) ``hierarchical_grad_sync`` at (pod 2, data 2) on the arch's
+          gradient shapes: within 0.02 of a plain float32 all-reduce; the
+          pod hop's payload a quarter of the float32 hop's.
+    Times beside the card's name and power limit; those of gloo ranks
+    sharing one card are a correctness run's, not a speed figure."""
+    import shutil
+
+    from repro_torch.launch import elastic
+
+    t_phase = time.time()
+    # one hash salt for every process: the synthetic corpus salts its
+    # seed with hash(lang), so ranks draw a single process's documents
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               PYTHONHASHSEED="0")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    dev_type = "cuda" if device != "cpu" else "cpu"
+    red = ["--reduced"] if reduced else []
+    base = ["--arch", TRAIN_ARCH, *red, "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--device", dev_type,
+            "--log-every", "1"]
+    out = {}
+
+    # (a) the single-process launcher, then world 1 under NCCL
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *base, "--steps",
+         str(MR_STEPS), "--ckpt-every", str(MR_STEPS), "--ckpt-dir",
+         str(work / "a1"), "--metrics", str(work / "a1.jsonl")],
+        capture_output=True, text=True, env=env, cwd=str(ROOT),
+        timeout=MR_TIMEOUT)
+    require(proc.returncode == 0, "single-process launcher",
+            proc.stderr[-3000:])
+    single_s = time.time() - t0
+    t0 = time.time()
+    log_w1 = torchrun(1, [*base, "--steps", str(MR_STEPS), "--ckpt-every",
+                          str(MR_STEPS), "--ckpt-dir", str(work / "w1"),
+                          "--backend", backend1, "--metrics",
+                          str(work / "w1.jsonl")], env)
+    w1_s = time.time() - t0
+    m_single, m_w1 = _metrics(work / "a1.jsonl"), _metrics(work / "w1.jsonl")
+    require(f"mesh: {{'data': 1, 'model': 1}}" in log_w1, "world 1 mesh",
+            log_w1[-500:])
+    require(m_w1 == m_single, "world 1 metrics vs single process", m_w1,
+            m_single)
+    d1, d2 = work / "a1" / f"step_{MR_STEPS}", work / "w1" / f"step_{MR_STEPS}"
+    names = sorted(os.listdir(d1))
+    require(sorted(os.listdir(d2)) == names, "world 1 checkpoint files")
+    import filecmp
+    same = [n for n in names if filecmp.cmp(d1 / n, d2 / n, shallow=False)]
+    require(len(same) == len(names), "world 1 checkpoint bit-equal",
+            sorted(set(names) - set(same))[:10])
+    out["world1"] = {"backend": backend1, "metrics": m_w1,
+                     "single_metrics": m_single, "bit_equal": True,
+                     "files": len(names), "single_s": single_s,
+                     "torchrun_s": w1_s}
+    log(f"phase 10: (a) world 1 under {backend1}, mesh (1, 1), through "
+        f"torch.distributed.run: {MR_STEPS} steps bit-equal to the single-"
+        f"process launcher (losses {[m['loss'] for m in m_w1]}, grad norms "
+        f"{[m['grad_norm'] for m in m_w1]}; all {len(names)} checkpoint files "
+        f"of step {MR_STEPS} byte-identical); {w1_s:.1f} s with the process "
+        f"start  [{smi}]")
+
+    # (b)-(d): four gloo ranks on the one card
+    job = {"init": f"file://{work}/store_{time.monotonic_ns()}",
+           "backend": "gloo", "device": device, "work": str(work),
+           "arch": TRAIN_ARCH, "reduced": reduced, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "cases": [
+               {"kind": "train", "label": "2x2", "mesh": [2, 2],
+                "steps": MR_TOTAL, "total": MR_TOTAL,
+                "compare_at": MR_STEPS, "a_ckpt": str(work / "a1"),
+                "save_at": MR_SAVE_AT, "ckpt_dir": str(work / "c22"),
+                "time_at": MR_STEPS, "cost_at": MR_TOTAL},
+               {"kind": "train", "label": "4x1", "mesh": [4, 1],
+                "steps": MR_STEPS, "total": MR_STEPS,
+                "compare_at": MR_STEPS, "a_ckpt": str(work / "a1"),
+                "time_at": MR_STEPS},
+               {"kind": "sync", "label": "sync"}]}
+    t0 = time.time()
+    ranks = spawn_ranks(4, job, work, env)
+    four_s = time.time() - t0
+    tol = MR_BF16_TOL
+    for label in ("2x2", "4x1"):
+        per = [r[label] for r in ranks]
+        steps0 = per[0]["steps"]
+        for r in per[1:]:
+            require([s["loss"] for s in r["steps"]] == [
+                s["loss"] for s in steps0], "ranks agree on the loss", label)
+        rel = {"loss": [], "grad_norm": []}
+        for k in range(MR_STEPS):
+            for key in rel:
+                g, w = steps0[k][key], m_single[k][key]
+                rel[key].append(abs(g - w) / abs(w))
+                require(steps0[k]["lr"] == m_single[k]["lr"], "lr", label, k)
+        vs = per[0]["vs_a"]
+        for r in per:
+            require(r["resident_bytes"] == r["spec_bytes"],
+                    "resident bytes = spec shards", label, r["coord"],
+                    r["resident_bytes"], r["spec_bytes"])
+        out[label] = {"ranks": per, "rel_vs_a": rel, "vs_a": vs}
+        log(f"phase 10: (b) {label} gloo x4 on one card: losses "
+            f"{[round(s['loss'], 6) for s in steps0]}, rel to (a) "
+            f"{[f'{x:.2e}' for x in rel['loss']]}; grad norm rel "
+            f"{[f'{x:.2e}' for x in rel['grad_norm']]}; step-{MR_STEPS} "
+            f"parameters max |diff| {vs['param_max_abs_diff']:.3g}, excess "
+            f"over {MR_PARAM_BOUND} {vs['param_excess_over_bound']:.3g}; "
+            "resident bytes = spec shards on every rank: "
+            + "; ".join(f"{tuple(r['coord'].values())} params "
+                        f"{r['resident_bytes']['params']} moments "
+                        f"{r['resident_bytes']['moments']}" for r in per)
+            + "; pipeline launches per rank: "
+            + "; ".join(str({k: v for k, v in r["launches"].items() if v})
+                        for r in per))
+        sp = per[0]["split_ms"]
+        log(f"phase 10: (b) {label} step {MR_STEPS} on rank 0 "
+            f"(correctness run: four gloo ranks share one card, each "
+            f"collective between synchronisations): {sp['step_ms']:.1f} ms "
+            f"= gathers {sp['gather_ms']:.1f} + forward and backward "
+            f"{sp['forward_backward_ms']:.1f} + reductions "
+            f"{sp['reduce_ms']:.1f} + update {sp['update_ms']:.1f}  [{smi}]")
+    coll = out["2x2"]["ranks"][0]["collectives"]
+    log(f"phase 10: (b) 2x2 step {MR_TOTAL}'s collectives on rank 0, "
+        "CostMode vs closed form from the specs (bytes): " + "; ".join(
+            f"{k} {coll['costmode_bytes'][k]:.0f} vs "
+            f"{coll['closed_form_bytes'][k]:.0f} (x{coll['costmode_counts'][k]})"
+            for k in MR_COLLECTIVES))
+
+    # (c) elastic: two ranks resume the (2, 2) run's step-2 checkpoint
+    plan = elastic.plan_remesh((2, 2), failed_chips=1,
+                               global_batch=TRAIN_BATCH)
+    require((plan.data, plan.model, plan.n_micro) == (1, 2, 2), "plan",
+            vars(plan))
+    (work / "el").mkdir()
+    shutil.copytree(work / "c22" / f"step_{MR_SAVE_AT}",
+                    work / "el" / f"step_{MR_SAVE_AT}")
+    t0 = time.time()
+    log_el = torchrun(plan.data * plan.model,
+                      [*base, "--steps", str(MR_TOTAL), "--ckpt-every",
+                       "1000", "--ckpt-dir", str(work / "el"), "--resume",
+                       "--micro", str(plan.n_micro), "--backend", "gloo",
+                       "--metrics", str(work / "el.jsonl")], env)
+    el_s = time.time() - t0
+    m_el = _metrics(work / "el.jsonl")
+    want = out["2x2"]["ranks"][0]["steps"][MR_SAVE_AT:]
+    require(f"resumed from step {MR_SAVE_AT}" in log_el
+            and "mesh: {'data': 1, 'model': 2}" in log_el, "elastic log",
+            log_el[-800:])
+    require([m["step"] for m in m_el] == list(range(MR_SAVE_AT + 1,
+                                                    MR_TOTAL + 1)),
+            "elastic steps", m_el)
+    el_rel = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+              for g, w in zip(m_el, want)]
+    out["elastic"] = {"plan": vars(plan), "metrics": m_el,
+                      "four_rank": want, "loss_rel": el_rel, "s": el_s}
+    log(f"phase 10: (c) elastic: (2, 2) checkpoint at step {MR_SAVE_AT}, "
+        f"plan_remesh -> data {plan.data} model {plan.model} n_micro "
+        f"{plan.n_micro}; two ranks resumed through the launcher, steps "
+        f"{MR_SAVE_AT + 1}-{MR_TOTAL} losses "
+        f"{[round(m['loss'], 6) for m in m_el]} vs four ranks "
+        f"{[round(w['loss'], 6) for w in want]} (rel "
+        f"{[f'{x:.2e}' for x in el_rel]})")
+
+    # (d) the hierarchical sync
+    sy = [r["sync"] for r in ranks]
+    out["sync"] = sy
+    log(f"phase 10: (d) hierarchical_grad_sync (pod 2, data 2) on "
+        f"{TRAIN_ARCH}'s gradient shapes: max relative error to the plain "
+        f"f32 all-reduce {max(s['max_rel_err'] for s in sy):.4f} (< 0.02); "
+        f"pod hop per rank: int8 payload {sy[0]['pod_hop_int8_payload']} B "
+        f"vs f32 {sy[0]['pod_hop_f32_payload']} B (CostMode, outputs: int8 "
+        f"all-gather {sy[0]['pod_hop_int8_bytes']:.0f} B vs f32 all-reduce "
+        f"{sy[0]['pod_hop_f32_bytes']:.0f} B); sync {sy[0]['int8']['ms']:.0f}"
+        f" ms int8, {sy[0]['f32']['ms']:.0f} ms f32 (gloo, one card: a "
+        f"correctness run)  [{smi}]")
+    out["four_rank_s"] = four_s
+    out["seconds"] = time.time() - t_phase
+
+    # the checks with tolerances, after every number is printed
+    for label in ("2x2", "4x1"):
+        rel, vs = out[label]["rel_vs_a"], out[label]["vs_a"]
+        require(max(rel["loss"]) <= tol["loss_rel"], "loss vs (a)", label,
+                rel["loss"])
+        require(max(rel["grad_norm"]) <= tol["gnorm_rel"],
+                "grad norm vs (a)", label, rel["grad_norm"])
+        require(vs["param_excess_over_bound"] <= 0, "parameters vs (a)",
+                label, vs)
+        # one ronepass launch a rank and step (the plain version on the CPU)
+        launches = [r["launches"] for r in out[label]["ranks"]]
+        require(all(lc["ronepass"] == (len(r["steps"]) if dev_type == "cuda"
+                                       else 0) for lc, r in zip(
+            launches, out[label]["ranks"])),
+            "one ronepass launch a rank and step", label, launches)
+    require(max(el_rel) <= MR_ELASTIC_REL, "elastic losses", el_rel)
+    for s in sy:
+        require(s["max_rel_err"] < 0.02, "sync error", s["max_rel_err"])
+        require(s["pod_hop_int8_payload"] * 4 == s["pod_hop_f32_payload"],
+                "pod hop payload", s)
+        require(s["pod_hop_int8_bytes"] * 2 == s["pod_hop_f32_bytes"],
+                "pod hop bytes (CostMode)", s)
+    log(f"phase 10: took {out['seconds']:.0f} s (four ranks "
+        f"{four_s:.0f} s, elastic {el_s:.0f} s)  [{smi}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" /
                                          "chip_smoke.json"))
+    ap.add_argument("--rank-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_job:                  # one rank of phase 10
+        return rank_job(args.rank_job)
 
     import torch
     if not torch.cuda.is_available():
@@ -4093,6 +4779,14 @@ def main(argv=None) -> int:
         *legacy_t.items()]}
     report["analysis"] = analysis_phase(report, smi, kernel_calls,
                                         table_bytes, Path(args.out).parent)
+    # -- 10. multi-rank training ---------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as work:
+        report["multirank"] = multirank_phase(smi, Path(work))
+    for label in ("2x2", "4x1"):
+        for r in report["multirank"][label]["ranks"]:
+            for name, count in r["launches"].items():
+                if count:
+                    launches[name] = launches.get(name, 0) + count
 
     lines = []
     main_flash = flash_t[FLASH_MAIN[0][0]]

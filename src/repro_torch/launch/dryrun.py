@@ -1,4 +1,5 @@
-"""One-card dry run: cost every (arch x shape) cell without a card or data.
+"""Dry run: cost every (arch x shape) cell without a card or data, on
+one card or one rank of the reference's multi-card meshes.
 
 Port of ``repro.launch.dryrun``.  For each cell the step (train step,
 prefill or decode) is built over a model on the meta device, with meta
@@ -9,19 +10,47 @@ record is the reference's: the three-term roofline of
 :mod:`repro_torch.roofline` and the memory (arguments, outputs, the
 temporaries' peak), plus ``fits_one_card``.
 
-The mesh is ``1xH100``, one card.  The reference's multi-card meshes and
-its ``--multipod``, ``--both-meshes``, ``--layout`` and ``--opt`` need the
-sharding specs of multi-card training (``train/sharding.py``,
-``zero1_specs``), which the port does not have yet; they are left out.
+**Meshes.**  By default the mesh is ``1xH100``, one card.  With
+``--multipod`` (2x16x16, 512 chips) or ``--both-meshes`` (16x16 and
+2x16x16), the step is one rank's (rank 0) of that mesh: a fake process
+group of 256 or 512 ranks (``torch.distributed``'s ``fake`` backend:
+collectives on meta tensors, no peer) stands under
+``launch.mesh.make_production_mesh``, the parameters and moments are
+this rank's shards under the mesh's specs (``train.sharding``,
+``optimizer.zero1_specs``), the batch its rows, and ``CostMode``
+records the collectives the step issues.  ``roofline.analyze`` scales
+the rank's cost by the chips.  ``--layout``:
+
+  * ``tp``: specs with the model axis on the tensor-parallel dims, FSDP
+    and the batch over the data axes (serving cells: no FSDP, as the
+    reference's).  The port gathers each weight whole before use and
+    runs no product split over the model axis (queue 1 item 14), so the
+    ranks of a model group repeat each other's compute: the record's
+    ``compute_per_rank_is_reference`` is false;
+  * ``dp``: no tensor axis; ZeRO-3 over every axis and the batch over
+    the whole mesh: each rank computes its share, as the reference's,
+    where the global batch has a row for every rank.  Where it has not,
+    the reference splits the sequence (``batch_specs``); the port gives
+    every rank the whole batch, whose compute it then repeats.
+
+A serving cell's decode state is the rank's rows, whole (the reference
+splits it by ``state_specs``).  ``--opt`` names the variant
+``opt-<layout>`` as the reference's; it changes nothing else here: the
+reference's ``--opt`` turns on the re-gather of each weight before use
+(``shardctx`` opt-1), which the port's runtime always does (and for
+every weight: it has no size threshold for expert stacks).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
+    python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \
+        --both-meshes --layout dp
     python -m repro_torch.launch.dryrun --all [--out results.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -29,15 +58,18 @@ import traceback
 import weakref
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import configs as cfgmod
 from repro_torch import costmodel as CM
 from repro_torch import roofline as RL
 from repro_torch.configs import shapes as shp
-from repro_torch.models import registry
+from repro_torch.launch import mesh as meshmod
+from repro_torch.models import registry, shardctx
 from repro_torch.serve import kvcache, serve_step
 from repro_torch.train import optimizer as O
+from repro_torch.train import sharding as SH
 from repro_torch.train import train_step as TS
 
 MESH = "1xH100"
@@ -85,11 +117,13 @@ def input_specs(arch: str, shape_name: str, *, reduced: bool = False,
 
 def build_cell(arch: str, shape_name: str, *, remat=True,
                remat_policy: str = "full", reduced: bool = False,
-               shape=None):
+               shape=None, mesh=None, layout: str = "tp"):
     """Returns ``(fn, args, model_flops)``: ``fn(*args)`` runs the
     cell's step once over a model on the meta device; ``args`` holds the
     step's arguments (the parameters, the optimizer state and the batch,
-    or the parameters, inputs and decode state)."""
+    or the parameters, inputs and decode state).  With a ``mesh`` (over
+    an initialised process group), the step is this rank's under
+    ``layout`` (see the module's docstring)."""
     mod = cfgmod.get_module(arch)
     family = mod.FAMILY
     cfg = mod.reduced() if reduced else mod.CONFIG
@@ -103,6 +137,9 @@ def build_cell(arch: str, shape_name: str, *, remat=True,
     seq, gb, kind = s["seq_len"], s["global_batch"], s["kind"]
     n_active = RL.active_params(cfg, RL.count_params(model))
     ins = input_specs(arch, shape_name, reduced=reduced, shape=shape)
+    if mesh is not None:
+        return _mesh_cell(model, family, cfg, s, ins, mesh, layout,
+                          n_active)
 
     if kind == "train":
         step = TS.make_train_step(model, family, O.AdamWConfig())
@@ -133,6 +170,92 @@ def build_cell(arch: str, shape_name: str, *, remat=True,
     return (serve_step.make_decode(model, family),
             (model, ins["tok"], ins["pos"], state, None),
             2.0 * n_active * gb)
+
+
+def _layout_axes(mesh, layout: str):
+    """``(tp, dp)``: the tensor axis and the data axes of ``layout``."""
+    if layout not in ("tp", "dp"):
+        raise ValueError(f"layout {layout!r}: tp | dp")
+    dp = meshmod.dp_axes(mesh)
+    return ("model", dp) if layout == "tp" else (None, dp + ("model",))
+
+
+def _rows(x, mesh, dp, split: bool):
+    """This rank's rows of a global input (meta): every ``n``-th."""
+    if not split:
+        return x
+    n = mesh.axis_size(dp)
+    return x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+
+
+def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
+    """:func:`build_cell` for one rank of ``mesh``."""
+    seq, gb, kind = s["seq_len"], s["global_batch"], s["kind"]
+    tp, dp = _layout_axes(mesh, layout)
+    split = SH.batch_specs(kind, gb, mesh, dp=dp)[0] is not None
+    local = {k: _rows(v, mesh, dp, split) for k, v in ins.items()}
+    b = local[next(iter(local))].shape[0]
+
+    if kind == "train":
+        step = TS.make_train_step(model, family, O.AdamWConfig(), mesh=mesh,
+                                  global_batch=gb, layout=layout)
+
+        def fn(params, opt_state, batch):
+            return step(batch)
+        return (fn, (step.runtime.params(), step.opt_state, local),
+                6.0 * n_active * gb * seq)
+
+    # serving: parameters split over the tensor axis only (no FSDP), as
+    # the reference's dry run keeps them
+    pspecs = SH.param_specs(model, mesh, tp=tp, fsdp=None)
+    rt = SH.bind(model, family, mesh, pspecs, None, dp)
+    ctx = dict(tp_axis=tp, tp_size=mesh.shape["model"], dp_axes=dp,
+               dp_size=mesh.axis_size(dp), mesh=mesh,
+               batch_axes=dp if split else ())
+
+    def sharded(step):
+        def run(*a):
+            with shardctx.use(**ctx), rt.swapped():
+                return step(*a)
+        return run
+
+    context = s.get("context", seq)
+    cap = kvcache.capacity_for(cfg, context)
+    if family == "encdec":
+        pre, dec = serve_step.make_encdec_steps(model)
+        if kind == "prefill":
+            def fn(params, frames, tokens):
+                return pre(params, frames, tokens, cap)[0]
+            return (sharded(fn), (model, local["frames"], local["tokens"]),
+                    2.0 * n_active * gb * seq)
+        with torch.no_grad(), shardctx.use(**ctx), rt.swapped():
+            state = model.init_state(local["frames"], b, cap)
+        return sharded(dec), (model, local["tok"], state), \
+            2.0 * n_active * gb
+    state = kvcache.init_state(model, cfg, b, context)
+    if kind == "prefill":
+        return (sharded(serve_step.make_prefill(model, family)),
+                (model, local["tokens"], local["lens"], state),
+                2.0 * n_active * gb * seq)
+    return (sharded(serve_step.make_decode(model, family)),
+            (model, local["tok"], local["pos"], state, None),
+            2.0 * n_active * gb)
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A fake process group of ``n`` ranks, this process ``rank``: no
+    peers, collectives return at once (on meta tensors)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _arg_tensors(args):
@@ -188,19 +311,43 @@ class LiveBytes(TorchDispatchMode):
 
 def dryrun_cell(arch: str, shape_name: str, *, remat=True,
                 remat_policy: str = "full", reduced: bool = False,
-                shape=None, verbose=True):
-    """Cost one cell on the meta device; returns the result record."""
-    fn, args, model_flops = build_cell(
-        arch, shape_name, remat=remat, remat_policy=remat_policy,
-        reduced=reduced, shape=shape)
-    with CM.CostMode() as cm, LiveBytes(_arg_tensors(args)) as mem:
-        out = fn(*args)
-    rl = RL.analyze(arch, shape_name, MESH, CHIPS, cm.cost,
+                shape=None, verbose=True, multi_pod=None, layout="tp",
+                opt: bool = False):
+    """Cost one cell on the meta device; returns the result record.
+    ``multi_pod``: ``None`` for one card, else rank 0 of the 16x16
+    (False) or 2x16x16 (True) mesh under ``layout``."""
+    if multi_pod is None:
+        mesh_name, chips, world = MESH, CHIPS, contextlib.nullcontext()
+    else:
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+        chips = 512 if multi_pod else 256
+        world = fake_world(chips)
+    with world:
+        mesh = None if multi_pod is None else \
+            meshmod.make_production_mesh(multi_pod=multi_pod)
+        fn, args, model_flops = build_cell(
+            arch, shape_name, remat=remat, remat_policy=remat_policy,
+            reduced=reduced, shape=shape, mesh=mesh, layout=layout)
+        split = mesh is None or SH.batch_specs(
+            _shape(shape_name, shape)["kind"],
+            _shape(shape_name, shape)["global_batch"], mesh,
+            dp=_layout_axes(mesh, layout)[1])[0] is not None
+        with CM.CostMode() as cm, LiveBytes(_arg_tensors(args)) as mem:
+            out = fn(*args)
+    rl = RL.analyze(arch, shape_name, mesh_name, chips, cm.cost,
                     model_flops=model_flops)
     rec = rl.to_dict()
     rec["ok"] = True
     rec["remat"] = remat
-    rec["variant"] = "baseline"
+    rec["variant"] = f"opt-{layout}" if opt else "baseline"
+    rec["layout"] = layout if mesh is not None else None
+    # one card computes the reference's step; a rank of a "tp" layout
+    # repeats its model group's work (no split products yet), and a rank
+    # given the whole batch (too few rows for the data axes: the
+    # reference splits the sequence there) repeats its data peers'
+    rec["batch_rows_split"] = split
+    rec["compute_per_rank_is_reference"] = mesh is None or (
+        layout == "dp" and split)
     rec["mem_temp_size_in_bytes"] = mem.peak - mem.args
     rec["mem_argument_size_in_bytes"] = mem.args
     rec["mem_output_size_in_bytes"] = _storage_bytes(CM.tensors(out))
@@ -209,7 +356,7 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     rec["flops_by_op"] = cm.cost.flops_by_op
     rec["fits_one_card"] = mem.peak <= RL.HBM_BYTES
     if verbose:
-        print(f"[{arch} x {shape_name} x {MESH}] OK  "
+        print(f"[{arch} x {shape_name} x {mesh_name}] OK  "
               f"flops={rec['hlo_flops']:.3e} bytes={rec['hlo_bytes']:.3e} "
               f"coll={rec['coll_bytes']:.3e} bottleneck={rec['bottleneck']}")
         print(f"  memory: temp={rec['mem_temp_size_in_bytes']:.0f} "
@@ -222,8 +369,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--multipod", action="store_true",
+                    help="one rank of the 2x16x16 mesh (512 chips)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="one rank of the 16x16 and of the 2x16x16 mesh")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--opt", action="store_true",
+                    help="name the variant opt-<layout> (the port always "
+                         "re-gathers before use)")
+    ap.add_argument("--layout", default="tp", choices=["tp", "dp"])
     ap.add_argument("--remat-policy", default="full",
                     choices=["full", "dots"])
     ap.add_argument("--out", default=None)
@@ -236,17 +391,27 @@ def main(argv=None) -> int:
         todo = [(args.arch, args.shape)]
     else:
         ap.error("give --arch and --shape, or --all")
+    if args.both_meshes:
+        meshes = [False, True]
+    elif args.multipod:
+        meshes = [True]
+    else:
+        meshes = [None]
 
     results = []
     for arch, shape in todo:
-        try:
-            rec = dryrun_cell(arch, shape, remat=not args.no_remat,
-                              remat_policy=args.remat_policy)
-        except Exception as e:  # noqa: BLE001  (the cell is recorded)
-            traceback.print_exc()
-            rec = {"arch": arch, "shape": shape, "mesh": MESH, "ok": False,
-                   "error": f"{type(e).__name__}: {e}"}
-        results.append(rec)
+        for mp in meshes:
+            name = MESH if mp is None else ("2x16x16" if mp else "16x16")
+            try:
+                rec = dryrun_cell(arch, shape, remat=not args.no_remat,
+                                  remat_policy=args.remat_policy,
+                                  multi_pod=mp, layout=args.layout,
+                                  opt=args.opt)
+            except Exception as e:  # noqa: BLE001  (the cell is recorded)
+                traceback.print_exc()
+                rec = {"arch": arch, "shape": shape, "mesh": name,
+                       "ok": False, "error": f"{type(e).__name__}: {e}"}
+            results.append(rec)
 
     if args.out:
         with open(args.out, "w") as f:

@@ -40,9 +40,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch import mesh as meshmod
 from repro_torch.models import shardctx
 
 F32 = torch.float32
@@ -402,23 +404,39 @@ class MoE(nn.Module):
 def moe(params, cfg: MoEConfig, x):
     """Capacity-based MoE: gather tokens per expert, batched expert matmul,
     weighted scatter back.  Static shapes throughout (drops overflow).
-    Returns (y, aux_loss)."""
+    Returns (y, aux_loss).
+
+    Under a sharded step whose batch rows are split over ranks
+    (``shardctx.routing``), routing is the global batch's, as the
+    reference's under ``jit``: the ranks all-gather their top-k choices,
+    so capacity, each copy's slot (a cumsum in global token order, the
+    pipeline's: local row ``i`` of rank ``h`` of ``n`` is global row
+    ``i * n + h``) and the aux loss's means are over every token; each
+    rank computes its own tokens' expert products."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    cap = max(1, int(t * k / e * cfg.capacity_factor),
-              min(t * k, cfg.min_capacity))
+    route = shardctx.routing()
+    n_ranks = 1 if route is None else route[0].axis_size(route[1])
+    tg = t * n_ranks                                        # global tokens
+    cap = max(1, int(tg * k / e * cfg.capacity_factor),
+              min(tg * k, cfg.min_capacity))
     dev = x.device
 
     xf = x.reshape(t, d)
     logits = dot32(xf.to(F32), params.router)
     gates, idx = torch.topk(torch.softmax(logits, -1), k)   # (t, k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    idx_g = idx if route is None else _global_tokens(idx, route, b, s)
 
     # position of token-copy (t, k) within its expert's buffer
-    flat_oh = F.one_hot(idx, e).reshape(t * k, e)           # (t*k, e)
+    flat_oh = F.one_hot(idx_g, e).reshape(tg * k, e)        # (t*k, e)
     pos_in_e = torch.cumsum(flat_oh, 0) * flat_oh - 1
     slot = pos_in_e.amax(-1)                                # (t*k,)
+    if route is not None:                                   # this rank's
+        mesh, axes = route
+        slot = slot.reshape(b, n_ranks, s * k)[:, mesh.index(axes)]
+        slot = slot.reshape(t * k)
     eid = idx.reshape(t * k)
     keep = slot < cap
 
@@ -447,14 +465,33 @@ def moe(params, cfg: MoEConfig, x):
     if cfg.n_shared:
         out = out + mlp(params.shared, x).reshape(t, d).to(F32)
 
-    aux = _load_balance_loss(logits, idx, e)
+    aux = _load_balance_loss(logits, idx_g, e, route)
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-def _load_balance_loss(logits, idx, e):
-    """Switch-style auxiliary load-balancing loss."""
+def _global_tokens(idx, route, b, s):
+    """Every rank's ``idx`` (t, k), all-gathered over the batch axes, in
+    global token order: (n * t, k)."""
+    mesh, axes = route
+    n = mesh.axis_size(axes)
+    out = idx.new_empty((n * idx.shape[0],) + tuple(idx.shape[1:]))
+    meshmod.all_gather_into(out, idx.contiguous(), mesh.group(axes))
+    return out.reshape(n, b, s, -1).transpose(0, 1).reshape(n * b * s, -1)
+
+
+def _load_balance_loss(logits, idx, e, route=None):
+    """Switch-style auxiliary load-balancing loss.  Under ``route`` the
+    means are over the global batch (``idx`` is its top-k): the router
+    probabilities' sum is all-reduced, its gradient kept to this rank's
+    own tokens, so the ranks' gradients sum to the reference's."""
     probs = torch.softmax(logits, -1)
-    me = torch.mean(probs, 0)
+    if route is None:
+        me = torch.mean(probs, 0)
+    else:
+        mine = probs.sum(0)
+        tot = mine.detach().clone()
+        dist.all_reduce(tot, group=route[0].group(route[1]))
+        me = (mine + (tot - mine.detach())) / idx.shape[0]
     ce = torch.mean(F.one_hot(idx[:, 0], e).to(F32), 0)
     return e * torch.sum(me * ce)
 

@@ -84,8 +84,13 @@ def _reference_layout(model: nn.Module) -> dict:
 
 
 def _leaf_shape(dests) -> tuple:
+    """A reference leaf's shape; a parameter that ``train.sharding.bind``
+    cut to a shard counts with its whole shape."""
     stacked = dests[0][2] is not None
-    return ((len(dests),) if stacked else ()) + tuple(dests[0][1].shape)
+    param = dests[0][1]
+    leaf = getattr(param, "_shard_leaf", None)
+    shape = param.shape if leaf is None else leaf.shape
+    return ((len(dests),) if stacked else ()) + tuple(shape)
 
 
 def reference_shapes(model: nn.Module) -> dict:

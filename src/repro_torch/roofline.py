@@ -133,15 +133,21 @@ class Roofline:
 def analyze(arch, shape, mesh_name, chips, cost, model_flops=None):
     """A :class:`Roofline` from a :class:`repro_torch.costmodel.Cost`.
 
-    The cost's collective bytes are one rank's (each process traces its
-    own ops), so they are scaled by ``chips`` to the global total, as
-    the reference scales its per-device HLO shapes."""
+    The cost is one rank's (each process traces its own ops), so its
+    FLOPs, bytes and collective bytes are scaled by ``chips`` to the
+    global total, as the reference scales its per-device HLO shapes;
+    ``coll_detail`` stays the rank's.  On one card that changes nothing.
+    Where ranks repeat each other's work (the model axis of the dry
+    run's ``tp`` layout, see ``launch/dryrun.py``) the total counts it
+    as often."""
     return Roofline(arch=arch, shape=shape, mesh=mesh_name, chips=chips,
-                    hlo_flops=cost.flops, hlo_bytes=cost.bytes,
+                    hlo_flops=cost.flops * chips,
+                    hlo_bytes=cost.bytes * chips,
                     coll_bytes=float(sum(cost.coll_bytes.values())) * chips,
                     coll_detail={**cost.coll_bytes,
                                  "counts": dict(cost.coll_counts)},
-                    flops_by_class=dict(cost.flops_by_class),
+                    flops_by_class={c: f * chips for c, f in
+                                    cost.flops_by_class.items()},
                     model_flops=model_flops)
 
 

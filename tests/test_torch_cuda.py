@@ -45,6 +45,8 @@ trace (results and events), and raises from its constructor when the
 kernels do not build; for every decoder arch, reduced, the decode
 graph equals the eager step over 8 steps (tokens, logits within 1e-4),
 and after the capture the live state is what ``init_state`` makes.
+Multi-card training's one-rank case: a reduced step under NCCL at mesh
+(1, 1) equals the unsharded step bit for bit.
 """
 
 import sys
@@ -1156,3 +1158,46 @@ def test_cost_region_charges_count_kernel_as_plain():
         == {"count": [1, len(x) + 3 * 4 * nblk]}
     assert charged["cuda"].bytes == charged["cpu"].bytes == len(x) + 12 * nblk
     assert charged["cuda"].flops == charged["cpu"].flops == 0
+
+
+@pytest.mark.cuda
+def test_reduced_sharded_step_world_one_nccl_equals_unsharded(tmp_path):
+    """A reduced bytelm-100m step of one rank under NCCL, mesh (1, 1)
+    (``make_train_step(..., mesh=)``: every gather and reduction the
+    identity) equals the unsharded step on the card bit for bit: loss,
+    grad norm, every parameter, over two steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only there")
+    import torch.distributed as dist
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fam, cfg, plain = registry.get("bytelm-100m", reduced=True,
+                                   device="cuda")
+    sharded = registry.build(cfg, device="cuda")
+    sharded.load_state_dict(plain.state_dict())
+    opt = O.AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = launch_mesh.make_host_mesh()
+        assert dict(mesh.shape) == {"data": 1, "model": 1}
+        steps = (TS.make_train_step(plain, fam, opt),
+                 TS.make_train_step(sharded, fam, opt, mesh=mesh,
+                                    global_batch=4))
+        rng = np.random.default_rng(24)
+        for _ in range(2):
+            toks = rng.integers(3, cfg.vocab, (4, 48)).astype(np.int32)
+            labels = np.roll(toks, -1, 1)
+            labels[-1, -8:] = -1
+            batch = {"tokens": torch.from_numpy(toks).cuda(),
+                     "labels": torch.from_numpy(labels).cuda()}
+            want, got = steps[0](batch), steps[1](batch)
+            for key in ("loss", "grad_norm", "lr"):
+                assert torch.equal(got[key], want[key]), key
+    finally:
+        dist.destroy_process_group()
+    want = dict(plain.named_parameters())
+    for n, p in sharded.named_parameters():
+        assert torch.equal(p, want[n]), n

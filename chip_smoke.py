@@ -224,19 +224,25 @@ Phases, in order; any failure exits non-zero before the last line:
      ``torch.distributed.run`` at world 1 under NCCL, mesh (1, 1): 3
      steps bit-equal to the single-process launcher's (metrics and the
      step-3 checkpoint's files).  (b) Four gloo ranks sharing the card,
-     meshes (2, 2) and (4, 1) (``train.sharding``: parameters and AdamW
-     moments kept as the reference's specs and ZeRO-1 say, gathered
-     before use): loss, grad norm and step-3 parameters within
-     ``MR_BF16_TOL`` of (a); each rank's resident bytes equal to its spec
-     shards; each rank's pipeline launches (one ronepass a batch); the
-     collectives' bytes (``CostMode``) beside the specs' closed form; the
-     step split into gathers, forward and backward, reductions and
-     update.  (c) The (2, 2) run's step-2 checkpoint resumed by two
+     meshes (2, 2), (4, 1) and (1, 4) (``train.sharding``: parameters
+     and AdamW moments kept as the reference's specs and ZeRO-1 say,
+     gathered over the data axes before use; a model axis splits the
+     products, Megatron's way): loss, grad norm and step-3 parameters
+     within ``MR_BF16_TOL`` of (a); each rank's resident bytes equal to
+     its spec shards; each rank's pipeline launches (one ronepass a
+     batch); at (2, 2) and (1, 4) the product FLOPs and the collectives'
+     bytes (``CostMode``) equal to their closed forms, and the layers
+     that stayed whole; the step split into gathers, forward and
+     backward, model-axis and data reductions and update.  (c) The
+     (2, 2) run's step-2 checkpoint resumed by two
      ranks through the launcher on ``plan_remesh``'s (1, 2) mesh and 2
      microbatches: steps 3-4 within ``MR_ELASTIC_REL`` of the four-rank
      run's.  (d) ``hierarchical_grad_sync`` at (pod 2, data 2) within
      0.02 of a plain float32 all-reduce, its int8 pod hop a quarter of
-     the float32 hop's payload.
+     the float32 hop's payload.  (e) h2o-danube-1.8b at full width and
+     depth on two gloo ranks at (1, 2), phase 8's weights and batch, 2
+     steps within ``MR_BF16_TOL`` of phase 8's: the vocab-parallel
+     embedding and CE at 16,000 rows a rank.
  11. The ``kernels`` line (all twelve kernels; ronepass's launches
      include phase 10's ranks'), then ``{"ok": true, "device": ...}``
      last.
@@ -250,6 +256,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -425,7 +432,10 @@ TRAIN_RESUME_REL = 0.5
 # atomics, so the gradient norm is held to one bf16 rounding step.
 TRAIN_REMAT_REL = 2 ** -8
 # Phase 10: four gloo ranks on one card against run (a), one rank under
-# NCCL, over 3 steps of bf16 training.  Step 1 starts from the same
+# NCCL, over 3 steps of bf16 training (the reasoning below is the data
+# axes'; a model axis also sums each split product's float32 partials in
+# another order before its cast, the same kind of difference).  Step 1
+# starts from the same
 # weights, so only the order of the float32 sums differs (the CE over the
 # ranks' rows, the gradient summed over the data ranks after each rank's
 # bf16 cast, where (a) casts the whole batch's): the loss differs in its
@@ -2551,8 +2561,9 @@ def train_phase(rng, smi: str, zero_counts, read_counts, work: Path,
     dcfg = danube_cfg or configs.get_config(DANUBE_ARCH)
     dcfg = dataclasses.replace(dcfg, remat=True, remat_policy="full")
     peak_reset()
+    d_seed = int(rng.integers(2**31))
     model = registry.build(dcfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(int(rng.integers(2**31))))
+        device=dev).manual_seed(d_seed))
     d_cfg = O.AdamWConfig(lr=3e-4, total_steps=DANUBE_STEPS,
                           warmup_steps=max(DANUBE_STEPS // 20, 5))
     st = TS.make_train_step(model, "lm", d_cfg)
@@ -2580,7 +2591,11 @@ def train_phase(rng, smi: str, zero_counts, read_counts, work: Path,
             "danube loss does not rise", d_losses)
     report[DANUBE_ARCH] = {"steps": d_runs, "peak_memory_bytes": d_peak,
                            "params": d_params, "seq": DANUBE_SEQ,
-                           "busy": d_busy, **train_flops(dcfg, 1, DANUBE_SEQ)}
+                           "seed": d_seed, "busy": d_busy,
+                           **train_flops(dcfg, 1, DANUBE_SEQ)}
+    # phase 10's (1, 2) ranks take the same batch (not in the report)
+    report["_danube_batch"] = {k: v.cpu() for k, v in dbatch.items()
+                               if k in ("tokens", "labels")}
     log(f"phase 8: {DANUBE_ARCH} {dcfg.n_layers} layers d_model "
         f"{dcfg.d_model} ({d_params} parameters, bf16), 1 x {DANUBE_SEQ}, "
         f"remat full: losses {[round(x, 5) for x in d_losses]}, grad_norm "
@@ -2763,9 +2778,12 @@ def analysis_phase(report: dict, smi: str, kernel_calls: dict,
 
 
 # Phase 10, multi-rank training on the one card: bytelm-100m at full width
-# and the launcher's 8 x 512 global batch, its ranks subprocesses.
+# and the launcher's 8 x 512 global batch, and h2o-danube-1.8b at full
+# width and depth at phase 8's 1 x 4096, its ranks subprocesses.
 MR_STEPS = 3                        # the steps (a) and (b) compare
-MR_MESHES = ((2, 2), (4, 1))
+MR_MESHES = ((2, 2), (4, 1), (1, 4))
+MR_SPLIT = ("2x2", "1x4")           # bytelm's runs with a model axis
+MR_DANUBE_STEPS = 2                 # (e): danube at (1, 2)
 MR_SAVE_AT, MR_TOTAL = 2, 4          # (c): the (2, 2) run's checkpoint, end
 MR_TIMEOUT = 600                     # a rank group's wall-clock limit, s
 MR_COLLECTIVES = ("all-gather", "reduce-scatter", "all-reduce", "broadcast")
@@ -2780,17 +2798,29 @@ def _kernel_counters():
 
 
 def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
-                           rows_split: bool = True) -> dict:
+                           rows_split: bool = True, tokens: int = 0) -> dict:
     """Bytes of one sharded step's collectives by kind, from the specs
-    alone, under ``CostMode``'s convention (a collective is charged its
-    output): per microbatch, each weight's gathers (``Leaf.uses`` in the
-    forward, again in a layer's remat recompute; a leaf the layers use
-    without ``gather`` once, when the microbatch starts), one backward
-    reduction per forward gather (reduce-scatter over the batch axes its
-    spec names, in float32, an all-reduce over those it does not), the
-    label count and the CE (4 B each); per step, the gradient norm (4 B)
-    and the ZeRO-1 update: an all-gather of each further-split slice, a
-    broadcast of each layer whose moments one data rank holds."""
+    and the shapes alone, under ``CostMode``'s convention (a collective is
+    charged its output): per microbatch, each weight's gathers
+    (``Leaf.uses`` in the forward, again in a layer's remat recompute; a
+    leaf the layers use without ``gather`` once, when the microbatch
+    starts) over its spec's axes but the model axis where the layer
+    computes on the leaf's own block of it, one backward reduction per
+    forward gather (reduce-scatter over the batch axes its spec names,
+    in float32, an all-reduce over those it does not), the label count
+    and the CE (4 B each); per step, the gradient norm (4 B) and the
+    ZeRO-1 update: an all-gather of each further-split slice, a
+    broadcast of each layer whose moments one data rank holds.  With a
+    model axis (a dense decoder whose heads and hidden units divide it,
+    ``tokens`` a microbatch's on this rank): per layer Megatron's g after
+    attention and after the MLP (float32 (tokens, d_model)), attention's
+    again in the recompute (which stops at the layer's last saved tensor,
+    the MLP's output product's inputs, so the MLP's g is not re-run), and
+    their f in the backward, one activation for each column product
+    (q, k, v; the MLP's two), summed over model before it is rounded;
+    with a split vocabulary the embedding's g,
+    and per CE chunk its max, its sum and gold logit, and the
+    unembedding's f."""
     mesh = rt.mesh
     batch = set(rt.batch_axes)
     out = dict.fromkeys(MR_COLLECTIVES, 0)
@@ -2800,12 +2830,13 @@ def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
 
     for name, lf in rt.leaves.items():
         b = dtype_bytes[name]
-        dims = lf.dims
+        # the layers compute on a leaf's own block along model (``local``)
+        dims = [axes if axes != (rt.tp,) else () for axes in lf.dims]
         n = 1
         for s in lf.shape:
             n *= s
         shard = n
-        for axes in dims:
+        for axes in lf.dims:
             shard //= size(axes)
         gathers, cur = 0, shard
         for axes in dims:
@@ -2820,16 +2851,16 @@ def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
             uses = back = 1
         out["all-gather"] += n_micro * uses * gathers
         cur = n
-        for axes in dims:
+        for axes in lf.dims:
             if axes and not all(a in batch for a in axes):
                 cur //= size(axes)
         rs = 0
-        for axes in dims:
+        for axes in lf.dims:
             if axes and all(a in batch for a in axes) and size(axes) > 1:
                 cur //= size(axes)
                 rs += cur * 4
         out["reduce-scatter"] += n_micro * back * rs
-        named = {a for axes in dims for a in axes}
+        named = {a for axes in lf.dims for a in axes}
         rest = tuple(a for a in rt.batch_axes if a not in named)
         if rest and size(rest) > 1:
             out["all-reduce"] += n_micro * back * cur * 4
@@ -2838,10 +2869,38 @@ def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
             out["all-gather"] += shard * b
         if ms.lead and size(ms.lead) > 1:
             out["broadcast"] += shard * b
-    if rows_split:
+    if rows_split and size(rt.batch_axes) > 1:
         out["all-reduce"] += n_micro * 2 * 4
     out["all-reduce"] += 4
+    if rt.tp is not None:
+        cfg = rt.model.cfg
+        m, d = mesh.axis_size(rt.tp), cfg.d_model
+        require(cfg.pattern == "dense" and cfg.n_heads % m == 0
+                and cfg.n_kv_heads % m == 0 and cfg.d_ff % m == 0
+                and not cfg.qkv_bias and not cfg.qk_norm,
+                "the closed form covers dense decoders that split whole",
+                cfg.name)
+        act = tokens * d * 4
+        out["all-reduce"] += n_micro * cfg.n_layers * act * (
+            2 + (1 if remat else 0) + 3 + 2)
+        if cfg.vocab % m == 0:
+            table = dtype_bytes["embed.table"]
+            out["all-reduce"] += n_micro * (tokens * d * table
+                                            + tokens * 3 * 4 + act)
     return out
+
+
+def rank_products(cfg, batch: int, seq: int, data: int, model: int) -> dict:
+    """A rank's product FLOPs outside attention (``mm``) of one step of a
+    dense decoder at (``data``, ``model``) on the card: :func:`train_flops`'
+    over ``data * model``, the unembedding's over ``data`` alone where the
+    vocabulary does not divide ``model`` (the table stays whole)."""
+    p = dense_products(cfg, batch * seq)
+    whole_vocab = cfg.vocab % model != 0
+    return {"layers": 4 * p["layers"] / (data * model),
+            "unembed": 3 * p["unembed"] / (data * (1 if whole_vocab
+                                                   else model)),
+            "one_process": 4 * p["layers"] + 3 * p["unembed"]}
 
 
 def rank_job(path: str) -> int:
@@ -2860,9 +2919,15 @@ def rank_job(path: str) -> int:
         beside the specs'; the parameters after step ``compare_at``
         against the checkpoint of run (a) (rank 0); a checkpoint after
         ``save_at``; step ``time_at`` split into gathers, forward and
-        backward, backward reductions and update (each collective between
-        device synchronisations); step ``cost_at`` under ``CostMode``:
-        its collectives' bytes by kind beside ``collective_closed_form``;
+        backward, model-axis reductions, data reductions and update (each
+        collective between device synchronisations); step ``cost_at``
+        under ``CostMode``: its collectives' bytes by kind beside
+        ``collective_closed_form``, its product FLOPs beside
+        ``rank_products``; the layers that computed whole over the model
+        axis (``models.shardctx.whole_layers``), with the count that does
+        not divide.  With ``seed`` and ``batch_file`` in the job, the
+        model is the registry's config built from that seed (phase 8's
+        danube) and every step takes the file's batch;
       * ``sync``: ``hierarchical_grad_sync`` over a (pod 2, data 2) mesh
         on random gradients of the arch's parameter shapes: against a
         plain float32 all-reduce, and the pod hop's bytes against the
@@ -2916,12 +2981,23 @@ def _rank_train(case, job, dev) -> dict:
     from repro_torch.train import sharding as SH
     from repro_torch.train import train_step as TS
 
+    from repro_torch.models import shardctx
+
     rank = dist.get_rank()
     mesh = meshmod.make_host_mesh(model=case["mesh"][1])
     require(tuple(mesh.shape.values()) == tuple(case["mesh"]), "mesh",
             dict(mesh.shape))
-    fam, cfg, model = registry.get(job["arch"], reduced=job["reduced"],
-                                   device=dev)
+    if "seed" in job:
+        from repro_torch.models.lm import LMConfig
+        fam = "lm"
+        fields = dict(job["cfg"], remat=True, remat_policy="full")
+        cfg = LMConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in fields.items()})
+        model = registry.build(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(job["seed"]))
+    else:
+        fam, cfg, model = registry.get(job["arch"], reduced=job["reduced"],
+                                       device=dev)
     like = launch_train.state_like(model)
     opt_cfg = O.AdamWConfig(lr=3e-4, total_steps=case["total"],
                             warmup_steps=max(case["total"] // 20, 5))
@@ -2929,51 +3005,73 @@ def _rank_train(case, job, dev) -> dict:
                                  global_batch=job["batch"])
     rt = step_fn.runtime
     dp = meshmod.dp_axes(mesh)
-    pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
-        seq_len=job["seq"], global_batch=job["batch"],
-        host_id=mesh.index(dp), n_hosts=mesh.axis_size(dp),
-        emit="codepoints"), device=dev)
+    if "batch_file" in job:
+        fixed = {k: v.to(dev) for k, v in torch.load(
+            job["batch_file"], weights_only=False).items()}
+    else:
+        pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
+            seq_len=job["seq"], global_batch=job["batch"],
+            host_id=mesh.index(dp), n_hosts=mesh.axis_size(dp),
+            emit="codepoints"), device=dev)
     counters = _kernel_counters()
     for k in counters.values():
         k.launches = 0
     out = {"mesh": dict(mesh.shape), "coord": mesh.coord, "steps": []}
     dtype_bytes = {n: p.element_size() for n, p in rt.params().items()}
-    for i in range(1, case["steps"] + 1):
-        batch = pipe.next_batch()
-        batch = {k: batch[k] for k in ("tokens", "labels")}
-        timing = contextlib.nullcontext()
-        if i == case.get("time_at"):
-            timing = _timed_collectives(dev, SH, O)
-        cost = contextlib.nullcontext()
-        if i == case.get("cost_at"):
-            cost = costmodel.CostMode()
-        _sync_dev(dev)
-        t0 = time.perf_counter()
-        with timing as tm, cost as cm:
-            met = step_fn(batch)
-        _sync_dev(dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        out["steps"].append({"loss": float(met["loss"]),
-                             "grad_norm": float(met["grad_norm"]),
-                             "lr": float(met["lr"]), "ms": ms})
-        if tm is not None:
-            out["split_ms"] = tm.split(ms)
-        if cm is not None:
-            out["collectives"] = {
-                "costmode_bytes": {k: cm.cost.coll_bytes[k]
-                                   for k in MR_COLLECTIVES},
-                "costmode_counts": {k: cm.cost.coll_counts[k]
-                                    for k in MR_COLLECTIVES},
-                "closed_form_bytes": collective_closed_form(
-                    rt, 1, bool(getattr(cfg, "remat", False)), dtype_bytes)}
-        if i == 1:
-            out["resident_bytes"] = rt.resident_bytes(step_fn.opt_state)
-            out["spec_bytes"] = rt.spec_bytes()
-        if i == case.get("compare_at"):
-            out["vs_a"] = _compare_whole(rt, case["a_ckpt"], case["compare_at"],
-                                         like, rank)
-        if i == case.get("save_at"):
-            launch_train.save_checkpoint(case["ckpt_dir"], i, step_fn, model)
+    rows = job["batch"] // mesh.axis_size(dp)
+    with shardctx.whole_layers() as whole:
+        for i in range(1, case["steps"] + 1):
+            if "batch_file" in job:
+                batch = fixed
+            else:
+                batch = pipe.next_batch()
+                batch = {k: batch[k] for k in ("tokens", "labels")}
+            timing = contextlib.nullcontext()
+            if i == case.get("time_at"):
+                timing = _timed_collectives(dev, SH, O)
+            cost = contextlib.nullcontext()
+            if i == case.get("cost_at"):
+                cost = costmodel.CostMode()
+            _sync_dev(dev)
+            t0 = time.perf_counter()
+            with timing as tm, cost as cm:
+                met = step_fn(batch)
+            _sync_dev(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            out["steps"].append({"loss": float(met["loss"]),
+                                 "grad_norm": float(met["grad_norm"]),
+                                 "lr": float(met["lr"]), "ms": ms})
+            if tm is not None:
+                out["split_ms"] = tm.split(ms)
+            if cm is not None:
+                out["collectives"] = {
+                    "costmode_bytes": {k: cm.cost.coll_bytes[k]
+                                       for k in MR_COLLECTIVES},
+                    "costmode_counts": {k: cm.cost.coll_counts[k]
+                                        for k in MR_COLLECTIVES},
+                    "closed_form_bytes": collective_closed_form(
+                        rt, 1, bool(getattr(cfg, "remat", False)), dtype_bytes,
+                        tokens=rows * job["seq"])}
+                ops = cm.cost.flops_by_op
+                out["products"] = {
+                    "mm": ops.get("mm", 0.0), "bmm": ops.get("bmm", 0.0),
+                    "closed_form": rank_products(
+                        cfg, job["batch"], job["seq"], mesh.axis_size(dp),
+                        mesh.shape["model"])}
+            if i == 1:
+                out["resident_bytes"] = rt.resident_bytes(step_fn.opt_state)
+                out["spec_bytes"] = rt.spec_bytes()
+            if i == case.get("compare_at"):
+                out["vs_a"] = _compare_whole(rt, case["a_ckpt"],
+                                             case["compare_at"], like, rank)
+            if i == case.get("save_at"):
+                launch_train.save_checkpoint(case["ckpt_dir"], i, step_fn,
+                                             model)
+    out["whole_layers"] = sorted(list(w) for w in whole)
+    out["whole_leaves"] = sorted(
+        n for n, lf in rt.leaves.items()
+        if "model" not in {a for axes in lf.dims for a in axes}
+        and lf.reached and math.prod(lf.shape) > cfg.d_model)
     _sync_dev(dev)
     out["launches"] = {n: k.launches for n, k in counters.items()}
     del step_fn, model
@@ -3014,7 +3112,8 @@ class _timed_collectives:
     def __init__(self, dev, SH, O):
         self.dev, self.SH, self.O = dev, SH, O
         self.t = {"all_gather": 0.0, "reduce_scatter": 0.0,
-                  "all_reduce": 0.0, "broadcast": 0.0, "update": 0.0}
+                  "all_reduce": 0.0, "model_reduce": 0.0, "broadcast": 0.0,
+                  "update": 0.0}
         self.in_update = False
 
     def _wrap(self, mod, name, key):
@@ -3029,7 +3128,10 @@ class _timed_collectives:
             if key == "update":
                 self.t["update"] += dt
             elif not self.in_update:
-                self.t[key] += dt
+                # an all-reduce over the model axis alone: Megatron's f
+                # and g, the vocabulary's sums, a cut leaf's gradient sum
+                over_model = key == "all_reduce" and a[2] == "model"
+                self.t["model_reduce" if over_model else key] += dt
             return out
         return real, run
 
@@ -3062,9 +3164,10 @@ class _timed_collectives:
         t = self.t
         reduce = t["reduce_scatter"] + t["all_reduce"]
         return {"step_ms": step_ms, "gather_ms": t["all_gather"],
-                "reduce_ms": reduce, "update_ms": t["update"],
-                "forward_backward_ms": step_ms - t["all_gather"] - reduce
-                - t["update"]}
+                "model_reduce_ms": t["model_reduce"], "reduce_ms": reduce,
+                "update_ms": t["update"],
+                "forward_backward_ms": step_ms - t["all_gather"]
+                - t["model_reduce"] - reduce - t["update"]}
 
 
 def _rank_sync(case, job, dev) -> dict:
@@ -3174,25 +3277,69 @@ def _metrics(path: Path) -> list:
     return [json.loads(ln) for ln in path.read_text().splitlines()]
 
 
+def torch_save_batch(batch: dict, path: Path) -> None:
+    import torch
+    torch.save({k: v.cpu() for k, v in batch.items()}, path)
+
+
+def _log_split(label: str, step: int, sp: dict, smi: str) -> None:
+    log(f"phase 10: {label} step {step} on rank 0 (correctness run: gloo "
+        f"ranks share one card, each collective between synchronisations):"
+        f" {sp['step_ms']:.1f} ms = gathers {sp['gather_ms']:.1f} + forward"
+        f" and backward {sp['forward_backward_ms']:.1f} + model-axis "
+        f"reductions {sp['model_reduce_ms']:.1f} + data reductions "
+        f"{sp['reduce_ms']:.1f} + update {sp['update_ms']:.1f}  [{smi}]")
+
+
+def _log_model_axis(label: str, step: int, r: dict) -> None:
+    """A split run's rank 0: its product FLOPs, collectives and whole
+    layers beside their closed forms."""
+    pr, co = r["products"], r["collectives"]
+    want = pr["closed_form"]
+    log(f"phase 10: {label} step {step} on rank 0, product FLOPs outside "
+        f"attention (CostMode mm) {pr['mm']:.6e} vs closed form "
+        f"{want['layers'] + want['unembed']:.6e} (layers "
+        f"{want['layers']:.6e} = one process's / (data x model), "
+        f"unembedding {want['unembed']:.6e}; one process "
+        f"{want['one_process']:.6e}, ratio "
+        f"{want['one_process'] / pr['mm']:.4f}); attention (bmm) "
+        f"{pr['bmm']:.6e}; collectives CostMode vs closed form (bytes): "
+        + "; ".join(f"{k} {co['costmode_bytes'][k]:.0f} vs "
+                    f"{co['closed_form_bytes'][k]:.0f} "
+                    f"(x{co['costmode_counts'][k]})" for k in MR_COLLECTIVES)
+        + f"; layers computing whole over model: "
+        f"{r['whole_layers'] or 'none'}; leaves kept whole over model: "
+        f"{r['whole_leaves'] or 'none'}")
+
+
 def multirank_phase(smi: str, work: Path, device="cuda",
-                    reduced: bool = False, backend1: str = "nccl") -> dict:
+                    reduced: bool = False, backend1: str = "nccl",
+                    danube=None) -> dict:
     """Phase 10, multi-rank training (``train.sharding``, the launcher
-    under ``torch.distributed.run``), on bytelm-100m at its published
-    config and the launcher's 8 x 512 global batch; ``reduced`` and
+    under ``torch.distributed.run``, the model axis's compute split), on
+    bytelm-100m at its published config and the launcher's 8 x 512
+    global batch, and on h2o-danube-1.8b at phase 8's; ``reduced`` and
     ``backend1`` (gloo for the world of one) rehearse it on the CPU.
+    ``danube``: phase 8's ``{"cfg", "seed", "batch", "steps"}`` (its
+    config, model seed, batch and step metrics), or ``None`` to skip (e).
 
       (a) World 1 under NCCL, mesh (1, 1), through the launcher: 3 steps
           against the single-process launcher's 3 (phase 8's path) on the
           same batches: the metrics and the step-3 checkpoints (every
           parameter and moment) byte for byte.
       (b) World 4 under gloo, all four ranks on the one card, meshes
-          (2, 2) and (4, 1), from the launcher's weights: each step's loss
-          and grad norm, and the step-3 parameters, within ``MR_BF16_TOL``
-          of (a); each rank's resident parameter and moment bytes equal to
-          its spec shards; each rank's pipeline launches; the
-          collectives' bytes by kind under ``CostMode`` beside
-          ``collective_closed_form``; a step split into gathers, forward
-          and backward, reductions and update.
+          (2, 2), (4, 1) and (1, 4), from the launcher's weights: each
+          step's loss and grad norm, and the step-3 parameters, within
+          ``MR_BF16_TOL`` of (a); each rank's resident parameter and
+          moment bytes equal to its spec shards; each rank's pipeline
+          launches; a step split into gathers, forward and backward,
+          model-axis reductions, data reductions and update.  With a
+          model axis, (2, 2) and (1, 4): the last step's product FLOPs
+          (``mm``) equal to ``rank_products`` (÷ data x model, the
+          unembedding of the 259-byte vocabulary ÷ data), its
+          collectives' bytes by kind under ``CostMode`` equal to
+          ``collective_closed_form`` (Megatron's f and g included), the
+          layers and leaves that stayed whole, and why.
       (c) Elastic: the (2, 2) run checkpoints at step 2 and runs on to
           step 4; ``plan_remesh((2, 2), 1, 8)`` gives (1, 2) with 2
           microbatches; two ranks resume the step-2 checkpoint through the
@@ -3201,6 +3348,12 @@ def multirank_phase(smi: str, work: Path, device="cuda",
       (d) ``hierarchical_grad_sync`` at (pod 2, data 2) on the arch's
           gradient shapes: within 0.02 of a plain float32 all-reduce; the
           pod hop's payload a quarter of the float32 hop's.
+      (e) h2o-danube-1.8b at full width and depth on two gloo ranks at
+          (1, 2) (16 heads, 4 KV heads, 3,456 hidden units and 16,000
+          vocabulary rows a rank: the vocab-parallel embedding and CE),
+          phase 8's weights and batch, 2 steps: losses and grad norms
+          within ``MR_BF16_TOL`` of phase 8's steps 1-2; the product
+          FLOPs, collectives and bytes held as in (b).
     Times beside the card's name and power limit; those of gloo ranks
     sharing one card are a correctness run's, not a speed figure."""
     import shutil
@@ -3276,12 +3429,16 @@ def multirank_phase(smi: str, work: Path, device="cuda",
                 "steps": MR_STEPS, "total": MR_STEPS,
                 "compare_at": MR_STEPS, "a_ckpt": str(work / "a1"),
                 "time_at": MR_STEPS},
+               {"kind": "train", "label": "1x4", "mesh": [1, 4],
+                "steps": MR_TOTAL, "total": MR_TOTAL,
+                "compare_at": MR_STEPS, "a_ckpt": str(work / "a1"),
+                "time_at": MR_STEPS, "cost_at": MR_TOTAL},
                {"kind": "sync", "label": "sync"}]}
     t0 = time.time()
     ranks = spawn_ranks(4, job, work, env)
     four_s = time.time() - t0
     tol = MR_BF16_TOL
-    for label in ("2x2", "4x1"):
+    for label in ("2x2", "4x1", "1x4"):
         per = [r[label] for r in ranks]
         steps0 = per[0]["steps"]
         for r in per[1:]:
@@ -3312,19 +3469,9 @@ def multirank_phase(smi: str, work: Path, device="cuda",
             + "; pipeline launches per rank: "
             + "; ".join(str({k: v for k, v in r["launches"].items() if v})
                         for r in per))
-        sp = per[0]["split_ms"]
-        log(f"phase 10: (b) {label} step {MR_STEPS} on rank 0 "
-            f"(correctness run: four gloo ranks share one card, each "
-            f"collective between synchronisations): {sp['step_ms']:.1f} ms "
-            f"= gathers {sp['gather_ms']:.1f} + forward and backward "
-            f"{sp['forward_backward_ms']:.1f} + reductions "
-            f"{sp['reduce_ms']:.1f} + update {sp['update_ms']:.1f}  [{smi}]")
-    coll = out["2x2"]["ranks"][0]["collectives"]
-    log(f"phase 10: (b) 2x2 step {MR_TOTAL}'s collectives on rank 0, "
-        "CostMode vs closed form from the specs (bytes): " + "; ".join(
-            f"{k} {coll['costmode_bytes'][k]:.0f} vs "
-            f"{coll['closed_form_bytes'][k]:.0f} (x{coll['costmode_counts'][k]})"
-            for k in MR_COLLECTIVES))
+        _log_split(label, MR_STEPS, per[0]["split_ms"], smi)
+    for label in MR_SPLIT:
+        _log_model_axis(label, MR_TOTAL, out[label]["ranks"][0])
 
     # (c) elastic: two ranks resume the (2, 2) run's step-2 checkpoint
     plan = elastic.plan_remesh((2, 2), failed_chips=1,
@@ -3374,10 +3521,58 @@ def multirank_phase(smi: str, work: Path, device="cuda",
         f" ms int8, {sy[0]['f32']['ms']:.0f} ms f32 (gloo, one card: a "
         f"correctness run)  [{smi}]")
     out["four_rank_s"] = four_s
+
+    # (e) h2o-danube-1.8b at (1, 2)
+    if danube is not None:
+        torch_save_batch(danube["batch"], work / "danube_batch.pt")
+        djob = {"init": f"file://{work}/store_{time.monotonic_ns()}",
+                "backend": "gloo", "device": device, "work": str(work),
+                "arch": danube["cfg"].name, "reduced": False,
+                "cfg": dataclasses.asdict(danube["cfg"]),
+                "seed": danube["seed"],
+                "batch_file": str(work / "danube_batch.pt"),
+                "batch": danube["batch"]["tokens"].shape[0],
+                "seq": danube["batch"]["tokens"].shape[1], "cases": [
+                    {"kind": "train", "label": "danube", "mesh": [1, 2],
+                     "steps": MR_DANUBE_STEPS, "total": DANUBE_STEPS,
+                     "time_at": 1, "cost_at": MR_DANUBE_STEPS}]}
+        t0 = time.time()
+        dranks = spawn_ranks(2, djob, work, env)
+        d_s = time.time() - t0
+        per = [r["danube"] for r in dranks]
+        want = danube["steps"][:MR_DANUBE_STEPS]
+        rel = {key: [abs(g[key] - w[key]) / abs(w[key])
+                     for g, w in zip(per[0]["steps"], want)]
+               for key in ("loss", "grad_norm")}
+        for r in per:
+            require([x["loss"] for x in r["steps"]]
+                    == [x["loss"] for x in per[0]["steps"]],
+                    "danube ranks agree on the loss")
+            require(r["resident_bytes"] == r["spec_bytes"],
+                    "danube resident bytes = spec shards", r["coord"],
+                    r["resident_bytes"], r["spec_bytes"])
+        out["danube"] = {"ranks": per, "rel_vs_phase8": rel,
+                         "phase8": want, "s": d_s}
+        log(f"phase 10: (e) {danube['cfg'].name} full width and depth at "
+            f"(1, 2), gloo x2 on one card, phase 8's weights and 1 x "
+            f"{djob['seq']} batch: losses "
+            f"{[round(x['loss'], 6) for x in per[0]['steps']]} vs phase 8 "
+            f"{[round(x['loss'], 6) for x in want]} (rel "
+            f"{[f'{x:.2e}' for x in rel['loss']]}); grad norm rel "
+            f"{[f'{x:.2e}' for x in rel['grad_norm']]}; step ms "
+            f"{[round(x['ms'], 1) for x in per[0]['steps']]} (phase 8 one "
+            f"process {[round(x['ms'], 1) for x in want]}); resident bytes = "
+            "spec shards: " + "; ".join(
+                f"{tuple(r['coord'].values())} params "
+                f"{r['resident_bytes']['params']} moments "
+                f"{r['resident_bytes']['moments']}" for r in per)
+            + f"  [{smi}]")
+        _log_split("danube 1x2", 1, per[0]["split_ms"], smi)
+        _log_model_axis("danube 1x2", MR_DANUBE_STEPS, per[0])
     out["seconds"] = time.time() - t_phase
 
     # the checks with tolerances, after every number is printed
-    for label in ("2x2", "4x1"):
+    for label in ("2x2", "4x1", "1x4"):
         rel, vs = out[label]["rel_vs_a"], out[label]["vs_a"]
         require(max(rel["loss"]) <= tol["loss_rel"], "loss vs (a)", label,
                 rel["loss"])
@@ -3391,6 +3586,27 @@ def multirank_phase(smi: str, work: Path, device="cuda",
                                        else 0) for lc, r in zip(
             launches, out[label]["ranks"])),
             "one ronepass launch a rank and step", label, launches)
+    split = [out[label]["ranks"] for label in MR_SPLIT]
+    if danube is not None:
+        split.append(out["danube"]["ranks"])
+        for key, lim in (("loss", tol["loss_rel"]),
+                         ("grad_norm", tol["gnorm_rel"])):
+            require(max(out["danube"]["rel_vs_phase8"][key]) <= lim,
+                    f"danube {key} vs phase 8",
+                    out["danube"]["rel_vs_phase8"])
+    for per in split:
+        for r in per:
+            pr, co = r["products"], r["collectives"]
+            want = pr["closed_form"]
+            # on the CPU (a rehearsal) aten's products save their inputs
+            # before they run, so the remat recompute stops before each
+            # layer's last product: the card's form holds on the card
+            require(pr["mm"] == want["layers"] + want["unembed"]
+                    or dev_type == "cpu",
+                    "rank products = closed form", r["coord"], pr)
+            for k in MR_COLLECTIVES:
+                require(co["costmode_bytes"][k] == co["closed_form_bytes"][k],
+                        "collectives = closed form", r["coord"], k, co)
     require(max(el_rel) <= MR_ELASTIC_REL, "elastic losses", el_rel)
     for s in sy:
         require(s["max_rel_err"] < 0.02, "sync error", s["max_rel_err"])
@@ -4748,6 +4964,11 @@ def main(argv=None) -> int:
         report["train"], train_launches = train_phase(
             np.random.default_rng([args.seed, 8]), smi, zero_counts,
             read_counts, Path(work))
+    from repro_torch import configs
+    danube = {"cfg": configs.get_config(DANUBE_ARCH),
+              "batch": report["train"].pop("_danube_batch"),
+              "seed": report["train"][DANUBE_ARCH]["seed"],
+              "steps": report["train"][DANUBE_ARCH]["steps"]}
     for name, count in [*model_launches.items(), *engine_launches.items(),
                         *shard_launches.items(), *train_launches.items()]:
         launches[name] = launches.get(name, 0) + count
@@ -4781,8 +5002,8 @@ def main(argv=None) -> int:
                                         table_bytes, Path(args.out).parent)
     # -- 10. multi-rank training ---------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as work:
-        report["multirank"] = multirank_phase(smi, Path(work))
-    for label in ("2x2", "4x1"):
+        report["multirank"] = multirank_phase(smi, Path(work), danube=danube)
+    for label in ("2x2", "4x1", "1x4"):
         for r in report["multirank"][label]["ranks"]:
             for name, count in r["launches"].items():
                 if count:

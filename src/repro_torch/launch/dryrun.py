@@ -23,18 +23,28 @@ the rank's cost by the chips.  ``--layout``:
 
   * ``tp``: specs with the model axis on the tensor-parallel dims, FSDP
     and the batch over the data axes (serving cells: no FSDP, as the
-    reference's).  The port gathers each weight whole before use and
-    runs no product split over the model axis (queue 1 item 14), so the
-    ranks of a model group repeat each other's compute: the record's
-    ``compute_per_rank_is_reference`` is false;
+    reference's).  The rank gathers each weight over the data axes and
+    computes its share over the model axis, Megatron's way
+    (``models.shardctx``): its heads, hidden units, experts, channels
+    and slice of the vocabulary.  A layer whose count does not divide
+    the model axis computes whole on every rank of its group; the
+    record's ``whole_layers`` names each, with the count, and
+    ``compute_per_rank_is_reference`` is true where there is none (and
+    the batch's rows split);
   * ``dp``: no tensor axis; ZeRO-3 over every axis and the batch over
     the whole mesh: each rank computes its share, as the reference's,
     where the global batch has a row for every rank.  Where it has not,
     the reference splits the sequence (``batch_specs``); the port gives
     every rank the whole batch, whose compute it then repeats.
 
-A serving cell's decode state is the rank's rows, whole (the reference
-splits it by ``state_specs``).  ``--opt`` names the variant
+A serving cell's decode state is the rank's rows of its KV heads and
+recurrent channels (the blocks its layers compute), the size of its
+``state_specs`` shard where the heads divide the model axis; the record
+has both (``state_bytes_per_rank``, ``state_specs_bytes_per_rank``).
+With a mesh, :func:`main` also costs the one-card cell and records the
+rank's product FLOPs against the one card's over the chips
+(``products_per_rank``, ``products_one_card_over_chips``).  ``--opt``
+names the variant
 ``opt-<layout>`` as the reference's; it changes nothing else here: the
 reference's ``--opt`` turns on the re-gather of each weight before use
 (``shardctx`` opt-1), which the port's runtime always does (and for
@@ -53,6 +63,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import sys
 import traceback
 import weakref
@@ -208,7 +219,7 @@ def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
     # serving: parameters split over the tensor axis only (no FSDP), as
     # the reference's dry run keeps them
     pspecs = SH.param_specs(model, mesh, tp=tp, fsdp=None)
-    rt = SH.bind(model, family, mesh, pspecs, None, dp)
+    rt = SH.bind(model, family, mesh, pspecs, None, dp, tp=tp)
     ctx = dict(tp_axis=tp, tp_size=mesh.shape["model"], dp_axes=dp,
                dp_size=mesh.axis_size(dp), mesh=mesh,
                batch_axes=dp if split else ())
@@ -230,16 +241,39 @@ def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
                     2.0 * n_active * gb * seq)
         with torch.no_grad(), shardctx.use(**ctx), rt.swapped():
             state = model.init_state(local["frames"], b, cap)
-        return sharded(dec), (model, local["tok"], state), \
-            2.0 * n_active * gb
-    state = kvcache.init_state(model, cfg, b, context)
-    if kind == "prefill":
-        return (sharded(serve_step.make_prefill(model, family)),
-                (model, local["tokens"], local["lens"], state),
-                2.0 * n_active * gb * seq)
-    return (sharded(serve_step.make_decode(model, family)),
-            (model, local["tok"], local["pos"], state, None),
-            2.0 * n_active * gb)
+        step = sharded(dec)
+        args = (model, local["tok"], state)
+    else:
+        with shardctx.use(**ctx):
+            state = kvcache.init_state(model, cfg, b, context)
+        if kind == "prefill":
+            return (sharded(serve_step.make_prefill(model, family)),
+                    (model, local["tokens"], local["lens"], state),
+                    2.0 * n_active * gb * seq)
+        step = sharded(serve_step.make_decode(model, family))
+        args = (model, local["tok"], local["pos"], state, None)
+    step.state_bytes = _state_bytes(model, family, cfg, ins, gb, cap,
+                                    context, state, mesh, dp, tp)
+    return step, args, 2.0 * n_active * gb
+
+
+def _state_bytes(model, family, cfg, ins, gb, cap, context, state, mesh, dp,
+                 tp) -> dict:
+    """A decode cell's state bytes on this rank, and the bytes of its
+    shard of the global state under ``state_specs``."""
+    with torch.no_grad():
+        if family == "encdec":
+            whole = model.init_state(ins["frames"], gb, cap)
+        else:
+            whole = kvcache.init_state(model, cfg, gb, context)
+    spec_bytes = 0
+    for t in CM.tensors(whole):     # every leaf, the cross-attention's too
+        spec = SH.state_specs({"t": t}, mesh, dp=dp, tp=tp)["t"]
+        spec_bytes += math.prod(SH.shard_shape(t.shape, spec, mesh)) \
+            * t.element_size()
+    return {"rank": float(sum(t.numel() * t.element_size()
+                              for t in CM.tensors(state))),
+            "state_specs": float(spec_bytes)}
 
 
 @contextlib.contextmanager
@@ -312,19 +346,31 @@ class LiveBytes(TorchDispatchMode):
 def dryrun_cell(arch: str, shape_name: str, *, remat=True,
                 remat_policy: str = "full", reduced: bool = False,
                 shape=None, verbose=True, multi_pod=None, layout="tp",
-                opt: bool = False):
+                opt: bool = False, mesh_shape=None, one_card=None):
     """Cost one cell on the meta device; returns the result record.
     ``multi_pod``: ``None`` for one card, else rank 0 of the 16x16
-    (False) or 2x16x16 (True) mesh under ``layout``."""
-    if multi_pod is None:
-        mesh_name, chips, world = MESH, CHIPS, contextlib.nullcontext()
-    else:
+    (False) or 2x16x16 (True) mesh under ``layout``; ``mesh_shape``
+    (axis -> size, e.g. ``{"data": 2, "model": 4}``): rank 0 of that
+    mesh instead.  ``one_card``: the one-card record of the same cell,
+    whose product FLOPs over the chips the record then carries."""
+    if multi_pod is not None:
         mesh_name = "2x16x16" if multi_pod else "16x16"
         chips = 512 if multi_pod else 256
-        world = fake_world(chips)
-    with world:
-        mesh = None if multi_pod is None else \
-            meshmod.make_production_mesh(multi_pod=multi_pod)
+
+        def make():
+            return meshmod.make_production_mesh(multi_pod=multi_pod)
+    elif mesh_shape is not None:
+        mesh_name = "x".join(str(n) for n in mesh_shape.values())
+        chips = math.prod(mesh_shape.values())
+
+        def make():
+            return meshmod.make_mesh(dict(mesh_shape), range(chips))
+    else:
+        mesh_name, chips = MESH, CHIPS
+    world = contextlib.nullcontext() if chips == 1 and mesh_shape is None \
+        else fake_world(chips)
+    with world, shardctx.whole_layers() as whole:
+        mesh = None if mesh_name == MESH else make()
         fn, args, model_flops = build_cell(
             arch, shape_name, remat=remat, remat_policy=remat_policy,
             reduced=reduced, shape=shape, mesh=mesh, layout=layout)
@@ -342,12 +388,23 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     rec["variant"] = f"opt-{layout}" if opt else "baseline"
     rec["layout"] = layout if mesh is not None else None
     # one card computes the reference's step; a rank of a "tp" layout
-    # repeats its model group's work (no split products yet), and a rank
-    # given the whole batch (too few rows for the data axes: the
-    # reference splits the sequence there) repeats its data peers'
+    # computes its share over the model axis but for the layers whose
+    # counts do not divide it, and a rank given the whole batch (too few
+    # rows for the data axes: the reference splits the sequence there)
+    # repeats its data peers'
     rec["batch_rows_split"] = split
+    rec["whole_layers"] = sorted(list(w) for w in whole)
     rec["compute_per_rank_is_reference"] = mesh is None or (
-        layout == "dp" and split)
+        split and (layout == "dp" or not whole))
+    rec["products_per_rank"] = (cm.cost.flops_by_class["products_bf16"]
+                                + cm.cost.flops_by_class["products_f32"])
+    if one_card is not None:
+        rec["products_one_card_over_chips"] = (
+            one_card["products_per_rank"] / chips)
+    state = getattr(fn, "state_bytes", None)
+    if state is not None:
+        rec["state_bytes_per_rank"] = state["rank"]
+        rec["state_specs_bytes_per_rank"] = state["state_specs"]
     rec["mem_temp_size_in_bytes"] = mem.peak - mem.args
     rec["mem_argument_size_in_bytes"] = mem.args
     rec["mem_output_size_in_bytes"] = _storage_bytes(CM.tensors(out))
@@ -355,6 +412,16 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     rec["mem_peak_bytes"] = mem.peak
     rec["flops_by_op"] = cm.cost.flops_by_op
     rec["fits_one_card"] = mem.peak <= RL.HBM_BYTES
+    if verbose and mesh is not None:
+        ratio = ""
+        if one_card is not None:
+            ratio = rec["products_per_rank"] \
+                / rec["products_one_card_over_chips"]
+            ratio = f" = {ratio:.4f} x the one card's / chips"
+        print(f"  rank: compute_per_rank_is_reference="
+              f"{rec['compute_per_rank_is_reference']} products="
+              f"{rec['products_per_rank']:.4e}{ratio}; whole layers: "
+              f"{rec['whole_layers'] or 'none'}")
     if verbose:
         print(f"[{arch} x {shape_name} x {mesh_name}] OK  "
               f"flops={rec['hlo_flops']:.3e} bytes={rec['hlo_bytes']:.3e} "
@@ -400,13 +467,18 @@ def main(argv=None) -> int:
 
     results = []
     for arch, shape in todo:
+        one = None
         for mp in meshes:
             name = MESH if mp is None else ("2x16x16" if mp else "16x16")
             try:
+                if mp is not None and one is None:  # the ranks' yardstick
+                    one = dryrun_cell(arch, shape, remat=not args.no_remat,
+                                      remat_policy=args.remat_policy,
+                                      verbose=False)
                 rec = dryrun_cell(arch, shape, remat=not args.no_remat,
                                   remat_policy=args.remat_policy,
                                   multi_pod=mp, layout=args.layout,
-                                  opt=args.opt)
+                                  opt=args.opt, one_card=one)
             except Exception as e:  # noqa: BLE001  (the cell is recorded)
                 traceback.print_exc()
                 rec = {"arch": arch, "shape": shape, "mesh": name,

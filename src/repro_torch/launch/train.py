@@ -16,8 +16,9 @@ Run as one process (no ``RANK``/``WORLD_SIZE`` in the environment) it
 trains on one device with no mesh; its first line names the device.
 Under ``torch.distributed.run`` each rank joins the process group
 (``--backend``: ``nccl`` on CUDA, ``gloo`` on the CPU, unless given),
-builds ``launch.mesh.make_host_mesh()`` and prints ``mesh: {'data': D,
-'model': M}`` after the device line, as the reference does; the step is
+builds ``launch.mesh.make_host_mesh(model=--model)`` (2 by default, the
+reference's) and prints ``mesh: {'data': D, 'model': M}`` after the
+device line, as the reference does; the step is
 ``train_step.make_train_step(..., mesh=)`` (parameters and moments cut
 to the rank's shards, ``train.sharding``) and the rank's pipeline holds
 the global batch's rows ``h, h + D, ...``, ``h`` its data coordinate.
@@ -188,6 +189,9 @@ def main(argv=None):
     ap.add_argument("--metrics", default=None,
                     help="append each step's loss, grad_norm and lr, "
                          "unrounded, to this file as JSON lines")
+    ap.add_argument("--model", type=int, default=2,
+                    help="under torch.distributed.run: the mesh's model "
+                         "axis (at most the world size)")
     args = ap.parse_args(argv)
 
     stop = []
@@ -279,7 +283,7 @@ def _train_mesh(args, stop, dev, backend):
 
     rank = dist.get_rank()
     say = print if rank == 0 else (lambda *a, **k: None)
-    mesh = meshmod.make_host_mesh()
+    mesh = meshmod.make_host_mesh(model=args.model)
     family, cfg, model = registry.get(args.arch, reduced=args.reduced,
                                       device=dev)
     say(f"device: {dev}  backend: {backend}  ranks: "

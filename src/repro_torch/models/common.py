@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -50,10 +50,12 @@ from repro_torch.models import shardctx
 F32 = torch.float32
 
 
-def _narrow_on_card(x, w) -> bool:
+def _narrow_on_card(x, w, src=None) -> bool:
     """Narrow operands of one dtype on the card, or on the meta device,
-    where the cost model traces the card's path."""
-    return x.device.type in ("cuda", "meta") and x.dtype == w.dtype != F32
+    where the cost model traces the card's path.  ``src``: the dtype
+    ``x``'s values were widened from (:func:`shardctx.to_model`)."""
+    return x.device.type in ("cuda", "meta") and \
+        (src or x.dtype) == w.dtype != F32
 
 
 class _Mm32(torch.autograd.Function):
@@ -62,19 +64,23 @@ class _Mm32(torch.autograd.Function):
     preferred_element_type=float32)``: the cotangent stays float32, each
     operand's gradient is a float32 product with the narrow operand
     widened (``ct @ w.T``, ``x.T @ ct``), cast to that operand's dtype.
+    An ``x`` wider than ``w`` holds values of ``w``'s dtype (f's
+    output): it is narrowed exactly, and its float32 gradient is not.
     PyTorch defines no derivative for ``mm`` with ``out_dtype``."""
 
     @staticmethod
     def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=F32)
+        xn = x.to(w.dtype)
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(xn, w)
+        return torch.mm(xn, w, out_dtype=F32)
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = torch.mm(ct, w.t().to(F32)).to(x.dtype)
+            gx = torch.mm(ct, w.t().to(F32)).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             gw = torch.mm(x.t().to(F32), ct).to(w.dtype)
         return gx, gw
@@ -85,34 +91,52 @@ class _Bmm32(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.bmm(x, w, out_dtype=F32)
+        xn = x.to(w.dtype)
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(xn, w)
+        return torch.bmm(xn, w, out_dtype=F32)
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = torch.bmm(ct, w.transpose(1, 2).to(F32)).to(x.dtype)
+            gx = torch.bmm(ct, w.transpose(1, 2).to(F32)).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             gw = torch.bmm(x.transpose(1, 2).to(F32), ct).to(w.dtype)
         return gx, gw
 
 
-def dot32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dot32(x: torch.Tensor, w: torch.Tensor, src=None) -> torch.Tensor:
     """``x @ w`` in float32: ``x`` (..., k), ``w`` (k, n) -> (..., n).
 
     The reference's ``einsum(..., preferred_element_type=float32)``.
-    Mixed operands promote to float32, as JAX promotes them."""
-    if _narrow_on_card(x, w):
+    Mixed operands promote to float32, as JAX promotes them, but for an
+    ``x`` widened from ``src`` by :func:`shardctx.to_model`: that product
+    runs as on ``x`` of dtype ``src``, its input gradient kept float32."""
+    if _narrow_on_card(x, w, src):
         y = _Mm32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(F32), w.to(F32))
 
 
-def bdot32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Batched ``x @ w`` in float32: (n, a, k) @ (n, k, c) -> (n, a, c)."""
-    if _narrow_on_card(x, w):
+def columns(x: torch.Tensor, ws, split: bool = True) -> list:
+    """``[dot32(x, w) for w in ws]``: with ``split``, the rank's column
+    blocks over the model axis, entered through Megatron's f
+    (:func:`shardctx.to_model`, one use a product), so each product's
+    float32 input gradient is summed over model before it is rounded, in
+    one all-reduce; plain products without a model axis, or for a layer
+    that computes whole (``split`` false)."""
+    if not split:
+        return [dot32(x, w) for w in ws]
+    return [dot32(xm, w, x.dtype)
+            for xm, w in zip(shardctx.to_model(x, len(ws)), ws)]
+
+
+def bdot32(x: torch.Tensor, w: torch.Tensor, src=None) -> torch.Tensor:
+    """Batched ``x @ w`` in float32: (n, a, k) @ (n, k, c) -> (n, a, c);
+    ``src`` as :func:`dot32`'s."""
+    if _narrow_on_card(x, w, src):
         return _Bmm32.apply(x, w)
     return torch.bmm(x.to(F32), w.to(F32))
 
@@ -139,10 +163,14 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(params, x, eps=1e-6):
+    return _rmsnorm(params.scale, x, eps)
+
+
+def _rmsnorm(scale, x, eps=1e-6):
     x32 = x.to(F32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params.scale.to(F32)).to(x.dtype)
+    return (y * scale.to(F32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -221,22 +249,67 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(hd, dtype, device)
 
 
-def _project_qkv(params, cfg: AttnConfig, x, pos):
+class Heads(NamedTuple):
+    """A rank's attention heads: the first query head and their count,
+    the first KV head and their count."""
+
+    h0: int
+    h: int
+    k0: int
+    kv: int
+
+    def ranges(self, hd: int):
+        """The query and the KV heads' columns: ``((start, size),)``
+        each."""
+        return ((self.h0 * hd, self.h * hd),), ((self.k0 * hd, self.kv * hd),)
+
+
+def heads(cfg: AttnConfig, layer: str = "attention") -> Optional[Heads]:
+    """This rank's heads over the model axis (``shardctx.tp``), or
+    ``None`` when attention computes whole: no model axis, query heads
+    that do not divide, or KV heads that neither divide the model ranks
+    nor are divided by them.  With fewer KV heads than ranks a rank takes
+    the one KV head its query heads read."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    m, r = shardctx.tp()
+    blk = shardctx.split(h, layer, "heads")
+    if blk is None:
+        return None
+    if kv % m == 0:
+        return Heads(blk[0], blk[1], r * (kv // m), kv // m)
+    if m % kv == 0:
+        return Heads(blk[0], blk[1], r // (m // kv), 1)
+    shardctx.note_whole(layer, f"KV heads {kv} and model {m} divide "
+                        "neither way")
+    return None
+
+
+def _project_qkv(params, cfg: AttnConfig, x, pos, hs=None):
+    """q, k, v of the heads ``hs`` (all of them when ``None``); with
+    ``hs`` the input enters through Megatron's f (:func:`columns`) and
+    every leaf is the rank's block."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dot32(x, shardctx.gather("wq", params.wq))
-    k = dot32(x, shardctx.gather("wk", params.wk))
-    v = dot32(x, shardctx.gather("wv", params.wv))
+    hd = cfg.head_dim
+    if hs is None:
+        h, kv, qr, kr = cfg.n_heads, cfg.n_kv_heads, None, None
+    else:
+        (h, kv), (qr, kr) = (hs.h, hs.kv), hs.ranges(hd)
+    gather = shardctx.gather
+    q, k, v = columns(x, [gather("wq", params.wq, 1, qr),
+                          gather("wk", params.wk, 1, kr),
+                          gather("wv", params.wv, 1, kr)], hs is not None)
     if cfg.qkv_bias:
-        q = q + params.bq.to(F32)
-        k = k + params.bk.to(F32)
-        v = v + params.bv.to(F32)
+        q = q + gather("bq", params.bq, 0, qr).to(F32)
+        k = k + gather("bk", params.bk, 0, kr).to(F32)
+        v = v + gather("bv", params.bv, 0, kr).to(F32)
     q = q.reshape(b, s, h, hd).to(x.dtype)
     k = k.reshape(b, s, kv, hd).to(x.dtype)
     v = v.reshape(b, s, kv, hd).to(x.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(params.q_norm, q)
-        k = rmsnorm(params.k_norm, k)
+        # one (hd,) scale for every head: a split use of the whole leaf
+        whole = None if hs is None else ((0, hd),)
+        q = _rmsnorm(gather("scale", params.q_norm.scale, 0, whole), q)
+        k = _rmsnorm(gather("scale", params.k_norm.scale, 0, whole), k)
     if cfg.mrope_sections is not None:
         pos3 = pos if pos.dim() == 3 else pos.expand(3, *pos.shape)
         q = apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta)
@@ -310,7 +383,8 @@ def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
     repeated indices have no defined order on CUDA).
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, pos)
+    hs = heads(cfg)
+    q, k, v = _project_qkv(params, cfg, x, pos, hs)
     tpos = pos[0] if pos.dim() == 3 else pos  # temporal stream for masking
 
     if cache is None:
@@ -336,12 +410,26 @@ def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
         y = chunked_attention(q, ck, cv, tpos, cpos, cfg.window, chunk)
         new_cache = cache
 
-    out = dot32(y.reshape(b, s, -1), shardctx.gather("wo", params.wo))
-    return out.to(x.dtype), new_cache
+    return attn_out(params, cfg, hs, y, x.dtype), new_cache
+
+
+def attn_out(params, cfg: AttnConfig, hs, y, dtype):
+    """The output product of heads ``hs``' ``y`` (B, S, H, D): with
+    ``hs`` a row product, its float32 partial summed over model (g)
+    before the cast."""
+    b, s = y.shape[:2]
+    y = y.reshape(b, s, -1)
+    if hs is None:
+        return dot32(y, shardctx.gather("wo", params.wo)).to(dtype)
+    qr, _ = hs.ranges(cfg.head_dim)
+    out = dot32(y, shardctx.gather("wo", params.wo, 0, qr))
+    return shardctx.from_model(out).to(dtype)
 
 
 def init_attn_cache(cfg: AttnConfig, batch, capacity, dtype, device):
-    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    """An empty cache of the rank's KV heads (:func:`heads`)."""
+    hs = heads(cfg)
+    kv, hd = (cfg.n_kv_heads if hs is None else hs.kv), cfg.head_dim
     return {
         "k": torch.zeros((batch, capacity, kv, hd), dtype=dtype,
                          device=device),
@@ -366,10 +454,20 @@ class MLP(nn.Module):
 
 
 def mlp(params, x):
-    h = F.silu(dot32(x, shardctx.gather("wg", params.wg)))
-    h = h * dot32(x, shardctx.gather("wi", params.wi))
-    return dot32(h.to(x.dtype),
-                 shardctx.gather("wo", params.wo)).to(x.dtype)
+    """SwiGLU; over a model axis ``wg``/``wi`` are column products and
+    ``wo`` a row product, on the rank's hidden units."""
+    blk = shardctx.split(shardctx.full_shape(params.wi)[1], "mlp",
+                         "hidden units")
+    if blk is None:
+        h = F.silu(dot32(x, shardctx.gather("wg", params.wg)))
+        h = h * dot32(x, shardctx.gather("wi", params.wi))
+        return dot32(h.to(x.dtype),
+                     shardctx.gather("wo", params.wo)).to(x.dtype)
+    g, i = columns(x, [shardctx.gather("wg", params.wg, 1, (blk,)),
+                       shardctx.gather("wi", params.wi, 1, (blk,))])
+    h = F.silu(g) * i
+    out = dot32(h.to(x.dtype), shardctx.gather("wo", params.wo, 0, (blk,)))
+    return shardctx.from_model(out).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +510,14 @@ def moe(params, cfg: MoEConfig, x):
     so capacity, each copy's slot (a cumsum in global token order, the
     pipeline's: local row ``i`` of rank ``h`` of ``n`` is global row
     ``i * n + h``) and the aux loss's means are over every token; each
-    rank computes its own tokens' expert products."""
+    rank computes its own tokens' expert products.
+
+    Over a model axis (``shardctx.tp``) the router, the routing and the
+    aux loss stay replicated.  With ``n_experts`` divisible by the ranks
+    each runs its own experts over the global capacity buffer (expert
+    parallelism); otherwise each runs every expert on its block of the
+    hidden units.  Either way its float32 combined output is summed over
+    model (g), the gates and the tokens entering through f."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -449,18 +554,52 @@ def moe(params, cfg: MoEConfig, x):
     gather_idx[torch.where(keep, eid * cap + slot, e * cap)] = src_token
     gather_idx = gather_idx[: e * cap].reshape(e, cap)
 
-    xg = torch.cat([xf, xf.new_zeros((1, d))])[gather_idx]  # (e, cap, d)
-    xg = shardctx.act(xg, (None, "dp", None))
-    h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg)))
-    h = h * bdot32(xg, shardctx.gather("wi", params.wi))
-    ye = bdot32(h.to(x.dtype), shardctx.gather("wo", params.wo))
-    ye = shardctx.act(ye.to(x.dtype), (None, "dp", None))   # (e, cap, d)
+    if route is not None:
+        shardctx.note_whole("moe", f"the capacity buffer of {n_ranks} data "
+                            "ranks' tokens on each (global routing)")
+    ep = shardctx.split(e)
+    hid = None if ep is not None else shardctx.split(cfg.d_ff)
+    if shardctx.tp()[0] > 1 and ep is None and hid is None:
+        shardctx.note_whole("moe", f"experts {e} and hidden units "
+                            f"{cfg.d_ff} % model {shardctx.tp()[0]}")
+    if ep is None and hid is None:
+        xg = torch.cat([xf, xf.new_zeros((1, d))])[gather_idx]  # (e, cap, d)
+        xg = shardctx.act(xg, (None, "dp", None))
+        h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg)))
+        h = h * bdot32(xg, shardctx.gather("wi", params.wi))
+        ye = bdot32(h.to(x.dtype), shardctx.gather("wo", params.wo))
+        ye = shardctx.act(ye.to(x.dtype), (None, "dp", None))  # (e, cap, d)
+        mine, at = keep, eid
+    else:
+        xm, = shardctx.to_model(xf)
+        gates, = shardctx.to_model(gates)
+        if ep is not None:      # this rank's experts, the global buffer
+            e0, el = ep
+            gather_idx = gather_idx[e0: e0 + el]
+            wdims = (0, 0, 0)
+            mine = keep & (eid >= e0) & (eid < e0 + el)
+            at = eid - e0
+        else:                   # every expert, this rank's hidden units
+            wdims = (2, 2, 1)
+            mine, at = keep, eid
+        blk = (ep if ep is not None else hid,)
+        xg = torch.cat([xm, xm.new_zeros((1, d))])[gather_idx]
+        h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg, wdims[0],
+                                              blk), x.dtype))
+        h = h * bdot32(xg, shardctx.gather("wi", params.wi, wdims[1], blk),
+                       x.dtype)
+        ye = bdot32(h.to(x.dtype), shardctx.gather("wo", params.wo,
+                                                   wdims[2], blk))
+        if ep is not None:      # whole products: the reference's cast
+            ye = ye.to(x.dtype)
 
     # combine: each token-copy reads back its expert output, weighted
-    copy_val = ye[torch.where(keep, eid, 0), torch.where(keep, slot, 0)]
-    w = gates.reshape(t * k)[:, None] * keep[:, None]
+    copy_val = ye[torch.where(mine, at, 0), torch.where(mine, slot, 0)]
+    w = gates.reshape(t * k)[:, None] * mine[:, None]
     out = torch.zeros((t, d), dtype=F32, device=dev).index_add_(
         0, src_token, copy_val.to(F32) * w)
+    if ep is not None or hid is not None:
+        out = shardctx.from_model(out)
 
     if cfg.n_shared:
         out = out + mlp(params.shared, x).reshape(t, d).to(F32)
@@ -535,17 +674,33 @@ def rglru(params, x, state=None, c=8.0):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
     a_t = exp(-c * softplus(lam) * sigmoid(r_t))
     Returns (y, last_state).
+    Over a model axis the gates are column products on the rank's
+    channels, the recurrence runs on them (``state`` is theirs), and the
+    output is all-gathered over model; the returned state stays local.
     """
-    r = torch.sigmoid(dot32(x, shardctx.gather("wa", params.wa)))
-    i = torch.sigmoid(dot32(x, shardctx.gather("wx", params.wx)))
-    log_a = -c * F.softplus(params.lam) * r                  # (B,S,D) f32
+    blk = shardctx.split(x.shape[-1], "rglru", "channels")
+    if blk is None:
+        xs = x
+        r = torch.sigmoid(dot32(x, shardctx.gather("wa", params.wa)))
+        i = torch.sigmoid(dot32(x, shardctx.gather("wx", params.wx)))
+        lam = shardctx.gather("lam", params.lam)
+    else:
+        xa, xx, xs = shardctx.to_model(x, 3)     # one process's order
+        xs = xs[..., blk[0]: blk[0] + blk[1]]
+        r = torch.sigmoid(dot32(xa, shardctx.gather("wa", params.wa, 1,
+                                                    (blk,)), x.dtype))
+        i = torch.sigmoid(dot32(xx, shardctx.gather("wx", params.wx, 1,
+                                                    (blk,)), x.dtype))
+        lam = shardctx.gather("lam", params.lam, 0, (blk,))
+    log_a = -c * F.softplus(lam) * r                         # (B,S,D) f32
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * (
-        i * x.to(F32))
+        i * xs.to(F32))
     if state is not None:
         gated[:, 0] += a[:, 0] * state
     h = linear_scan(a, gated)
-    return h.to(x.dtype), h[:, -1]
+    y = h.to(x.dtype)
+    return (y if blk is None else shardctx.gather_model(y)), h[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -591,10 +746,20 @@ def mamba(params, cfg: MambaConfig, x, state=None):
     """
     b, s, d = x.shape
     di, n = cfg.d_inner, cfg.d_state
-    dt_rank = params.dt_proj.shape[0]
+    dt_rank = shardctx.full_shape(params.dt_proj)[0]
+    blk = shardctx.split(di, "mamba", "inner channels")
+    # this rank's channels of every per-channel leaf; its xi and z columns
+    # of in_proj, its rows of x_proj, its columns of dt_proj
+    cut = None if blk is None else (blk,)
+    ch = di if blk is None else blk[1]
 
-    xz = dot32(x, shardctx.gather("in_proj", params.in_proj)).to(x.dtype)
-    xi, z = xz[..., :di], xz[..., di:]
+    def leaf(name, w, dim):
+        return shardctx.gather(name, w, dim, cut)
+
+    w_in = shardctx.gather("in_proj", params.in_proj, 1, None if blk is None
+                           else (blk, (di + blk[0], blk[1])))
+    xz = columns(x, [w_in], blk is not None)[0].to(x.dtype)
+    xi, z = xz[..., :ch], xz[..., ch:]
 
     # depthwise causal conv1d
     kw = cfg.d_conv
@@ -603,17 +768,22 @@ def mamba(params, cfg: MambaConfig, x, state=None):
     else:
         xpad = F.pad(xi, (0, 0, kw - 1, 0))
     new_conv = xpad[:, -(kw - 1):].to(F32)
-    conv = sum(xpad[:, i: i + s] * params.conv_w[i] for i in range(kw))
-    xc = F.silu(conv + params.conv_b)
+    conv_w = leaf("conv_w", params.conv_w, 1)
+    conv = sum(xpad[:, i: i + s] * conv_w[i] for i in range(kw))
+    xc = F.silu(conv + leaf("conv_b", params.conv_b, 0))
 
-    # input-dependent SSM parameters
-    dbc = dot32(xc, shardctx.gather("x_proj", params.x_proj))
-    dt = F.softplus(dot32(dbc[..., :dt_rank].to(x.dtype), params.dt_proj)
-                    + params.dt_bias)                           # (B,S,di)
+    # input-dependent SSM parameters (over a model axis: contracted over
+    # the rank's channels, summed over model, and replicated from there)
+    dbc = dot32(xc, leaf("x_proj", params.x_proj, 0))
+    if blk is not None:
+        dbc, = shardctx.to_model(shardctx.from_model(dbc))
+    dt = F.softplus(dot32(dbc[..., :dt_rank].to(x.dtype),
+                          leaf("dt_proj", params.dt_proj, 1))
+                    + leaf("dt_bias", params.dt_bias, 0))       # (B,S,di)
     Bc = dbc[..., dt_rank: dt_rank + n]                         # (B,S,n)
     Cc = dbc[..., dt_rank + n:]                                 # (B,S,n)
 
-    A = -torch.exp(params.A_log)                                # (di,n)
+    A = -torch.exp(leaf("A_log", params.A_log, 0))              # (di,n)
     dA = torch.exp(dt[..., None] * A)                           # (B,S,di,n)
     dBx = (dt * xc.to(F32))[..., None] * Bc[:, :, None, :]
 
@@ -621,18 +791,24 @@ def mamba(params, cfg: MambaConfig, x, state=None):
         dBx[:, 0] += dA[:, 0] * state["ssm"]
 
     h = linear_scan(dA, dBx)                                    # (B,S,di,n)
-    y = torch.einsum("bsin,bsn->bsi", h, Cc) + params.D * xc.to(F32)
+    y = torch.einsum("bsin,bsn->bsi", h, Cc) \
+        + leaf("D", params.D, 0) * xc.to(F32)
     y = y * F.silu(z.to(F32))
-    out = dot32(y.to(x.dtype), shardctx.gather("out_proj", params.out_proj))
+    out = dot32(y.to(x.dtype), leaf("out_proj", params.out_proj, 0))
+    if blk is not None:
+        out = shardctx.from_model(out)
     new_state = {"conv": new_conv, "ssm": h[:, -1]}
     return out.to(x.dtype), new_state
 
 
 def init_mamba_state(cfg: MambaConfig, batch, device):
+    """An empty state of the rank's inner channels."""
+    blk = shardctx.split(cfg.d_inner)
+    di = cfg.d_inner if blk is None else blk[1]
     return {
-        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=F32,
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=F32,
                             device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=F32,
+        "ssm": torch.zeros((batch, di, cfg.d_state), dtype=F32,
                            device=device),
     }
 
@@ -648,9 +824,42 @@ class Embedding(nn.Module):
                                  scale=0.02)
 
 
+def vocab_block(params):
+    """This rank's ``(first id, count)`` of a vocabulary split over the
+    model axis, or ``None`` (no model axis, or a vocabulary that does not
+    divide: the table stays whole, as ``leaf_spec`` keeps it)."""
+    return shardctx.split(shardctx.full_shape(params.table)[0], "embedding",
+                          "vocabulary")
+
+
 def embed(params, ids):
-    return shardctx.gather("table", params.table)[ids]
+    """The rows of ``ids``; over a split vocabulary each rank looks up
+    the ids in its range, zeros elsewhere, summed over model (g)."""
+    blk = vocab_block(params)
+    if blk is None:
+        return shardctx.gather("table", params.table)[ids]
+    v0, n = blk
+    table = shardctx.gather("table", params.table, 0, (blk,))
+    local = ids.long() - v0
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)]
+    return shardctx.from_model(torch.where(mine[..., None], rows, 0))
+
+
+def unembed_local(params, x):
+    """``(logits of this rank's vocabulary, its first id, the vocabulary
+    size)``: every logit, from 0, when the vocabulary is not split; ``x``
+    enters through f when it is."""
+    blk = vocab_block(params)
+    vocab = shardctx.full_shape(params.table)[0]
+    if blk is None:
+        return dot32(x, shardctx.gather("table", params.table).t()), 0, vocab
+    table = shardctx.gather("table", params.table, 0, (blk,))
+    return columns(x, [table.t()])[0], blk[0], vocab
 
 
 def unembed(params, x):
-    return dot32(x, shardctx.gather("table", params.table).t())
+    """Every logit (a split vocabulary's all-gathered over model)."""
+    logits, v0, vocab = unembed_local(params, x)
+    return logits if logits.shape[-1] == vocab else \
+        shardctx.gather_model(logits)

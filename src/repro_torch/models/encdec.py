@@ -24,6 +24,7 @@ from torch import nn
 
 from repro_torch.kernels import runtime
 from repro_torch.models import common as C
+from repro_torch.models import shardctx
 from repro_torch.models.lm import generator_for, layer_state, remat, stacked
 
 
@@ -65,17 +66,22 @@ class CrossAttention(nn.Module):
 
 
 def _cross_attention(p, cfg: EncDecConfig, x, enc_kv):
-    """Bidirectional attention of x over precomputed encoder (k, v)."""
+    """Bidirectional attention of x over precomputed encoder (k, v), on
+    the rank's heads (``C.heads``) under a model axis."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.hd
+    hs = C.heads(cfg.attn_cfg(), "cross-attention")
+    h, hd = (cfg.n_heads if hs is None else hs.h), cfg.hd
     k, v = enc_kv
-    q = C.dot32(x, p.wq).reshape(b, s, h, hd).to(x.dtype)
+    wq = shardctx.gather("wq", p.wq, 1, None if hs is None
+                         else hs.ranges(hd)[0])
+    q = C.columns(x, [wq], hs is not None)[0].reshape(b, s, h, hd).to(
+        x.dtype)
     se = k.shape[1]
     qpos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     # kpos=0 <= qpos: full visibility
     kpos = torch.zeros((b, se), dtype=torch.int32, device=x.device)
     y = C.chunked_attention(q, k, v, qpos, kpos)
-    return C.dot32(y.reshape(b, s, -1), p.wo).to(x.dtype)
+    return C.attn_out(p, cfg.attn_cfg(), hs, y, x.dtype)
 
 
 def _enc_layer(cfg: EncDecConfig, lp, x, pos):
@@ -83,10 +89,10 @@ def _enc_layer(cfg: EncDecConfig, lp, x, pos):
     position (qpos = t, past every key)."""
     b, t, _ = x.shape
     h = C.rmsnorm(lp.ln1, x)
-    q, k, v = C._project_qkv(lp.attn, cfg.attn_cfg(), h, pos)
+    hs = C.heads(cfg.attn_cfg())
+    q, k, v = C._project_qkv(lp.attn, cfg.attn_cfg(), h, pos, hs)
     y = C.chunked_attention(q, k, v, torch.full_like(pos, t), pos)
-    y = C.dot32(y.reshape(b, t, -1), lp.attn.wo).to(x.dtype)
-    x = x + y
+    x = x + C.attn_out(lp.attn, cfg.attn_cfg(), hs, y, x.dtype)
     return x + C.mlp(lp.mlp, C.rmsnorm(lp.ln2, x))
 
 
@@ -153,16 +159,20 @@ class EncDecLM(nn.Module):
         return x
 
     def _enc_kv(self, enc_out):
-        """Precompute per-decoder-layer cross-attention K/V, stacked."""
+        """Precompute per-decoder-layer cross-attention K/V, stacked: the
+        rank's KV heads under a model axis."""
         cfg = self.cfg
         b, t, _ = enc_out.shape
-        kv, hd = cfg.n_kv_heads, cfg.hd
-        ks, vs = [], []
+        hs = C.heads(cfg.attn_cfg(), "cross-attention")
+        kv, hd = (cfg.n_kv_heads if hs is None else hs.kv), cfg.hd
+        kr = None if hs is None else hs.ranges(hd)[1]
+        ws = []
         for lp in self.dec:
-            k = C.dot32(enc_out, lp.xattn.wk)
-            v = C.dot32(enc_out, lp.xattn.wv)
-            ks.append(k.reshape(b, t, kv, hd).to(enc_out.dtype))
-            vs.append(v.reshape(b, t, kv, hd).to(enc_out.dtype))
+            ws += [shardctx.gather("wk", lp.xattn.wk, 1, kr),
+                   shardctx.gather("wv", lp.xattn.wv, 1, kr)]
+        out = C.columns(enc_out, ws, hs is not None)
+        ks = [k.reshape(b, t, kv, hd).to(enc_out.dtype) for k in out[0::2]]
+        vs = [v.reshape(b, t, kv, hd).to(enc_out.dtype) for v in out[1::2]]
         return torch.stack(ks), torch.stack(vs)
 
     def forward(self, frames, tokens, state=None):

@@ -38,6 +38,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import runtime
 from repro_torch.models import common as C
+from repro_torch.models import shardctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,13 +195,18 @@ def _make_layer(cfg: LMConfig, kind: str, device, gen):
 
 
 def _init_state(cfg: LMConfig, kind: str, batch, capacity, device):
+    """One layer's empty decode state: under a model axis
+    (``shardctx.tp``), of the rank's KV heads, RG-LRU channels or Mamba
+    inner channels, the blocks its layers compute."""
     dt = cfg.torch_dtype
+    blk = shardctx.split(cfg.d_model)
+    width = cfg.d_model if blk is None else blk[1]      # RG-LRU channels
     if kind == "dense" or kind == "moe":
         cap = capacity if cfg.window is None else min(capacity, cfg.window)
         return C.init_attn_cache(cfg.attn_cfg(), batch, cap, dt, device)
     if kind == "griffin":
         cap = min(capacity, cfg.local_window)
-        zeros = torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+        zeros = torch.zeros((batch, width), dtype=torch.float32,
                             device=device)
         return {
             "rec0": zeros,
@@ -209,7 +215,7 @@ def _init_state(cfg: LMConfig, kind: str, batch, capacity, device):
                 cfg.attn_cfg(cfg.local_window), batch, cap, dt, device),
         }
     if kind == "rec":
-        return torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+        return torch.zeros((batch, width), dtype=torch.float32,
                            device=device)
     if kind == "mamba":
         return C.init_mamba_state(cfg.mamba_cfg(), batch, device)
@@ -334,7 +340,8 @@ class DecoderLM(nn.Module):
         return self.embed.table.device
 
     def init_state(self, batch: int, capacity: int):
-        """Stacked per-segment decode state (KV caches / SSM states)."""
+        """Stacked per-segment decode state (KV caches / SSM states): the
+        rank's blocks of them under a model axis (``_init_state``)."""
         cfg = self.cfg
         return {f"seg{i}_{kind}": stacked(
                     _init_state(cfg, kind, batch, capacity, self.device),

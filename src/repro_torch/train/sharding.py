@@ -29,30 +29,29 @@ reference under ``jit`` with these specs:
   * at rest each rank keeps only its shard of each parameter (the
     ``nn.Parameter`` itself is the shard) and of its AdamW moments, as
     ``optimizer.zero1_specs`` says;
-  * before use, ``models.shardctx.gather`` all-gathers a weight over the
-    axes its spec names (an ``autograd.Function``: the backward
-    reduce-scatters the float32 gradient over the batch axes it names,
-    sums it over the batch axes it does not, and takes this rank's slice
-    over the other axes, where peers computed the same thing).  This is
-    the reference's "re-gather before use" (``repro.models.shardctx``,
-    opt-1), and it keeps remat right: the recompute in the backward
-    gathers again;
+  * before use, ``models.shardctx.gather`` gathers a weight (an
+    ``autograd.Function``: the backward reduce-scatters the float32
+    gradient over the batch axes the spec names, sums it over the batch
+    axes it does not, and takes this rank's slice over the other axes).
+    A layer that splits its compute over the model axis asks for its
+    rank's block, which is gathered over the data axes alone where the
+    spec already splits it so over ``model`` (:class:`Leaf`'s modes), so
+    only the reference's FSDP axes are cleared.  This is the reference's
+    "re-gather before use" (``repro.models.shardctx``, opt-1), and it
+    keeps remat right: the recompute in the backward gathers again;
   * leaves the layers use without a ``gather`` call are gathered by the
     same function when a microbatch starts and put in their module until
     its backward ends (so a recompute sees them).  :func:`bind` finds
     them by running the loss once on the meta device; for the port's
-    models they are the norms' ``scale`` (``ln*``, ``ln_f``,
-    ``q_norm``/``k_norm``), the biases ``bq``/``bk``/``bv``, the MoE
-    ``router``, the RG-LRU's ``lam``, Mamba's ``dt_proj``, ``conv_w``,
-    ``conv_b``, ``dt_bias``, ``A_log`` and ``D``, and in whisper-tiny
-    ``enc_pos``, the encoder layers' ``attn.wo`` and the decoder's
-    cross-attention ``xattn.*``.  Most are replicated: their gather is
-    the identity and their backward sums the gradient over the batch
-    axes.
+    models they are the norms' ``scale`` (``ln*``, ``ln_f``), the MoE
+    ``router`` and whisper-tiny's ``enc_pos``, which every rank of a
+    model group uses whole.  They are replicated: their gather is the
+    identity and their backward sums the gradient over the batch axes.
 
-What is not split: no activation is, so ranks along the model axis run
-the same forward on whole weights (the reference's Megatron products
-split it; see ``models.shardctx``).
+The layers' per-channel leaves (the biases, ``q_norm``/``k_norm``, the
+RG-LRU's ``lam``, Mamba's ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log``
+and ``D``) go through ``gather`` too: over a model axis a rank takes its
+channels of them, and their gradients are summed over ``model``.
 """
 
 from __future__ import annotations
@@ -322,24 +321,43 @@ def shard_shape(shape, spec, mesh) -> tuple:
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: the shard all-gathered into the whole weight.  Backward:
-    the weight's gradient reduced to the shard's (:meth:`Leaf.reduce`)."""
+    """Forward: the shard all-gathered into the whole weight, or into the
+    rank's compute block.  Backward: the gradient reduced to the shard's
+    (:meth:`Leaf.reduce`)."""
 
     @staticmethod
-    def forward(ctx, shard, leaf):
-        ctx.leaf = leaf
-        return leaf.gather(shard)
+    def forward(ctx, shard, leaf, block):
+        ctx.leaf, ctx.block = leaf, block
+        return leaf.gather(shard, block)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.leaf.reduce(g), None
+        return ctx.leaf.reduce(g, ctx.block), None, None
 
 
 @dataclasses.dataclass(eq=False)
 class Leaf:
     """One parameter under the runtime: its full shape and spec, its
     moments' spec (``zero1_specs``; with the layer axis's entry first for
-    a row of a stacked leaf), and where it lives in its module."""
+    a row of a stacked leaf), and where it lives in its module.
+
+    A use asks for the whole weight (``block`` None) or for the rank's
+    compute block along the model axis (``(dim, ((start, size), ...))``
+    of the whole weight, from ``models.shardctx.gather``).  Three ways to
+    serve it (:meth:`mode`):
+
+      * ``"whole"``: all-gathered over every axis of the spec; every rank
+        of the model group computes the same thing, so the gradient is
+        whole there and is narrowed to the shard;
+      * ``"local"``: the block is the shard's own along ``model`` (a
+        column product's output or a row product's input, split as the
+        spec splits it): gathered over the data axes only, and the
+        gradient is the block's;
+      * ``"cut"``: any other block (a replicated per-channel leaf, KV
+        heads fewer than the model ranks, Mamba's ``in_proj``/``x_proj``/
+        ``dt_proj``): gathered whole and cut; the block's gradient is
+        this rank's part, so it is placed in a whole-size zero tensor and
+        summed over ``model`` before it is narrowed."""
 
     name: str
     shape: tuple
@@ -360,27 +378,54 @@ class Leaf:
     def dims(self) -> list:
         return _dims(self.spec, len(self.shape))
 
-    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+    def mode(self, block) -> str:
+        """``"whole"``, ``"local"`` or ``"cut"`` for a use of ``block``."""
+        tp, mesh = self.runtime.tp, self.mesh
+        if block is None or tp is None:
+            return "whole"
+        dim, ranges = block
+        m = mesh.axis_size(tp)
+        n = self.shape[dim] // m
+        if self.dims[dim] == (tp,) and tuple(ranges) == (
+                (mesh.index(tp) * n, n),):
+            return "local"
+        return "cut"
+
+    def gather(self, shard: torch.Tensor, block=None) -> torch.Tensor:
+        mode = self.mode(block)
+        skip = (self.runtime.tp,) if mode == "local" else None
         out = shard
         for i, axes in enumerate(self.dims):
-            if axes:
+            if axes and axes != skip:
                 out = all_gather(out, i, self.mesh, axes)
+        if mode == "cut":
+            out = shardctx._cut(out, *block)
         if out is shard:
             out = shard.view_as(shard)
         return out
 
-    def reduce(self, g: torch.Tensor) -> torch.Tensor:
-        """The float32 gradient of the whole weight from this rank's
-        batch -> the shard's gradient of the global loss, cast to the
-        shard's dtype."""
+    def reduce(self, g: torch.Tensor, block=None) -> torch.Tensor:
+        """The float32 gradient of this rank's use (the whole weight or
+        its block) from this rank's batch -> the shard's gradient of the
+        global loss, cast to the shard's dtype."""
         mesh, batch = self.mesh, self.runtime.batch_axes
+        mode = self.mode(block)
         g = g.to(F32)
+        if mode == "cut":
+            dim, ranges = block
+            full = g.new_zeros(self.shape)
+            at = 0
+            for start, size in ranges:
+                full.narrow(dim, start, size).add_(g.narrow(dim, at, size))
+                at += size
+            g = all_reduce(full, mesh, self.runtime.tp)
+        local = (self.runtime.tp,) if mode == "local" else None
         named = set()
         for i, axes in enumerate(self.dims):
             if not axes:
                 continue
             named.update(axes)
-            if all(a in batch for a in axes):
+            if all(a in batch for a in axes) or axes == local:
                 continue
             if any(a in batch for a in axes):
                 raise NotImplementedError(
@@ -395,8 +440,8 @@ class Leaf:
             g = all_reduce(g.contiguous(), mesh, rest)
         return g.to(self.runtime.dtypes[self.name])
 
-    def apply(self, shard: torch.Tensor) -> torch.Tensor:
-        return _Gather.apply(shard, self)
+    def apply(self, shard: torch.Tensor, block=None) -> torch.Tensor:
+        return _Gather.apply(shard, self, block)
 
     def moments(self) -> "MomentSplit":
         """How ``zero1_specs`` splits this parameter's moments beyond its
@@ -434,10 +479,13 @@ class MomentSplit(NamedTuple):
 class Runtime:
     """A model's parameters bound to a mesh (:func:`bind`)."""
 
-    def __init__(self, model, mesh, pspecs, ospecs, batch_axes):
+    def __init__(self, model, mesh, pspecs, ospecs, batch_axes,
+                 tp="model"):
         self.model = model
         self.mesh = mesh
         self.batch_axes = tuple(batch_axes)
+        # the model axis, when it splits compute (more than one rank)
+        self.tp = tp if tp in mesh.shape and mesh.shape[tp] > 1 else None
         self.leaves = {}
         self.dtypes = {}
         layout = {pname: (row, len(dests))
@@ -569,7 +617,8 @@ def _discover(model, family: str, runtime: Runtime) -> None:
 
     class Watch(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if not inside:
+            # a property read (``.shape``) is not a use
+            if not inside and getattr(func, "__name__", "") != "__get__":
                 for t in tree_flatten((args, kwargs or {}))[0]:
                     if id(t) in ids:
                         direct.add(ids[id(t)])
@@ -591,13 +640,14 @@ def _discover(model, family: str, runtime: Runtime) -> None:
 
 @torch.no_grad()
 def bind(model, family: str, mesh, pspecs: dict, ospecs: dict,
-         batch_axes) -> Runtime:
+         batch_axes, tp="model") -> Runtime:
     """Cut ``model``'s parameters (whole, the same on every rank) to this
     rank's shards, in place, and return the :class:`Runtime` that gathers
     them.  ``ospecs``: ``optimizer.zero1_specs`` (``None`` without an
     optimizer); ``batch_axes``: the axes the batch is split over (the
-    data axes)."""
-    rt = Runtime(model, mesh, pspecs, ospecs, batch_axes)
+    data axes); ``tp``: the model axis the layers split their compute
+    over (``None``: none, the ``dp`` layout)."""
+    rt = Runtime(model, mesh, pspecs, ospecs, batch_axes, tp)
     _discover(model, family, rt)
     for name, lf in rt.leaves.items():
         mod, attr = lf.owner

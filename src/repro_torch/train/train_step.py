@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import common as C
-from repro_torch.models import weights
+from repro_torch.models import shardctx, weights
 from repro_torch.train import grad as G
 from repro_torch.train import optimizer as O
 
@@ -29,15 +29,40 @@ def _ce_sums(logits, labels):
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
+def _vocab_parallel_ce_sums(logits, labels, v0):
+    """:func:`_ce_sums` from this rank's logits (..., V/m) of the ids
+    ``v0 ..`` of a vocabulary split over the model axis: the max over
+    model, then the sum of ``exp`` and the gold logit (from the rank
+    that owns it) summed over model (g), so each rank's gradient is its
+    own logits'."""
+    n = logits.shape[-1]
+    top = shardctx.max_over_model(logits.detach().amax(-1))
+    sumexp = torch.exp(logits - top[..., None]).sum(-1)
+    local = labels.long() - v0
+    mine = (labels >= 0) & (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    gold = torch.where(mine, gold[..., 0], 0.0)
+    sumexp, gold = shardctx.from_model(torch.stack([sumexp, gold]))
+    lse = torch.log(sumexp) + top
+    mask = (labels >= 0).to(F32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
 def _chunked_ce_sums(embed, hidden, labels, chunk=LOSS_CHUNK):
-    """``(sum of CE over labels >= 0, their count)`` in sequence chunks."""
+    """``(sum of CE over labels >= 0, their count)`` in sequence chunks;
+    vocab-parallel (:func:`_vocab_parallel_ce_sums`) where the model axis
+    splits the vocabulary."""
     s = hidden.shape[1]
     chunk = min(chunk, s)
     tot = torch.zeros((), dtype=F32, device=hidden.device)
     n = torch.zeros((), dtype=F32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        tl, tn = _ce_sums(C.unembed(embed, hidden[:, c0: c0 + chunk]),
-                          labels[:, c0: c0 + chunk])
+        logits, v0, vocab = C.unembed_local(embed, hidden[:, c0: c0 + chunk])
+        lab = labels[:, c0: c0 + chunk]
+        if logits.shape[-1] == vocab:
+            tl, tn = _ce_sums(logits, lab)
+        else:
+            tl, tn = _vocab_parallel_ce_sums(logits, lab, v0)
         tot, n = tot + tl, n + tn
     return tot, n
 
@@ -165,7 +190,6 @@ def make_train_step(model, family: str, opt_cfg: O.AdamWConfig,
 def _sharded_step(model, family, opt_cfg, n_micro, mesh, global_batch,
                   layout):
     from repro_torch.launch import mesh as meshmod
-    from repro_torch.models import shardctx
     from repro_torch.train import sharding as SH
 
     if layout not in ("tp", "dp"):
@@ -181,7 +205,7 @@ def _sharded_step(model, family, opt_cfg, n_micro, mesh, global_batch,
     spec = SH.batch_specs("train", global_batch or n_dp, mesh, dp=dp)
     rows_split = spec[0] is not None
     decay = weights.decay_mask(model)
-    rt = SH.bind(model, family, mesh, pspecs, ospecs, dp)
+    rt = SH.bind(model, family, mesh, pspecs, ospecs, dp, tp=tp)
     state = O.init_sharded_state(rt)
     loss_fn = make_sharded_loss_fn(model, family, mesh, dp, rows_split)
     params = rt.params()
@@ -224,4 +248,5 @@ def _sharded_step(model, family, opt_cfg, n_micro, mesh, global_batch,
 
     step.opt_state = state
     step.runtime = rt
+    step.context = ctx          # ``models.shardctx.use``'s arguments
     return step

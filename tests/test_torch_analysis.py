@@ -472,3 +472,45 @@ def test_dryrun_main_writes_out(tmp_path):
     (rec,) = json.loads(out.read_text())
     assert rec["ok"] and rec["arch"] == "falcon-mamba-7b"
     assert math.isfinite(rec["t_bound_s"]) and rec["t_bound_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The model axis's compute split, on one rank of a small mesh
+
+
+TP_MESH = {"data": 2, "model": 4}
+TP_TRAIN = dict(kind="train", seq_len=256, global_batch=8)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "bytelm-100m"])
+def test_dryrun_tp_rank_computes_its_share(arch):
+    """Rank 0 of a (data 2, model 4) mesh under ``--layout tp``, reduced:
+    falcon-mamba-7b's every layer splits (Mamba's inner channels, the
+    vocabulary), so its product FLOPs are the one card's over the 8
+    chips exactly and ``compute_per_rank_is_reference`` holds;
+    bytelm-100m's vocabulary of 259 does not divide 4, so its table
+    stays whole (as ``leaf_spec`` keeps it) and the record names it.  A
+    decode cell's state on the rank is the size of its ``state_specs``
+    shard."""
+    from repro_torch.launch import dryrun
+
+    one = dryrun.dryrun_cell(arch, "train", reduced=True, shape=TP_TRAIN,
+                             verbose=False)
+    rec = dryrun.dryrun_cell(arch, "train", reduced=True, shape=TP_TRAIN,
+                             mesh_shape=TP_MESH, one_card=one, verbose=False)
+    assert rec["mesh"] == "2x4" and rec["chips"] == 8
+    assert rec["products_one_card_over_chips"] == one["products_per_rank"] / 8
+    if arch == "falcon-mamba-7b":
+        assert rec["whole_layers"] == []
+        assert rec["compute_per_rank_is_reference"]
+        assert rec["products_per_rank"] == pytest.approx(
+            rec["products_one_card_over_chips"], rel=1e-12)
+        dec = dryrun.dryrun_cell(
+            arch, "decode", reduced=True, mesh_shape=TP_MESH, verbose=False,
+            shape=dict(kind="decode", seq_len=64, global_batch=8))
+        assert dec["state_bytes_per_rank"] == dec["state_specs_bytes_per_rank"]
+    else:
+        assert rec["whole_layers"] == [["embedding",
+                                        "vocabulary 259 % model 4 = 3"]]
+        assert not rec["compute_per_rank_is_reference"]
+        assert rec["products_per_rank"] > rec["products_one_card_over_chips"]

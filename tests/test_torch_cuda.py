@@ -775,6 +775,36 @@ def test_bf16_products_accumulate_in_f32_on_card():
 
 
 @pytest.mark.cuda
+def test_widened_bf16_products_keep_f32_input_gradients_on_card():
+    """A bf16 activation widened to f32 by Megatron's f (``shardctx.
+    to_model``) and given to ``dot32``/``bdot32`` with ``src=bf16``: the
+    same bf16 product forward, the same weight gradient, and its input
+    gradient the f32 one whose bf16 cast the plain product returns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(2, 64, 512, generator=g, device="cuda").bfloat16()
+    w = torch.randn(512, 96, generator=g, device="cuda").bfloat16()
+    ct = torch.randn(2, 64, 96, generator=g, device="cuda")
+    xb, wb = x, w[None].expand(2, -1, -1).contiguous()
+    for fn, w0 in ((mc.dot32, w), (mc.bdot32, wb)):
+        runs = []
+        for wide in (False, True):
+            xi = (x.float() if wide else x).detach().requires_grad_()
+            wi = w0.detach().requires_grad_()
+            y = fn(xi, wi, torch.bfloat16) if wide else fn(xi, wi)
+            y.backward(ct)
+            runs.append((y, xi.grad, wi.grad))
+        (y0, gx0, gw0), (y1, gx1, gw1) = runs
+        assert gx1.dtype == torch.float32 and gx0.dtype == torch.bfloat16
+        assert torch.equal(y0, y1) and torch.equal(gw0, gw1)
+        assert torch.equal(gx1.bfloat16(), gx0)
+        want = torch.matmul(ct, w0.float().transpose(-1, -2))
+        torch.testing.assert_close(gx1, want, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_qwen3_full_width_bf16_decode_matches_teacher_forced():
     """qwen3-8b at its published width, 2 layers, bf16: a padded prefill
     and 8 greedy steps against one teacher-forced forward over prompt +

@@ -9,11 +9,27 @@ elastic resume.  What they write back is compared here:
 
   * one sharded step (``make_train_step(..., mesh=)``) of reduced
     bytelm-100m, qwen3-8b, deepseek-moe-16b (its routing global over the
-    ranks) and falcon-mamba-7b in float32, at (2, 2) and (4, 1), remat
-    "full", two microbatches: loss, grad norm and every updated parameter
-    against the port's single-process step and the reference's unmeshed
-    ``train_step`` (jitted), within ``atol=2e-5, rtol=1e-4``; each rank's
-    resident parameter and moment bytes equal to its spec shards;
+    ranks) and falcon-mamba-7b in float32, at (2, 2), (4, 1) and (1, 4)
+    (the model axis splitting heads, hidden units, experts, Mamba's
+    channels and the vocabulary), and of recurrentgemma-9b (one KV head
+    for four ranks, the RG-LRU's channels) at (1, 4), remat "full", two
+    microbatches: loss, grad norm and every gradient against the port's
+    single-process step and the reference's unmeshed ``train_step``
+    (jitted), within ``atol=2e-5, rtol=1e-4``; every updated parameter
+    against the reference's AdamW and the port's applied to the step's
+    own gradients, and against the two steps' updated parameters (at
+    most two elements of a gradient under 8 eps let off, named); each
+    rank's resident
+    parameter and moment bytes equal to its spec shards;
+  * at (1, 4), each layer's product FLOPs on a rank (``CostMode``) a
+    quarter of one process's, but for the products every rank of the
+    model group runs whole (the MoE router, KV heads shared by ranks),
+    and its collectives' bytes equal to their closed form from the
+    shapes;
+  * on two ranks, the vocab-parallel CE against ``_ce_sums`` on whole
+    logits, and a decode state split over the model axis (the rank's KV
+    heads and channels, the size ``state_specs`` gives a shard) giving
+    the reference's prefill and decode logits;
   * ``hierarchical_grad_sync`` at (pod 2, data 2) against
     ``repro.train.grad``'s under two nested ``jax.vmap``s on the same
     inputs, and against the plain sum;
@@ -26,6 +42,7 @@ elastic resume.  What they write back is compared here:
 
 import filecmp
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,12 +65,21 @@ from repro_torch.train import checkpoint as CK
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
 
-from _train_port import TOL, assert_tree_close, batch_for, make_pair, np_tree
+from _train_port import (TOL, assert_tree_close, batch_for, flat, make_pair,
+                         np_tree)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "_torch_dist_worker.py")
 ARCHS = ["bytelm-100m", "qwen3-8b", "deepseek-moe-16b", "falcon-mamba-7b"]
-MESHES = [(2, 2), (4, 1)]
+MESHES = [(2, 2), (4, 1), (1, 4)]
+GRIFFIN = "recurrentgemma-9b"          # the (1, 4) mesh only
+WHISPER = "whisper-tiny"   # 2 heads: split at (2, 2), whole at (1, 4)
+MODEL_AXIS = [(GRIFFIN, (1, 4)), (WHISPER, (2, 2)), (WHISPER, (1, 4))]
+SERVE_ARCHS = ["qwen3-8b", GRIFFIN, "falcon-mamba-7b"]
+# the costs' archs: besides the steps', the biases (cut to the rank's
+# heads) and an MoE whose 6 experts four ranks split by hidden units
+COST_ARCHS = ARCHS + [GRIFFIN, "qwen2.5-32b", "grok-1-314b/hidden"]
+COST_B, COST_S = 2, 16
 B, S, N_MICRO = 8, 16, 2
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)   # the worker's
 ELASTIC = "bytelm-100m"
@@ -100,8 +126,8 @@ def pair():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, pair):
     tmp = tmp_path_factory.mktemp("ranks")
-    data = {}
-    for i, arch in enumerate(ARCHS):
+    data = {"qwen2.5-32b": {"tree": np_tree(pair("qwen2.5-32b")[3])}}
+    for i, arch in enumerate(ARCHS + [GRIFFIN, WHISPER]):
         fam, cfg, _, params, _ = pair(arch)
         batch = batch_for(fam, cfg, B, S, seed=40 + i)
         data[arch] = {"tree": np_tree(params), "np": batch,
@@ -128,6 +154,27 @@ def runs(tmp_path_factory, pair):
         .astype(np.float32)) for k, s in SYNC_SHAPES.items()}
         for _ in range(4)]
     data["grads"], data["err"] = grads, err
+    rng = np.random.default_rng(8)
+    data["costs"] = {
+        "x": torch.from_numpy(rng.standard_normal((COST_B, COST_S, 64))
+                              .astype(np.float32)),
+        "tokens": torch.from_numpy(rng.integers(0, 259, (COST_B, COST_S))
+                                   .astype(np.int32)),
+        "labels": torch.from_numpy(rng.integers(-1, 259, (COST_B, COST_S))
+                                   .astype(np.int32))}
+    # labels of -1 and gold ids in both ranks' halves of 512
+    labels = rng.integers(0, 512, (3, 8)).astype(np.int32)
+    labels[0, :3] = -1
+    labels[1, :4], labels[2, :4] = 5, 500
+    data["ce"] = {"logits": torch.from_numpy(
+        3 * rng.standard_normal((3, 8, 512)).astype(np.float32)),
+        "labels": torch.from_numpy(labels)}
+    data["serve"] = {
+        "tokens": torch.from_numpy(rng.integers(3, 512, (2, 10))
+                                   .astype(np.int32)),
+        "lens": torch.tensor([10, 7], dtype=torch.int32),
+        "feed": torch.from_numpy(rng.integers(3, 512, (2, 3))
+                                 .astype(np.int32))}
     inputs = str(tmp / "inputs.pt")
     torch.save({k: {kk: vv for kk, vv in v.items() if kk != "np"}
                 if isinstance(v, dict) else v for k, v in data.items()},
@@ -138,6 +185,12 @@ def runs(tmp_path_factory, pair):
               {"kind": "step", "inputs": inputs, "archs":
                [ELASTIC + "/small"], "meshes": [(4, 1)], "n_micro": 1,
                "out": "small"},
+              {"kind": "step", "inputs": inputs, "archs": [GRIFFIN],
+               "meshes": [(1, 4)], "n_micro": N_MICRO, "out": "griffin"},
+              {"kind": "step", "inputs": inputs, "archs": [WHISPER],
+               "meshes": [(2, 2), (1, 4)], "n_micro": N_MICRO,
+               "out": "whisper"},
+              {"kind": "costs", "inputs": inputs, "archs": COST_ARCHS},
               {"kind": "sync", "inputs": inputs},
               {"kind": "save", "inputs": inputs, "arch":
                ELASTIC + "/elastic", "model": 2, "steps": 4, "save_at": 2,
@@ -146,49 +199,379 @@ def runs(tmp_path_factory, pair):
                "step": 2},
               {"kind": "elastic", "inputs": inputs, "arch":
                ELASTIC + "/elastic", "old": [2, 2], "failed": 1,
-               "global_batch": B, "dir": ck, "step": 2, "steps": 2}], tmp)
+               "global_batch": B, "dir": ck, "step": 2, "steps": 2},
+              {"kind": "ce", "inputs": inputs},
+              {"kind": "serve", "inputs": inputs, "archs": SERVE_ARCHS,
+               "context": 32}], tmp)
     out = {k: torch.load(tmp / f"{k}.pt", weights_only=False)
-           for k in ("step", "small", "sync", "save", "restore", "elastic")}
+           for k in ("step", "small", "sync", "save", "restore", "elastic",
+                     "griffin", "whisper", "costs", "ce", "serve")}
     return data, out, tmp
+
+
+_SINGLE = {}
 
 
 def _single(pair, arch, batch):
     """The port's single-process step and the reference's, from the same
     weights: ``(port metrics, port params as the reference's tree, ref
-    loss, ref grad_norm, ref params)``."""
+    metrics, ref params, port gradients and ref gradients as the
+    reference's tree)``; once per arch."""
+    if arch not in _SINGLE:
+        _SINGLE[arch] = _single_run(pair, arch, batch)
+    return _SINGLE[arch]
+
+
+def _single_run(pair, arch, batch):
     fam, cfg, ref, params, _ = pair(arch)
     _, _, port = TR.get(arch, reduced=True, device="cpu")
     weights.from_reference(port, np_tree(params))
     step = TS.make_train_step(port, fam, O.AdamWConfig(**OPT),
                               n_micro=N_MICRO)
-    met = step({k: torch.from_numpy(v) for k, v in batch.items()})
+    one = {}
+    real = O.adamw_update
+
+    def spy(cfg, p, g, state, decay):
+        one.update({n: x.float().clone() for n, x in g.items()})
+        return real(cfg, p, g, state, decay)
+    O.adamw_update = spy
+    try:
+        met = step({k: torch.from_numpy(v) for k, v in batch.items()})
+    finally:
+        O.adamw_update = real
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     rstep = jax.jit(RT.make_train_step(ref, fam, RO.AdamWConfig(**OPT),
                                        n_micro=N_MICRO))
-    rp, _, rmet = rstep(params, RO.init_opt_state(params),
-                        {k: jnp.asarray(v) for k, v in batch.items()})
-    return met, weights.to_reference(port), rmet, rp
+    rp, _, rmet = rstep(params, RO.init_opt_state(params), jbatch)
+    _, rgrads, _ = jax.jit(lambda p, b: RG.accumulate_microbatches(
+        RT.make_loss_fn(ref, fam), p, b, N_MICRO))(params, jbatch)
+    return (met, weights.to_reference(port), rmet, rp,
+            weights.stack_reference(port, one), np_tree(rgrads))
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "4x1"])
+def _updates(pair, arch, grads):
+    """One AdamW step from the initial weights on ``grads`` (the port's
+    names): the reference's and the port's, as the reference's tree."""
+    _, _, _, params, _ = pair(arch)
+    _, _, port = TR.get(arch, reduced=True, device="cpu")
+    weights.from_reference(port, np_tree(params))
+    rg = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                      weights.stack_reference(port, grads))
+    rp, _, _ = RO.adamw_update(RO.AdamWConfig(**OPT), params, rg,
+                               RO.init_opt_state(params))
+    O.adamw_update(O.AdamWConfig(**OPT), dict(port.named_parameters()),
+                   grads, O.init_opt_state(port), weights.decay_mask(port))
+    return np_tree(rp), weights.to_reference(port)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["2x2", "4x1", "1x4"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_equals_single_process_and_reference(runs, pair,
                                                           arch, shape):
+    _check_step(runs, pair, arch, shape, "step")
+
+
+@pytest.mark.parametrize("arch,shape", MODEL_AXIS,
+                         ids=["griffin-1x4", "whisper-2x2", "whisper-1x4"])
+def test_sharded_step_on_the_model_axis(runs, pair, arch, shape):
+    """The step's loss, grad norm and gradients (the update's input,
+    gathered whole) against one process's and the reference's, within
+    ``atol=2e-5, rtol=1e-4``.  recurrentgemma-9b reduced at (1, 4): one
+    KV head read by every rank's query heads (each rank takes it whole,
+    its gradient summed over model), the RG-LRU on a quarter of the
+    channels each; its updated parameters too.  whisper-tiny reduced:
+    its 2 heads (self-, cross- and encoder attention) split at (2, 2)
+    and computed whole by each rank at (1, 4), where the MLP and the
+    vocabulary still split (the logits gathered over model for the
+    CE)."""
+    key = "griffin" if arch == GRIFFIN else "whisper"
     data, out, _ = runs
-    got = out["step"][(arch, shape)]
-    met, port_tree, rmet, rparams = _single(pair, arch, data[arch]["np"])
+    got = out[key][(arch, shape)]
+    fam, cfg, ref, params, _ = pair(arch)
+    batch = data[arch]["np"]
+    _, rgrads, _ = jax.jit(lambda p, b: RG.accumulate_microbatches(
+        RT.make_loss_fn(ref, fam), p, b, N_MICRO))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, _, port = TR.get(arch, reduced=True, device="cpu")
+    weights.from_reference(port, np_tree(params))
+    one = {}
+    real = O.adamw_update
+
+    def spy(cfg, p, g, state, decay):
+        one.update({n: x.float() for n, x in g.items()})
+        return real(cfg, p, g, state, decay)
+    O.adamw_update = spy
+    try:
+        met = TS.make_train_step(port, fam, O.AdamWConfig(**OPT),
+                                 n_micro=N_MICRO)(
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+    finally:
+        O.adamw_update = real
+    for key_m in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got[key_m], float(met[key_m]), **TOL)
+    tree = weights.stack_reference(port, got["grads"])
+    assert_tree_close(tree, np_tree(rgrads))
+    assert_tree_close(tree, weights.stack_reference(port, one))
+    if arch == GRIFFIN:
+        _check_step(runs, pair, arch, shape, key)
+
+
+# AdamW's first step moves a parameter by ``lr * g / (|g| + eps)``: for a
+# gradient within a few ``eps`` of zero a change of its last float32 bits
+# moves the parameter by more than ``atol``.  Such elements (the
+# reference's |g| under SMALL_G) are let off the updated parameters'
+# tolerance against the two steps, at most MAX_SMALL of them a
+# comparison, each named, and each still a step in the reference's
+# direction within half its size.  Seen on the CPU, over all the cases:
+# qwen3-8b (2, 2)'s ``embed.table[134, 17]`` (|g| 3.9e-8) against one
+# process and falcon-mamba-7b (1, 4)'s ``in_proj[0, 58, 230]`` (2.3e-8)
+# against the reference.
+SMALL_G = 8 * O.AdamWConfig.eps
+MAX_SMALL = 2
+
+
+def _assert_params_close(got, want, g_ref, init, case):
+    """Updated parameters ``got`` (tensors) against ``want`` (arrays) at
+    ``TOL``, but for at most ``MAX_SMALL`` elements whose reference
+    gradient ``g_ref`` is under ``SMALL_G``; those step from ``init`` in
+    ``want``'s direction, within half of ``want``'s step; a failure
+    names every let-off element."""
+    got, want, g_ref, init = (flat(np_tree(t)) if i else flat(t)
+                              for i, t in enumerate((got, want, g_ref,
+                                                     init)))
+    assert sorted(got) == sorted(want)
+    small = []
+    for name in sorted(want):
+        a = got[name].detach().float().numpy()
+        b = np.asarray(want[name], np.float32)
+        far = ~np.isclose(a, b, **TOL)
+        g = np.abs(np.asarray(g_ref[name], np.float32))
+        loud = far & (g >= SMALL_G)
+        np.testing.assert_allclose(a[loud], b[loud], err_msg=name, **TOL)
+        for at in zip(*np.nonzero(far)):
+            p0 = float(np.asarray(init[name])[at])
+            step = float(b[at]) - p0
+            assert abs(float(a[at]) - float(b[at])) <= 0.5 * abs(step), (
+                name, at, float(a[at]), float(b[at]), p0)
+            small.append((name, tuple(int(i) for i in at),
+                          float(g[at])))
+    assert len(small) <= MAX_SMALL, (case, small)
+
+
+def _check_step(runs, pair, arch, shape, key):
+    """The step's loss, grad norm and gradients against one process's
+    and the reference's; its updated parameters against both optimizers
+    on its own gradients, and against the two steps' updated parameters
+    (:func:`_assert_params_close`: where the model axis splits compute
+    the ranks sum float32 partial products, so a gradient a few ``eps``
+    large may round otherwise than one process's, e.g. falcon-mamba-7b's
+    ``in_proj[0, 58, 230]``: 1.84e-8 in float64, 2.29e-8 by the
+    reference, 2.17e-8 by one process, 1.79e-8 at (1, 4))."""
+    data, out, _ = runs
+    got = out[key][(arch, shape)]
+    met, port_tree, rmet, rparams, one, rgrads = _single(
+        pair, arch, data[arch]["np"])
     for key, rkey in (("loss", "loss"), ("grad_norm", "grad_norm")):
         np.testing.assert_allclose(got[key], float(met[key]), **TOL)
         np.testing.assert_allclose(got[key], float(rmet[rkey]), **TOL)
     _, _, model = TR.get(arch, reduced=True, device="cpu")
+    grads = weights.stack_reference(model, got["grads"])
+    assert_tree_close(grads, rgrads)
+    assert_tree_close(grads, one)
     tree = weights.stack_reference(model, got["params"])
-    assert_tree_close(tree, np_tree(rparams))
-    assert_tree_close(tree, port_tree)
+    ref_update, port_update = _updates(pair, arch, got["grads"])
+    assert_tree_close(tree, ref_update)
+    assert_tree_close(tree, port_update)
+    init = pair(arch)[3]
+    case = f"{arch}-{shape[0]}x{shape[1]}"
+    _assert_params_close(tree, rparams, rgrads, init, case + " reference")
+    _assert_params_close(tree, port_tree, rgrads, init,
+                         case + " one process")
     # every rank holds exactly its spec shards of parameters and moments
     for r, (par, mom, want_par, want_mom) in enumerate(got["bytes"]):
         assert (par, mom) == (want_par, want_mom), (r, got["bytes"])
     n = sum(p.numel() * 4 for p in model.parameters())
     total_par = sum(b[0] for b in got["bytes"])
     assert total_par < n * 4 and total_par >= n   # sharded, replicated < 4x
+
+
+def _expected_costs(arch, one, m=4):
+    """A rank's product FLOPs and collective bytes at (1, ``m``), per
+    part of :func:`layer_costs`, from one process's products and the
+    reduced config's shapes (float32, ``COST_B x COST_S`` tokens)."""
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.train import sharding as SH
+
+    import _torch_dist_worker as W
+
+    cfg = W.model_for(arch)[1].cfg
+    t, d, f4 = COST_B * COST_S, cfg.d_model, 4
+    hd = cfg.hd
+    mesh = meshmod.Mesh({"data": 1, "model": m}, {"data": 0, "model": 0})
+    want = {}
+
+    def whole(name, *shape):
+        """All-gather bytes of a cut leaf: the whole of it, where its spec
+        splits it over model."""
+        spec = SH.leaf_spec(name, shape, mesh)
+        return math.prod(shape) * f4 if "model" in spec else 0
+
+    def attn():
+        """(whole products, collectives) of an attention block's split
+        beyond the quarter: KV heads fewer than the ranks are read whole
+        by each of them; CUT leaves' gradients summed over model."""
+        kvp = 2 * 3 * 2 * t * d * hd * cfg.n_kv_heads     # k and v
+        extra, red, gat = 0.0, 4 * t * d * f4, 0   # g; f of q, k, v
+        if cfg.n_kv_heads < m:
+            extra = kvp / cfg.n_kv_heads - kvp / m
+            red += 2 * d * cfg.n_kv_heads * hd * f4
+            gat += 2 * whole("wk", d, cfg.n_kv_heads * hd)
+        if cfg.qk_norm:
+            red += 2 * hd * f4
+        if cfg.qkv_bias:
+            red += (cfg.n_heads + 2 * cfg.n_kv_heads) * hd * f4
+        return extra, red, gat
+
+    mlp = 3 * t * d * f4              # g; f of wg and wi
+    for kind, _ in cfg.segments():
+        prod = one[kind][0] / m
+        coll = {"all-reduce": 0, "all-gather": 0}
+        if kind in ("dense", "moe"):
+            extra, red, gat = attn()
+            prod += extra
+            coll["all-reduce"] += red
+            coll["all-gather"] += gat
+            if kind == "dense":
+                coll["all-reduce"] += mlp
+            else:
+                e, k = cfg.n_experts, cfg.top_k
+                router = 3 * 2 * t * d * e
+                prod += router - router / m
+                coll["all-reduce"] += 2 * t * d * f4 + t * k * f4 + (
+                    mlp if cfg.n_shared else 0)
+        elif kind in ("griffin", "rec"):
+            rec = 2 if kind == "griffin" else 1
+            coll["all-reduce"] += rec * (3 * t * d * f4 + d * f4 + mlp)
+            coll["all-gather"] += rec * t * d * f4
+            if kind == "griffin":
+                extra, red, gat = attn()
+                prod += extra
+                coll["all-reduce"] += red + mlp
+                coll["all-gather"] += gat
+        elif kind == "mamba":
+            mc = cfg.mamba_cfg()
+            di, n = mc.d_inner, mc.d_state
+            r = max(1, d // 16)
+            cut = d * 2 * di + mc.d_conv * di + di + di * (r + 2 * n) \
+                + r * di + di + di * n + di
+            coll["all-reduce"] += (2 * t * d + 2 * t * (r + 2 * n)
+                                   + cut) * f4
+            coll["all-gather"] += whole("in_proj", d, 2 * di) + whole(
+                "x_proj", di, r + 2 * n) + whole("dt_proj", r, di)
+        want[kind] = (prod, coll)
+    if cfg.vocab % m:                  # the table stays whole
+        want["loss"] = (one["loss"][0], {"all-reduce": 0, "all-gather": 0})
+    else:                              # g, max, sum and gold, f
+        want["loss"] = (one["loss"][0] / m, {
+            "all-reduce": (2 * t * d + 3 * t) * f4, "all-gather": 0})
+    return want
+
+
+@pytest.mark.parametrize("arch", COST_ARCHS)
+def test_model_axis_splits_each_layer_products(runs, pair, arch):
+    """A rank at (1, 4) runs a quarter of each layer's product FLOPs
+    (``CostMode``, forward and backward), but for the products every
+    rank of the model group runs whole; its collectives are the
+    conjugates' all-reduces over model, the gathered RG-LRU channels and
+    the cut leaves' gradient sums, byte for byte from the shapes."""
+    import _torch_dist_worker as W
+
+    data, out, _ = runs
+    _, port = W.model_for(arch, data.get(arch, {}).get("tree"))
+    one = W.layer_costs(port, port.cfg, data["costs"])
+    got = out["costs"][arch]
+    want = _expected_costs(arch, one)
+    for part, (prod, coll) in want.items():
+        assert got[part][0] == pytest.approx(prod, rel=1e-12), part
+        assert got[part][0] < one[part][0] or part == "loss", part
+        for kind in ("all-reduce", "all-gather"):
+            assert got[part][1][kind] == coll[kind], (part, kind, got[part])
+        assert got[part][1]["reduce-scatter"] == 0, part
+    whole = [w for w, _ in got["whole"]]
+    assert whole == (["embedding"] if arch == ELASTIC else []), got["whole"]
+
+
+def test_vocab_parallel_ce_equals_whole_logits(runs):
+    """Two ranks, each with half of the vocabulary's logits: the CE sums
+    equal ``_ce_sums`` on the whole logits, and each rank's gradient is
+    its half of the whole logits' gradient."""
+    data, out, _ = runs
+    logits = data["ce"]["logits"].clone().requires_grad_(True)
+    tl, tn = TS._ce_sums(logits, data["ce"]["labels"])
+    tl.backward()
+    for r in out["ce"]:
+        np.testing.assert_allclose(r["sums"], (float(tl), float(tn)), **TOL)
+        n = r["grad"].shape[-1]
+        np.testing.assert_allclose(
+            r["grad"].numpy(), logits.grad[..., r["v0"]: r["v0"] + n].numpy(),
+            **TOL)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_split_decode_state_gives_reference_logits(runs, pair, arch):
+    """Two ranks at (1, 2), the model bound as the dry run's serving
+    cells bind it: each rank's decode state holds its KV heads (the one
+    every rank reads, where there are fewer than the ranks) and its
+    RG-LRU or Mamba channels, the size ``state_specs`` gives its shard
+    where the heads divide; prefill and three teacher-forced decode steps
+    give the reference's logits."""
+    from repro.serve import kvcache as RK
+    from repro.serve import serve_step as RStep
+
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.serve import kvcache as TK
+    from repro_torch.train import sharding as SH
+
+    data, out, _ = runs
+    fam, cfg, ref, params, port = pair(arch)
+    sv = {k: v.numpy() for k, v in data["serve"].items()}
+    rstate = RK.init_state(ref, cfg, 2, 32)
+    pre = jax.jit(RStep.make_prefill(ref, fam))
+    dec = jax.jit(RStep.make_decode(ref, fam))
+    rl, rstate = pre(params, sv["tokens"], sv["lens"], rstate)
+    want = [rl]
+    pos = sv["lens"].copy()
+    for j in range(sv["feed"].shape[1]):
+        _, rl, rstate = dec(params, sv["feed"][:, j: j + 1], pos, rstate,
+                            jax.random.PRNGKey(0))
+        want.append(rl)
+        pos = pos + 1
+    whole = {k: tuple(v.shape) for k, v in
+             weights._flatten(TK.init_state(port, port.cfg, 2, 32)).items()}
+    mesh = meshmod.Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
+    specs = weights._flatten(SH.state_specs(
+        {"s": {k: torch.empty(v, device="meta") for k, v in whole.items()}},
+        mesh)["s"])
+    for r in out["serve"]:
+        got = r[arch]
+        for g, w in zip(got["logits"], want):
+            # test_torch_serve_step.py's tolerance for logits
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                       rtol=1e-4)
+        for k, shape in got["shapes"].items():
+            if k.endswith(("pos", "cursor")):
+                assert shape == whole[k], k
+                continue
+            dim = 3 if k.endswith((".k", ".v")) else (
+                2 if k.endswith("ssm") or "rec" in k else len(shape) - 1)
+            n = whole[k][dim]
+            heads = k.endswith((".k", ".v"))
+            assert shape[dim] == (1 if heads and n < 2 else n // 2), k
+            assert shape[:dim] + shape[dim + 1:] == \
+                whole[k][:dim] + whole[k][dim + 1:], k
+            if not heads or n >= 2:
+                split = SH.shard_shape(whole[k], specs[k], mesh)
+                assert np.prod(shape) == np.prod(split), (k, specs[k])
 
 
 def test_sequence_split_batch_runs_whole_batch_on_every_rank(runs, pair):

@@ -256,6 +256,33 @@ def test_zero1_specs_divisibility(arch):
                                            ospecs["m"][pname])
 
 
+def test_model_axis_f_rounds_each_use_as_one_process():
+    """Megatron's f (``shardctx.to_model``'s function) on a model axis of
+    one rank: a bf16 activation read by three float32 products gets one
+    process's gradient bit for bit (each use's float32 gradient rounded
+    to bf16, the three added in bf16), not the float32 sum rounded once."""
+    from repro_torch.models import shardctx
+
+    mesh = TM.Mesh({"data": 1, "model": 1}, {"data": 0, "model": 0},
+                   {("model",): None})
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 256, generator=g).bfloat16()
+    ws = [torch.randn(256, 96, generator=g) for _ in range(3)]
+    cts = [torch.randn(64, 96, generator=g) for _ in range(3)]
+    grads = []
+    for split in (False, True):
+        xi = x.clone().requires_grad_()
+        uses = shardctx._ToModel.apply(xi, mesh, "model", 3) if split \
+            else (xi,) * 3
+        sum((torch.matmul(u.to(torch.float32), w) * c).sum()
+            for u, w, c in zip(uses, ws, cts)).backward()
+        grads.append(xi.grad)
+    assert grads[1].dtype == torch.bfloat16
+    assert torch.equal(grads[1], grads[0])
+    once = sum(c @ w.t() for w, c in zip(ws, cts)).bfloat16()
+    assert not torch.equal(once, grads[0])
+
+
 def test_spec_bytes_on_an_abstract_mesh():
     """The shard shapes a (4, 2) mesh gives bytelm-100m reduced: every
     parameter's shard times the ranks that split it is the parameter."""
@@ -286,8 +313,11 @@ def test_dryrun_rank_of_the_production_meshes(one_card_train, layout,
                                               multi_pod):
     """One rank of 16x16 / 2x16x16 traced on the meta device: its
     collectives recorded, its products times the chips equal to the one
-    card's under ``dp`` (each rank its share) and to the model axis's
-    size times that under ``tp`` (the model group repeats its work)."""
+    card's under ``dp`` (each rank its share); under ``tp`` the MLP and
+    the vocabulary split over the model axis, and attention, whose 4
+    heads (reduced) do not divide 16, computes whole on every rank of the
+    model group: the rank's products are attention's whole plus the rest
+    / 16, exactly, and the record names the whole layer."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
@@ -312,7 +342,27 @@ def test_dryrun_rank_of_the_production_meshes(one_card_train, layout,
     # all 256 (the reference splits the sequence)
     rows = 256 // chips if layout == "dp" else 256 // (chips // 16)
     rows = rows or 256
-    assert got == pytest.approx(one * rows * chips / 256, rel=1e-12)
+    # the roofline's FLOPs are the rank's times the chips
+    share = one * rows * chips / 256
+    if layout == "dp":
+        assert got == pytest.approx(share, rel=1e-12)
+        assert rec["whole_layers"] == []
+    else:
+        # attention whole on the rank's rows (its products and the core's
+        # batched ones, each run forward, again in the remat recompute,
+        # and twice in the backward), the MLP and the vocabulary / 16
+        from repro_torch.models import registry as TR
+        cfg = TR.get("qwen3-8b", reduced=True, device="meta")[1]
+        d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        proj = 2 * d * (h + 2 * kv) * hd + 2 * h * hd * d    # per token
+        attn = 4 * cfg.n_layers * 256 * 4096 * proj \
+            + one_card_train["flops_by_op"]["bmm"]
+        whole = one_card_train["products_per_rank"]
+        rank = (attn + (whole - attn) / 16) * rows / 256
+        assert rec["products_per_rank"] == pytest.approx(rank, rel=1e-12)
+        assert got == pytest.approx(rank * chips, rel=1e-12)
+        assert rec["whole_layers"] == [["attention",
+                                        "heads 4 % model 16 = 4"]]
     assert rec["batch_rows_split"] == (rows != 256)
     assert rec["compute_per_rank_is_reference"] == (
         layout == "dp" and rows * chips == 256)

@@ -2,8 +2,9 @@
 
 Runs ``python -m repro_torch.launch.train`` once as a single process on
 card 0 and once under ``torch.distributed.run --nproc-per-node N`` (NCCL,
-card ``r`` for rank ``r``, mesh ``make_host_mesh()``), from the same
-weights and batches (one ``PYTHONHASHSEED`` for every process), and
+card ``r`` for rank ``r``, mesh ``--mesh DxM``: ``make_host_mesh(model=M)``,
+(N/2, 2) by default; ``1x4`` splits every product over four cards), from
+the same weights and batches (one ``PYTHONHASHSEED`` for every process), and
 compares them with ``chip_smoke.py``'s phase-10 tolerances: each of the
 first 3 steps' loss and grad norm within ``MR_BF16_TOL`` and every
 parameter of the step-3 checkpoint within ``MR_PARAM_BOUND``.  It prints
@@ -11,8 +12,9 @@ the card's name and power limit, each step's metrics and tokens/s (the
 launcher's log), and the comparison as JSON last::
 
     python3 tools/multicard_check.py --ranks 4 --out chiprun_out/nccl4.json
+    python3 tools/multicard_check.py --mesh 1x4 --out nccl14.json
 
-Needs ``--ranks`` CUDA devices; exits 1 when a check fails.
+Needs ``--ranks`` (D x M) CUDA devices; exits 1 when a check fails.
 """
 
 from __future__ import annotations
@@ -38,9 +40,15 @@ STEPS, COMPARE_AT = 6, 3         # steps run; the step compared in full
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: data and model axes (sets --ranks)")
     ap.add_argument("--arch", default=C.TRAIN_ARCH)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    model = 2
+    if args.mesh:
+        data, model = (int(n) for n in args.mesh.lower().split("x"))
+        args.ranks = data * model
 
     import torch
     from repro_torch.kernels import _build
@@ -67,7 +75,7 @@ def main(argv=None) -> int:
     base = ["--arch", args.arch, "--batch", str(C.TRAIN_BATCH), "--seq",
             str(C.TRAIN_SEQ), "--device", "cuda", "--log-every", "1",
             "--steps", str(STEPS), "--ckpt-every", str(COMPARE_AT)]
-    out = {"card": smi, "ranks": args.ranks}
+    out = {"card": smi, "ranks": args.ranks, "model": model}
     with tempfile.TemporaryDirectory(prefix="multicard_") as d:
         work = Path(d)
         t0 = time.time()
@@ -82,8 +90,9 @@ def main(argv=None) -> int:
         out["single_s"] = time.time() - t0
         out["single_log"] = proc.stdout.splitlines()
         t0 = time.time()
-        log = C.torchrun(args.ranks, [*base, "--ckpt-dir",
-                                      str(work / "many"), "--metrics",
+        log = C.torchrun(args.ranks, [*base, "--model", str(model),
+                                      "--ckpt-dir", str(work / "many"),
+                                      "--metrics",
                                       str(work / "many.jsonl")], env)
         out["ranks_s"] = time.time() - t0
         out["ranks_log"] = log.splitlines()

@@ -54,12 +54,18 @@ Phases, in order; any failure exits non-zero before the last line:
      window (rows with no live key), D = 80 and D = 32: kernel vs plain
      (f32 atol 2e-5 / rtol 1e-4, the reference tests'; bf16 atol 1e-4 /
      rtol 1e-2, one bf16 rounding step; TF32 off), and causality.  The
-     windowed walks' kernels (UTF-8 -> UTF-16 and UTF-16 -> UTF-8, one
-     warp each) bit-identical to their plain versions on
-     ``tools/inputs.py``'s ``windowed_buffers`` (text of every profile,
-     injected errors, lone high surrogates whose count passes the
-     capacity, int32 values outside the byte and unit ranges, ``n_valid``
-     at 0, below one window and mid-character), validate on and off; and
+     windowed walks' kernels (UTF-8 -> UTF-16 and UTF-16 -> UTF-8; a
+     producer, a walker and an emitter warp over a shared-memory input
+     ring) bit-identical to their plain versions on ``tools/inputs.py``'s
+     ``windowed_buffers`` (text of every profile, injected errors, lone
+     high surrogates whose count passes the capacity, int32 values
+     outside the byte and unit ranges, ``n_valid`` at 0, below one window
+     and mid-character; and the ring's cases, for the wire type and
+     int32: text of three ring lengths and an odd tail, invalid units,
+     a 4-byte character, 12-byte windows, an ASCII block and a surrogate
+     pair across stage boundaries, ``n_valid`` mid-stage, a view ``x[1:]``
+     whose data is not 16-byte aligned, and the count past the capacity
+     at ring size), validate on and off; and
      windowed ``transcode`` equal to fused (``buffer[:count]``, count,
      status) on text of every profile.  The fault harness on the card: an
      error injected at the one-pass wrapper's second call (the third call
@@ -116,8 +122,10 @@ Phases, in order; any failure exits non-zero before the last line:
      Beside ``ms``, each kernel (and SDPA) also reports its device time
      per call, ``device_ms`` (:func:`device_ms`).  The windowed kernels
      and ``transcode(strategy="windowed")`` on 1<<17 characters of each
-     profile and direction (ms, device ms, GB/s of input; the plain
-     version once, on arabic); ``TextPipeline.next_batch`` per step, and
+     profile and direction (ms, device ms, GB/s of input, steps, ns a
+     step, the bytes bound and the step-latency bound of
+     :func:`step_bound_ms`; the plain version once, on arabic);
+     ``TextPipeline.next_batch`` per step, and
      ``batch_transcode`` packed and vmap.
   5. The models (:func:`model_phase`), the launch counts set to 0 just
      before the serving path and read just after: every arch of
@@ -301,6 +309,18 @@ REPLACES = {
     "windowed_utf16": "src/repro/core/windowed.py:238",
 }
 WINDOWED = (("utf8", "utf16"), ("utf16", "utf8"))
+# The windowed walker's loop-carried chain in SM cycles a step, by step
+# kind (a 64-byte ASCII block, a 12-byte window, an 8-unit register):
+# the dependent instructions from the position to the ring's load and on
+# to the next position, read off the SASS of windowed.cu (sm_90a, PERF.md
+# has the listings), each timed by tools/step_latency.py's one-warp chases
+# on the H100: an integer op 4.56 cycles (IMAD), LDS 24.56 (the LDS chase
+# less its LEA), VOTE 13.01 (the ballot chase less its LOP3).  ASCII block
+# (the ASCII run's loop): 5 integer ops, 1 LDS, 1 VOTE; window: 10, 2, 1;
+# register: 9, 1, 1.
+WALK_CHAIN_CYCLES = {64: 5 * 4.56 + 24.56 + 13.01,
+                     12: 10 * 4.56 + 2 * 24.56 + 13.01,
+                     8: 9 * 4.56 + 24.56 + 13.01}
 # The training-input pipeline of a byte LM: 64 documents of 8 KiB of
 # UTF-8 a step (512 KiB), decoded to code points on the card.
 PIPE = dict(seq_len=8192, global_batch=64, emit="codepoints")
@@ -797,31 +817,19 @@ def walk_steps(src: str, units: np.ndarray) -> int:
     12-byte windows and tail characters (UTF-8), or 8-unit registers, 7
     where one ends in a lone high half (UTF-16); the walk's work, for its
     time per step."""
-    from repro_torch.core import tables as T
-    n, p, steps = len(units), 0, 0
-    u = units.astype(np.int64)
-    if src == "utf16":
-        hi = (u >> 10) == 0x36
-        while p < n:
-            r = slice(p, min(p + 8, n))
-            surr = bool((((u[r] >> 10) & 0x3E) == 0x36).any())
-            take = 7 if (surr and p + 7 < n and hi[p + 7]
-                         and not hi[p + 6]) else 8
-            p, steps = p + min(take, n - p), steps + 1
-        return steps
-    ends = np.append((u[1:] & 0xC0) != 0x80, True)
-    weights = 1 << np.arange(12)
-    while p + 12 <= n:
-        if p + 64 <= n and bool((u[p: p + 64] < 0x80).all()):
-            p += 64
-        else:
-            key = int((ends[p: p + 12] * weights).sum())
-            p += max(int(T.WINDOW_CONSUMED[key]), 1)
-        steps += 1
-    while p < n:
-        p += min(max(int(T.LEAD_LENGTH_32[u[p] >> 3]), 1), n - p)
-        steps += 1
-    return steps
+    from tools import inputs
+    return len(inputs.walk_positions(src, units))
+
+
+def step_bound_ms(src: str, units: np.ndarray, clock_mhz: float) -> float:
+    """The walk's step-latency bound: each ASCII block, window or
+    register of the walk over ``units`` times its kind's chain
+    (``WALK_CHAIN_CYCLES``) at the SM clock.  The UTF-8 tail (fewer than
+    12 bytes, on one lane after the walk) is left out."""
+    from tools import inputs
+    rows = inputs.walk_positions(src, units)
+    cycles = sum(WALK_CHAIN_CYCLES.get(int(w), 0) for w in rows[:, 1])
+    return cycles / (clock_mhz * 1e3)
 
 
 def hold_windowed(w, fused, *ctx):
@@ -4153,8 +4161,9 @@ def main(argv=None) -> int:
     # transcode = fused on valid text of every profile.
     n_win = 0
     for fmt, (kern, plain, first_error) in walks.items():
-        for label, arr, n in inputs.windowed_buffers(fmt, args.seed + 5):
-            x = torch.from_numpy(arr).cuda()
+        for label, arr, n in inputs.windowed_buffers(
+                fmt, args.seed + 5, ring=(win.STAGE_BYTES, win.RING_STAGES)):
+            x = torch.from_numpy(arr).cuda()[inputs.view_offset(label):]
             status0 = first_error(win.masked_int32(x, n), n)
             for validate in (True, False):
                 hold(f"windowed_{fmt}", kern(x, n, status0, validate),
@@ -4176,8 +4185,10 @@ def main(argv=None) -> int:
     report["windowed_correctness_cases"] = n_win
     log(f"phase 2: {n_win} windowed cases: both walks' kernels bit-identical "
         f"to plain (text, injected errors, lone high surrogates past the "
-        f"capacity, int32 out of range, n_valid edges, validate on/off); "
-        f"windowed transcode = fused on text of every profile")
+        f"capacity, int32 out of range, n_valid edges; the ring's: three "
+        f"ring lengths, features across stage boundaries, n mid-stage, a "
+        f"misaligned view, validate on/off); windowed transcode = fused "
+        f"on text of every profile")
 
     # The fault harness on the card: an error at the one-pass wrapper's
     # second call (the next call clean and equal to the first), and a
@@ -4567,10 +4578,13 @@ def main(argv=None) -> int:
         for (lang, src), x in win_in.items()}
     win_launches = read_counts()
     log(f"phase 3: windowed path launches {win_launches}")
+    # Each call seeds its status with one count launch (wire-type input).
     require(win_launches == {"windowed_utf8": len(inputs.PROFILES),
-                             "windowed_utf16": len(inputs.PROFILES)},
+                             "windowed_utf16": len(inputs.PROFILES),
+                             "count": 2 * len(inputs.PROFILES)},
             "windowed path launches", win_launches)
-    launches.update(win_launches)
+    for name, count in win_launches.items():
+        launches[name] = launches.get(name, 0) + count
     for (lang, src), w in win_out.items():
         hold_windowed(w, repro_torch.transcode(
             win_in[(lang, src)], dict(WINDOWED)[src], src_format=src,
@@ -4876,10 +4890,16 @@ def main(argv=None) -> int:
 
     # The windowed walks at 1<<17 characters of each profile: the kernel
     # (ms a call, device_ms, and device time per step of the walk), and
-    # the entry point with its whole-array first-error pass.  The bytes bound: the input once, the int32 output
-    # buffer once, the 16 KiB window table (UTF-8) and 12 bytes of scalars.
-    # On the arabic profile, the kernels' line: also the plain version
-    # (one call), held equal.
+    # the entry point with its first-error pass (the count kernel).  The
+    # bytes bound: the input once, the int32 output buffer once, the 16
+    # KiB window table (UTF-8) and 12 bytes of scalars; the step-latency
+    # bound: the walk's steps times the walker's chain at the SM's
+    # maximum clock (step_bound_ms).  On the arabic profile, the kernels'
+    # line: also the plain version (one call), held equal.
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
     windowed_t, win_lines = {}, {}
     for (lang, src), x in win_in.items():
         dst = dict(WINDOWED)[src]
@@ -4901,8 +4921,11 @@ def main(argv=None) -> int:
              "input_bytes": n * x.element_size(),
              "bound_ms": nbytes / roofline.HBM_BW * 1e3, "bytes": nbytes}
         t["GB_per_s_in"] = t["input_bytes"] / t["device_ms"] / 1e6
-        t["steps"] = walk_steps(src, x.cpu().numpy())
+        units = x.cpu().numpy()
+        t["steps"] = walk_steps(src, units)
         t["ns_per_step"] = t["device_ms"] * 1e6 / t["steps"]
+        t["step_bound_ms"] = step_bound_ms(src, units, clock_mhz)
+        t["clock_max_mhz"] = clock_mhz
         if lang == "arabic":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -4918,9 +4941,11 @@ def main(argv=None) -> int:
             f"({t['input_bytes']} B): kernel {ms:.3f} ms a call, "
             f"{t['device_ms']:.3f} ms on the device "
             f"({t['GB_per_s_in']:.3f} GB/s of input; {t['steps']} steps, "
-            f"{t['ns_per_step']:.0f} ns a step), bound "
-            f"{t['bound_ms']:.4f} ms; transcode windowed {t['entry_ms']:.3f} "
-            f"ms, fused {t['fused_entry_ms']:.4f} ms  [{smi}]")
+            f"{t['ns_per_step']:.1f} ns a step), bound "
+            f"{t['bound_ms']:.4f} ms (bytes), {t['step_bound_ms']:.4f} ms "
+            f"(steps x chain at {clock_mhz:.0f} MHz); transcode windowed "
+            f"{t['entry_ms']:.3f} ms, fused {t['fused_entry_ms']:.4f} ms  "
+            f"[{smi}]")
     timing[f"windowed {LIPSUM_CHARS} chars"] = windowed_t
 
     # The data path: next_batch a step (host clock, ending in a
@@ -5025,7 +5050,9 @@ def main(argv=None) -> int:
             "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            **({"step_bound_ms": t["step_bound_ms"]}
+               if "step_bound_ms" in t else {})})
     for name, t in main_t["kernels"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:8s} {t['ms']:.4f} ms "
             f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "

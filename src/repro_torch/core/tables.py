@@ -179,16 +179,21 @@ def _build_window_tables():
 def window_packed() -> np.ndarray:
     """The window tables as one uint32 per key, the windowed kernel's form
     (16 KiB): bits 0-2 the number of characters, bits 3+3j to 5+3j the
-    length of character j.  The rest follows from these, and is checked
-    here: the starts are the lengths' exclusive prefix sums, the consumed
-    count their sum, and a key is valid iff it has a character."""
+    length of character j, bits 21-24 the bytes consumed (at most 12).
+    The rest follows from these, and is checked here: the starts are the
+    lengths' exclusive prefix sums, the consumed count their sum, and a
+    key is valid iff it has a character."""
     shifts = 3 + 3 * np.arange(6)
-    packed = WINDOW_NCHARS.astype(np.uint32) | (
-        WINDOW_LENGTHS.astype(np.uint32) << shifts).sum(1, dtype=np.uint32)
+    assert WINDOW_CONSUMED.max() < 16
+    packed = (WINDOW_NCHARS.astype(np.uint32)
+              | (WINDOW_LENGTHS.astype(np.uint32) << shifts).sum(
+                  1, dtype=np.uint32)
+              | WINDOW_CONSUMED.astype(np.uint32) << 21)
     live = np.arange(6) < WINDOW_NCHARS[:, None]
     prefix = np.cumsum(WINDOW_LENGTHS, 1) - WINDOW_LENGTHS
     assert (np.where(live, prefix, 0) == WINDOW_STARTS).all()
     assert (WINDOW_LENGTHS.sum(1) == WINDOW_CONSUMED).all()
+    assert ((packed >> 21) & 15 == WINDOW_CONSUMED).all()
     assert (WINDOW_VALID == (WINDOW_NCHARS > 0)).all()
     assert not np.where(live, 0, WINDOW_LENGTHS).any()
     return packed

@@ -20,12 +20,19 @@ UTF-16 -> UTF-8 (Algorithm 4)
 
 The walk is serial: each step's position depends on the window just
 read.  The reference runs it as one ``lax.while_loop`` on the device; the
-port runs it as one CUDA kernel of one warp that walks the whole buffer
+port runs it as one CUDA kernel of one block that walks the whole buffer
 (``windowed_utf8_kernel``, ``windowed_utf16_kernel`` in
-``kernels/csrc/windowed.cu``), on a CUDA tensor, and as its plain
+``kernels/csrc/windowed.cu``: a producer warp fills a shared-memory ring
+of ``RING_STAGES`` stages of ``STAGE_BYTES`` by bulk copies, a walker warp
+carries only the position from step to step (the count and the error
+flag once a batch of 32 steps), an emitter warp decodes and stores each
+step's window), on a CUDA tensor, and as its plain
 PyTorch version (:func:`windowed_utf8_plain`, :func:`windowed_utf16_plain`:
 a Python loop over the windows and registers, the reference's control
 flow) on a CPU tensor.  Each wrapper keeps a launch count.
+:func:`utf8_walker_lanes` and :func:`utf16_walker_lanes` mirror the
+walker's lane arithmetic (ballots and popcounts) in torch ops, for the
+tests.
 
 Results are the reference's, bit for bit: an int32 buffer of capacity
 ``len + 80`` (UTF-8 -> UTF-16) or ``3 * len + 24`` (UTF-16 -> UTF-8),
@@ -42,9 +49,13 @@ On malformed input the walk still follows the reference step for step:
   * int32 input keeps its values, bytes past 0xFF and negative ones
     included.
 
-``status`` is the whole-array first-error offset of ``core.utf8`` /
-``core.utf16`` (torch ops on the device, as the reference seeds its walk
-with a global validation pass), or 0 when only the walk saw an error.
+``status`` is the whole-array first-error offset (the reference seeds
+its walk with a global validation pass), or 0 when only the walk saw an
+error.  On the wire type (uint8 UTF-8, uint16 UTF-16) the offset comes
+from the count kernel's per-tile first errors (``kernels/fused_transcode.py
+::count_kernel``), min-reduced; on int32, which that kernel does not
+read, from ``core.utf8`` / ``core.utf16``'s ``first_error_index`` in
+torch ops.
 """
 
 from __future__ import annotations
@@ -57,11 +68,16 @@ from repro_torch import costmodel
 from repro_torch.core import result as R
 from repro_torch.core import tables as T
 from repro_torch.core import utf16 as u16mod, utf8 as u8mod
-from repro_torch.kernels import _build, runtime
+from repro_torch.kernels import _build, fused_transcode, runtime
 
 _WINDOW = 12
 _BLOCK = 64
 _REGISTER = 8
+# The kernels' input ring (kernels/csrc/windowed.cu): RING_STAGES stages
+# of STAGE_BYTES each, so a stage holds 4096 uint8, 2048 uint16 or 1024
+# int32 elements.
+STAGE_BYTES = 4096
+RING_STAGES = 4
 # The output slack past the input length, as the reference's: room for
 # the 64-wide ASCII store and the 12-wide window store, and for the
 # 24-byte register store.
@@ -295,6 +311,86 @@ def windowed_utf16_plain(x, n: int, status0, validate: bool):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' walker step, lane by lane (a mirror for the tests).
+
+
+def _ballot(pred):
+    """``__ballot_sync``: bit ``l`` of each row's mask is ``pred[..., l]``
+    (int64 masks)."""
+    return (pred.long() << torch.arange(pred.shape[-1])).sum(-1)
+
+
+def _popc(mask):
+    """``__popc`` of int64 masks below ``2**32``."""
+    return ((mask[..., None] >> torch.arange(32)) & 1).sum(-1)
+
+
+def _lanemask_lt(width: int):
+    """Each lane's ``lanemask_lt``: the bits of the lanes below it."""
+    return (torch.ones(width, dtype=torch.long) << torch.arange(width)) - 1
+
+
+def utf8_walker_lanes(keys, b0, b1):
+    """The UTF-8 walker's window step over rows of windows: ``keys``
+    (N,) the 12-bit end-of-character keys, ``b0``/``b1`` (N, 12) int32
+    the bytes ``p + l`` and ``p + 1 + l`` of lane ``l``.  Returns
+    ``consumed`` and ``nch`` (extracts of the packed table word),
+    ``starts`` (masks of the live characters' first bytes), ``supp``
+    (masks of the supplementary ones, read off ``b0`` and ``b1``),
+    ``offsets`` (N, 12), each lane's unit offset by popcounts, and
+    ``units``, the count advanced."""
+    keys = torch.as_tensor(keys, dtype=torch.long)
+    e = torch.as_tensor(T.window_packed().astype("int64"))[keys]
+    consumed, nch = (e >> 21) & 15, e & 7
+    lane = torch.arange(_WINDOW)
+    kl = keys[:, None] >> lane
+    start = ((((keys[:, None] << 1) | 1) >> lane) & 1).bool()
+    supp = start & ((((kl & 1) == 1) & (b0 >= 0x10000))
+                    | (((kl & 15) == 8) & (((b0 & 7) | (b1 & 0x30)) != 0)))
+    below = (1 << consumed) - 1
+    starts = ((keys << 1) | 1) & below
+    smask = _ballot(supp) & below
+    lt = _lanemask_lt(_WINDOW)
+    offsets = _popc(starts[:, None] & lt) + _popc(smask[:, None] & lt)
+    return dict(consumed=consumed, nch=nch, starts=starts, supp=smask,
+                offsets=offsets, units=nch + _popc(smask))
+
+
+def plane_offsets(values):
+    """Exclusive prefix sums and totals of per-lane values in 0..4 from
+    their three bit-planes: ``popc(b0 & lt) + 2 popc(b1 & lt) + 4
+    popc(b2 & lt)``."""
+    lt = _lanemask_lt(values.shape[-1])
+    planes = [_ballot((values >> j) & 1 == 1) for j in range(3)]
+    offsets = sum((1 << j) * _popc(m[..., None] & lt)
+                  for j, m in enumerate(planes))
+    return offsets, sum((1 << j) * _popc(m) for j, m in enumerate(planes))
+
+
+def utf16_walker_lanes(reg, left):
+    """The UTF-16 walker's step over rows of registers: ``reg`` (N, 8)
+    int32 (0 past ``n``), ``left`` (N,) the units left (``n - p``).
+    Returns ``take`` (8, or 7 when unit 7 is a high half that unit 6 does
+    not pair with), ``k`` (the units consumed), ``advance`` (the bytes
+    recounted over them from the bit-planes of the per-unit counts) and
+    ``err`` (Algorithm 4's surrogate errors, from masks)."""
+    reg = torch.as_tensor(reg, dtype=torch.long)
+    hi, lo = (reg >> 10) == 0x36, (reg >> 10) == 0x37
+    his, los = _ballot(hi), _ballot(lo)
+    per = torch.where(hi, 4, torch.where(
+        lo, 0, 1 + (reg >= 0x80).long() + (reg >= 0x800).long()))
+    take = torch.where(((his >> 6) & 3) == 2, _REGISTER - 1, _REGISTER)
+    k = torch.minimum(take, torch.as_tensor(left, dtype=torch.long))
+    _, advance = plane_offsets(
+        torch.where(torch.arange(_REGISTER) < k[:, None], per, 0))
+    live = (1 << take) - 1
+    lead = live & ~(los & (his << 1))
+    err = ((his & ~(los >> 1) & (live >> 1)) | (los & ~(his << 1) & live)
+           | (his & lead & (1 << (take - 1)))) != 0
+    return dict(take=take, k=k, advance=advance, err=err, per=per)
+
+
+# ---------------------------------------------------------------------------
 # The kernels.
 
 
@@ -326,7 +422,7 @@ def _launch(name: str, x, n: int, status0, validate: bool, elements: dict,
 
 def windowed_utf8_kernel(x, n: int, status0, validate: bool):
     """``(buffer, count, status)`` of the UTF-8 -> UTF-16 walk: the CUDA
-    kernel (one warp walks the buffer) on a CUDA tensor (uint8 or int32),
+    kernel (one block walks the buffer) on a CUDA tensor (uint8 or int32),
     :func:`windowed_utf8_plain` on a CPU tensor."""
     with costmodel.kernel("windowed_utf8", (x, status0)) as kc:
         if x.device.type == "cpu":
@@ -372,6 +468,20 @@ def _prepare(x, n_valid, device, elements: dict, what: str):
     return x.contiguous(), runtime.resolve_n(x.shape[0], n_valid)
 
 
+def first_error(x, n: int, src: str):
+    """The whole-array first-error offset of ``x[:n]`` (0-d int32, -1
+    when valid): on the wire type the count kernel's per-tile first
+    errors, min-reduced; on int32 ``first_error_index`` of ``core.utf8``
+    or ``core.utf16``."""
+    wire, dst, mod = (torch.uint8, "utf16", u8mod) if src == "utf8" \
+        else (torch.uint16, "utf8", u16mod)
+    if x.dtype != wire:
+        return mod.first_error_index(masked_int32(x, n), n)
+    _, _, ferrs = fused_transcode.count_kernel(
+        x, n, src=src, dst=dst, errors="strict", validate=True)
+    return R.status_from_first(ferrs.amin())
+
+
 def utf8_to_utf16_windowed(b, n_valid=None, validate: bool = True, *,
                            device=None):
     """Algorithm 3: 64-byte ASCII fast path + 12-byte table windows.
@@ -380,8 +490,7 @@ def utf8_to_utf16_windowed(b, n_valid=None, validate: bool = True, *,
     status)``."""
     x, n = _prepare(b, n_valid, device, UTF8_ELEMENTS,
                     "utf8_to_utf16_windowed")
-    status0 = u8mod.first_error_index(masked_int32(x, n), n) \
-        if validate else None
+    status0 = first_error(x, n, "utf8") if validate else None
     return R.TranscodeResult(*windowed_utf8_kernel(x, n, status0, validate))
 
 
@@ -393,7 +502,6 @@ def utf16_to_utf8_windowed(u, n_valid=None, validate: bool = True, *,
     status)``."""
     x, n = _prepare(u, n_valid, device, UTF16_ELEMENTS,
                     "utf16_to_utf8_windowed")
-    status0 = u16mod.first_error_index(masked_int32(x, n), n) \
-        if validate else None
+    status0 = first_error(x, n, "utf16") if validate else None
     return R.TranscodeResult(*windowed_utf16_kernel(x, n, status0,
                                                     validate))

@@ -26,11 +26,14 @@ against the general lane body alone (no class dispatch), and on an
 output the allocator hands back dirty (they write every element, zeros
 past the end).  The one-pass kernels' decoupled look-back is launched 20
 times over at tile counts around its 32-tile window, each launch
-bit-identical to fused and to plain.  The windowed walks' kernels (one
-warp each) must equal their plain versions on ``tools/inputs.py``'s
-``windowed_buffers`` (text, injected errors, lone high surrogates past
-the capacity, int32 values outside the ranges, ``n_valid`` edges), with
-validation on and off, and windowed ``transcode`` must equal fused's on
+bit-identical to fused and to plain.  The windowed walks' kernels (a
+producer, a walker and an emitter warp over a shared-memory ring) must
+equal their plain versions on ``tools/inputs.py``'s ``windowed_buffers``
+(text, injected errors, lone high surrogates past the capacity, int32
+values outside the ranges, ``n_valid`` edges, and the ring's cases:
+three ring lengths and an odd tail, windows and pairs across stage
+boundaries, ``n`` mid-stage, a view ``x[1:]``), with validation on and
+off, and windowed ``transcode`` must equal fused's on
 text; the data pipeline on the card must give the batches it gives on
 the CPU.  The models (no hand kernel: torch ops, products through
 ``torch.mm(out_dtype=float32)``): every arch, reduced and float32, on the
@@ -636,8 +639,9 @@ def test_windowed_kernels_match_plain_on_card(fmt):
          u8mod.first_error_index) if fmt == "utf8" else
         (win.windowed_utf16_kernel, win.windowed_utf16_plain,
          u16mod.first_error_index))
-    for name, arr, n in C.windowed_buffers(fmt, seed=71):
-        x = torch.from_numpy(arr).cuda()
+    ring = (win.STAGE_BYTES, win.RING_STAGES)
+    for name, arr, n in C.windowed_buffers(fmt, seed=71, ring=ring):
+        x = torch.from_numpy(arr).cuda()[C.view_offset(name):]
         status0 = first_error(win.masked_int32(x, n), n)
         for validate in (True, False):
             got = kernel(x, n, status0, validate)

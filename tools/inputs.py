@@ -9,10 +9,15 @@
   :func:`byte_pairs` make buffers that exercise that decision.
 - The windowed walks' inputs (:func:`windowed_buffers`): text, injected
   errors, lone high surrogates past the capacity, int32 values outside
-  the byte and unit ranges, and ``n_valid`` edges.
+  the byte and unit ranges, and ``n_valid`` edges; with ``ring=``, also
+  the cases of the kernels' shared-memory input ring (several ring
+  lengths, windows and pairs across its stage boundaries, a view whose
+  data does not start on 16 bytes).  :func:`walk_positions` replays a
+  walk's steps.
 
-Imports only numpy, so the card tests (run where JAX may be missing) and
-the chip smoke use it as the CPU tests do.
+Imports only numpy (:func:`walk_positions` reads the window table of
+``repro_torch.core.tables`` when it is called), so the card tests (run
+where JAX may be missing) and the chip smoke use it as the CPU tests do.
 """
 
 from __future__ import annotations
@@ -186,15 +191,149 @@ def byte_pairs(stride: int = 1) -> np.ndarray:
     return out.reshape(-1)
 
 
-def windowed_buffers(fmt: str, seed: int, size: int = 2048):
+def walk_positions(src: str, units: np.ndarray, n: int | None = None):
+    """The steps of the windowed walk over ``units[:n]`` (elements at and
+    past ``n`` read as 0): an int array of ``(p, width)`` rows, a row a
+    step at element ``p`` that reads ``width`` elements.  UTF-8: 64-byte
+    ASCII blocks (width 64), 12-byte windows (12) and the tail's
+    characters (fewer than 12 bytes left, a row each, its width the
+    bytes it takes); UTF-16: 8-unit registers (8), of which a step takes
+    7 units where unit 7 is a high half that unit 6 does not pair with."""
+    n = len(units) if n is None else n
+    u = np.zeros(n + 64, np.int64)
+    u[:n] = units[:n]
+    p, rows = 0, []
+    if src == "utf16":
+        hi = (u >> 10) == 0x36
+        while p < n:
+            take = 7 if p + 7 < n and hi[p + 7] and not hi[p + 6] else 8
+            rows.append((p, 8))
+            p += min(take, n - p)
+        return np.array(rows, np.int64).reshape(-1, 2)
+    from repro_torch.core import tables as T
+    ends = np.append((u[1:n] & 0xC0) != 0x80, True)
+    ends = np.append(ends, np.ones(12, bool))
+    weights = 1 << np.arange(12)
+    while p + 12 <= n:
+        if p + 64 <= n and bool((u[p: p + 64] < 0x80).all()):
+            rows.append((p, 64))
+            p += 64
+        else:
+            rows.append((p, 12))
+            key = int((ends[p: p + 12] * weights).sum())
+            p += max(int(T.WINDOW_CONSUMED[key]), 1)
+    while p < n:
+        step = min(max(int(T.LEAD_LENGTH_32[u[p] >> 3]), 1), n - p)
+        rows.append((p, step))
+        p += step
+    return np.array(rows, np.int64).reshape(-1, 2)
+
+
+def straddles(src: str, units: np.ndarray, n: int, at: int,
+              width: int) -> bool:
+    """Whether a step of ``width`` elements of the walk over ``units[:n]``
+    reads across element boundary ``at`` (elements ``at - 1`` and
+    ``at``)."""
+    rows = walk_positions(src, units, n)
+    hit = (rows[:, 1] == width) & (rows[:, 0] < at) & (
+        rows[:, 0] + rows[:, 1] > at)
+    return bool(hit.any())
+
+
+def _ring_buffers(fmt: str, rng, text, stage_bytes: int, stages: int):
+    """The ring cases of :func:`windowed_buffers`, for the wire type and
+    int32: ``(name, buffer, n)``; a name starting with ``view-`` is meant
+    as ``x[1:]`` of its buffer on the card, ``n`` counted in the view."""
+    out = []
+    for dt in (DT[fmt], np.int32):
+        tag = np.dtype(dt).name
+        se = stage_bytes // np.dtype(dt).itemsize     # elements a stage
+        ring = se * stages
+        long_n = 3 * ring + 5                         # an odd tail
+        buf, n = text(long_n, dt)
+        out.append((f"ring-text-{tag}", buf, n))
+        if dt == DT[fmt]:
+            buf, n = text(long_n, dt)
+            bad = [0xFF, 0xC0, 0x80] if fmt == "utf8" else [0xDC00, 0xD800]
+            for k in range(1, 3 * stages):
+                buf[k * se - 1 + k % 2] = bad[k % len(bad)]
+            out.append((f"ring-injected-{tag}", buf, n))
+        # n ends mid-stage; the elements past it are text, read as 0.
+        buf, _ = text(3 * se, dt)
+        out.append((f"ring-n-mid-stage-{tag}", buf, 2 * se + se // 2 + 3))
+        # A view whose data starts one element past the allocation's.
+        buf, n = text(2 * se + 8, dt)
+        out.append((f"view-ring-{tag}", buf, n - 1))
+        out.append((f"ring-straddle-{tag}",
+                    *_straddle_buffer(fmt, dt, se, stages)))
+        if fmt == "utf16":
+            out.append((f"ring-lone-high-{tag}",
+                        np.full(long_n, 0xD800, dt), long_n))
+        elif dt == np.int32:
+            # Each element a 1-byte character of two units: q passes the
+            # capacity of len + 80 and the stores clamp.
+            out.append((f"ring-big-{tag}", np.full(long_n, 70_000, dt),
+                        long_n))
+    return out
+
+
+def _straddle_buffer(fmt: str, dt, se: int, stages: int):
+    """ASCII filler of ``stages + 1`` stages with a feature across each
+    stage boundary ``k * se``: UTF-8 an invalid byte, a 4-byte
+    character, 2-byte text (12-byte windows) and, shifted until one does,
+    an ASCII block; UTF-16 a surrogate pair split by the boundary, a lone
+    high and a lone low half, BMP text, and an ASCII register.  Each
+    feature's step is checked to read across its boundary."""
+    n = (stages + 1) * se + 3
+    for shift in range(64):
+        buf = np.full(n, ord("a"), np.int64)
+        # A character at the start shifts the walk's alignment.
+        head = encode_text(np.array([0xE9] * (shift % 8 + 1)), fmt)
+        buf[:len(head)] = head
+        buf[len(head): len(head) + shift] = ord("b")
+        if fmt == "utf8":
+            feats = [(se - 1, [0xFF], 12), (2 * se - 2, [0xF0, 0x9F, 0x98,
+                                                        0x80], 12),
+                     (3 * se - 12, list(encode_text(np.full(12, 0xE9),
+                                                    fmt)), 12)]
+        else:
+            feats = [(se - 1, [0xD83D, 0xDE00], 8), (2 * se - 1, [0xD800], 8),
+                     (3 * se, [0xDC00], 8),
+                     (4 * se - 6, list(encode_text(np.full(12, 0x4E2D),
+                                                   fmt)), 8)]
+        for at, units, _ in feats:
+            buf[at: at + len(units)] = units
+        checks = [(k * se, w) for k, (_, _, w) in enumerate(feats, 1)]
+        checks.append((stages * se, 64 if fmt == "utf8" else 8))
+        arr = buf.astype(dt)
+        if all(straddles(fmt, arr, n, at, w) for at, w in checks):
+            return arr, n
+    raise RuntimeError(f"no straddling walk found for {fmt} {dt}")
+
+
+def windowed_buffers(fmt: str, seed: int, size: int = 2048,
+                     ring: tuple | None = None):
     """Named ``(buffer, n_valid)`` inputs of the windowed walks for
     ``fmt`` ("utf8" or "utf16"), ``size`` units each: text of every
     lipsum profile; text with invalid units injected; uniform garbage;
     runs of lone high surrogates (UTF-16: each counts 4 bytes, so the
-    count passes the capacity of ``3 * size + 24``) or a 0xF0 flood
+    count passes the capacity of ``3 * size + 24``; alone and before a
+    run of ASCII) or a 0xF0 flood
     (UTF-8); int32 buffers outside the byte and unit ranges (negative,
-    past 0xFF / 0xFFFF, past 0x10FFFF); and ``n_valid`` at 0, below one
-    12-byte window and mid-character."""
+    past 0xFF / 0xFFFF, past 0x10FFFF, and elements past 0xFFFF whose
+    count passes the capacity before a run of ASCII); ``n_valid`` at 0,
+    below one 12-byte window and mid-character; and views ``x[1:]`` (a
+    name starting with ``view-``, ``n_valid`` counted in the view) with
+    ``n_valid`` 0 and below one window.
+
+    ``ring=(stage_bytes, stages)`` adds the kernels' ring cases, for the
+    wire type and int32 (:func:`_ring_buffers`): text of three ring
+    lengths and an odd tail (the wire type's also with invalid units at
+    the stage boundaries); ``n_valid`` ending mid-stage; a view
+    ``x[1:]``; ASCII filler with a feature across
+    each stage boundary (:func:`_straddle_buffer`); and, at three ring
+    lengths, the lone-high-surrogate run (UTF-16) or int32 elements past
+    0xFFFF whose count passes the capacity (UTF-8)."""
     rng = np.random.default_rng(seed)
     dt = DT[fmt]
 
@@ -216,6 +355,11 @@ def windowed_buffers(fmt: str, seed: int, size: int = 2048):
     out.append(("garbage", rng.integers(0, hi, size).astype(dt), size - 3))
     if fmt == "utf16":
         out.append(("lone-high-run", np.full(size, 0xD800, dt), size))
+        # Past the capacity, then registers that store fewer than 24
+        # bytes: their zeros land in the clamped window.
+        run = np.full(size, 0xD800, dt)
+        run[-40:] = ord("a")
+        out.append(("lone-high-then-ascii", run, size))
         buf, n = text("emoji")
         buf[size // 4: size // 2] = 0xDBFF
         out.append(("lone-high-in-text", buf, n))
@@ -229,7 +373,36 @@ def windowed_buffers(fmt: str, seed: int, size: int = 2048):
     big = text("korean")[0].astype(np.int32)
     big[::97] = 70_000
     out.append(("int32-text-with-big", big, size))
+    # Two units an element push the count past the capacity, and the
+    # windows that end the walk store fewer units than their width.
+    clamp = np.full(size, 70_000, np.int32)
+    clamp[-40:] = ord("a")
+    out.append(("int32-clamped-then-ascii", clamp, size))
     out.append(("n0", text("latin")[0], 0))
     out.append(("n-below-window", text("emoji")[0], 11))
     out.append(("n-mid-character", text("chinese")[0], size // 3 + 1))
+    # Views x[1:] on the card: data not on 16 bytes, empty and not.
+    out.append(("view-n0", text("latin")[0], 0))
+    out.append(("view-n-below-window", text("emoji")[0], 11))
+    if ring is not None:
+        langs = list(PROFILES)
+
+        def ring_text(length, dtype):
+            # Paragraphs of every profile, so the walk meets ASCII blocks,
+            # windows of every case and (UTF-16) surrogate pairs.
+            parts, total = [], 0
+            while total < length:
+                cps = codepoints(langs[len(parts) % len(langs)], 400, rng)
+                parts.append(encode_text(cps, fmt))
+                total += len(parts[-1])
+            units = np.concatenate(parts)[:length]
+            return units.astype(dtype), length
+
+        out += _ring_buffers(fmt, rng, ring_text, *ring)
     return out
+
+
+def view_offset(name: str) -> int:
+    """Elements to drop from a :func:`windowed_buffers` case's buffer on
+    the card: 1 for a ``view-`` case, else 0."""
+    return 1 if name.startswith("view-") else 0

@@ -11,7 +11,11 @@ queued back to back, is reported beside it as ``device_ms``):
   transcoded to UTF-16 (strict, validate), and the legacy validate and
   decode kernels on it and the encode kernel on its UTF-16 transcode;
 - with ``--ragged``, the rcount, rwrite and ronepass kernels on
-  ``chip_smoke.py``'s main batch of 8,192 UTF-8 documents.
+  ``chip_smoke.py``'s main batch of 8,192 UTF-8 documents;
+- with ``--windowed``, the two windowed walks on ``chip_smoke.py``'s
+  1<<17 characters of each chosen profile, UTF-8 -> UTF-16 and UTF-16 ->
+  UTF-8 (validate; each tree's result held equal to the first tree's),
+  with the walk's steps (``inputs.walk_positions``) and device ns a step.
 
 The checkouts are loaded side by side in one process and timed in turns
 for ``--rounds`` rounds (the order reversed every other round), so an A/B
@@ -87,7 +91,9 @@ def load_tree(tree: Path) -> SimpleNamespace:
                 ("rt", "kernels.ragged_transcode"),
                 ("kval", "kernels.utf8_validate"),
                 ("kdec", "kernels.utf8_decode"),
-                ("kenc", "kernels.utf16_encode"))})
+                ("kenc", "kernels.utf16_encode"),
+                ("win", "core.windowed"), ("u8", "core.utf8"),
+                ("u16", "core.utf16"))})
     finally:
         sys.path.remove(src)
     if not Path(mods.ft.__file__).resolve().is_relative_to(tree):
@@ -130,13 +136,23 @@ def ragged_calls(m, x, own) -> dict:
                                                      validate=True, **KW)}
 
 
+def windowed_calls(m, x, src: str) -> dict:
+    n = x.shape[0]
+    kern, mod = (m.win.windowed_utf8_kernel, m.u8) if src == "utf8" \
+        else (m.win.windowed_utf16_kernel, m.u16)
+    status0 = mod.first_error_index(m.win.masked_int32(x, n), n)
+    return {f"windowed_{src}": lambda: kern(x, n, status0, True)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="+", default=[str(ROOT)])
     ap.add_argument("--profiles", nargs="*",
                     default=["latin", "arabic", "chinese"])
     ap.add_argument("--ragged", action="store_true")
-    ap.add_argument("--bytes", type=int, default=64 << 20)
+    ap.add_argument("--windowed", action="store_true")
+    ap.add_argument("--bytes", type=int, default=64 << 20,
+                    help="the single-buffer inputs' size; 0 skips them")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -162,7 +178,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     cases = []
-    for lang in args.profiles:
+    for lang in args.profiles if args.bytes > 0 else ():
         x8 = inputs.utf8_buffer(lang, args.bytes, rng)
         x = torch.from_numpy(x8).cuda()
         cases.append((f"64 MiB {lang}" if args.bytes == 64 << 20
@@ -179,6 +195,25 @@ def main(argv=None) -> int:
         classes = tile_classes(pk.data, own[2].cpu().numpy())
         cases.append((f"ragged {cs.RAGGED_DOCS} docs", classes,
                        [ragged_calls(m, x, own) for m in mods]))
+
+    if args.windowed:
+        import torch
+        for lang in args.profiles:
+            cps = inputs.codepoints(lang, cs.LIPSUM_CHARS, rng)
+            for src in ("utf8", "utf16"):
+                units = inputs.encode_text(cps, src)
+                x = torch.from_numpy(units.copy()).cuda()
+                per_tree = [windowed_calls(m, x, src) for m in mods]
+                for calls in per_tree[1:]:
+                    for name, fn in calls.items():
+                        want = per_tree[0][name]()
+                        if not all(torch.equal(a, b)
+                                   for a, b in zip(fn(), want)):
+                            raise RuntimeError(f"{name} {lang}: the trees "
+                                               f"differ")
+                steps = len(inputs.walk_positions(src, units))
+                cases.append((f"windowed {lang} {src} {cs.LIPSUM_CHARS} "
+                              f"chars", {"steps": steps}, per_tree))
 
     for label, classes, per_tree in cases:
         cell = report["inputs"][label] = {"tiles": classes, **{
@@ -197,6 +232,14 @@ def main(argv=None) -> int:
                                   f"{cell['device_ms'][i][k][-1]:.4f})"
                                   for k, v in cell["ms"][i].items())
                       + f"  [{smi}]", flush=True)
+        if "steps" in classes:
+            cell["ns_per_step"] = [{name: statistics.median(v) * 1e6
+                                    / classes["steps"]
+                                    for name, v in dev.items()}
+                                   for dev in cell["device_ms"]]
+            print(f"{label}: {classes['steps']} steps, device ns a step "
+                  + "  ".join(f"tree {i} {v}" for i, v in
+                              enumerate(cell["ns_per_step"])), flush=True)
         for i, t in enumerate(trees):
             for key, what in (("ms", "a call"), ("device_ms", "device")):
                 print(f"{label} tree {i} ({t.name}) {what}, median of "

@@ -20,12 +20,13 @@ Phases, in order; any failure exits non-zero before the last line:
      ends, garbage in the slack and past ``offsets[-1]``, and the same
      documents at a fixed tile span with ``pad_to_docs`` padding, through
      ``ragged_transcode`` (onepass and fused) and ``ragged_scan``.  The
-     count and write kernels on tiles of each class of their dispatch
-     (ASCII, <=2-byte, general), with a class-breaking unit only in a
-     tile's inflow, on views 1-15 bytes past a 16-byte boundary, and the
-     ragged count and write kernels on packed documents of each class;
-     the write passes' plain versions there equal the general lane body
-     alone (``stages.write_stage``, no class decision).  Each
+     count, write and one-pass kernels on tiles of each class of their
+     dispatch (ASCII, <=2-byte, general), with a class-breaking unit only
+     in a tile's inflow, on views 1-15 bytes past a 16-byte boundary, and
+     the ragged count, write and one-pass kernels on packed documents of
+     each class; the write passes' plain versions there equal the general
+     lane body alone (``stages.write_stage``, no class decision), and the
+     one-pass plain versions' buffers the write passes'.  Each
      kernel is held bit-identical to its plain PyTorch version on the
      same inputs, onepass to fused, single-buffer outputs to CPython's
      codecs where they decode the input, and every document's slice of a
@@ -86,9 +87,9 @@ Phases, in order; any failure exits non-zero before the last line:
      version at these sizes under {strict, replace} × validate {True,
      False}, with invalid units at and across many tile boundaries; the
      one-pass kernels (their decoupled look-back) are launched 10 times
-     over on each of these inputs, every launch bit-identical; the count
-     and write kernels also on the 64 MiB buffer 3 bytes past a 16-byte
-     boundary, and the count, write, rcount and rwrite kernels against
+     over on each of these inputs, every launch bit-identical; the count,
+     one-pass and write kernels also on the 64 MiB buffer 3 bytes past a
+     16-byte boundary, and the count, write, rcount and rwrite kernels against
      the general lane body alone on the main and injected inputs.
      How many tiles of the 64 MiB buffer and of the ragged batch fall in
      each class, from the plain predicate on the host.
@@ -3941,14 +3942,15 @@ def main(argv=None) -> int:
     log(f"phase 2: {n_ragged} ragged cases bit-identical (kernels = plain, "
         f"onepass = fused, every document = its single-buffer transcode)")
 
-    # The count and write kernels on tiles of each class, with a
+    # The count, write and one-pass kernels on tiles of each class, with a
     # class-breaking unit only in a tile's inflow, and on views 1-15 bytes
-    # past a 16-byte boundary (the vector loads' fallback): count under
-    # every policy at the aligned start, strict with validation at every
-    # other, write under both errors= policies at the aligned start and
-    # strict at every other; the plain versions and the general body run
-    # on the host.
-    n_class, n_class_write = 0, 0
+    # past a 16-byte boundary (the vector loads' fallback): count and
+    # onepass under every policy at the aligned start, strict with
+    # validation at every other, write under both errors= policies at the
+    # aligned start and strict at every other; rcount and ronepass under
+    # every policy at every view; the plain versions and the general body
+    # run on the host.
+    n_class, n_class_write, n_class_onepass = 0, 0, 0
     class_tiles = {"ascii": 0, "class2": 0, "general": 0, "tiles": 0}
     for src, dst in tc.PAIRS:
         size = np.dtype(NP_DTYPE[src]).itemsize
@@ -3995,6 +3997,16 @@ def main(argv=None) -> int:
                             errors=errors).cpu(), plain, max_err, "class",
                              name, shift, errors)
                         n_class_write += 1
+                    # The one-pass kernel against its plain version, whose
+                    # buffer is the write pass's.
+                    _b, cap, plain = want[errors]
+                    o_plain = op.onepass_plain(host, len(arr), cap, **kw)
+                    require(equal(o_plain[0], plain), "class onepass plain "
+                            "vs write plain", name, *kw.values())
+                    hold("onepass", tuple(t.cpu() for t in op.onepass_kernel(
+                        x, len(arr), cap, **kw)), o_plain, max_err, "class",
+                         name, shift, *kw.values())
+                    n_class_onepass += 1
         bufs = dict(class_inputs(src, class_rng))
         docs = [bufs["ascii"][:1500], bufs["class2"][:2048],
                 bufs["mixed"][:700], np.concatenate([
@@ -4031,6 +4043,15 @@ def main(argv=None) -> int:
                             host, own_cpu, **kw),
                          max_err, "class docs", shift, *kw.values())
                     n_class += 1
+                    r_plain = rt.ronepass_plain(host, own_cpu,
+                                                rwant[errors][1], **kw)
+                    require(equal(r_plain[0], rwant[errors][2]),
+                            "class docs ronepass plain vs rwrite plain",
+                            *kw.values())
+                    hold("ronepass", tuple(t.cpu() for t in rt.ronepass_kernel(
+                        x, own, rwant[errors][1], **kw)), r_plain, max_err,
+                         "class docs", shift, *kw.values())
+                    n_class_onepass += 1
                 base, cap, plain = rwant[errors]
                 hold("rwrite", rt.rwrite_kernel(
                     x, own, base, cap, src=src, dst=dst,
@@ -4040,12 +4061,15 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     report["class_cases"] = n_class
     report["class_write_cases"] = n_class_write
+    report["class_onepass_cases"] = n_class_onepass
     report["class_input_tiles"] = class_tiles
-    log(f"phase 2: {n_class} tile-class cases of count and rcount and "
-        f"{n_class_write} of write and rwrite bit-identical to plain, whose "
-        f"write units equal the general body's (ASCII, <=2-byte and general "
-        f"tiles, class breakers in the inflow only, views 1-15 bytes past a "
-        f"16-byte boundary); class inputs' tiles by class {class_tiles}")
+    log(f"phase 2: {n_class} tile-class cases of count and rcount, "
+        f"{n_class_write} of write and rwrite and {n_class_onepass} of "
+        f"onepass and ronepass bit-identical to plain, whose write units "
+        f"equal the general body's and whose one-pass buffers equal the "
+        f"write pass's (ASCII, <=2-byte and general tiles, class breakers in "
+        f"the inflow only, views 1-15 bytes past a 16-byte boundary); class "
+        f"inputs' tiles by class {class_tiles}")
 
     # The legacy kernel surface (kernels/ops.py), against CPython.
     n_legacy = 0
@@ -4308,15 +4332,18 @@ def main(argv=None) -> int:
     report["main_size_cases"] = n_main
     log(f"phase 3: {n_main} cases at 64 MiB bit-identical (kernels = "
         f"plain, onepass = fused; onepass launched {REPEATS} times each)")
-    # The count kernel on the 64 MiB buffer as a view 3 bytes past a
-    # 16-byte boundary (no vector loads), and how much of the buffer each
-    # of its tile classes covers.
+    # The count, one-pass and write kernels on the 64 MiB buffer as a view
+    # 3 bytes past a 16-byte boundary (no vector loads), and how much of
+    # the buffer each of their tile classes covers.
     raw = torch.zeros(main_bytes + 16, dtype=torch.uint8, device="cuda")
     x_off = raw[3: 3 + main_bytes]
     x_off.copy_(x_main)
     kw = dict(src="utf8", dst="utf16", errors="strict", validate=True)
     k_cnt = ft.count_kernel(x_off, main_bytes, **kw)
     hold("count", k_cnt, ft.count_plain(x_off, main_bytes, **kw), max_err,
+         "64 MiB view +3")
+    hold("onepass", op.onepass_kernel(x_off, main_bytes, main_bytes, **kw),
+         op.onepass_plain(x_off, main_bytes, main_bytes, **kw), max_err,
          "64 MiB view +3")
     base, _total = compaction.tile_base_offsets(k_cnt[0])
     kw = dict(src="utf8", dst="utf16", errors="strict")
@@ -4341,8 +4368,9 @@ def main(argv=None) -> int:
         del x
     main_classes = class_counts(stages, "utf8", torch.from_numpy(x8))
     report["main_path"]["tile_classes"] = main_classes
-    log(f"phase 3: 64 MiB tiles by class {main_classes}; count and write "
-        f"kernels on a view 3 bytes past a 16-byte boundary = plain; count "
+    log(f"phase 3: 64 MiB tiles by class {main_classes}; count, onepass and "
+        f"write kernels on a view 3 bytes past a 16-byte boundary = plain; "
+        f"count "
         f"and write kernels on the main and injected buffers = the general "
         f"body (no class dispatch)")
 
@@ -5057,7 +5085,7 @@ def main(argv=None) -> int:
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:8s} {t['ms']:.4f} ms "
             f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "
             f"bound {t['bound_ms']:.4f} ms  "
-            f"plain {t['plain_ms']:.3f} ms  [{smi}]")
+            f"plain {t['plain_ms']:.3f} ms  tiles {main_classes}  [{smi}]")
     for name, t in main_t["entry"].items():
         log(f"phase 4: 64 MiB arabic utf8->utf16 {name:18s} {t['ms']:.4f} ms "
             f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")
@@ -5065,7 +5093,7 @@ def main(argv=None) -> int:
         log(f"phase 4: {rag_label} {name:8s} {t['ms']:.4f} ms "
             f"({t['GB_per_s']:.1f} GB/s; device {t['device_ms']:.4f} ms)  "
             f"bound {t['bound_ms']:.4f} ms  "
-            f"plain {t['plain_ms']:.3f} ms  [{smi}]")
+            f"plain {t['plain_ms']:.3f} ms  tiles {rag_classes}  [{smi}]")
     for name, t in rag_t["entry"].items():
         log(f"phase 4: {rag_label} {name:22s} {t['ms']:.4f} ms "
             f"({t['GB_per_s_in']:.1f} GB/s of input)  [{smi}]")

@@ -1,39 +1,47 @@
 // Hand-written Hopper (sm_90a) kernels of the single-buffer and the
 // ragged packed-batch transcode.
 //
-// Four kernels, one source, templated on the (source, destination)
-// format pair: the 12 cells of the {utf8, utf16, utf32, latin1} matrix.
-// errors= ("replace" or "strict") and validate are runtime arguments.
-// count_kernel and write_kernel are also templated on the tile geometry:
-// Flat (one buffer of n live elements) or Packed (a batch of documents
-// packed at tile-aligned offsets, with per-tile ownership arrays).
+// Three kernels, one source, templated on the (source, destination)
+// format pair, the 12 cells of the {utf8, utf16, utf32, latin1} matrix,
+// and on the tile geometry: Flat (one buffer of n live elements) or
+// Packed (a batch of documents packed at tile-aligned offsets, with
+// per-tile ownership arrays).  errors= ("replace" or "strict") and
+// validate are runtime arguments.
 //
-//   count_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_count_kernel
-//                         per tile: decode, destination lengths and
-//                         validation, reduced to (total, err_flag,
-//                         first_error); one warp per tile, dispatched
-//                         on the tile's class.
-//   write_kernel<Flat>    replaces src/repro/kernels/fused_transcode.py::_write_kernel
-//                         per tile: re-decode and store the live units at
-//                         base[tile] + in-tile rank; one warp per tile,
-//                         dispatched on the tile's class, units compacted
-//                         in shared memory and stored coalesced, zeros
-//                         past the output's end (no zero-fill pass).
-//   onepass_kernel        replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
-//                         count and write off one decode, with the
-//                         inter-tile offset carried by a decoupled
-//                         look-back across blocks.
-//   count_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rcount_kernel
-//   write_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_rwrite_kernel
-//   ronepass_kernel       replaces src/repro/kernels/ragged_transcode.py::_ronepass_kernel
-//                         the same bodies over a packed batch: a tile
-//                         reads its neighbour tiles only when they belong
-//                         to its own document, and its live end is its
-//                         document's end.  The look-back's global
-//                         offset is the per-document segment scan, since
-//                         documents are packed in order; ronepass writes
-//                         per-tile (total, err, first_error) for the
-//                         per-document reduce.
+//   count_kernel<Flat>      replaces src/repro/kernels/fused_transcode.py::_count_kernel
+//                           per tile: decode, destination lengths and
+//                           validation, reduced to (total, err_flag,
+//                           first_error).
+//   write_kernel<Flat>      replaces src/repro/kernels/fused_transcode.py::_write_kernel
+//                           per tile: re-decode and store the live units
+//                           at base[tile] + in-tile rank; zeros past the
+//                           output's end (no zero-fill pass).
+//   onepass_kernel<Flat>    replaces src/repro/kernels/onepass_transcode.py::_onepass_kernel
+//                           count and write off one decode, the
+//                           inter-tile offset carried by a decoupled
+//                           look-back, one per warp-tile;
+//                           onepass_tail_kernel, launched behind it,
+//                           zeroes the output past the count.
+//   count_kernel<Packed>    replaces src/repro/kernels/ragged_transcode.py::_rcount_kernel
+//   write_kernel<Packed>    replaces src/repro/kernels/ragged_transcode.py::_rwrite_kernel
+//   onepass_kernel<Packed>  replaces src/repro/kernels/ragged_transcode.py::_ronepass_kernel
+//                           the same bodies over a packed batch: a tile
+//                           reads its neighbour tiles only when they
+//                           belong to its own document, and its live end
+//                           is its document's end.  The look-back's
+//                           global offset is the per-document segment
+//                           scan, since documents are packed in order;
+//                           the one-pass kernel writes per-tile (total,
+//                           err, first_error) for the per-document reduce.
+//
+// All three run one warp per 1024-element tile, the tile in registers
+// (load_lane), and dispatch on the tile's class (tile_class: ASCII, the
+// <=2-byte class, the general body; the reference's per-tile dispatch,
+// src/repro/kernels/stages/driver.py::onepass_tile).  The write and
+// one-pass kernels compact each tile's units in the warp's region of
+// shared memory and store them with 16-byte stores (copy_out; the
+// one-pass kernels stage before their offset is known and realign on
+// the way out, copy_out_shifted).
 //
 // Three more kernels carry the legacy kernel surface (kernels/ops.py);
 // they are templated on the input element type (uint8, uint16 or int32)
@@ -55,19 +63,17 @@
 // bytes written) / 3.35 TB/s, is the least time (no tensor-core work, and
 // the card's table of peak rates has no int32 rate).  The design answers
 // that by reading each input element from device memory once per pass,
-// widening to int32 only on chip, and storing only live output units,
-// narrowed to the destination type; the count kernel writes 12 bytes per
-// 1024-element tile.  The lane bodies are tens of integer instructions
-// per element, well above the int32 ALU's few operations per byte of
-// memory bandwidth, so instruction issue, not memory, sets the time
-// (PERF.md).  The count and write kernels answer that with the
-// reference's per-tile classes (ASCII, <=2-byte, general) and registers
-// in place of a staged tile (see count_kernel, write_kernel); the one-pass
-// kernels stage the tile and its halo in shared memory as int32 lanes and
-// run the general body on every tile.  Every transcode kernel that
-// validates reads the Keiser-Lemire nibble tables from its block's
-// shared-memory copy; the validation kernel holds them in registers as
-// bytes (validate_kernel).
+// widening to int32 only in registers, and storing only live output
+// units, narrowed to the destination type; the count kernel writes 12
+// bytes per 1024-element tile.  The lane bodies are tens of integer
+// instructions per element, well above the int32 ALU's few operations
+// per byte of memory bandwidth, so instruction issue, not memory, sets
+// the time (PERF.md).  The transcode kernels answer that with the
+// reference's per-tile classes, whose ASCII tiles run no lane body and
+// whose <=2-byte tiles run a short one, and with registers in place of a
+// staged tile.  Every transcode kernel that validates reads the
+// Keiser-Lemire nibble tables from its block's shared-memory copy; the
+// validation kernel holds them in registers as bytes (validate_kernel).
 //
 // Semantics are lane for lane those of the reference tile bodies
 // (src/repro/kernels/stages/*.py and src/repro/core/{utf8,utf16}.py):
@@ -75,9 +81,9 @@
 // kernels stored a whole stage window (slack included) at base[tile] and
 // relied on the sequential grid to let the next tile overwrite the slack;
 // here each tile stores only its own units, and only below cap, which
-// gives the same bytes with no race: the one-pass kernels into an output
-// the wrapper zero-fills, the write kernel into an uninitialised one, of
-// which it also writes the zeros past the output's end.
+// gives the same bytes with no race.  Every output is allocated
+// uninitialised: the write kernel also writes the zeros past the
+// output's end, onepass_tail_kernel those past the one-pass count.
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrappers raise when it is not 0.
@@ -87,11 +93,9 @@
 
 namespace {
 
-constexpr int TILE = 1024;               // elements per block
+constexpr int TILE = 1024;               // elements per tile
 constexpr int THREADS = 256;
-constexpr int ITEMS = TILE / THREADS;    // consecutive lanes per thread
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_HALO = 3;
 constexpr int IMAX = 0x7fffffff;         // no-error sentinel
 constexpr int STATUS_OK = -1;
 
@@ -124,6 +128,7 @@ __constant__ int32_t kKL[KL_ENTRIES];
 // The block's shared copy of kKL; the caller's next __syncthreads
 // publishes it.
 __device__ __forceinline__ void load_kl_tables(int32_t* tab) {
+  static_assert(KL_ENTRIES <= THREADS, "a thread an entry");
   if (threadIdx.x < KL_ENTRIES) tab[threadIdx.x] = kKL[threadIdx.x];
 }
 
@@ -364,10 +369,12 @@ __device__ __forceinline__ Lane eval_lane(const int32_t* s, bool live,
 
 // Tile geometry of a single buffer: n live elements.
 struct Flat {
+  static constexpr bool packed = false;
   int n;
   __device__ __forceinline__ int end(int) const { return n; }
   // Elements of the tile, and of the previous / next tile as its halo,
-  // are read below these limits (and from 0 on); the rest read 0.
+  // are read below these limits (and from 0 on); the rest read 0, like
+  // the reference's zero boundary tiles and its padding mask.
   __device__ __forceinline__ int own_limit(int) const { return n; }
   __device__ __forceinline__ int prev_limit(int) const { return n; }
   __device__ __forceinline__ int next_limit(int) const { return n; }
@@ -376,8 +383,15 @@ struct Flat {
 // Tile geometry of a packed batch (src/repro_torch/core/packing.py): len
 // elements of data in nblk tiles, and per tile the end of its document
 // (tile_end) and whether the previous / next tile belongs to the same
-// document (same_prev / same_next, 0 or 1).
+// document (same_prev / same_next, 0 or 1).  An element of the tile is
+// read only below its document's end; a halo element of tile t-1 or t+1
+// only when that tile belongs to the same document and below that tile's
+// end: the reference's _mask_to_docs followed by `xp * same_prev` / `xn *
+// same_next`.  Trailing pad tiles clamp to the last document with
+// same_prev = 1; only the per-neighbour end test keeps them out of the
+// last live tile's next halo.
 struct Packed {
+  static constexpr bool packed = true;
   int len;
   int nblk;
   const int* tile_end;
@@ -398,154 +412,28 @@ struct Packed {
   }
 };
 
-// Stage tile `tile` and its halo into shared memory as int32 lanes.
-// Elements at or past n (the padding mask) and before the stream read 0,
-// like the reference's zero boundary tiles.
-template <int S>
-__device__ __forceinline__ void load_tile(
-    const typename Storage<S>::T* __restrict__ x, const Flat& g, int tile,
-    int32_t* s) {
-  constexpr int H = Reach<S>::value;
-  const long long start = static_cast<long long>(tile) * TILE - H;
-  for (int k = threadIdx.x; k < TILE + 2 * H; k += THREADS) {
-    const long long j = start + k;
-    s[k] = (j >= 0 && j < g.n) ? static_cast<int32_t>(x[j]) : 0;
-  }
-}
-
-// The packed form: an element of the tile reads x[j] only below its
-// document's end; a halo element of tile t-1 or t+1 only when that tile
-// belongs to the same document and j is below that tile's end.  Every
-// other element reads 0.  This is the reference's _mask_to_docs followed
-// by `xp * same_prev` / `xn * same_next`.  Trailing pad tiles clamp to
-// the last document with same_prev = 1; only the per-neighbour end test
-// keeps them out of the last live tile's next halo.
-template <int S>
-__device__ __forceinline__ void load_tile(
-    const typename Storage<S>::T* __restrict__ x, const Packed& g, int tile,
-    int32_t* s) {
-  constexpr int H = Reach<S>::value;
-  const long long start = static_cast<long long>(tile) * TILE - H;
-  const int end_own = g.tile_end[tile];
-  const int end_prev =
-      (H > 0 && tile > 0 && g.same_prev[tile]) ? g.tile_end[tile - 1] : 0;
-  const int end_next = (H > 0 && tile + 1 < g.nblk && g.same_next[tile])
-                           ? g.tile_end[tile + 1] : 0;
-  for (int k = threadIdx.x; k < TILE + 2 * H; k += THREADS) {
-    const long long j = start + k;
-    const int end = k < H ? end_prev : (k < H + TILE ? end_own : end_next);
-    s[k] = (j >= 0 && j < g.len && j < end) ? static_cast<int32_t>(x[j])
-                                             : 0;
-  }
-}
-
-template <int S, int D>
-__device__ __forceinline__ void eval_thread(const int32_t* s, int n,
-                                            int tile, bool replace,
-                                            bool validate,
-                                            const int32_t* tab,
-                                            int32_t (&cps)[ITEMS],
-                                            int32_t (&units)[ITEMS],
-                                            int& err, int& ferr) {
-  err = 0;
-  ferr = IMAX;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int lane = threadIdx.x * ITEMS + k;
-    const int g = tile * TILE + lane;
-    const Lane r = eval_lane<S, D>(s + Reach<S>::value + lane, g < n,
-                                   replace, validate, tab);
-    cps[k] = r.cp;
-    units[k] = r.units;
-    err |= r.err;
-    if (r.sub) ferr = min(ferr, g);
-  }
-}
-
-// Block-wide sum, max and min; the result is valid in thread 0.
-__device__ __forceinline__ void block_reduce(int& tot, int& err, int& ferr,
-                                             int* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    tot += __shfl_xor_sync(0xffffffffu, tot, o);
-    err = max(err, __shfl_xor_sync(0xffffffffu, err, o));
-    ferr = min(ferr, __shfl_xor_sync(0xffffffffu, ferr, o));
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[warp] = tot;
-    red[WARPS + warp] = err;
-    red[2 * WARPS + warp] = ferr;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < WARPS; ++w) {
-      tot += red[w];
-      err = max(err, red[WARPS + w]);
-      ferr = min(ferr, red[2 * WARPS + w]);
-    }
-  }
-}
-
-// Block-wide exclusive scan of one value per thread (warp shuffles, then
-// one warp over the warp totals).  Returns the thread's exclusive prefix;
-// `total` receives the block's sum in every thread.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* sums,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < WARPS ? sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < WARPS) sums[lane] = w;
-  }
-  __syncthreads();
-  total = sums[WARPS - 1];
-  return (warp ? sums[warp - 1] : 0) + incl - v;
-}
-
-// Store the thread's units from output index pos on, only below cap.
-template <int D>
-__device__ __forceinline__ void store_units(
-    typename Storage<D>::T* __restrict__ out, int cap, int pos,
-    const int32_t (&cps)[ITEMS], const int32_t (&units)[ITEMS]) {
-  using T = typename Storage<D>::T;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    for (int j = 0; j < units[k]; ++j) {
-      if (pos + j < cap) out[pos + j] = static_cast<T>(encode_unit<D>(cps[k], j));
-    }
-    pos += units[k];
-  }
-}
-
 __device__ __forceinline__ int status_from_first(int first, int err_any) {
   if (first != IMAX) return first;
   return err_any ? 0 : STATUS_OK;
 }
 
-__device__ __forceinline__ unsigned long long load_acquire(
+// Strong (relaxed) 64-bit loads and stores at GPU scope: a store is seen
+// by every SM's later loads, and a load reads past the SM's L1 cache.  The
+// look-back's words carry their own data (the flag and the value in one
+// word), so it needs no acquire or release: nothing else that a tile
+// wrote is read through them (the one-pass kernels' error fold is read
+// after the kernel has ended, by onepass_tail_kernel).
+__device__ __forceinline__ unsigned long long load_relaxed(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
                : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void store_release(unsigned long long* p,
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
                                               unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
                :: "l"(p), "l"(v) : "memory");
 }
 
@@ -555,30 +443,33 @@ __device__ __forceinline__ void store_release(unsigned long long* p,
 // the running output offset.
 //
 // state[t] packs a flag (bits 32-33) with a 32-bit unsigned value (low 32
-// bits), so one 64-bit release store publishes both and one acquire load
-// reads both.  The wrappers zero-fill state, so 0 is NOT_READY.  Offsets
+// bits), so one 64-bit store publishes both and one 64-bit load reads
+// both.  The wrappers zero-fill state, so 0 is NOT_READY.  Offsets
 // are below 4 * MAX_ELEMENTS < 2**31 (runtime.py), so the value never
 // reaches the flag bits.
 constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;  // tile total
 constexpr unsigned long long FLAG_INCLUSIVE = 2ull << 32;  // prefix + total
 
-// Warp 0 only, all 32 lanes.  Publishes (AGGREGATE, total) at once, then
-// looks back over windows of 32 predecessors, one acquire load per lane,
-// until a window holds an INCLUSIVE value: the tile's exclusive prefix is
-// that value plus the aggregates above it.  Publishes (INCLUSIVE, prefix +
-// total) and returns the prefix in every lane.  Lane 0 makes both
-// stores, so whatever thread 0 wrote before the call (the err/ferr fold of
-// onepass_kernel) is released with the tile's first publish.  Tiles come
-// from a ticket counter, so every predecessor's block has started and
-// publishes its aggregate without waiting on anyone: no tile waits on a
-// chain.
+// Lane 0 of the warp that owns tile `tile` publishes its total: (AGGREGATE,
+// total), or (INCLUSIVE, total) for tile 0, whose prefix is 0.
+__device__ __forceinline__ void publish_total(unsigned long long* state,
+                                              int tile, int total) {
+  if ((threadIdx.x & 31) == 0) {
+    store_relaxed(&state[tile], (tile == 0 ? FLAG_INCLUSIVE : FLAG_AGGREGATE)
+                                    | static_cast<unsigned>(total));
+  }
+}
+
+// One warp, all 32 lanes, after publish_total.  Looks back over windows
+// of 32 predecessors, one load per lane, until a window holds an
+// INCLUSIVE value: the tile's exclusive prefix is that value plus the
+// aggregates above it.  Publishes (INCLUSIVE, prefix + total) and returns
+// the prefix in every lane.  Tiles come from a ticket counter, so every
+// predecessor's block has started and publishes its aggregate without
+// waiting on anyone: no tile waits on a chain.
 __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
                                                int tile, int total) {
   const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    store_release(&state[tile], (tile == 0 ? FLAG_INCLUSIVE : FLAG_AGGREGATE)
-                                    | static_cast<unsigned>(total));
-  }
   unsigned prefix = 0;
   for (int end = tile; end > 0; end -= 32) {
     // Lane 31 reads the nearest predecessor; lanes before tile 0 read an
@@ -586,7 +477,7 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
     const int t = end - 32 + lane;
     unsigned long long v;
     do {
-      v = t >= 0 ? load_acquire(&state[t]) : FLAG_INCLUSIVE;
+      v = t >= 0 ? load_relaxed(&state[t]) : FLAG_INCLUSIVE;
     } while (__any_sync(0xffffffffu, (v >> 32) == 0));
     const unsigned incl = __ballot_sync(0xffffffffu, (v >> 32) == 2);
     const int from = incl ? 31 - __clz(incl) : 0;
@@ -598,11 +489,8 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
     prefix += sum;
     if (incl) break;
   }
-  // Order every lane's acquire before lane 0's release, so a successor
-  // that acquires this tile's INCLUSIVE value sees what they saw.
-  __syncwarp();
   if (lane == 0 && tile > 0) {
-    store_release(&state[tile], FLAG_INCLUSIVE | (prefix + total));
+    store_relaxed(&state[tile], FLAG_INCLUSIVE | (prefix + total));
   }
   return static_cast<int>(prefix);
 }
@@ -623,8 +511,8 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
 // starts on a 16-byte boundary and the lane's elements all lie below the
 // tile's limit (element by element otherwise).  A lane takes the Reach<S>
 // elements on either side from its neighbours' words by shuffles; lane 0
-// and lane 31 read the previous and next tile's halo, masked as load_tile
-// masks them.  Lanes widen to int32 in registers only, so the lane bodies
+// and lane 31 read the previous and next tile's halo, masked by the
+// geometry's limits (Flat, Packed).  Lanes widen to int32 in registers only, so the lane bodies
 // are eval_lane's, with the reference's int32 semantics; the nibble tables
 // are a shared-memory copy.  Nothing is staged in shared memory, so there
 // are no bank conflicts and no block barrier after the tables.
@@ -642,7 +530,7 @@ __device__ __forceinline__ int lookback_prefix(unsigned long long* state,
 // equal to the general body on the tiles it admits, so the triples are
 // those of the general body.  The bodies are instantiated per errors=
 // policy and validate flag, and evaluate CROUND lanes per unrolled round.
-constexpr int CTILES = THREADS / 32;     // tiles per count / write block
+constexpr int CTILES = THREADS / 32;     // tiles a block (at most)
 constexpr int CITEMS = TILE / 32;        // consecutive elements per lane
 constexpr int CROUND = 8;                // lanes per unrolled round
 
@@ -654,7 +542,8 @@ struct Words {
   static constexpr int N = CITEMS / PER;         // words per lane
   static constexpr int ROUND = CROUND / PER;     // words per round
   static constexpr int BITS = 8 * static_cast<int>(sizeof(T));
-  // Element k of word w, widened to int32 as load_tile widens it.
+  // Element k of word w, widened to int32 (zero-extended, as the
+  // reference widens its unsigned storage).
   static __device__ __forceinline__ int32_t get(uint32_t w, int k) {
     if constexpr (PER == 1) {
       return static_cast<int32_t>(w);
@@ -733,8 +622,8 @@ __device__ __forceinline__ uint32_t halo_word(
 // loaded as load_words loads them below the tile's own limit, and the
 // Reach<S> elements on either side, in the last positions of pw and the
 // first of nw, taken from the neighbour lanes' words by shuffles; lane 0
-// and lane 31 read the previous and next tile's halo, masked as load_tile
-// masks it.  Every lane of the warp calls it.
+// and lane 31 read the previous and next tile's halo, masked by the
+// geometry's limits.  Every lane of the warp calls it.
 template <int S, class G>
 __device__ __forceinline__ void load_lane(
     const typename Storage<S>::T* __restrict__ x, const G& geo, int tile,
@@ -791,11 +680,16 @@ __device__ __forceinline__ int tile_class(const uint32_t (&w)[Words<S>::N],
 // One lane's CITEMS elements through the lane body of class C2 (the
 // <=2-byte class or the general one): its units, error flag and first
 // located error.  pw holds the Reach<S> elements before the lane in its
-// last positions, nw those after it in its first.
-template <int S, int D, bool C2, bool REPLACE, bool VALIDATE>
+// last positions, nw those after it in its first.  With KEEP the lane
+// also keeps each element's code point in cps (-1 where it emits no
+// unit), for the one-pass kernels' stores: the round's code points enter
+// at the top of cps and the earlier ones move down, so every index stays
+// a constant and cps stays in registers.
+template <int S, int D, bool C2, bool REPLACE, bool VALIDATE, bool KEEP>
 __device__ __forceinline__ void count_body(
     uint32_t pw, const uint32_t (&w0)[Words<S>::N], uint32_t nw, int g0,
-    int end, const int32_t* tab, int& tot, int& err, int& ferr) {
+    int end, const int32_t* tab, int& tot, int& err, int& ferr,
+    int32_t (&cps)[CITEMS]) {
   using W = Words<S>;
   constexpr int H = Reach<S>::value;
   uint32_t w[W::N + 1];
@@ -812,6 +706,7 @@ __device__ __forceinline__ void count_body(
     for (int j = 0; j < CROUND; ++j) e[H + j] = W::get(w[j / W::PER], j % W::PER);
 #pragma unroll
     for (int k = 0; k < H; ++k) e[H + CROUND + k] = W::get(w[W::ROUND], k);
+    int32_t got[CROUND];
 #pragma unroll
     for (int j = 0; j < CROUND; ++j) {
       const int g = g0 + r * CROUND + j;
@@ -820,6 +715,13 @@ __device__ __forceinline__ void count_body(
       tot += l.units;
       err |= l.err;
       if (l.sub) ferr = min(ferr, g);
+      got[j] = l.units ? l.cp : -1;
+    }
+    if constexpr (KEEP) {
+#pragma unroll
+      for (int i = 0; i + CROUND < CITEMS; ++i) cps[i] = cps[i + CROUND];
+#pragma unroll
+      for (int j = 0; j < CROUND; ++j) cps[CITEMS - CROUND + j] = got[j];
     }
     prev = w[W::ROUND - 1];
 #pragma unroll
@@ -827,21 +729,25 @@ __device__ __forceinline__ void count_body(
   }
 }
 
-template <int S, int D, bool C2>
+template <int S, int D, bool C2, bool KEEP>
 __device__ __forceinline__ void count_lane(
     uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int g0,
     int end, bool replace, bool validate, const int32_t* tab, int& tot,
-    int& err, int& ferr) {
+    int& err, int& ferr, int32_t (&cps)[CITEMS]) {
   if (replace) {
     if (validate) {
-      count_body<S, D, C2, true, true>(pw, w, nw, g0, end, tab, tot, err, ferr);
+      count_body<S, D, C2, true, true, KEEP>(pw, w, nw, g0, end, tab, tot,
+                                             err, ferr, cps);
     } else {
-      count_body<S, D, C2, true, false>(pw, w, nw, g0, end, tab, tot, err, ferr);
+      count_body<S, D, C2, true, false, KEEP>(pw, w, nw, g0, end, tab, tot,
+                                              err, ferr, cps);
     }
   } else if (validate) {
-    count_body<S, D, C2, false, true>(pw, w, nw, g0, end, tab, tot, err, ferr);
+    count_body<S, D, C2, false, true, KEEP>(pw, w, nw, g0, end, tab, tot,
+                                            err, ferr, cps);
   } else {
-    count_body<S, D, C2, false, false>(pw, w, nw, g0, end, tab, tot, err, ferr);
+    count_body<S, D, C2, false, false, KEEP>(pw, w, nw, g0, end, tab, tot,
+                                             err, ferr, cps);
   }
 }
 
@@ -866,16 +772,17 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   const int end = geo.end(tile);
   const int g0 = tile * TILE + lane * CITEMS;
   int tot = 0, err = 0, ferr = IMAX;
+  int32_t unused[CITEMS];
   if (cls == CLASS_ASCII) {
     tot = max(0, min(CITEMS, end - g0));
   } else if (cls == CLASS_2) {
     if constexpr (S != LATIN1) {
-      count_lane<S, D, true>(pw, w, nw, g0, end, replace, validate, tab, tot,
-                             err, ferr);
+      count_lane<S, D, true, false>(pw, w, nw, g0, end, replace, validate,
+                                    tab, tot, err, ferr, unused);
     }
   } else {
-    count_lane<S, D, false>(pw, w, nw, g0, end, replace, validate, tab, tot,
-                            err, ferr);
+    count_lane<S, D, false, false>(pw, w, nw, g0, end, replace, validate,
+                                   tab, tot, err, ferr, unused);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -952,6 +859,40 @@ __device__ __forceinline__ int32_t lane_element(
   return W::get(w[k / W::PER], k % W::PER);
 }
 
+// The lane's rank among the warp's unit totals (exclusive scan of mine);
+// total receives the warp's sum in every lane.
+__device__ __forceinline__ int warp_rank(int mine, int lane, int& total) {
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  total = __shfl_sync(0xffffffffu, incl, 31);
+  return incl - mine;
+}
+
+// Write the units of a lane's CITEMS code points (-1 where it emits none)
+// in the narrow destination type to st from pos on, compacted; at most U
+// units a code point (max_units2 in the <=2-byte class, else max_units).
+template <int S, int D, bool C2>
+__device__ __forceinline__ void stage_lane(const int32_t (&cps)[CITEMS],
+                                           int pos,
+                                           typename Storage<D>::T* st) {
+  using T = typename Storage<D>::T;
+  constexpr int U = C2 ? max_units2<S, D>() : max_units<S, D>();
+#pragma unroll
+  for (int i = 0; i < CITEMS; ++i) {
+    const int32_t cp = cps[i];
+    const int u = cp < 0 ? 0 : unit_len<D>(cp);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (j < u) st[pos + j] = static_cast<T>(encode_unit<D>(cp, j));
+    }
+    pos += u;
+  }
+}
+
 // One lane of a <=2-byte (C2) or general tile: evaluates its CITEMS
 // elements, ranks its unit total across the warp, and writes its units,
 // compacted, to st from the lane's rank on.  Returns the tile's total.
@@ -959,9 +900,7 @@ template <int S, int D, bool C2, bool REPLACE>
 __device__ __forceinline__ int write_lane(
     uint32_t pw, const uint32_t (&w)[Words<S>::N], uint32_t nw, int g0,
     int end, int lane, typename Storage<D>::T* st) {
-  using T = typename Storage<D>::T;
   constexpr int H = Reach<S>::value;
-  constexpr int U = C2 ? max_units2<S, D>() : max_units<S, D>();
   int32_t cps[CITEMS];
   int mine = 0;
 #pragma unroll
@@ -974,24 +913,9 @@ __device__ __forceinline__ int write_lane(
     cps[i] = l.units ? l.cp : -1;
     mine += l.units;
   }
-  int incl = mine;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  int pos = incl - mine;
-#pragma unroll
-  for (int i = 0; i < CITEMS; ++i) {
-    const int32_t cp = cps[i];
-    const int u = cp < 0 ? 0 : unit_len<D>(cp);
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      if (j < u) st[pos + j] = static_cast<T>(encode_unit<D>(cp, j));
-    }
-    pos += u;
-  }
-  return __shfl_sync(0xffffffffu, incl, 31);
+  int total;
+  stage_lane<S, D, C2>(cps, warp_rank(mine, lane, total), st);
+  return total;
 }
 
 template <int S, int D, bool C2>
@@ -1020,6 +944,54 @@ __device__ __forceinline__ void copy_out(const T* st, T* __restrict__ out,
   const uint4* src = reinterpret_cast<const uint4*>(st + (a - at));
   uint4* dst = reinterpret_cast<uint4*>(out + a);
   for (long long c = lane; c < chunks; c += 32) dst[c] = src[c];
+}
+
+// Bytes [d, d + 16) of the 32 bytes p then q (0 <= d < 16): funnel
+// shifts of neighbouring words.  d is the same in every lane of the warp.
+__device__ __forceinline__ uint4 bytes_at(uint4 p, uint4 q, int d) {
+  const int r = 8 * (d & 3);
+  switch (d >> 2) {
+    case 0:
+      return make_uint4(__funnelshift_r(p.x, p.y, r), __funnelshift_r(p.y, p.z, r),
+                        __funnelshift_r(p.z, p.w, r), __funnelshift_r(p.w, q.x, r));
+    case 1:
+      return make_uint4(__funnelshift_r(p.y, p.z, r), __funnelshift_r(p.z, p.w, r),
+                        __funnelshift_r(p.w, q.x, r), __funnelshift_r(q.x, q.y, r));
+    case 2:
+      return make_uint4(__funnelshift_r(p.z, p.w, r), __funnelshift_r(p.w, q.x, r),
+                        __funnelshift_r(q.x, q.y, r), __funnelshift_r(q.y, q.z, r));
+    default:
+      return make_uint4(__funnelshift_r(p.w, q.x, r), __funnelshift_r(q.x, q.y, r),
+                        __funnelshift_r(q.y, q.z, r), __funnelshift_r(q.z, q.w, r));
+  }
+}
+
+// copy_out for units staged before their offset was known: unit i sits at
+// st[i], st on a 16-byte boundary.  Element stores for the head before
+// out + at's first 16-byte boundary and for the tail; each 16-byte store
+// between takes its bytes from the two 16-byte chunks of st it straddles
+// (bytes_at).  Reads at most 16 bytes past the units.
+template <typename T>
+__device__ __forceinline__ void copy_out_shifted(const T* st,
+                                                 T* __restrict__ out,
+                                                 long long at, long long len,
+                                                 long long cap, int lane) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const long long hi = min(at + len, cap);
+  if (hi <= at) return;
+  const int skew = static_cast<int>(reinterpret_cast<uintptr_t>(out + at) & 15);
+  const int head = ((16 - skew) & 15) / static_cast<int>(sizeof(T));
+  const long long a = min(hi, at + head);
+  const long long chunks = (hi - a) / V;
+  const long long b = a + chunks * V;
+  if (lane < a - at) out[at + lane] = st[lane];
+  if (lane < hi - b) out[b + lane] = st[b - at + lane];
+  const int d = head * static_cast<int>(sizeof(T));
+  const uint4* src = reinterpret_cast<const uint4*>(st);
+  uint4* dst = reinterpret_cast<uint4*>(out + a);
+  for (long long c = lane; c < chunks; c += 32) {
+    dst[c] = bytes_at(src[c], src[c + 1], d);
+  }
 }
 
 // The block's grid-stride share of out[lo, cap) set to 0: 16-byte stores
@@ -1101,118 +1073,164 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   copy_out(st, out, at, len, cap, lane);
 }
 
-// Replaces onepass_transcode.py::_onepass_kernel.  Bytes bound: the input
-// read once plus the output units, no intermediate leaves the chip.  The
-// TPU kernel's SMEM carry becomes a decoupled look-back (lookback_prefix):
-// a block publishes its tile total as soon as it has it, so no block waits
-// on a chain of predecessors.
+// onepass_kernel<Flat> replaces onepass_transcode.py::_onepass_kernel
+// and onepass_kernel<Packed> replaces ragged_transcode.py::_ronepass_kernel:
+// count and write off one evaluation of each tile.  Bytes bound: the
+// input read once plus the cap-unit output written once (and 24 bytes of
+// ownership and per-tile scalars per tile when packed); no intermediate
+// leaves the chip.
 //
-// ctl = [ticket, err, ferr], which the wrapper sets to [0, 0, IMAX].  Each
-// block's thread 0 folds its err/ferr into ctl before the tile's first
-// publish, the AGGREGATE one, and releases the fold with it.  The last
-// tile's prefix acquires, transitively, every tile's first publish: the
-// AGGREGATEs in its windows directly, and each earlier tile through the
-// INCLUSIVE value it stops at, whose publisher acquired its own window
-// first.  So the last tile, reading ctl after its look-back, sees every
-// block's fold.
-template <int S, int D>
+// One warp per tile, the tile in registers (load_lane), dispatched on its
+// class (tile_class) as the count and write kernels are:
+//   ASCII     total = the live lanes, no error; the units are the
+//             elements, each lane keeping units l, l + 32, ... in registers
+//             (read again from the cache lines load_lane brought in);
+//   <=2-byte  count_body<S, D, true> with the Keiser-Lemire check under
+//             validate, as count_kernel runs it, so the per-tile (err,
+//             first_error) are the general body's;
+//   general   count_body<S, D, false>.
+// Each lane evaluates its CITEMS elements once, folding its units, error
+// flag and first located error, and keeps their code points in registers
+// (count_body's KEEP).  One warp scan ranks the lanes' totals.
+//
+// The TPU kernel's SMEM carry becomes a decoupled look-back
+// (lookback_prefix), one per warp-tile: a block takes one ticket, and its
+// warp w owns tile ticket * CTILES + w; warps past nblk leave
+// before publishing.  A warp publishes its total as soon as it has it, so
+// no tile waits on a chain of predecessors, and every tile below a ticket
+// holder's tiles belongs to a block that has started (or to the holder's
+// own earlier warps), whose aggregates are published without waiting: no
+// deadlock.  While its predecessors publish, the warp writes its units,
+// narrowed, compacted, into its region of shared memory; once it has its
+// prefix, copy_out_shifted stores them at prefix with 16-byte stores
+// (realigned to out + prefix on the way), only below cap.
+//
+// Flat: ctl = [ticket, err, IMAX - first error, unused], which the
+// wrapper zero-fills with state.  Each tile's lane 0 folds its err and
+// first error into ctl (atomicMax on both, so 0 is the empty fold); tile
+// nblk - 1 writes fin[0] = its prefix + total, the count, and
+// onepass_tail_kernel, once every tile's fold has landed, fin[1], the
+// status.
+//
+// Packed: ctl = [ticket]; each tile writes its (total, err, first_error),
+// which the wrapper reduces per document; the look-back carries only the
+// offset (the per-document segment scan, documents being packed in order,
+// densely), and the per-tile scalars need no ordering across blocks.
+//
+// CTILES tiles a block, as count and write take: fewer tiles a block on
+// small inputs, to spread their warps over more SMs, measured the same
+// within 4 % at 256 KiB (PERF.md).  out[end, cap) is left to
+// onepass_tail_kernel, launched behind it.
+//
+// On the card its time is count_kernel's lane body plus the staging of
+// the kept code points (80 registers a thread: 3 blocks an SM) plus the
+// look-back's wait for its predecessors' totals; it is issue-bound, as
+// count and write are, far above the bytes bound (PERF.md).
+template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
-onepass_kernel(const typename Storage<S>::T* __restrict__ x, Flat geo,
+onepass_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
                int replace, int validate, int cap,
                unsigned long long* __restrict__ state, int* __restrict__ ctl,
-               int* __restrict__ fin,
+               int* __restrict__ fin, int* __restrict__ tot_out,
+               int* __restrict__ err_out, int* __restrict__ ferr_out,
                typename Storage<D>::T* __restrict__ out) {
-  __shared__ int32_t s[TILE + 2 * MAX_HALO];
+  using T = typename Storage<D>::T;
+  using W = Words<S>;
+  __shared__ __align__(16) unsigned char stage[CTILES][STAGE_BYTES];
   __shared__ int32_t tab[KL_ENTRIES];
-  __shared__ int sums[WARPS];
-  __shared__ int red[3 * WARPS];
-  __shared__ int s_tile, s_base;
-  if (threadIdx.x == 0) s_tile = atomicAdd(&ctl[0], 1);
-  __syncthreads();
-  const int tile = s_tile;
-  load_tile<S>(x, geo, tile, s);
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(&ctl[0], 1);
   if constexpr (S == UTF8) load_kl_tables(tab);
   __syncthreads();
-  int32_t cps[ITEMS], units[ITEMS];
-  int err, ferr;
-  eval_thread<S, D>(s, geo.n, tile, replace, validate, tab, cps, units, err,
-                    ferr);
-  int mine = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) mine += units[k];
-  int total;
-  const int rank = block_exclusive_scan(mine, sums, total);
-  int unused = 0;
-  block_reduce(unused, err, ferr, red);
-  if (threadIdx.x < 32) {
-    if (threadIdx.x == 0) {
-      if (err) atomicMax(&ctl[1], err);
-      if (ferr != IMAX) atomicMin(&ctl[2], ferr);
-    }
-    const int prefix = lookback_prefix(state, tile, total);
-    if (threadIdx.x == 0) {
-      if (tile == static_cast<int>(gridDim.x) - 1) {
-        fin[0] = prefix + total;
-        fin[1] = status_from_first(atomicAdd(&ctl[2], 0),
-                                   atomicAdd(&ctl[1], 0));
-      }
-      s_base = prefix;
-    }
-  }
-  __syncthreads();
-  store_units<D>(out, cap, s_base + rank, cps, units);
-}
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile = s_ticket * CTILES + warp;
+  if (tile >= nblk) return;
+  uint32_t w[W::N], pw, nw;
+  load_lane<S>(x, geo, tile, lane, w, pw, nw);
+  const int cls = tile_class<S>(w, pw);
 
-// Replaces ragged_transcode.py::_ronepass_kernel: onepass_kernel over a
-// packed batch.  The running offset of the look-back is the
-// per-document segment scan (documents are packed in order, densely);
-// in place of the folded (count, status) it writes each tile's (total,
-// err, first_error), which the wrapper reduces per document.  Bytes
-// bound: the input once, the output units, 24 bytes per tile of
-// ownership and per-tile scalars.  ticket[0] is set to 0 by the wrapper.
-// The look-back carries only the offset: the per-tile scalars need no
-// ordering across blocks.
-template <int S, int D>
-__global__ void __launch_bounds__(THREADS)
-ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
-                int replace, int validate, int cap,
-                unsigned long long* __restrict__ state,
-                int* __restrict__ ticket, int* __restrict__ tot_out,
-                int* __restrict__ err_out, int* __restrict__ ferr_out,
-                typename Storage<D>::T* __restrict__ out) {
-  __shared__ int32_t s[TILE + 2 * MAX_HALO];
-  __shared__ int32_t tab[KL_ENTRIES];
-  __shared__ int sums[WARPS];
-  __shared__ int red[3 * WARPS];
-  __shared__ int s_tile, s_base;
-  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
-  __syncthreads();
-  const int tile = s_tile;
-  load_tile<S>(x, geo, tile, s);
-  if constexpr (S == UTF8) load_kl_tables(tab);
-  __syncthreads();
-  int32_t cps[ITEMS], units[ITEMS];
-  int err, ferr;
-  eval_thread<S, D>(s, geo.end(tile), tile, replace, validate, tab, cps,
-                    units, err, ferr);
-  int mine = 0;
+  const long long t0 = static_cast<long long>(tile) * TILE;
+  const int end = geo.end(tile);
+  const int g0 = tile * TILE + lane * CITEMS;
+  int32_t cps[CITEMS];
+  int total, rank = 0, err = 0, ferr = IMAX;
+  if (cls == CLASS_ASCII) {
+    // The units are the elements: lane l keeps units l, l + 32, ... in
+    // cps, read again from the cache lines load_lane just brought in.
+    total = static_cast<int>(max(0LL, min(static_cast<long long>(TILE),
+                                          end - t0)));
+    const long long lim = geo.own_limit(tile);
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) mine += units[k];
-  int total;
-  const int rank = block_exclusive_scan(mine, sums, total);
-  int unused = 0;
-  block_reduce(unused, err, ferr, red);
-  if (threadIdx.x < 32) {
-    const int prefix = lookback_prefix(state, tile, total);
-    if (threadIdx.x == 0) {
+    for (int j = 0; j < CITEMS; ++j) {
+      const long long i = t0 + lane + 32 * j;
+      cps[j] = i < lim ? static_cast<int32_t>(x[i]) : 0;
+    }
+  } else {
+    int mine = 0;
+    if (cls == CLASS_2) {
+      if constexpr (S != LATIN1) {
+        count_lane<S, D, true, true>(pw, w, nw, g0, end, replace, validate,
+                                     tab, mine, err, ferr, cps);
+      }
+    } else {
+      count_lane<S, D, false, true>(pw, w, nw, g0, end, replace, validate,
+                                    tab, mine, err, ferr, cps);
+    }
+    rank = warp_rank(mine, lane, total);
+    err = static_cast<int>(__reduce_or_sync(0xffffffffu,
+                                            static_cast<unsigned>(err)));
+    ferr = __reduce_min_sync(0xffffffffu, ferr);
+  }
+  publish_total(state, tile, total);
+  if (lane == 0) {
+    if constexpr (G::packed) {
       tot_out[tile] = total;
       err_out[tile] = err;
       ferr_out[tile] = ferr;
-      s_base = prefix;
+    } else {
+      if (err) atomicMax(&ctl[1], err);
+      if (ferr != IMAX) atomicMax(&ctl[2], IMAX - ferr);
     }
   }
-  __syncthreads();
-  store_units<D>(out, cap, s_base + rank, cps, units);
+
+  // The units, staged while the predecessors publish.
+  T* st = reinterpret_cast<T*>(stage[warp]);
+  if (cls == CLASS_ASCII) {
+#pragma unroll
+    for (int j = 0; j < CITEMS; ++j) {
+      if (lane + 32 * j < total) st[lane + 32 * j] = static_cast<T>(cps[j]);
+    }
+  } else if (cls == CLASS_2) {
+    if constexpr (S != LATIN1) stage_lane<S, D, true>(cps, rank, st);
+  } else {
+    stage_lane<S, D, false>(cps, rank, st);
+  }
+  __syncwarp();
+  const int prefix = lookback_prefix(state, tile, total);
+  if constexpr (!G::packed) {
+    if (lane == 0 && tile == nblk - 1) fin[0] = prefix + total;
+  }
+  copy_out_shifted(st, out, prefix, total, cap, lane);
+}
+
+// The tail of a one-pass launch, behind onepass_kernel on the same stream:
+// out[*end, cap) set to 0, where *end is the one-pass count (fin[0]) or,
+// for the packed kernel, the last tile's INCLUSIVE value (the low word of
+// state[nblk - 1]); for one buffer (ctl not null) also fin[1], the status
+// of the error fold.  Only the last tile knows the end, and no block of
+// the one-pass kernel may wait for it (a resident block spinning for the
+// last ticket could starve the block that would take it), so the zeros
+// come from this grid-stride launch, which reads the end on the device
+// once every tile has finished: no host sync.  Bytes bound: the zeros,
+// written once.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+onepass_tail_kernel(const int* __restrict__ end, const int* __restrict__ ctl,
+                    int* __restrict__ fin, int cap, T* __restrict__ out) {
+  if (ctl != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    fin[1] = status_from_first(IMAX - ctl[2], ctl[1]);
+  }
+  zero_fill(out, static_cast<long long>(*end), static_cast<long long>(cap));
 }
 
 // ---------------------------------------------------------------------------
@@ -1222,6 +1240,9 @@ ronepass_kernel(const typename Storage<S>::T* __restrict__ x, Packed geo,
 // handling lanes t, t + 256, t + 512 and t + 768, so each store of a warp
 // covers 32 consecutive int32 (128 bytes); the validation kernel reads the
 // input and writes 4 bytes per tile, one warp per tile (below).
+
+constexpr int LEGACY_ITEMS = TILE / THREADS;  // lanes per thread
+constexpr int LEGACY_HALO = 3;                // the decode's reach
 
 // Stage tile `tile` with HB elements of look-back and HA of look-ahead
 // into shared memory as int32 lanes; elements at or past n, and before
@@ -1579,16 +1600,16 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ x, int n, int len,
               int* __restrict__ planes, int* __restrict__ errs) {
-  __shared__ int32_t s[MAX_HALO + TILE + MAX_HALO];
+  __shared__ int32_t s[LEGACY_HALO + TILE + LEGACY_HALO];
   __shared__ int red[WARPS];
   const int tile = blockIdx.x;
-  load_legacy<T, MAX_HALO, MAX_HALO>(x, n, tile, s);
+  load_legacy<T, LEGACY_HALO, LEGACY_HALO>(x, n, tile, s);
   __syncthreads();
   int err = 0;
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
+  for (int k = 0; k < LEGACY_ITEMS; ++k) {
     const int lane = k * THREADS + threadIdx.x;
-    const int32_t* p = s + MAX_HALO + lane;
+    const int32_t* p = s + LEGACY_HALO + lane;
     const int b = p[0];
     const int sl = legacy_seq_len(b);
     const bool lead = sl > 0;
@@ -1630,7 +1651,7 @@ encode_kernel(const T* __restrict__ x, int n, int len,
   __syncthreads();
   int err = 0;
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
+  for (int k = 0; k < LEGACY_ITEMS; ++k) {
     const int lane = k * THREADS + threadIdx.x;
     const int32_t* p = s + 1 + lane;
     const int u = p[0], prv = p[-1], nxt = p[1];
@@ -1675,26 +1696,28 @@ int launch_write(const void* x, G geo, int nblk, int replace,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S, int D>
-int launch_onepass(const void* x, int n, int nblk, int replace, int validate,
-                   int cap, unsigned long long* state, int* ctl, int* fin,
-                   void* out, cudaStream_t stream) {
-  onepass_kernel<S, D><<<nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), Flat{n}, replace,
-      validate, cap, state, ctl, fin,
-      static_cast<typename Storage<D>::T*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
+// Blocks of onepass_tail_kernel: enough for one 16-byte store a thread over
+// the whole output, at most ZERO_BLOCKS (the grid-stride loop does the
+// rest); most exit at once when the count is near cap.
+constexpr long long ZERO_BLOCKS = 1056;
 
-template <int S, int D>
-int launch_ronepass(const void* x, Packed geo, int replace, int validate,
-                    int cap, unsigned long long* state, int* ticket,
-                    int* tot, int* err, int* ferr, void* out,
-                    cudaStream_t stream) {
-  ronepass_kernel<S, D><<<geo.nblk, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), geo, replace, validate,
-      cap, state, ticket, tot, err, ferr,
-      static_cast<typename Storage<D>::T*>(out));
+template <int S, int D, class G>
+int launch_onepass(const void* x, G geo, int nblk, int replace, int validate,
+                   int cap, unsigned long long* state, int* ctl, int* fin,
+                   int* tot, int* err, int* ferr, const int* end, void* out,
+                   cudaStream_t stream) {
+  using T = typename Storage<D>::T;
+  onepass_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0,
+                            stream>>>(
+      static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace,
+      validate, cap, state, ctl, fin, tot, err, ferr, static_cast<T*>(out));
+  const long long chunks = (static_cast<long long>(cap) * sizeof(T) + 15) / 16;
+  const long long want = (chunks + THREADS - 1) / THREADS;
+  const int blocks = static_cast<int>(want < 1 ? 1
+                                      : want < ZERO_BLOCKS ? want
+                                                           : ZERO_BLOCKS);
+  onepass_tail_kernel<T><<<blocks, THREADS, 0, stream>>>(
+      end, G::packed ? nullptr : ctl, fin, cap, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1788,12 +1811,15 @@ int transcode_write(int src, int dst, const void* x, int n, int nblk,
              static_cast<cudaStream_t>(stream))
 }
 
+// The one-pass entry point: state holds nblk look-back words and ctl 4
+// ints after it, all zero (onepass_kernel); fin receives (count, status).
 int transcode_onepass(int src, int dst, const void* x, int n, int nblk,
                       int replace, int validate, int cap,
                       unsigned long long* state, int* ctl, int* fin,
                       void* out, void* stream) {
-  PAIR_CASES(launch_onepass, x, n, nblk, replace, validate, cap, state, ctl,
-             fin, out, static_cast<cudaStream_t>(stream))
+  PAIR_CASES(launch_onepass, x, Flat{n}, nblk, replace, validate, cap, state,
+             ctl, fin, nullptr, nullptr, nullptr, fin, out,
+             static_cast<cudaStream_t>(stream))
 }
 
 // The packed-batch entry points: `len` elements of data in `nblk` tiles,
@@ -1816,6 +1842,9 @@ int transcode_rwrite(int src, int dst, const void* x, int len, int nblk,
              static_cast<cudaStream_t>(stream))
 }
 
+// state holds nblk look-back words and ticket 1 int, all zero.  The end
+// of the output is the last tile's INCLUSIVE value: the low word of
+// state[nblk - 1] (the flags sit in bits 32-33; the card is little-endian).
 int transcode_ronepass(int src, int dst, const void* x, int len, int nblk,
                        const int* tile_end, const int* same_prev,
                        const int* same_next, int replace, int validate,
@@ -1823,8 +1852,10 @@ int transcode_ronepass(int src, int dst, const void* x, int len, int nblk,
                        int* tot, int* err, int* ferr, void* out,
                        void* stream) {
   const Packed geo{len, nblk, tile_end, same_prev, same_next};
-  PAIR_CASES(launch_ronepass, x, geo, replace, validate, cap, state, ticket,
-             tot, err, ferr, out, static_cast<cudaStream_t>(stream))
+  const int* end = reinterpret_cast<const int*>(state + nblk - 1);
+  PAIR_CASES(launch_onepass, x, geo, nblk, replace, validate, cap, state,
+             ticket, nullptr, tot, err, ferr, end, out,
+             static_cast<cudaStream_t>(stream))
 }
 
 // The legacy entry points: `n` live elements of an input of `len`, in

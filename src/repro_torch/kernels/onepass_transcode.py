@@ -4,16 +4,25 @@ launch, one decode per source tile.
 Port of ``repro.kernels.onepass_transcode``.  The TPU kernel carried the
 running output offset and the sticky error fold in an SMEM scalar across
 its sequential grid.  CUDA blocks run in parallel and in no order, so the
-CUDA kernel (``onepass_kernel`` in ``kernels/csrc/transcode.cu``) carries
-them with a single-pass scan with decoupled look-back: each block takes a
-tile ticket, publishes its tile total at once, sums its predecessors'
-published totals back to the nearest published inclusive offset, and
-stores its units.  The error fold goes through atomics released with each
-tile's first publish; the last tile emits ``(count, status)``.
+CUDA kernel (``onepass_kernel<Flat>`` in ``kernels/csrc/transcode.cu``)
+carries them with a single-pass scan with decoupled look-back, one per
+warp-tile: each block takes a ticket, each of its warps owns a tile,
+publishes the tile's total at once, sums its predecessors' published
+totals back to the nearest published inclusive offset, and stores its
+units.  The error fold goes through atomics; the last tile emits the
+count.
 
-Results are bit-identical to ``strategy="fused"``.  The reference's
-per-tile ASCII and ≤2-byte class dispatch, a speed feature lanewise
-identical to the general body, is not ported yet.
+Each tile runs the reference's per-tile class dispatch
+(``onepass_tile``): an ASCII tile is a widening copy, a ≤2-byte tile
+runs the class bodies, the rest the general body; each class is lanewise
+identical to the general body, so the dispatch changes no result.  The
+plain version dispatches the same way (``stages.onepass_classes``).  The
+output is allocated uninitialised: the kernel writes every unit below
+the count, and a small kernel launched behind it on the same stream
+(``onepass_tail_kernel``) zeroes the rest, reading the count on the
+device, and turns the error fold into the status.
+
+Results are bit-identical to ``strategy="fused"``.
 """
 
 from __future__ import annotations
@@ -32,16 +41,15 @@ from repro_torch.testing import faults
 def onepass_tiles(codec_s, codec_d, t, tp, tn, live, gidx, cap: int, *,
                   errors: str, validate: bool):
     """The one-pass body over prepared tiles (shared with the ragged
-    one-pass): one decode, then per-tile ``(total, err, first_err)`` and
-    the compact buffer of ``cap`` units.  Returns ``(buffer, totals,
-    errs, ferrs)``."""
-    a, cp, lead = stages.decode_once(codec_s, t, tp, tn, errors=errors,
-                                     validate=validate)
-    totals, errs, ferrs = stages.count_decoded(
-        codec_s, codec_d, a, cp, lead, t, tp, live, gidx,
-        ft.validation_tables(codec_s, t.device), validate=validate)
+    one-pass): one decode a tile, dispatched on its class
+    (:func:`stages.onepass_classes`), then per-tile ``(total, err,
+    first_err)`` and the compact buffer of ``cap`` units.  Returns
+    ``(buffer, totals, errs, ferrs)``."""
+    totals, errs, ferrs, eff, planes = stages.onepass_classes(
+        codec_s, codec_d, t, tp, tn, live, gidx,
+        ft.validation_tables(codec_s, t.device), errors=errors,
+        validate=validate)
     base, _total = compaction.tile_base_offsets(totals)
-    eff, planes = stages.stage_decoded(codec_s, codec_d, cp, lead, live)
     out = stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
     return out, totals, errs, ferrs
 
@@ -63,8 +71,10 @@ def onepass_plain(x, n: int, cap: int, *, src: str, dst: str, errors: str,
 
 def onepass_kernel(x, n: int, cap: int, *, src: str, dst: str, errors: str,
                    validate: bool):
-    """``(buffer, fin)``: the CUDA one-pass kernel on a CUDA tensor,
-    :func:`onepass_plain` on a CPU tensor."""
+    """``(buffer, fin)``: the CUDA one-pass kernel on a CUDA tensor (with
+    the launch behind it that zeroes the buffer past the count and writes
+    the status, counted as part of it), :func:`onepass_plain` on a CPU
+    tensor."""
     with costmodel.kernel("onepass", (x,)) as kc:
         if x.device.type == "cpu":
             return kc.result(onepass_plain(x, n, cap, src=src, dst=dst,
@@ -75,18 +85,19 @@ def onepass_kernel(x, n: int, cap: int, *, src: str, dst: str, errors: str,
         if cap < 0:
             raise ValueError(f"onepass_kernel: negative cap {cap}")
         nblk = stages.num_tiles(x.shape[0])
-        out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
-        state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
-        ctl = torch.zeros(3, dtype=torch.int32, device=x.device)
-        ctl[2] = R.NO_ERR_SENTINEL       # [ticket, err, first error]
+        out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
+        # One fill zeroes the look-back's nblk 64-bit words and, after them,
+        # ctl = [ticket, err, IMAX - first error, unused].
+        scratch = torch.zeros(2 * nblk + 4, dtype=torch.int32,
+                              device=x.device)
         fin = torch.empty(2, dtype=torch.int32, device=x.device)
         lib = _build.library(x.device)
         with torch.cuda.device(x.device):
             rc = lib.transcode_onepass(
                 codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-                ft.replace_flag(errors), int(validate), cap, state.data_ptr(),
-                ctl.data_ptr(), fin.data_ptr(), out.data_ptr(),
-                _build.stream_of(x.device))
+                ft.replace_flag(errors), int(validate), cap,
+                scratch.data_ptr(), scratch.data_ptr() + 8 * nblk,
+                fin.data_ptr(), out.data_ptr(), _build.stream_of(x.device))
         _build.check(rc, "onepass_kernel")
         onepass_kernel.launches += 1
         return kc.result(out, fin)

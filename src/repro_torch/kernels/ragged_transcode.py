@@ -11,10 +11,12 @@ ownership masking:
                    and whether the neighbour tiles belong to the same
                    document (inflow from another document reads 0).
   Passes           ``strategy="onepass"`` (the default): one launch that
-                   counts and writes off one decode, the offset carried
-                   by a decoupled look-back across blocks; because
-                   documents are packed in order, the global running
-                   offset is the per-document segment scan.  ``strategy="fused"``: a
+                   counts and writes off one decode a tile, dispatched on
+                   the tile's class as the count and write passes are,
+                   the offset carried by a decoupled look-back, one per
+                   warp-tile; because documents are packed in order, the
+                   global running offset is the per-document segment
+                   scan.  ``strategy="fused"``: a
                    count launch, ``torch.cumsum`` over the tile totals,
                    a write launch.
   Per-doc reduce   Per-tile ``(total, err, first_err)`` reduced per
@@ -24,8 +26,8 @@ ownership masking:
                    and ``STATUS_OK``; statuses are document-relative.
 
 Each kernel (``rcount``, ``rwrite``, ``ronepass``) is hand-written CUDA
-(``kernels/csrc/transcode.cu``: ``count_kernel``/``write_kernel`` on the
-``Packed`` geometry, ``ronepass_kernel``) on a CUDA tensor, and its plain
+(``kernels/csrc/transcode.cu``: ``count_kernel``, ``write_kernel`` and
+``onepass_kernel`` on the ``Packed`` geometry) on a CUDA tensor, and its plain
 PyTorch version (:func:`rcount_plain`, :func:`rwrite_plain`,
 :func:`ronepass_plain`) on a CPU tensor.  The wrappers keep a launch
 count.  Every document's output slice is bit-identical to the
@@ -243,7 +245,9 @@ def ronepass_plain(x, own, cap: int, *, src: str, dst: str, errors: str,
                    validate: bool):
     """Plain version of the ragged one-pass kernel: ``(buffer, totals,
     errs, ferrs)``, the dense output of ``cap`` units and the per-tile
-    scalars."""
+    scalars, with the kernel's per-tile class dispatch (ASCII, ≤2-byte,
+    general: :func:`stages.onepass_classes`, the reference's
+    ``onepass_tile``)."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.ragged_tiles(x, *own[1:])
     return op.onepass_tiles(codec_s, codec_d, t, tp, tn,
@@ -254,7 +258,14 @@ def ronepass_plain(x, own, cap: int, *, src: str, dst: str, errors: str,
 def ronepass_kernel(x, own, cap: int, *, src: str, dst: str, errors: str,
                     validate: bool):
     """``(buffer, totals, errs, ferrs)``: the CUDA ragged one-pass kernel
-    for a CUDA tensor, :func:`ronepass_plain` for a CPU tensor."""
+    for a CUDA tensor, :func:`ronepass_plain` for a CPU tensor.
+
+    The kernel runs one warp per tile, dispatched on the tile's class as
+    :func:`ronepass_plain` is, and carries the offset by a look-back per
+    warp-tile.  The output is allocated uninitialised: the kernel writes
+    every unit below the batch's total, and a launch behind it on the same
+    stream, counted as part of it, zeroes the rest (the total read on the
+    device from the last tile's published offset)."""
     with costmodel.kernel("ronepass", (x, own[1:])) as kc:
         if x.device.type == "cpu":
             return kc.result(ronepass_plain(x, own, cap, src=src, dst=dst,
@@ -266,17 +277,19 @@ def ronepass_kernel(x, own, cap: int, *, src: str, dst: str, errors: str,
         nblk = _check_own(x, own, "ronepass_kernel")
         if cap < 0:
             raise ValueError(f"ronepass_kernel: negative cap {cap}")
-        out = torch.zeros(cap, dtype=codec_d.dtype, device=x.device)
-        state = torch.zeros(nblk, dtype=torch.int64, device=x.device)
-        ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+        out = torch.empty(cap, dtype=codec_d.dtype, device=x.device)
+        # One fill zeroes the look-back's nblk 64-bit words and the ticket.
+        scratch = torch.zeros(2 * nblk + 2, dtype=torch.int32,
+                              device=x.device)
         per_tile = torch.empty((3, nblk), dtype=torch.int32, device=x.device)
         lib = _build.library(x.device)
+        tiles = per_tile.data_ptr()
         with torch.cuda.device(x.device):
             rc = lib.transcode_ronepass(
                 codec_s.code, codec_d.code, x.data_ptr(), x.shape[0], nblk,
                 *_ptrs(own), ft.replace_flag(errors), int(validate), cap,
-                state.data_ptr(), ticket.data_ptr(), per_tile[0].data_ptr(),
-                per_tile[1].data_ptr(), per_tile[2].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), scratch.data_ptr() + 8 * nblk, tiles,
+                tiles + 4 * nblk, tiles + 8 * nblk, out.data_ptr(),
                 _build.stream_of(x.device))
         _build.check(rc, "ronepass_kernel")
         ronepass_kernel.launches += 1

@@ -19,9 +19,9 @@ from repro_torch.kernels.stages import utf32 as s_utf32
 from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import (  # noqa: F401  (re-export)
     ASCII, BLOCK, CLASS2, GENERAL, Codec, ascii_tile_pred, count_classes,
-    count_decoded, count_tile, decode_once, num_tiles, place_units,
-    ragged_tiles, stage_decoded, stage_decoded2, stage_units, stage_units2,
-    tile_class, tiles, write_classes, write_stage)
+    count_decoded, count_tile, decode_once, num_tiles, onepass_classes,
+    place_units, ragged_tiles, stage_decoded, stage_decoded2, stage_units,
+    stage_units2, tile_class, tiles, write_classes, write_stage)
 
 UTF8 = Codec(
     name="utf8",

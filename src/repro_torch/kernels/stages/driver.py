@@ -26,13 +26,13 @@ against, lane for lane.
                 a per-tile predicate plus bodies with no 3-/4-unit
                 assembly and no surrogate folding.
 
-:func:`count_classes` and :func:`write_classes` are the count and write
-passes with the reference's per-tile dispatch (``onepass_tile``): ASCII
-tiles (:func:`ascii_tile_pred`), ≤2-byte tiles and the rest.  Each class
-is lanewise identical to the general body on the tiles it admits, so the
-per-tile triples equal :func:`count_tile`'s and the placed units
-:func:`write_stage`'s; the count and write kernels dispatch the same
-way.
+:func:`count_classes`, :func:`write_classes` and :func:`onepass_classes`
+are the count, write and one-pass bodies with the reference's per-tile
+dispatch (``onepass_tile``): ASCII tiles (:func:`ascii_tile_pred`),
+≤2-byte tiles and the rest.  Each class is lanewise identical to the
+general body on the tiles it admits, so the per-tile triples equal
+:func:`count_tile`'s and the placed units :func:`write_stage`'s; the
+count, write and one-pass kernels dispatch the same way.
 
 Stage widths are derived, never hand-sized: the speculative worst case is
 ``dst.py_unit_len(src.max_speculative_cp)`` units per source lane
@@ -225,6 +225,43 @@ def tile_class(src: Codec, x, xp):
     return cls
 
 
+def _class_groups(src: Codec, x, xp):
+    """The ≤2-byte and general tiles of the stack: ``(class2, sel)`` for
+    each of the two classes that occurs, ``sel`` its tile mask.  ASCII
+    tiles run no lane body."""
+    cls = tile_class(src, x, xp)
+    for c in (CLASS2, GENERAL):
+        sel = cls == c
+        if bool(sel.any()):
+            yield c == CLASS2, sel
+
+
+def _count_ascii(live):
+    """Per-tile ``(total, err, first_err)`` of ASCII tiles: one unit per
+    live lane, no error."""
+    tot = live.sum(dim=-1, dtype=torch.int32)
+    return tot, torch.zeros_like(tot), torch.full_like(tot, _IMAX)
+
+
+def _write_ascii(src: Codec, dst: Codec, x, instream):
+    """``(eff, planes)`` of ASCII tiles: a widening copy, one unit per
+    live lane, the lane itself, over :func:`stage_units` planes."""
+    planes = [x.clone()] + [torch.zeros_like(x)
+                            for _ in range(stage_units(src, dst) - 1)]
+    return instream.to(torch.int32), planes
+
+
+def _stage_class(src: Codec, dst: Codec, cp, lead, instream, class2: bool,
+                 sel, eff, planes):
+    """Store the class's ``(eff, planes)`` into the tiles ``sel`` of the
+    stack: a ≤2-byte tile over :func:`stage_units2` planes (the planes
+    above them stay 0, below ``eff``'s reach)."""
+    stage = stage_decoded2 if class2 else stage_decoded
+    eff[sel], cls_planes = stage(src, dst, cp, lead, instream)
+    for j, plane in enumerate(cls_planes):
+        planes[j][sel] = plane.to(torch.int32)
+
+
 def count_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables, *,
                   errors: str, validate: bool):
     """:func:`count_tile` with the per-tile class dispatch of the count
@@ -234,17 +271,11 @@ def count_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables, *,
     drops it, but the per-tile flag must stay :func:`count_tile`'s, since
     KL flags a bad pair at its second byte, possibly in the next tile);
     the rest the general body.  Equal to :func:`count_tile` per tile."""
-    cls = tile_class(src, x, xp)
-    tot = live.sum(dim=-1, dtype=torch.int32)
-    err = torch.zeros_like(tot)
-    ferr = torch.full_like(tot, _IMAX)
-    for c in (CLASS2, GENERAL):
-        sel = cls == c
-        if not bool(sel.any()):
-            continue
+    tot, err, ferr = _count_ascii(live)
+    for class2, sel in _class_groups(src, x, xp):
         parts = [t[sel] for t in (x, xp, xn, live, gidx)]
         a, cp, lead = decode_once(src, *parts[:3], errors=errors,
-                                  validate=validate, class2=c == CLASS2)
+                                  validate=validate, class2=class2)
         tot[sel], err[sel], ferr[sel] = count_decoded(
             src, dst, a, cp, lead, parts[0], parts[1], parts[3], parts[4],
             tables, validate=validate)
@@ -313,19 +344,35 @@ def write_classes(src: Codec, dst: Codec, x, xp, xn, instream, *,
     ≤2-byte tile runs the class bodies over :func:`stage_units2` planes
     (the planes above them stay 0, below ``eff``'s reach); the rest the
     general body.  Equal to :func:`write_stage` wherever ``eff`` reaches."""
-    cls = tile_class(src, x, xp)
-    eff = instream.to(torch.int32)
-    planes = [x.clone()] + [torch.zeros_like(x)
-                            for _ in range(stage_units(src, dst) - 1)]
-    for c in (CLASS2, GENERAL):
-        sel = cls == c
-        if not bool(sel.any()):
-            continue
+    eff, planes = _write_ascii(src, dst, x, instream)
+    for class2, sel in _class_groups(src, x, xp):
         parts = [t[sel] for t in (x, xp, xn, instream)]
         _a, cp, lead = decode_once(src, *parts[:3], errors=errors,
-                                   validate=False, class2=c == CLASS2)
-        stage = stage_decoded2 if c == CLASS2 else stage_decoded
-        eff[sel], cls_planes = stage(src, dst, cp, lead, parts[3])
-        for j, plane in enumerate(cls_planes):
-            planes[j][sel] = plane.to(torch.int32)
+                                   validate=False, class2=class2)
+        _stage_class(src, dst, cp, lead, parts[3], class2, sel, eff, planes)
     return eff, tuple(planes)
+
+
+def onepass_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables,
+                    *, errors: str, validate: bool):
+    """The one-pass body with the reference's per-tile dispatch
+    (``onepass_tile``), as the one-pass kernels run it: one decode of each
+    ≤2-byte or general tile feeds both :func:`count_classes`' per-tile
+    ``(total, err, first_err)`` and :func:`write_classes`' ``(eff,
+    planes)``; an ASCII tile counts its live lanes, no error, and is a
+    widening copy.  The Keiser-Lemire check stays in the ≤2-byte class
+    under ``validate``, as in :func:`count_classes`, so the per-tile
+    ``(err, first_err)`` are :func:`count_tile`'s (the reference's class
+    body drops it; its fold, and every document's status, are the same).
+    Returns ``(total, err, first_err, eff, planes)``."""
+    tot, err, ferr = _count_ascii(live)
+    eff, planes = _write_ascii(src, dst, x, live)
+    for class2, sel in _class_groups(src, x, xp):
+        parts = [t[sel] for t in (x, xp, xn, live, gidx)]
+        a, cp, lead = decode_once(src, *parts[:3], errors=errors,
+                                  validate=validate, class2=class2)
+        tot[sel], err[sel], ferr[sel] = count_decoded(
+            src, dst, a, cp, lead, parts[0], parts[1], parts[3], parts[4],
+            tables, validate=validate)
+        _stage_class(src, dst, cp, lead, parts[3], class2, sel, eff, planes)
+    return tot, err, ferr, eff, tuple(planes)

@@ -89,9 +89,10 @@ def test_class2_stage_units_equal_reference(src, dst):
 
 @pytest.mark.parametrize("fmt", tc.FORMATS)
 def test_kernel_halo_is_max_lookback(fmt):
-    """The CUDA kernels stage ``Reach<F>`` elements of halo each way
+    """The CUDA kernels read ``Reach<F>`` elements of halo each way
     (csrc/transcode.cu); it must equal the codec's ``max_lookback``, the
-    reach the reference's tile bodies need."""
+    reach the reference's tile bodies need.  The legacy decode kernel
+    stages ``LEGACY_HALO`` elements each way, the widest reach (UTF-8's)."""
     src = (PORT / "kernels" / "csrc" / "transcode.cu").read_text()
     reach = {m.group(1): int(m.group(2)) for m in re.finditer(
         r"template <> struct Reach<(\w+)> \{ static constexpr int value = "
@@ -102,7 +103,7 @@ def test_kernel_halo_is_max_lookback(fmt):
     codec = stages.get_codec(fmt)
     assert reach.get(fmt.upper(), default) == codec.max_lookback
     assert max(reach.values()) == int(re.search(
-        r"constexpr int MAX_HALO = (\d+);", src).group(1))
+        r"constexpr int LEGACY_HALO = (\d+);", src).group(1))
 
 
 # ---------------------------------------------------------------------------

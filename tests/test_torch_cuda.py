@@ -24,9 +24,14 @@ views that start 1-15 bytes past a 16-byte boundary (the vector loads'
 fallback); the write kernels also with ``cap`` below the output's end,
 against the general lane body alone (no class dispatch), and on an
 output the allocator hands back dirty (they write every element, zeros
-past the end).  The one-pass kernels' decoupled look-back is launched 20
-times over at tile counts around its 32-tile window, each launch
-bit-identical to fused and to plain.  The windowed walks' kernels (a
+past the end).  The one-pass kernels are held to their plain versions
+(which dispatch on the same classes) on the same class inputs and views,
+with ``n`` mid-tile, tile counts that are not a multiple of a block's 8
+tiles and empty documents, and on an output the allocator hands back
+dirty (zeros past the count come from the device).  Their decoupled
+look-back, one per warp-tile, is launched 20 times over at tile counts
+around its 32-tile window, each launch bit-identical to fused and to
+plain.  The windowed walks' kernels (a
 producer, a walker and an emitter warp over a shared-memory ring) must
 equal their plain versions on ``tools/inputs.py``'s ``windowed_buffers``
 (text, injected errors, lone high surrogates past the capacity, int32
@@ -293,6 +298,105 @@ def test_write_kernels_zero_the_tail_of_dirty_memory(src, dst):
         tail = got[end:].cpu().to(torch.int64)
         assert tail.numel() > 0 and not bool(tail.any())
         assert torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_onepass_kernels_match_plain_on_tile_classes(src, dst):
+    """onepass_kernel on every tile-class buffer (6 tiles, and one of 17:
+    neither a multiple of the 8 tiles a block), full and with ``n``
+    mid-tile, under every policy at the aligned start and strict with
+    validation on views 1-15 bytes past a 16-byte boundary; ronepass_kernel
+    on packed class documents (empty ones among them), aligned and not.
+    Each equals its plain version, which dispatches on the same classes,
+    and the buffer equals the general body's placement (no dispatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    bufs = C.class_buffers(src, seed=70)
+    bufs.append(("17 tiles", np.tile(dict(bufs)["mixed"], 3)[:17 * 1024 - 5]))
+    for name, arr in bufs:
+        x = torch.from_numpy(arr)
+        size = x.element_size()
+        cap = tc.CAP_FACTOR[(src, dst)] * len(arr)
+        for n in (len(arr), len(arr) - 700):
+            for errors in ("strict", "replace"):
+                for validate in (True, False):
+                    kw = dict(src=src, dst=dst, errors=errors,
+                              validate=validate)
+                    plain = op.onepass_plain(x, n, cap, **kw)
+                    if validate:
+                        totals = ft.count_plain(x, n, **kw)[0]
+                        base, _total = compaction.tile_base_offsets(totals)
+                        assert torch.equal(plain[0], _general_write(
+                            x, n, base, cap, src, dst, errors)), (name, n)
+                    shifts = range(0, 16, size) if (
+                        errors, validate) == ("strict", True) else (0,)
+                    for shift in shifts:
+                        got = op.onepass_kernel(_view(arr, shift), n, cap,
+                                                **kw)
+                        for a, b in zip(got, plain):
+                            assert torch.equal(a.cpu(), b), \
+                                (name, n, errors, validate, shift)
+    pk = packing.pack_documents(_class_docs(src, seed=71), dtype=DT[src])
+    x = torch.from_numpy(pk.data)
+    nblk = stages.num_tiles(len(pk.data))
+    own = packing.tile_ownership(torch.from_numpy(pk.offsets),
+                                 torch.from_numpy(pk.lengths), nblk)
+    own_c = tuple(t.cuda() for t in own)
+    cap = tc.CAP_FACTOR[(src, dst)] * nblk * stages.BLOCK
+    size = x.element_size()
+    for errors in ("strict", "replace"):
+        for validate in (True, False):
+            kw = dict(src=src, dst=dst, errors=errors, validate=validate)
+            plain = rt.ronepass_plain(x, own, cap, **kw)
+            for shift in (0, size, 16 - size):
+                got = rt.ronepass_kernel(_view(pk.data, shift), own_c, cap,
+                                         **kw)
+                for a, b in zip(got, plain):
+                    assert torch.equal(a.cpu(), b), (errors, validate, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", [("utf8", "utf16"), ("utf16", "utf8"),
+                                     ("latin1", "utf32")])
+def test_onepass_kernels_zero_the_tail_of_dirty_memory(src, dst):
+    """The one-pass kernels allocate their output uninitialised and zero
+    it past the count on the device: after a block of the output's size
+    was filled with 0xFF and freed, so that the allocator hands it back,
+    ``[count, cap)`` reads zero and the rest equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    arr = np.concatenate([_inputs(src, seed=72)[0][1]] * 40)
+    x = torch.from_numpy(arr)
+    n = len(arr)
+    nblk = stages.num_tiles(n)
+    own = packing.tile_ownership(torch.tensor([0, nblk * stages.BLOCK]),
+                                 torch.tensor([n]), nblk)
+    cap = tc.CAP_FACTOR[(src, dst)] * nblk * stages.BLOCK
+    kw = dict(src=src, dst=dst, errors="strict", validate=True)
+    xc, own_c = x.cuda(), tuple(t.cuda() for t in own)
+    cases = (
+        (lambda: op.onepass_kernel(xc, n, cap, **kw),
+         op.onepass_plain(x, n, cap, **kw)),
+        (lambda: rt.ronepass_kernel(xc, own_c, cap, **kw),
+         rt.ronepass_plain(x, own, cap, **kw)))
+    for launch, plain in cases:
+        end = int(plain[1][0]) if len(plain) == 2 else int(plain[1].sum())
+        assert 0 < end < cap
+        torch.cuda.synchronize()
+        # Nothing is allocated on the card between the free and the launch
+        # but the kernel's own scratch, which is smaller than the output.
+        junk = torch.empty(cap, dtype=plain[0].dtype, device="cuda")
+        junk.view(torch.uint8).fill_(0xFF)
+        ptr = junk.data_ptr()
+        del junk
+        got = launch()
+        assert got[0].data_ptr() == ptr, \
+            "the allocator did not reuse the block"
+        tail = got[0][end:].cpu().to(torch.int64)
+        assert tail.numel() > 0 and not bool(tail.any())
+        for a, b in zip(got, plain):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,11 @@ compacted units of every ASCII and ≤2-byte tile the live part of the
 reference's one-pass stage window (``onepass_tile``, which dispatches on
 the same classes), and ``transcode`` / ``ragged_transcode`` with
 ``strategy="fused"`` the reference's on mixed-class buffers.  The
+one-pass bodies (``stages.onepass_classes``, the plain version of both
+one-pass kernels) dispatch the same way: their totals and compacted
+units equal the reference's ``onepass_tile`` tile by tile, their
+``(err, first_err)`` the general body's, and ``transcode`` /
+``ragged_transcode`` at their default strategy the reference's.  The
 validation kernel dispatches on the same UTF-8 classes:
 ``validate_classes`` must equal ``validate_plain`` (no dispatch) and the
 reference's validation kernel tile by tile.
@@ -275,10 +280,18 @@ def test_write_dispatch_equals_general_body_per_tile(src, dst, errors,
             (src, dst, name)
 
 
+def _stage_tiles(src):
+    """Every tile of the class buffers and of a packed batch of class
+    documents: ``(x, xp, xn, live)``, stacked."""
+    tiles = [t for geometry in ("flat", "packed")
+             for t in _geometry_tiles(src, geometry, seed=28)]
+    return tuple(torch.cat([t[k] for t in tiles]) for k in range(1, 5))
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_stage_windows(src, dst, errors):
-    """The reference's ``onepass_tile`` (class dispatch on) over a stack
-    of tiles: ``(total, stage window)`` per tile."""
+    """The reference's ``onepass_tile`` (class dispatch on) over every
+    tile of :func:`_stage_tiles`: ``(total, stage window)`` per tile."""
     rs, rd = ref_stages.get_codec(src), ref_stages.get_codec(dst)
     tables = tuple(jnp.asarray(t) for t in rs.tables)
 
@@ -288,7 +301,12 @@ def _ref_stage_windows(src, dst, errors):
             validate=False, ascii_skip=True)
         return tot, stage
 
-    return jax.jit(jax.vmap(one))
+    x, xp, xn, live = _stage_tiles(src)
+    gidx = torch.arange(BLOCK, dtype=torch.int32).expand(x.shape[0], BLOCK)
+    tot, stage = jax.jit(jax.vmap(one))(
+        *(jnp.asarray(t.numpy().reshape(-1, 8, 128))
+          for t in (x, xp, xn, live, gidx)))
+    return np.asarray(tot), np.asarray(stage)
 
 
 @pytest.mark.parametrize("errors", ["strict", "replace"])
@@ -298,25 +316,55 @@ def test_class_units_equal_reference_stage_window(src, dst, errors):
     batch: its units, compacted, equal the live part of the reference's
     stage window for that tile."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
-    tiles = [t for geometry in ("flat", "packed")
-             for t in _geometry_tiles(src, geometry, seed=28)]
-    x, xp, xn, live = (torch.cat([t[k] for t in tiles])
-                       for k in range(1, 5))
+    x, xp, xn, live = _stage_tiles(src)
     sel = stages.tile_class(codec_s, x, xp) != stages.GENERAL
+    tot, stage = (a[sel.numpy()]
+                  for a in _ref_stage_windows(src, dst, errors))
     x, xp, xn, live = x[sel], xp[sel], xn[sel], live[sel]
     eff, planes = stages.write_classes(codec_s, codec_d, x, xp, xn, live,
                                        errors=errors)
     got = _placed_per_tile(codec_s, codec_d, eff, planes)
-    gidx = torch.arange(BLOCK, dtype=torch.int32).expand(x.shape[0], BLOCK)
-    tot, stage = _ref_stage_windows(src, dst, errors)(
-        *(jnp.asarray(t.numpy().reshape(-1, 8, 128))
-          for t in (x, xp, xn, live, gidx)))
-    tot, stage = np.asarray(tot), np.asarray(stage)
     assert np.array_equal(eff.sum(dim=-1).numpy(), tot)
     for t in range(x.shape[0]):
         assert np.array_equal(got[t, :tot[t]].numpy(), stage[t, :tot[t]]), \
             (src, dst, errors, t)
     assert x.shape[0] > 0
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_onepass_classes_equal_reference_onepass_tile(src, dst, errors):
+    """The one-pass kernels' plain body (``stages.onepass_classes``) on
+    every tile of the class buffers and of a packed batch, tiles of every
+    class and class breakers in the inflow only: its totals and the live
+    part of its compacted units equal the reference's ``onepass_tile``'s
+    per tile, and its per-tile ``(err, first_err)`` the general body's
+    (``count_tile``: the reference's class body drops the Keiser-Lemire
+    check, the port's keeps it), validation on and off."""
+    codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
+    tables = ft.validation_tables(codec_s, torch.device("cpu"))
+    x, xp, xn, live = _stage_tiles(src)
+    tot, stage = _ref_stage_windows(src, dst, errors)
+    gidx = torch.arange(BLOCK, dtype=torch.int32).expand(x.shape[0], BLOCK)
+    classes = set(stages.tile_class(codec_s, x, xp).tolist())
+    assert classes == {stages.ASCII, stages.GENERAL} | (
+        {stages.CLASS2} if src in CLASS2_SOURCES else set())
+    for validate in (True, False):
+        got = stages.onepass_classes(codec_s, codec_d, x, xp, xn, live, gidx,
+                                     tables, errors=errors,
+                                     validate=validate)
+        want = stages.count_tile(codec_s, codec_d, x, xp, xn, live, gidx,
+                                 tables, errors=errors, validate=validate)
+        for a, b in zip(got[:3], want):
+            assert a.dtype == b.dtype == torch.int32
+            assert torch.equal(a, b), (src, dst, errors, validate)
+        assert np.array_equal(got[0].numpy(), tot)
+        assert torch.equal(got[3].sum(dim=-1, dtype=torch.int32), got[0])
+        placed = _placed_per_tile(codec_s, codec_d, *got[3:])
+        for t in range(x.shape[0]):
+            assert np.array_equal(placed[t, :tot[t]].numpy(),
+                                  stage[t, :tot[t]]), \
+                (src, dst, errors, validate, t)
 
 
 @pytest.mark.parametrize("errors", ["strict", "replace"])
@@ -344,6 +392,46 @@ def test_ragged_fused_matches_reference_on_mixed_classes(src, errors):
             pk.data, pk.offsets, pk.lengths, src_format=src, dst_format=dst,
             errors=errors, strategy="fused", device="cpu"))
         assert isinstance(got, R.RaggedTranscodeResult)
+        for field in ("buffer", "offsets", "counts", "statuses"):
+            mine, theirs = getattr(got, field), np.asarray(getattr(ref,
+                                                                   field))
+            assert mine.dtype == theirs.dtype and np.array_equal(
+                mine, theirs), (src, dst, errors, field)
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_onepass_transcode_matches_reference_on_mixed_classes(src, dst,
+                                                              errors):
+    """``transcode`` at its default strategy (one-pass: the port's
+    ``onepass_plain`` on the CPU) against the reference on the buffers
+    of :func:`test_fused_transcode_matches_reference_on_mixed_classes`;
+    the reference side is its fused strategy, which its own tests
+    (``tests/test_onepass.py``) hold equal to its one-pass default."""
+    for name, arr in C.class_buffers(src, seed=29)[:6]:
+        buf, n = P.padded(arr, src)
+        ref = tc.transcode(buf, dst, src_format=src, n_valid=n,
+                           errors=errors, strategy="fused")
+        got = ttc.transcode(buf, dst, src_format=src, n_valid=n,
+                            errors=errors, device="cpu")
+        P.assert_same_result(got, ref, (name, src, dst, errors))
+
+
+@pytest.mark.parametrize("errors", ["strict", "replace"])
+@pytest.mark.parametrize("src", ["utf8", "utf16", "utf32", "latin1"])
+def test_ragged_onepass_matches_reference_on_mixed_classes(src, errors):
+    """``ragged_transcode`` at its default strategy (``ronepass_plain``
+    on the CPU) against the reference on the documents of
+    :func:`test_ragged_fused_matches_reference_on_mixed_classes`, empty
+    ones among them."""
+    pk = packing.pack_documents(_class_docs(src, seed=30), dtype=C.DT[src])
+    for dst in (d for s, d in tc.PAIRS if s == src):
+        ref = tc.ragged_transcode(pk.data, pk.offsets, pk.lengths,
+                                  src_format=src, dst_format=dst,
+                                  errors=errors, strategy="fused")
+        got = repro_torch.to_numpy(ttc.ragged_transcode(
+            pk.data, pk.offsets, pk.lengths, src_format=src, dst_format=dst,
+            errors=errors, device="cpu"))
         for field in ("buffer", "offsets", "counts", "statuses"):
             mine, theirs = getattr(got, field), np.asarray(getattr(ref,
                                                                    field))

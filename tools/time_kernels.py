@@ -10,6 +10,8 @@ queued back to back, is reported beside it as ``device_ms``):
   chosen lipsum profile (paper Table 4a, ``tools/inputs.py``'s generator),
   transcoded to UTF-16 (strict, validate), and the legacy validate and
   decode kernels on it and the encode kernel on its UTF-16 transcode;
+  beside them ``transcode_onepass``, what ``transcode`` runs at its
+  defaults (the checks, the allocations and the one-pass kernel);
 - with ``--ragged``, the rcount, rwrite and ronepass kernels on
   ``chip_smoke.py``'s main batch of 8,192 UTF-8 documents;
 - with ``--windowed``, the two windowed walks on ``chip_smoke.py``'s
@@ -21,9 +23,9 @@ The checkouts are loaded side by side in one process and timed in turns
 for ``--rounds`` rounds (the order reversed every other round), so an A/B
 of two trees shares the card's state; each count kernel is first held to
 its plain version on the same input.  Each input's line gives how many
-tiles fall in each class of the count and write kernels' dispatch (ASCII,
-<=2-byte, general; computed here with numpy), so that a time can be read
-against the lane body its tiles run::
+tiles fall in each class of the count, write and one-pass kernels'
+dispatch (ASCII, <=2-byte, general; computed here with numpy), so that a
+time can be read against the lane body its tiles run::
 
     python3 tools/time_kernels.py --trees .checkout/parent . --rounds 4 \\
         --ragged --out chiprun_out/kernels_ab.json
@@ -56,7 +58,7 @@ KW = dict(src="utf8", dst="utf16", errors="strict")
 
 
 def tile_classes(x8: np.ndarray, same_prev=None) -> dict:
-    """Tiles per class of the count and write kernels' dispatch on UTF-8:
+    """Tiles per class of the transcode kernels' dispatch on UTF-8:
     ASCII when every byte of the tile and of the 3 before it is below 0x80,
     <=2-byte when below 0xE0, general otherwise.  Bytes past the end,
     and in a packed batch the inflow of a tile whose previous tile holds
@@ -117,6 +119,11 @@ def single_calls(m, x, n: int) -> dict:
             "write": lambda: m.ft.write_kernel(x, n, base, cap, **KW),
             "onepass": lambda: m.op.onepass_kernel(x, n, cap, validate=True,
                                                    **KW),
+            # What transcode() runs at its defaults, from this tree's own
+            # modules (transcode() imports its strategy at call time, so
+            # with several trees loaded it would reach the last one's).
+            "transcode_onepass": lambda: m.op.transcode_onepass(
+                x, src="utf8", dst="utf16"),
             "validate": lambda: m.kval.validate_kernel(x, n),
             "decode": lambda: m.kdec.decode_kernel(x, n),
             "encode": lambda: m.kenc.encode_kernel(u16, u16.shape[0])}

@@ -251,7 +251,15 @@ Phases, in order; any failure exits non-zero before the last line:
      the float32 hop's payload.  (e) h2o-danube-1.8b at full width and
      depth on two gloo ranks at (1, 2), phase 8's weights and batch, 2
      steps within ``MR_BF16_TOL`` of phase 8's: the vocab-parallel
-     embedding and CE at 16,000 rows a rank.
+     embedding and CE at 16,000 rows a rank.  (f) The split MoE, RG-LRU
+     and Mamba in bf16 at full width, depth cut (deepseek-moe-16b at
+     (2, 2), its capacity slots over the data ranks; recurrentgemma-9b
+     at (1, 4), its one KV head shared by the four ranks; falcon-mamba-7b
+     at (1, 2)) beside one process, ``MR_SPLIT_HELD`` steps within
+     ``MR_BF16_TOL``; the MoE layer's products and collectives equal to
+     their closed form; recurrentgemma-9b's split serving in float32
+     within ``MR_SERVE_TOL`` of one process, its k/v bytes its
+     ``state_specs`` shard.
  11. The ``kernels`` line (all twelve kernels; ronepass's launches
      include phase 10's ranks'), then ``{"ok": true, "device": ...}``
      last.
@@ -2796,6 +2804,31 @@ MR_DANUBE_STEPS = 2                 # (e): danube at (1, 2)
 MR_SAVE_AT, MR_TOTAL = 2, 4          # (c): the (2, 2) run's checkpoint, end
 MR_TIMEOUT = 600                     # a rank group's wall-clock limit, s
 MR_COLLECTIVES = ("all-gather", "reduce-scatter", "all-reduce", "broadcast")
+# (f): the split MoE, RG-LRU and Mamba in bf16 at full width, depth cut
+# (the registry's weights, seed 0): arch, layers, mesh, global batch, seq
+MR_SPLIT_LAYERS = (("deepseek-moe-16b", 2, (2, 2), 8, 512),
+                   ("recurrentgemma-9b", 3, (1, 4), 2, 512),
+                   ("falcon-mamba-7b", 2, (1, 2), 2, 512))
+MR_SPLIT_STEPS = 2
+MR_MOE = "deepseek-moe-16b"             # its MoE layer costed alone
+# The steps (f) holds to MR_BF16_TOL; later ones are printed beside two
+# yardsticks that are not this split: deepseek-moe-16b's one process run
+# again (its index_add_ sums by atomics, so it does not repeat itself bit
+# for bit) and falcon-mamba-7b on the data axis alone (the rounding of
+# the reference's own microbatches).  ``tools/split_spread.py`` on an
+# H100 (PERF.md): deepseek-moe-16b's one process, run four times,
+# moved its step-2 grad norm up to 8.5e-4 from the first run's (the limit
+# 9.77e-4), its (1, 2) and (1, 4) splits missed the limit by 3.4x and
+# 3.7x, falcon-mamba-7b's (2, 1) by 2.8x; step 1 stayed within both
+# limits everywhere.
+MR_SPLIT_HELD = {"deepseek-moe-16b": 1, "recurrentgemma-9b": 2,
+                 "falcon-mamba-7b": 1}
+MR_SPLIT_REPEAT = ("deepseek-moe-16b",)
+MR_SPLIT_DATA = {"falcon-mamba-7b": (2, 1)}
+# (f)'s split serving: arch, mesh, rows, prompt, true lengths, decode steps
+# and context, in float32 (held at test_torch_serve_step.py's tolerance)
+MR_SERVE = ("recurrentgemma-9b", (1, 4), 2, 256, (256, 200), 3, 512)
+MR_SERVE_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _kernel_counters():
@@ -2940,7 +2973,16 @@ def rank_job(path: str) -> int:
       * ``sync``: ``hierarchical_grad_sync`` over a (pod 2, data 2) mesh
         on random gradients of the arch's parameter shapes: against a
         plain float32 all-reduce, and the pod hop's bytes against the
-        uncompressed sync's (``CostMode``)."""
+        uncompressed sync's (``CostMode``);
+      * ``single``: one process's steps (no mesh) of the job's model on
+        its fixed batch: each step's metrics;
+      * ``serve``: the model bound to a (1, n) mesh as the dry run's
+        serving cells bind it (or one process, ``mesh`` null), a prefill
+        and teacher-forced decode steps on the job's prompts; the logits
+        saved to ``<work>/<label>_rank<r>.pt``, each k and v leaf's bytes
+        beside its ``state_specs`` shard, the layers noted whole.
+    A case's own ``cfg``, ``seed``, ``batch_file``, ``batch`` and ``seq``
+    stand for the job's."""
     import torch
     import torch.distributed as dist
 
@@ -2959,7 +3001,8 @@ def rank_job(path: str) -> int:
     res = {"rank": rank}
     try:
         for case in job["cases"]:
-            fn = _rank_train if case["kind"] == "train" else _rank_sync
+            fn = {"train": _rank_train, "sync": _rank_sync,
+                  "single": _rank_single, "serve": _rank_serve}[case["kind"]]
             res[case["label"]] = fn(case, job, dev)
             dist.barrier()
     finally:
@@ -2984,7 +3027,6 @@ def _rank_train(case, job, dev) -> dict:
     from repro_torch.data import pipeline as pipemod
     from repro_torch.launch import mesh as meshmod
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import registry
     from repro_torch.train import checkpoint as CK
     from repro_torch.train import optimizer as O
     from repro_torch.train import sharding as SH
@@ -2993,29 +3035,24 @@ def _rank_train(case, job, dev) -> dict:
     from repro_torch.models import shardctx
 
     rank = dist.get_rank()
+    job = {**job, **case}
     mesh = meshmod.make_host_mesh(model=case["mesh"][1])
     require(tuple(mesh.shape.values()) == tuple(case["mesh"]), "mesh",
             dict(mesh.shape))
-    if "seed" in job:
-        from repro_torch.models.lm import LMConfig
-        fam = "lm"
-        fields = dict(job["cfg"], remat=True, remat_policy="full")
-        cfg = LMConfig(**{k: tuple(v) if isinstance(v, list) else v
-                          for k, v in fields.items()})
-        model = registry.build(cfg, device=dev, generator=torch.Generator(
-            device=dev).manual_seed(job["seed"]))
-    else:
-        fam, cfg, model = registry.get(job["arch"], reduced=job["reduced"],
-                                       device=dev)
+    fam, cfg, model = _rank_model(job, dev)
     like = launch_train.state_like(model)
-    opt_cfg = O.AdamWConfig(lr=3e-4, total_steps=case["total"],
-                            warmup_steps=max(case["total"] // 20, 5))
+    opt_cfg = _rank_opt(case)
     step_fn = TS.make_train_step(model, fam, opt_cfg, mesh=mesh,
                                  global_batch=job["batch"])
     rt = step_fn.runtime
     dp = meshmod.dp_axes(mesh)
     if "batch_file" in job:
-        fixed = {k: v.to(dev) for k, v in torch.load(
+        # this rank's rows of the batch, or all of them when there are
+        # fewer than the data ranks (the step then runs the whole batch)
+        n, h = mesh.axis_size(dp), mesh.index(dp)
+        if job["batch"] % n or job["batch"] < n:
+            n, h = 1, 0
+        fixed = {k: v[h::n].to(dev) for k, v in torch.load(
             job["batch_file"], weights_only=False).items()}
     else:
         pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
@@ -3077,6 +3114,9 @@ def _rank_train(case, job, dev) -> dict:
                 launch_train.save_checkpoint(case["ckpt_dir"], i, step_fn,
                                              model)
     out["whole_layers"] = sorted(list(w) for w in whole)
+    if case.get("moe_cost"):
+        out["moe_cost"] = _moe_layer_cost(cfg, step_fn.context, dev, rows,
+                                          job["seq"], mesh)
     out["whole_leaves"] = sorted(
         n for n, lf in rt.leaves.items()
         if "model" not in {a for axes in lf.dims for a in axes}
@@ -3085,6 +3125,192 @@ def _rank_train(case, job, dev) -> dict:
     out["launches"] = {n: k.launches for n, k in counters.items()}
     del step_fn, model
     return out
+
+
+def _rank_model(job, dev):
+    """``(family, cfg, model)``: the job's ``cfg`` built from its ``seed``
+    (remat "full"), or the registry's ``arch``."""
+    import torch
+    from repro_torch.models import registry
+
+    if "seed" in job:
+        from repro_torch.models.lm import LMConfig
+        fields = dict(job["cfg"], remat=True, remat_policy="full")
+        cfg = LMConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in fields.items()})
+        return "lm", cfg, registry.build(
+            cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(job["seed"]))
+    return registry.get(job["arch"], reduced=job["reduced"], device=dev)
+
+
+def _rank_opt(case):
+    from repro_torch.train import optimizer as O
+    return O.AdamWConfig(lr=3e-4, total_steps=case["total"],
+                         warmup_steps=max(case["total"] // 20, 5))
+
+
+def _rank_single(case, job, dev) -> dict:
+    """One process's ``steps`` steps of the case's model (no mesh) on its
+    fixed batch, with :func:`_rank_train`'s optimizer settings."""
+    import torch
+    from repro_torch.train import train_step as TS
+
+    job = {**job, **case}
+    fam, cfg, model = _rank_model(job, dev)
+    step_fn = TS.make_train_step(model, fam, _rank_opt(case))
+    batch = {k: v.to(dev) for k, v in torch.load(
+        job["batch_file"], weights_only=False).items()}
+    steps = []
+    for _ in range(case["steps"]):
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        met = step_fn(batch)
+        _sync_dev(dev)
+        steps.append({"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "lr": float(met["lr"]),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+    del step_fn, model
+    return {"steps": steps}
+
+
+def _rank_serve(case, job, dev) -> dict:
+    """Prefill and teacher-forced decode steps of the case's model, bound
+    to a (1, n) mesh as the dry run's serving cells bind it (no FSDP),
+    or in one process (``mesh`` null)."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import shardctx, weights
+    from repro_torch.serve import kvcache, serve_step
+    from repro_torch.train import sharding as SH
+
+    job = {**job, **case}
+    fam, cfg, model = _rank_model(job, dev)
+    ins = {k: v.to(dev) for k, v in torch.load(
+        job["batch_file"], weights_only=False).items()}
+    toks, lens, feed = ins["tokens"], ins["lens"], ins["feed"]
+    rows, context = toks.shape[0], case["context"]
+    with torch.no_grad():                # the whole state's leaves
+        whole = weights._flatten(kvcache.init_state(model, cfg, rows,
+                                                    context))
+    scope, mesh = contextlib.ExitStack(), None
+    if case["mesh"] is not None:
+        mesh = meshmod.make_host_mesh(model=case["mesh"][1])
+        require(tuple(mesh.shape.values()) == tuple(case["mesh"]), "mesh",
+                dict(mesh.shape))
+        rt = SH.bind(model, fam, mesh, SH.param_specs(model, mesh,
+                                                      fsdp=None),
+                     None, ("data",))
+        scope.enter_context(shardctx.use(dp_axes=("data",), dp_size=1,
+                                         mesh=mesh, batch_axes=()))
+        scope.enter_context(rt.swapped())
+    pre = serve_step.make_prefill(model, fam)
+    dec = serve_step.make_decode(model, fam)
+    logits = []
+    with torch.no_grad():
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        with scope, shardctx.whole_layers() as noted:
+            state = kvcache.init_state(model, cfg, rows, context)
+            mine = weights._flatten(state)
+            lg, state = pre(model, toks, lens, state)
+            logits.append(lg.float().cpu())
+            pos = lens.clone()
+            for j in range(feed.shape[1]):
+                _, lg, state = dec(model, feed[:, j: j + 1], pos, state,
+                                   None)
+                logits.append(lg.float().cpu())
+                pos = pos + 1
+        _sync_dev(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    kv = {}
+    for name, t in whole.items():
+        if not name.endswith((".k", ".v")):
+            continue
+        size = t.element_size()
+        want = math.prod(t.shape) * size
+        if mesh is not None:
+            spec = SH.state_specs({"t": t}, mesh)["t"]
+            want = math.prod(SH.shard_shape(t.shape, spec, mesh)) * size
+        kv[name] = [mine[name].numel() * size, want, list(mine[name].shape)]
+    path = Path(job["work"]) / f"{case['label']}_rank{dist.get_rank()}.pt"
+    torch.save(logits, path)
+    del model, state
+    return {"logits_file": str(path), "kv": kv, "ms": ms,
+            "whole_layers": sorted(list(w) for w in noted)}
+
+
+def moe_closed_form(mc, d: int, rows: int, seq: int, data: int, model: int,
+                    x_bytes: int) -> dict:
+    """One forward and backward of ``common.moe`` on ``rows x seq`` tokens
+    of each of ``data`` ranks at (``data``, ``model``), its weights whole
+    on the rank (not bound): the rank's product FLOPs (its experts or
+    hidden units over slots ``ceil(cap / data)`` of every expert's
+    buffer, the router on its own tokens, the shared MLP's share), one
+    process's on the global batch, and the collectives' bytes by kind
+    under ``CostMode``'s convention (a collective's output)."""
+    t = rows * seq
+    tg = t * data
+    e, k, f = mc.n_experts, mc.top_k, mc.d_ff
+    cap = max(1, int(tg * k / e * mc.capacity_factor),
+              min(tg * k, mc.min_capacity))
+    c = -(-cap // data)
+    split = model > 1 and (e % model == 0 or f % model == 0)
+    shared = f * mc.n_shared
+    sh_split = model > 1 and shared % model == 0
+    experts = 18 * e * d * f
+    out = {"cap": cap, "slots": c,
+           "products": experts * c / (model if split else 1)
+           + 6 * t * d * e + 18 * t * d * shared / (model if sh_split else 1),
+           "one_process": experts * cap + 6 * tg * d * e + 18 * tg * d
+           * shared}
+    f4 = 4
+    out["all-gather"] = tg * k * 8 + tg * d * x_bytes + tg * k * f4 \
+        + tg * d * f4
+    out["reduce-scatter"] = (2 * t * d + t * k) * f4
+    out["all-reduce"] = e * f4 + ((2 * t * d + t * k) * f4 if split else 0) \
+        + (3 * t * d * f4 if sh_split else 0)
+    out["broadcast"] = 0
+    return out
+
+
+def _moe_layer_cost(cfg, context: dict, dev, rows: int, seq: int,
+                    mesh) -> dict:
+    """``common.moe`` alone, forward and backward under ``CostMode``
+    inside the sharded step's ``context``, on random weights of ``cfg``'s
+    MoE (whole on the rank, so no weight is gathered) and this rank's
+    ``rows x seq`` random tokens: its product FLOPs and collectives'
+    bytes beside :func:`moe_closed_form`."""
+    import torch
+    from repro_torch import costmodel
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models import common as C
+    from repro_torch.models import shardctx
+
+    mc = cfg.moe_cfg()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    moe = C.MoE(mc, cfg.torch_dtype, dev, gen)
+    x = torch.randn((rows, seq, cfg.d_model), generator=gen, device=dev) \
+        .to(cfg.torch_dtype).requires_grad_(True)
+    with shardctx.use(**context), shardctx.whole_layers() as noted, \
+            costmodel.CostMode() as cm:
+        y, aux = C.moe(moe, mc, x)
+        (y.float().sum() + aux).backward()
+    _sync_dev(dev)
+    c = cm.cost
+    dp = meshmod.dp_axes(mesh)
+    return {"products": c.flops_by_class["products_bf16"]
+            + c.flops_by_class["products_f32"],
+            "bytes": {k: c.coll_bytes[k] for k in MR_COLLECTIVES},
+            "counts": {k: c.coll_counts[k] for k in MR_COLLECTIVES},
+            "whole_layers": sorted(list(w) for w in noted),
+            "closed_form": moe_closed_form(
+                mc, cfg.d_model, rows, seq, mesh.axis_size(dp),
+                mesh.shape["model"], x.element_size())}
 
 
 def _compare_whole(rt, ckpt_dir, step, like, rank) -> dict:
@@ -3321,6 +3547,233 @@ def _log_model_axis(label: str, step: int, r: dict) -> None:
         f"{r['whole_leaves'] or 'none'}")
 
 
+def _split_cfg(arch: str, layers: int, reduced: bool, dtype=None):
+    """``arch``'s config (its reduced one when ``reduced``) cut to
+    ``layers`` layers, in ``dtype`` when given."""
+    from repro_torch import configs
+    base = configs.get_module(arch).reduced() if reduced \
+        else configs.get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def split_layers_run(smi: str, work: Path, env: dict, device: str,
+                     reduced: bool) -> dict:
+    """Phase 10 (f): each of ``MR_SPLIT_LAYERS`` (deepseek-moe-16b's MoE,
+    its capacity slots over the data ranks and its experts over model;
+    recurrentgemma-9b's RG-LRU channels and its one KV head shared by
+    four ranks; falcon-mamba-7b's channels) in bf16 at full width, its
+    depth cut, the registry's weights (seed 0), on gloo ranks sharing the
+    card, beside one process (a rank of its own) on the same batch; the
+    MoE layer alone costed on each rank; ``MR_SERVE``'s split prefill and
+    decode beside one process's, in float32.  The one process, the two
+    ranks and the four ranks run one group after another.  Returns what
+    they saw;
+    :func:`split_layers_checks` holds it."""
+    import torch
+
+    dev_type = "cuda" if device != "cpu" else "cpu"
+    rng = np.random.default_rng(10)
+
+    def job(name, cases):
+        d = work / name
+        d.mkdir()
+        return {"init": f"file://{d}/store_{time.monotonic_ns()}",
+                "backend": "gloo", "device": device, "work": str(d),
+                "reduced": reduced, "cases": cases}
+
+    single, split4, split2, cfgs = [], [], [], {}
+    for arch, layers, mesh, b, seq in MR_SPLIT_LAYERS:
+        cfg = _split_cfg(arch, layers, reduced)
+        cfgs[arch] = cfg
+        path = work / f"batch_{arch}.pt"
+        torch_save_batch(_train_batch(rng, cfg.vocab, b, seq, "cpu"), path)
+        case = {"cfg": dataclasses.asdict(cfg), "seed": 0,
+                "batch_file": str(path), "batch": b, "seq": seq,
+                "steps": MR_SPLIT_STEPS, "total": MR_SPLIT_STEPS}
+        single.append({**case, "kind": "single", "label": arch})
+        if arch in MR_SPLIT_REPEAT:
+            single.append({**case, "kind": "single", "label": arch + "/again"})
+        rank_case = {**case, "kind": "train", "label": arch,
+                     "mesh": list(mesh), "moe_cost": arch == MR_MOE}
+        (split4 if mesh[0] * mesh[1] == 4 else split2).append(rank_case)
+        if arch in MR_SPLIT_DATA:
+            dmesh = MR_SPLIT_DATA[arch]
+            (split4 if dmesh[0] * dmesh[1] == 4 else split2).append(
+                {**case, "kind": "train", "label": arch + "/data",
+                 "mesh": list(dmesh)})
+    sarch, smesh, rows, prompt, lens, n_dec, context = MR_SERVE
+    slayers = next(n for a, n, *_ in MR_SPLIT_LAYERS if a == sarch)
+    scfg = _split_cfg(sarch, slayers, reduced, "float32")
+    toks = rng.integers(3, scfg.vocab, (rows, prompt)).astype(np.int32)
+    feed = rng.integers(3, scfg.vocab, (rows, n_dec)).astype(np.int32)
+    path = work / "serve_inputs.pt"
+    torch.save({"tokens": torch.from_numpy(toks),
+                "lens": torch.tensor(lens, dtype=torch.int32),
+                "feed": torch.from_numpy(feed)}, path)
+    serve = {"cfg": dataclasses.asdict(scfg), "seed": 0,
+             "batch_file": str(path), "context": context}
+    single.append({**serve, "kind": "serve", "label": "serve", "mesh": None})
+    split4.append({**serve, "kind": "serve", "label": "serve",
+                   "mesh": list(smesh)})
+    require(smesh[0] * smesh[1] == 4, "the split serving runs on four ranks")
+    held = torch.cuda.memory_reserved() if dev_type == "cuda" else 0
+    t0 = time.time()
+    # one group at a time: together they would not fit the card's memory
+    one = spawn_ranks(1, job("f_one", single), work / "f_one", env)
+    two = spawn_ranks(2, job("f_two", split2), work / "f_two", env)
+    four = spawn_ranks(4, job("f_four", split4), work / "f_four", env)
+    seconds = time.time() - t0
+    out = {"seconds": seconds, "archs": {}}
+
+    def gaps(got, want):
+        return {key: [abs(g[key] - w[key]) / abs(w[key])
+                      for g, w in zip(got, want)]
+                for key in ("loss", "grad_norm")}
+
+    def ranks_of(label, m):
+        return [r[label] for r in (four if m[0] * m[1] == 4 else two)]
+
+    for arch, layers, mesh, b, seq in MR_SPLIT_LAYERS:
+        per = ranks_of(arch, mesh)
+        want = one[0][arch]["steps"]
+        rel = gaps(per[0]["steps"], want)
+        cfg = cfgs[arch]
+        yard = {}
+        if arch in MR_SPLIT_REPEAT:
+            again = one[0][arch + "/again"]["steps"]
+            yard["one process again"] = {"steps": again,
+                                         "rel": gaps(again, want)}
+        if arch in MR_SPLIT_DATA:
+            dsteps = ranks_of(arch + "/data", MR_SPLIT_DATA[arch])[0]["steps"]
+            yard[f"data axis alone {MR_SPLIT_DATA[arch]}"] = {
+                "steps": dsteps, "rel": gaps(dsteps, want)}
+        out["archs"][arch] = {"layers": layers, "mesh": list(mesh),
+                              "batch": [b, seq], "ranks": per,
+                              "one_process": want, "rel": rel,
+                              "yardsticks": yard,
+                              "held_steps": MR_SPLIT_HELD[arch],
+                              "d_model": cfg.d_model, "dtype": cfg.dtype}
+        log(f"phase 10: (f) {arch} d_model {cfg.d_model} ({cfg.dtype}), cut "
+            f"to {layers} layers, at {tuple(mesh)} (gloo ranks on one "
+            f"card), {b} x {seq}: losses "
+            f"{[x['loss'] for x in per[0]['steps']]} vs one process "
+            f"{[x['loss'] for x in want]} (rel "
+            f"{[f'{x:.3e}' for x in rel['loss']]}); grad norms "
+            f"{[x['grad_norm'] for x in per[0]['steps']]} vs "
+            f"{[x['grad_norm'] for x in want]} (rel "
+            f"{[f'{x:.3e}' for x in rel['grad_norm']]}); limits "
+            f"{MR_BF16_TOL}; step ms {[round(x['ms'], 1) for x in per[0]['steps']]}"
+            f" (one process {[round(x['ms'], 1) for x in want]}); resident "
+            "bytes = spec shards: " + "; ".join(
+                f"{tuple(r['coord'].values())} params "
+                f"{r['resident_bytes']['params']} moments "
+                f"{r['resident_bytes']['moments']}" for r in per)
+            + f"; whole layers {per[0]['whole_layers'] or 'none'}  [{smi}]")
+        for name, y in yard.items():
+            log(f"phase 10: (f) {arch} yardstick, {name}: losses "
+                f"{[x['loss'] for x in y['steps']]}, grad norms "
+                f"{[x['grad_norm'] for x in y['steps']]}; rel to one "
+                f"process: loss {[f'{x:.3e}' for x in y['rel']['loss']]}, "
+                f"grad norm {[f'{x:.3e}' for x in y['rel']['grad_norm']]}; "
+                f"steps held to {MR_BF16_TOL}: 1-{MR_SPLIT_HELD[arch]}")
+        if arch == MR_MOE:
+            mc = per[0]["moe_cost"]
+            cf = mc["closed_form"]
+            log(f"phase 10: (f) {arch}'s MoE layer alone on rank 0 "
+                f"(CostMode, forward and backward, {b // mesh[0]} x {seq} "
+                f"tokens a rank): product FLOPs {mc['products']:.6e} vs "
+                f"closed form {cf['products']:.6e} (one process "
+                f"{cf['one_process']:.6e} on the global batch, ratio "
+                f"{cf['one_process'] / mc['products']:.4f}; capacity "
+                f"{cf['cap']}, {cf['slots']} slots a data rank); "
+                "collectives CostMode vs closed form (bytes): "
+                + "; ".join(f"{k} {mc['bytes'][k]:.0f} vs {cf[k]:.0f} "
+                            f"(x{mc['counts'][k]})" for k in MR_COLLECTIVES))
+    # the split serving against one process, every rank
+    want = torch.load(one[0]["serve"]["logits_file"], weights_only=False)
+    ranks = [r["serve"] for r in four]
+    gaps = []
+    for r in ranks:
+        got = torch.load(r["logits_file"], weights_only=False)
+        gaps.append([{
+            "max_abs": float((g - w).abs().max()),
+            "excess": float(((g - w).abs() - MR_SERVE_TOL["atol"]
+                             - MR_SERVE_TOL["rtol"] * w.abs()).max())}
+            for g, w in zip(got, want)])
+    out["serve"] = {"arch": sarch, "mesh": list(smesh), "ranks": ranks,
+                    "one_process": one[0]["serve"], "gaps": gaps,
+                    "d_model": scfg.d_model, "dtype": scfg.dtype}
+    kv = ranks[0]["kv"]
+    log(f"phase 10: (f) {sarch} serving at {tuple(smesh)} in float32 (d_model "
+        f"{scfg.d_model}, {slayers} layers, KV heads {scfg.n_kv_heads} for "
+        f"{smesh[1]} ranks), prefill {rows} x {prompt} (lengths {list(lens)})"
+        f" + {n_dec} teacher-forced decode steps: logits max |diff| to one "
+        f"process per call {[max(g[i]['max_abs'] for g in gaps) for i in range(n_dec + 1)]}"
+        f" (excess over {MR_SERVE_TOL}: "
+        f"{max(x['excess'] for g in gaps for x in g):.3e}); k/v bytes on "
+        f"rank 0 vs state_specs shard: "
+        + "; ".join(f"{n} {v[0]} vs {v[1]} {tuple(v[2])}"
+                    for n, v in kv.items())
+        + f"; one process's k/v "
+        f"{sum(v[0] for v in one[0]['serve']['kv'].values())} B; "
+        f"{ranks[0]['ms']:.1f} ms on rank 0 (one process "
+        f"{one[0]['serve']['ms']:.1f}); whole layers "
+        f"{ranks[0]['whole_layers'] or 'none'}  [{smi}]")
+    log(f"phase 10: (f) took {seconds:.0f} s, this process holding "
+        f"{held / 2**30:.2f} GiB of the card  [{smi}]")
+    return out
+
+
+def split_layers_checks(f: dict, tol: dict) -> None:
+    """Holds :func:`split_layers_run`'s results: each arch's ranks agree
+    on the loss, its ``MR_SPLIT_HELD`` steps within ``tol`` of one
+    process's (the later ones printed beside their yardsticks), resident
+    bytes
+    equal to the spec shards, no layer noted whole; the MoE's products and
+    collectives equal to their closed form on every rank; the split
+    serving's logits within ``MR_SERVE_TOL`` of one process's and each k
+    and v leaf the bytes of its ``state_specs`` shard on every rank."""
+    for arch, a in f["archs"].items():
+        per = a["ranks"]
+        for r in per:
+            require([x["loss"] for x in r["steps"]]
+                    == [x["loss"] for x in per[0]["steps"]],
+                    "(f) ranks agree on the loss", arch)
+            require(r["resident_bytes"] == r["spec_bytes"],
+                    "(f) resident bytes = spec shards", arch, r["coord"],
+                    r["resident_bytes"], r["spec_bytes"])
+            require(r["whole_layers"] == [], "(f) no layer computes whole",
+                    arch, r["whole_layers"])
+            if "moe_cost" in r:
+                mc = r["moe_cost"]
+                cf = mc["closed_form"]
+                require(mc["products"] == cf["products"],
+                        "(f) MoE products = closed form", r["coord"], mc)
+                for k in MR_COLLECTIVES:
+                    require(mc["bytes"][k] == cf[k],
+                            "(f) MoE collectives = closed form", r["coord"],
+                            k, mc)
+                require(mc["whole_layers"] == [], "(f) MoE split", mc)
+        require(len(a["rel"]["loss"]) == MR_SPLIT_STEPS, "(f) steps", arch)
+        held = a["held_steps"]
+        require(max(a["rel"]["loss"][:held]) <= tol["loss_rel"], "(f) loss",
+                arch, a["rel"])
+        require(max(a["rel"]["grad_norm"][:held]) <= tol["gnorm_rel"],
+                "(f) grad norm", arch, a["rel"])
+    sv = f["serve"]
+    for r, gaps in zip(sv["ranks"], sv["gaps"]):
+        require(all(g["excess"] <= 0 for g in gaps),
+                "(f) split serving logits vs one process", gaps)
+        require(r["whole_layers"] == [], "(f) serving split",
+                r["whole_layers"])
+        for n, (got, want, _) in r["kv"].items():
+            require(got == want, "(f) k/v bytes = state_specs shard", n,
+                    got, want)
+            require(got < sv["one_process"]["kv"][n][0],
+                    "(f) k/v split", n)
+
+
 def multirank_phase(smi: str, work: Path, device="cuda",
                     reduced: bool = False, backend1: str = "nccl",
                     danube=None) -> dict:
@@ -3363,6 +3816,14 @@ def multirank_phase(smi: str, work: Path, device="cuda",
           phase 8's weights and batch, 2 steps: losses and grad norms
           within ``MR_BF16_TOL`` of phase 8's steps 1-2; the product
           FLOPs, collectives and bytes held as in (b).
+      (f) The split MoE, RG-LRU and Mamba in bf16
+          (:func:`split_layers_run`): deepseek-moe-16b at (2, 2),
+          recurrentgemma-9b at (1, 4) and falcon-mamba-7b at (1, 2), full
+          width, depth cut, steps 1-2 within ``MR_BF16_TOL`` of one
+          process's; the MoE's products and collectives against their
+          closed form; recurrentgemma-9b's split serving at (1, 4)
+          against one process's logits (float32, ``MR_SERVE_TOL``) and
+          its k/v bytes against their ``state_specs`` shard.
     Times beside the card's name and power limit; those of gloo ranks
     sharing one card are a correctness run's, not a speed figure."""
     import shutil
@@ -3578,6 +4039,8 @@ def multirank_phase(smi: str, work: Path, device="cuda",
             + f"  [{smi}]")
         _log_split("danube 1x2", 1, per[0]["split_ms"], smi)
         _log_model_axis("danube 1x2", MR_DANUBE_STEPS, per[0])
+    # (f) the split MoE, RG-LRU and Mamba in bf16
+    out["split_layers"] = split_layers_run(smi, work, env, device, reduced)
     out["seconds"] = time.time() - t_phase
 
     # the checks with tolerances, after every number is printed
@@ -3623,8 +4086,10 @@ def multirank_phase(smi: str, work: Path, device="cuda",
                 "pod hop payload", s)
         require(s["pod_hop_int8_bytes"] * 2 == s["pod_hop_f32_bytes"],
                 "pod hop bytes (CostMode)", s)
+    split_layers_checks(out["split_layers"], tol)
     log(f"phase 10: took {out['seconds']:.0f} s (four ranks "
-        f"{four_s:.0f} s, elastic {el_s:.0f} s)  [{smi}]")
+        f"{four_s:.0f} s, elastic {el_s:.0f} s, (f) "
+        f"{out['split_layers']['seconds']:.0f} s)  [{smi}]")
     return out
 
 
@@ -5054,6 +5519,8 @@ def main(argv=None) -> int:
     report["analysis"] = analysis_phase(report, smi, kernel_calls,
                                         table_bytes, Path(args.out).parent)
     # -- 10. multi-rank training ---------------------------------------------
+    # the rank processes share the card: hand back what this one cached
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as work:
         report["multirank"] = multirank_phase(smi, Path(work), danube=danube)
     for label in ("2x2", "4x1", "1x4"):

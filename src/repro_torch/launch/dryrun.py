@@ -38,9 +38,16 @@ the rank's cost by the chips.  ``--layout``:
     every rank the whole batch, whose compute it then repeats.
 
 A serving cell's decode state is the rank's rows of its KV heads and
-recurrent channels (the blocks its layers compute), the size of its
-``state_specs`` shard where the heads divide the model axis; the record
-has both (``state_bytes_per_rank``, ``state_specs_bytes_per_rank``).
+recurrent channels (the blocks its layers compute), and of a KV head
+shared by ``g`` model ranks its block of ``1/g`` of the slots: the size
+of its ``state_specs`` shard but for the positions and cursors, whole on
+every rank.  The record has both (``state_bytes_per_rank``,
+``state_specs_bytes_per_rank``), the k/v leaves' (``kv_bytes_per_rank``,
+``kv_specs_bytes_per_rank``) and each leaf a rank holds beyond its shard
+(``state_over_specs``: name -> [rank, spec] bytes).  What a rank of a
+group computes or holds whole, as the reference's ranks do (the MoE
+router over the model axis, a shared KV head's projection, positions
+and cursors), is listed with its FLOPs or bytes in ``replicated``.
 With a mesh, :func:`main` also costs the one-card cell and records the
 rank's product FLOPs against the one card's over the chips
 (``products_per_rank``, ``products_one_card_over_chips``).  ``--opt``
@@ -260,20 +267,35 @@ def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
 def _state_bytes(model, family, cfg, ins, gb, cap, context, state, mesh, dp,
                  tp) -> dict:
     """A decode cell's state bytes on this rank, and the bytes of its
-    shard of the global state under ``state_specs``."""
+    shard of the global state under ``state_specs``: in all, and per leaf
+    (``leaves``: name -> [rank, spec shard])."""
     with torch.no_grad():
         if family == "encdec":
             whole = model.init_state(ins["frames"], gb, cap)
         else:
             whole = kvcache.init_state(model, cfg, gb, context)
-    spec_bytes = 0
-    for t in CM.tensors(whole):     # every leaf, the cross-attention's too
+    mine = _named_leaves(state)
+    leaves = {}
+    # every leaf, the cross-attention's too
+    for name, t in _named_leaves(whole).items():
         spec = SH.state_specs({"t": t}, mesh, dp=dp, tp=tp)["t"]
-        spec_bytes += math.prod(SH.shard_shape(t.shape, spec, mesh)) \
-            * t.element_size()
-    return {"rank": float(sum(t.numel() * t.element_size()
-                              for t in CM.tensors(state))),
-            "state_specs": float(spec_bytes)}
+        size = t.element_size()
+        leaves[name] = [float(mine[name].numel() * size), float(
+            math.prod(SH.shard_shape(t.shape, spec, mesh)) * size)]
+    return {"rank": sum(r for r, _ in leaves.values()),
+            "state_specs": sum(w for _, w in leaves.values()),
+            "leaves": leaves}
+
+
+def _named_leaves(tree, prefix="") -> dict:
+    """Every tensor of a state tree (dicts, tuples) by its dotted path."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_named_leaves(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 @contextlib.contextmanager
@@ -369,7 +391,8 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
         mesh_name, chips = MESH, CHIPS
     world = contextlib.nullcontext() if chips == 1 and mesh_shape is None \
         else fake_world(chips)
-    with world, shardctx.whole_layers() as whole:
+    with world, shardctx.whole_layers() as whole, \
+            shardctx.replicated() as repl:
         mesh = None if mesh_name == MESH else make()
         fn, args, model_flops = build_cell(
             arch, shape_name, remat=remat, remat_policy=remat_policy,
@@ -394,6 +417,8 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     # repeats its data peers'
     rec["batch_rows_split"] = split
     rec["whole_layers"] = sorted(list(w) for w in whole)
+    # what every rank of a group repeats whole, as the reference's ranks
+    rec["replicated"] = sorted(list(w) for w in repl)
     rec["compute_per_rank_is_reference"] = mesh is None or (
         split and (layout == "dp" or not whole))
     rec["products_per_rank"] = (cm.cost.flops_by_class["products_bf16"]
@@ -405,6 +430,13 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     if state is not None:
         rec["state_bytes_per_rank"] = state["rank"]
         rec["state_specs_bytes_per_rank"] = state["state_specs"]
+        kv = [v for n, v in state["leaves"].items()
+              if n.endswith((".k", ".v"))]
+        rec["kv_bytes_per_rank"] = sum(r for r, _ in kv)
+        rec["kv_specs_bytes_per_rank"] = sum(w for _, w in kv)
+        # the leaves a rank holds beyond its state_specs shard, by name
+        rec["state_over_specs"] = {n: v for n, v in state["leaves"].items()
+                                   if v[0] != v[1]}
     rec["mem_temp_size_in_bytes"] = mem.peak - mem.args
     rec["mem_argument_size_in_bytes"] = mem.args
     rec["mem_output_size_in_bytes"] = _storage_bytes(CM.tensors(out))
@@ -421,7 +453,14 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
         print(f"  rank: compute_per_rank_is_reference="
               f"{rec['compute_per_rank_is_reference']} products="
               f"{rec['products_per_rank']:.4e}{ratio}; whole layers: "
-              f"{rec['whole_layers'] or 'none'}")
+              f"{rec['whole_layers'] or 'none'}; replicated as the "
+              f"reference's: {rec['replicated'] or 'none'}")
+        if state is not None:
+            print(f"  state: {rec['state_bytes_per_rank']:.0f} B a rank vs "
+                  f"state_specs {rec['state_specs_bytes_per_rank']:.0f}; "
+                  f"k/v {rec['kv_bytes_per_rank']:.0f} vs "
+                  f"{rec['kv_specs_bytes_per_rank']:.0f}; over the specs: "
+                  f"{rec['state_over_specs'] or 'none'}")
     if verbose:
         print(f"[{arch} x {shape_name} x {mesh_name}] OK  "
               f"flops={rec['hlo_flops']:.3e} bytes={rec['hlo_bytes']:.3e} "

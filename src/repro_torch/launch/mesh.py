@@ -11,9 +11,12 @@ one process and :class:`Mesh` is named axes over the ranks of
 the axis sizes in order (``shape``, as ``jax.sharding.Mesh.shape``),
 this rank's coordinate, and one process group for every set of axes a
 collective can run over: each axis, each pair (``("pod", "data")``, the
-data axes of a multi-pod mesh) and the whole mesh.  A group whose axes
-have size 1 is ``None``: a collective over it is the identity and is not
-issued.  The sharding specs (``train.sharding``) read only ``shape``,
+data axes of a multi-pod mesh) and the whole mesh, and, along each axis,
+every block of ``g`` consecutive ranks for each ``g`` that divides the
+axis (``Mesh.block``: the ranks that share one KV head over the model
+axis).  A group whose axes have size 1 is ``None``: a collective over it
+is the identity and is not issued.  The sharding specs
+(``train.sharding``) read only ``shape``,
 so they run unchanged on an **abstract** mesh: one with no coordinate
 and no groups, as ``make_production_mesh`` returns outside the dry run.
 
@@ -96,11 +99,15 @@ class Mesh:
     ``coord``: this rank's index on each axis (``None`` for an abstract
     mesh, or on a rank outside the mesh); ``groups``: a tuple of axis
     names (in mesh order) -> the process group of this rank's peers
-    along those axes, ``None`` where they number one."""
+    along those axes, ``None`` where they number one; ``blocks``:
+    ``(axis, g)`` -> the group of this rank's block of ``g`` consecutive
+    indices along ``axis`` (the other coordinates fixed), for each ``g``
+    that divides the axis, ``1 < g <`` its size."""
 
     shape: dict
     coord: Optional[dict] = None
     groups: dict = dataclasses.field(default_factory=dict)
+    blocks: dict = dataclasses.field(default_factory=dict)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -134,6 +141,15 @@ class Mesh:
     def group(self, axes):
         """The process group over ``axes`` (``None``: size 1)."""
         return self.groups[self.axes(axes)]
+
+    def block(self, axis: str, g: int):
+        """``(group, index in it)``: the process group of this rank's block
+        of ``g`` consecutive indices along ``axis``, the whole axis's group
+        when ``g`` is its size, ``None`` when ``g`` is 1."""
+        if g == self.shape[axis]:
+            return self.group(axis), self.coord[axis]
+        return (None if g == 1 else self.blocks[(axis, g)],
+                self.coord[axis] % g)
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -172,6 +188,12 @@ def make_mesh(shape: dict, ranks=None) -> Mesh:
             flat //= n
         coord = {a: coord[a] for a in names}
     world = dist.get_world_size()
+
+    def rank_at(at):
+        flat = 0
+        for a in names:
+            flat = flat * shape[a] + at[a]
+        return ranks[flat]
     groups = {}
     for k in range(1, len(names) + 1):
         for sub in itertools.combinations(names, k):
@@ -184,10 +206,7 @@ def make_mesh(shape: dict, ranks=None) -> Mesh:
                 for free in itertools.product(*(range(shape[a])
                                                 for a in sub)):
                     at.update(zip(sub, free))
-                    flat = 0
-                    for a in names:
-                        flat = flat * shape[a] + at[a]
-                    members.append(ranks[flat])
+                    members.append(rank_at(at))
                 if n == 1:
                     continue
                 if len(members) == world:
@@ -200,7 +219,23 @@ def make_mesh(shape: dict, ranks=None) -> Mesh:
     if coord is not None and len(ranks) == world:
         # the whole mesh is the world: its group is issued even at size 1
         groups[names] = dist.group.WORLD
-    return Mesh(dict(shape), coord, groups)
+    blocks = {}
+    for a in names:
+        rest = [x for x in names if x != a]
+        for g in range(2, shape[a]):
+            if shape[a] % g:
+                continue
+            mine = None
+            for fixed in itertools.product(*(range(shape[x]) for x in rest)):
+                at = dict(zip(rest, fixed))
+                for b0 in range(0, shape[a], g):
+                    members = [rank_at({**at, a: i})
+                               for i in range(b0, b0 + g)]
+                    grp = dist.new_group(members)
+                    if coord is not None and me in members:
+                        mine = grp
+            blocks[(a, g)] = mine
+    return Mesh(dict(shape), coord, groups, blocks)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

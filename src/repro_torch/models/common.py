@@ -251,12 +251,14 @@ class Attention(nn.Module):
 
 class Heads(NamedTuple):
     """A rank's attention heads: the first query head and their count,
-    the first KV head and their count."""
+    the first KV head and their count, and the ranks that share those KV
+    heads (``g`` > 1 where there are fewer KV heads than model ranks)."""
 
     h0: int
     h: int
     k0: int
     kv: int
+    g: int = 1
 
     def ranges(self, hd: int):
         """The query and the KV heads' columns: ``((start, size),)``
@@ -269,7 +271,10 @@ def heads(cfg: AttnConfig, layer: str = "attention") -> Optional[Heads]:
     ``None`` when attention computes whole: no model axis, query heads
     that do not divide, or KV heads that neither divide the model ranks
     nor are divided by them.  With fewer KV heads than ranks a rank takes
-    the one KV head its query heads read."""
+    the one KV head its query heads read, which the ``g = m / kv``
+    consecutive ranks from ``k0 * g`` share: each projects it whole, and
+    a decode cache holds a block of its slots on each
+    (:func:`attention`)."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     m, r = shardctx.tp()
     blk = shardctx.split(h, layer, "heads")
@@ -278,7 +283,7 @@ def heads(cfg: AttnConfig, layer: str = "attention") -> Optional[Heads]:
     if kv % m == 0:
         return Heads(blk[0], blk[1], r * (kv // m), kv // m)
     if m % kv == 0:
-        return Heads(blk[0], blk[1], r // (m // kv), 1)
+        return Heads(blk[0], blk[1], r // (m // kv), 1, m // kv)
     shardctx.note_whole(layer, f"KV heads {kv} and model {m} divide "
                         "neither way")
     return None
@@ -294,6 +299,11 @@ def _project_qkv(params, cfg: AttnConfig, x, pos, hs=None):
         h, kv, qr, kr = cfg.n_heads, cfg.n_kv_heads, None, None
     else:
         (h, kv), (qr, kr) = (hs.h, hs.kv), hs.ranges(hd)
+        if hs.g > 1:
+            shardctx.note_replicated(
+                "attention", "the shared KV head's k and v projections, "
+                f"{4 * b * s * cfg.d_model * hd:.6g} product FLOPs a call "
+                f"forward, on each of the {hs.g} ranks that share it")
     gather = shardctx.gather
     q, k, v = columns(x, [gather("wq", params.wq, 1, qr),
                           gather("wk", params.wk, 1, kr),
@@ -333,6 +343,17 @@ def chunked_attention(q, k, v, q_pos, k_pos, window=None, chunk=1024):
     masked keys, which add nothing.
     """
     b, sq, h, d = q.shape
+    acc, _, l = _attend(q, k, v, q_pos, k_pos, window, chunk)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def _attend(q, k, v, q_pos, k_pos, window=None, chunk=1024):
+    """:func:`chunked_attention`'s online softmax before its division:
+    ``(acc, m, l)``, the weighted values' sum (B, KV, Sq, G, D), the
+    running max and the weights' sum (B, KV, Sq, G), float32; ``m`` is
+    ``-inf`` where no key is live."""
+    b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     scale = 1.0 / math.sqrt(d)
@@ -365,8 +386,55 @@ def chunked_attention(q, k, v, q_pos, k_pos, window=None, chunk=1024):
                     vb.permute(0, 2, 1, 3).reshape(b * kv, c, d))
         acc = acc * corr[..., None] + pv.reshape(b, kv, sq, g, d)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
+    return acc, m, l
+
+
+def _shared_attention(q, ck, cv, q_pos, cpos, window, chunk, g):
+    """Attention of this rank's query heads over a shared KV head's cache
+    that the ``g`` ranks sharing it hold in slot blocks
+    (``shardctx.kv_block``): ``q`` is all-gathered over the group's
+    heads, each rank scores them over its block of slots, and a
+    log-sum-exp combine (an all-reduce of the ``G`` maxima, then one
+    float32 all-reduce of the rescaled sums and weighted values,
+    ``G (D + 1)`` values a query row, ``G`` the group's query heads)
+    gives the softmax over every slot.  A rank whose slots hold no live key weighs 0; a
+    query with no live key anywhere returns 0.  Serving only (no
+    gradient)."""
+    grp, a = shardctx.kv_block(g)
+    b, sq, h, d = q.shape
+    cl = ck.shape[1]
+    qs = q.movedim(2, 0).contiguous()
+    qa = qs.new_empty((g * h,) + tuple(qs.shape[1:]))
+    meshmod.all_gather_into(qa, qs, grp)
+    acc, m, l = _attend(qa.movedim(0, 2), ck, cv, q_pos,
+                        cpos[:, a * cl: (a + 1) * cl], window, chunk)
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=grp)
+    wgt = torch.where(torch.isfinite(m), torch.exp(
+        m - torch.where(torch.isfinite(top), top, 0.0)), 0.0)
+    sums = torch.cat([(l * wgt)[..., None], acc * wgt[..., None]], -1)
+    dist.all_reduce(sums, group=grp)
+    out = sums[..., 1:] / torch.clamp_min(sums[..., :1], 1e-30)
+    out = out.permute(0, 2, 1, 3, 4).reshape(b, sq, g * h, d)
+    return out[:, :, a * h: (a + 1) * h].to(q.dtype)
+
+
+def _write_block(c, rows, slot, new, lo):
+    """``new`` (B, n, ...) written at ring slots ``slot`` (B, n) into a
+    cache ``c`` that holds slots ``[lo, lo + c.shape[1])``: a slot outside
+    the block is written nowhere.  Its write is sent to a slot of its row
+    the block does write, with that write's value, or, in a row that
+    writes none, to the block's first slot with the value it holds, so
+    no two writes to one slot differ (static shapes, no boolean mask)."""
+    local = slot - lo
+    own = (local >= 0) & (local < c.shape[1])
+    first = own.to(torch.int32).argmax(1, keepdim=True)  # a written slot
+    has = own.any(1, keepdim=True)
+    j = torch.arange(slot.shape[1], device=slot.device)[None, :]
+    src = torch.where(own, j, first)
+    at = torch.where(has, torch.where(own, local, local.gather(1, first)), 0)
+    keep = has.reshape(has.shape + (1,) * (new.dim() - 2))
+    c[rows, at] = torch.where(keep, new[rows, src], c[rows, at])
 
 
 def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
@@ -397,17 +465,26 @@ def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
             v = shardctx.act(v, ("dp", None, None, None))
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         cur = cache["cursor"]                     # (B,) per-row cursors
-        cap = ck.shape[1]
+        cap = cpos.shape[1]
         # ring-buffer write (sliding window) or linear write (full cache)
         j0 = max(0, s - cap)
         rows = torch.arange(b, device=x.device)[:, None]
         slot = (cur[:, None].long()
                 + torch.arange(j0, s, device=x.device)[None, :]) % cap
-        ck[rows, slot] = k[:, j0:]
-        cv[rows, slot] = v[:, j0:]
+        if ck.shape[1] == cap:
+            ck[rows, slot] = k[:, j0:]
+            cv[rows, slot] = v[:, j0:]
+        else:                   # a shared head: this rank's slot block
+            lo = shardctx.kv_block(hs.g)[1] * ck.shape[1]
+            _write_block(ck, rows, slot, k[:, j0:], lo)
+            _write_block(cv, rows, slot, v[:, j0:], lo)
         cpos[rows, slot] = tpos.expand(b, s)[:, j0:].to(cpos.dtype)
         cur += s
-        y = chunked_attention(q, ck, cv, tpos, cpos, cfg.window, chunk)
+        if ck.shape[1] == cap:
+            y = chunked_attention(q, ck, cv, tpos, cpos, cfg.window, chunk)
+        else:
+            y = _shared_attention(q, ck, cv, tpos, cpos, cfg.window, chunk,
+                                  hs.g)
         new_cache = cache
 
     return attn_out(params, cfg, hs, y, x.dtype), new_cache
@@ -427,14 +504,26 @@ def attn_out(params, cfg: AttnConfig, hs, y, dtype):
 
 
 def init_attn_cache(cfg: AttnConfig, batch, capacity, dtype, device):
-    """An empty cache of the rank's KV heads (:func:`heads`)."""
+    """An empty cache of the rank's KV heads (:func:`heads`): of a KV
+    head that ``g`` ranks share, rank ``a`` of them holds slots
+    ``[a cap / g, (a + 1) cap / g)`` (the whole head where ``g`` does not
+    divide the capacity).  Positions and cursors are whole on every
+    rank."""
     hs = heads(cfg)
     kv, hd = (cfg.n_kv_heads if hs is None else hs.kv), cfg.head_dim
+    slots = capacity
+    if hs is not None:
+        shardctx.note_replicated(
+            "attention", f"positions and cursors, {batch * (capacity + 1) * 4}"
+            " B a layer, whole on every model rank")
+        if hs.g > 1 and capacity % hs.g == 0:
+            slots = capacity // hs.g
+        elif hs.g > 1:
+            shardctx.note_whole("attention", f"cache capacity {capacity} % "
+                                f"the {hs.g} ranks sharing a KV head")
     return {
-        "k": torch.zeros((batch, capacity, kv, hd), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, capacity, kv, hd), dtype=dtype,
-                         device=device),
+        "k": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device),
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
                           device=device),
         "cursor": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -509,15 +598,16 @@ def moe(params, cfg: MoEConfig, x):
     reference's under ``jit``: the ranks all-gather their top-k choices,
     so capacity, each copy's slot (a cumsum in global token order, the
     pipeline's: local row ``i`` of rank ``h`` of ``n`` is global row
-    ``i * n + h``) and the aux loss's means are over every token; each
-    rank computes its own tokens' expert products.
+    ``i * n + h``) and the aux loss's means are over every token.  The
+    capacity buffer is then split over the data ranks as the reference's
+    ``act(xg, (None, "dp", None))`` splits it (:func:`_moe_slots`).
 
     Over a model axis (``shardctx.tp``) the router, the routing and the
     aux loss stay replicated.  With ``n_experts`` divisible by the ranks
-    each runs its own experts over the global capacity buffer (expert
-    parallelism); otherwise each runs every expert on its block of the
-    hidden units.  Either way its float32 combined output is summed over
-    model (g), the gates and the tokens entering through f."""
+    each runs its own experts (expert parallelism); otherwise each runs
+    every expert on its block of the hidden units.  Either way its
+    float32 combined output is summed over model (g), the gates and the
+    tokens entering through f."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -526,10 +616,12 @@ def moe(params, cfg: MoEConfig, x):
     tg = t * n_ranks                                        # global tokens
     cap = max(1, int(tg * k / e * cfg.capacity_factor),
               min(tg * k, cfg.min_capacity))
-    dev = x.device
 
     xf = x.reshape(t, d)
     logits = dot32(xf.to(F32), params.router)
+    if shardctx.tp()[0] > 1:
+        shardctx.note_replicated("moe", f"the router, {2 * t * d * e:.6g} "
+                                 "product FLOPs a call forward")
     gates, idx = torch.topk(torch.softmax(logits, -1), k)   # (t, k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     idx_g = idx if route is None else _global_tokens(idx, route, b, s)
@@ -538,10 +630,59 @@ def moe(params, cfg: MoEConfig, x):
     flat_oh = F.one_hot(idx_g, e).reshape(tg * k, e)        # (t*k, e)
     pos_in_e = torch.cumsum(flat_oh, 0) * flat_oh - 1
     slot = pos_in_e.amax(-1)                                # (t*k,)
-    if route is not None:                                   # this rank's
-        mesh, axes = route
-        slot = slot.reshape(b, n_ranks, s * k)[:, mesh.index(axes)]
-        slot = slot.reshape(t * k)
+    if route is not None:
+        out = _moe_slots(params, cfg, x, gates, idx_g, slot, cap, route)
+    else:
+        out = _moe_local(params, cfg, x, gates, idx, slot, cap)
+
+    if cfg.n_shared:
+        out = out + mlp(params.shared, x).reshape(t, d).to(F32)
+
+    aux = _load_balance_loss(logits, idx_g, e, route)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _expert_split(cfg: MoEConfig):
+    """``(ep, hid)``: this rank's experts over the model axis, or its
+    hidden units (``None`` each where not split), noting a whole MoE."""
+    e = cfg.n_experts
+    ep = shardctx.split(e)
+    hid = None if ep is not None else shardctx.split(cfg.d_ff)
+    if shardctx.tp()[0] > 1 and ep is None and hid is None:
+        shardctx.note_whole("moe", f"experts {e} and hidden units "
+                            f"{cfg.d_ff} % model {shardctx.tp()[0]}")
+    return ep, hid
+
+
+def _experts(params, x_dtype, xg, ep, hid, src=None):
+    """The experts' products on the gathered tokens ``xg`` (e', c, d):
+    every expert whole, or the rank's experts (``ep``) or hidden units
+    (``hid``); ``ye`` (e', c, d), float32 partial sums for ``hid``."""
+    if ep is None and hid is None:
+        h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg), src))
+        h = h * bdot32(xg, shardctx.gather("wi", params.wi), src)
+        return bdot32(h.to(x_dtype), shardctx.gather("wo", params.wo)).to(
+            x_dtype)
+    wdims = (0, 0, 0) if ep is not None else (2, 2, 1)
+    blk = (ep if ep is not None else hid,)
+    h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg, wdims[0], blk),
+                      x_dtype))
+    h = h * bdot32(xg, shardctx.gather("wi", params.wi, wdims[1], blk),
+                   x_dtype)
+    ye = bdot32(h.to(x_dtype), shardctx.gather("wo", params.wo, wdims[2],
+                                               blk))
+    # whole products: the reference's cast
+    return ye.to(x_dtype) if ep is not None else ye
+
+
+def _moe_local(params, cfg: MoEConfig, x, gates, idx, slot, cap):
+    """The routed experts' float32 combined output (t, d) when every rank
+    routes its own tokens: the whole capacity buffer."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    xf = x.reshape(t, d)
     eid = idx.reshape(t * k)
     keep = slot < cap
 
@@ -554,21 +695,12 @@ def moe(params, cfg: MoEConfig, x):
     gather_idx[torch.where(keep, eid * cap + slot, e * cap)] = src_token
     gather_idx = gather_idx[: e * cap].reshape(e, cap)
 
-    if route is not None:
-        shardctx.note_whole("moe", f"the capacity buffer of {n_ranks} data "
-                            "ranks' tokens on each (global routing)")
-    ep = shardctx.split(e)
-    hid = None if ep is not None else shardctx.split(cfg.d_ff)
-    if shardctx.tp()[0] > 1 and ep is None and hid is None:
-        shardctx.note_whole("moe", f"experts {e} and hidden units "
-                            f"{cfg.d_ff} % model {shardctx.tp()[0]}")
+    ep, hid = _expert_split(cfg)
     if ep is None and hid is None:
         xg = torch.cat([xf, xf.new_zeros((1, d))])[gather_idx]  # (e, cap, d)
         xg = shardctx.act(xg, (None, "dp", None))
-        h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg)))
-        h = h * bdot32(xg, shardctx.gather("wi", params.wi))
-        ye = bdot32(h.to(x.dtype), shardctx.gather("wo", params.wo))
-        ye = shardctx.act(ye.to(x.dtype), (None, "dp", None))  # (e, cap, d)
+        ye = _experts(params, x.dtype, xg, ep, hid)
+        ye = shardctx.act(ye, (None, "dp", None))               # (e, cap, d)
         mine, at = keep, eid
     else:
         xm, = shardctx.to_model(xf)
@@ -576,22 +708,12 @@ def moe(params, cfg: MoEConfig, x):
         if ep is not None:      # this rank's experts, the global buffer
             e0, el = ep
             gather_idx = gather_idx[e0: e0 + el]
-            wdims = (0, 0, 0)
             mine = keep & (eid >= e0) & (eid < e0 + el)
             at = eid - e0
         else:                   # every expert, this rank's hidden units
-            wdims = (2, 2, 1)
             mine, at = keep, eid
-        blk = (ep if ep is not None else hid,)
         xg = torch.cat([xm, xm.new_zeros((1, d))])[gather_idx]
-        h = F.silu(bdot32(xg, shardctx.gather("wg", params.wg, wdims[0],
-                                              blk), x.dtype))
-        h = h * bdot32(xg, shardctx.gather("wi", params.wi, wdims[1], blk),
-                       x.dtype)
-        ye = bdot32(h.to(x.dtype), shardctx.gather("wo", params.wo,
-                                                   wdims[2], blk))
-        if ep is not None:      # whole products: the reference's cast
-            ye = ye.to(x.dtype)
+        ye = _experts(params, x.dtype, xg, ep, hid)
 
     # combine: each token-copy reads back its expert output, weighted
     copy_val = ye[torch.where(mine, at, 0), torch.where(mine, slot, 0)]
@@ -600,12 +722,69 @@ def moe(params, cfg: MoEConfig, x):
         0, src_token, copy_val.to(F32) * w)
     if ep is not None or hid is not None:
         out = shardctx.from_model(out)
+    return out
 
-    if cfg.n_shared:
-        out = out + mlp(params.shared, x).reshape(t, d).to(F32)
 
-    aux = _load_balance_loss(logits, idx_g, e, route)
-    return out.reshape(b, s, d).to(x.dtype), aux
+def _moe_slots(params, cfg: MoEConfig, x, gates, idx_g, slot, cap, route):
+    """The routed experts' float32 combined output (t, d) of this rank's
+    tokens when the batch's rows are split over ``route``'s ``n`` data
+    ranks: rank ``h`` runs slots ``[h c, (h + 1) c)`` of every expert's
+    global buffer, ``c = ceil(cap / n)`` (the reference's uneven shard:
+    the last block's tail past ``cap`` holds no copy), on its experts or
+    hidden units over a model axis.
+
+    Its block holds every data rank's tokens, so the tokens are
+    all-gathered in ``x``'s dtype (``shardctx.gather_rows``), and the
+    gates in float32; the rank combines the copies of its block into a
+    float32 partial over the global tokens, and a reduce-scatter gives
+    each rank its own rows (``shardctx.scatter_rows``).  A rank moves,
+    under ``CostMode``'s convention (a collective's output), ``n t d``
+    elements of ``x`` and ``n t k`` float32 gates gathered, and ``t d``
+    float32 scattered; the backward ``t d`` float32 and ``t k`` float32
+    reduce-scattered and ``n t d`` float32 gathered.  (All-gathering the
+    experts' output instead would move ``e n c d`` elements of ``x``,
+    ``~1.25 k`` times the tokens' bytes, each way.)"""
+    mesh, axes = route
+    n, r = mesh.axis_size(axes), mesh.index(axes)
+    b, s, d = x.shape
+    t, tg = b * s, b * s * n
+    k = cfg.top_k
+    dev = x.device
+    c = -(-cap // n)
+    lo = r * c
+    eid = idx_g.reshape(tg * k)
+    tok = torch.arange(tg * k, device=dev) // k             # global token
+    mine = (slot >= lo) & (slot < min(lo + c, cap))          # kept, my block
+
+    ep, hid = _expert_split(cfg)
+    xs, g = x, gates.reshape(b, s, k)
+    if ep is not None or hid is not None:
+        xs, = shardctx.to_model(x)
+        g, = shardctx.to_model(g)
+    xa = shardctx.gather_rows(xs, route, x.dtype).reshape(tg, d)
+    ga = shardctx.gather_rows(g, route).reshape(tg * k)
+    if ep is not None:          # this rank's experts
+        e0, el = ep
+        mine = mine & (eid >= e0) & (eid < e0 + el)
+        at = eid - e0
+    else:                       # every expert (whole, or its hidden units)
+        el, at = cfg.n_experts, eid
+    gather_idx = torch.full((el * c + 1,), tg, dtype=torch.long, device=dev)
+    gather_idx[torch.where(mine, at * c + slot - lo, el * c)] = tok
+    gather_idx = gather_idx[: el * c].reshape(el, c)
+    xg = torch.cat([xa, xa.new_zeros((1, d))])[gather_idx]     # (el, c, d)
+    ye = _experts(params, x.dtype, xg, ep, hid, x.dtype)
+
+    # combine the copies of this block into every global token's partial
+    copy_val = ye[torch.where(mine, at, 0), torch.where(mine, slot - lo, 0)]
+    w = ga[:, None] * mine[:, None]
+    part = torch.zeros((tg, d), dtype=F32, device=dev).index_add_(
+        0, tok, copy_val.to(F32) * w)
+    out = shardctx.scatter_rows(part.reshape(n * b, s, d), route)
+    out = out.reshape(t, d)
+    if ep is not None or hid is not None:
+        out = shardctx.from_model(out)
+    return out
 
 
 def _global_tokens(idx, route, b, s):
@@ -773,15 +952,23 @@ def mamba(params, cfg: MambaConfig, x, state=None):
     xc = F.silu(conv + leaf("conv_b", params.conv_b, 0))
 
     # input-dependent SSM parameters (over a model axis: contracted over
-    # the rank's channels, summed over model, and replicated from there)
+    # the rank's channels, summed over model, and replicated from there;
+    # dt's input enters its product in x's dtype through f, so that its
+    # gradient is summed over model before it is rounded, as one process
+    # rounds the whole sum once)
     dbc = dot32(xc, leaf("x_proj", params.x_proj, 0))
-    if blk is not None:
-        dbc, = shardctx.to_model(shardctx.from_model(dbc))
-    dt = F.softplus(dot32(dbc[..., :dt_rank].to(x.dtype),
-                          leaf("dt_proj", params.dt_proj, 1))
+    if blk is None:
+        dt_in, bc, src = dbc[..., :dt_rank].to(x.dtype), dbc[..., dt_rank:], \
+            None
+    else:
+        dbc = shardctx.from_model(dbc)
+        dt_in, = shardctx.to_model(dbc[..., :dt_rank].to(x.dtype))
+        bc, = shardctx.to_model(dbc[..., dt_rank:])
+        src = x.dtype
+    dt = F.softplus(dot32(dt_in, leaf("dt_proj", params.dt_proj, 1), src)
                     + leaf("dt_bias", params.dt_bias, 0))       # (B,S,di)
-    Bc = dbc[..., dt_rank: dt_rank + n]                         # (B,S,n)
-    Cc = dbc[..., dt_rank + n:]                                 # (B,S,n)
+    Bc = bc[..., :n]                                            # (B,S,n)
+    Cc = bc[..., n:]                                            # (B,S,n)
 
     A = -torch.exp(leaf("A_log", params.A_log, 0))              # (di,n)
     dA = torch.exp(dt[..., None] * A)                           # (B,S,di,n)

@@ -40,6 +40,15 @@ computes whole on every rank of the model group, as the reference's
 ``leaf_spec`` leaves that dimension whole; it says so through
 :func:`note_whole`, which the dry run and ``chip_smoke.py`` print.
 
+Over the batch axes (:func:`routing`), the MoE's capacity slots are
+split as the reference's ``act(xg, (None, "dp", None))`` asks:
+:func:`gather_rows` all-gathers every data rank's rows of an activation
+(its backward a float32 reduce-scatter) and :func:`scatter_rows`
+reduce-scatters a float32 partial over the global rows back to each
+rank's own (its backward an all-gather).  Over a block of the model
+axis, :func:`kv_block` is the group of the ranks that share one KV
+head.
+
 ``gather(name, w)`` without ``ranges`` is the whole weight, a replicated
 use: when ``w`` is a parameter that ``train.sharding.bind`` cut to this
 rank's shard, it is that leaf's all-gather (an ``autograd.Function``
@@ -49,6 +58,12 @@ is the rank's compute block, whose gradient is this rank's part of the
 whole weight's (``train.sharding.Leaf`` sums it over ``model``).  Any
 other ``w`` is returned unchanged, or cut to the block.  ``act`` stays
 the identity: the split activations are the layers' own local tensors.
+
+What a rank of a split step still computes or holds whole, as a rank of
+the reference does too (the MoE router over the model axis, a shared KV
+head's projection, the decode state's positions and cursors), is named
+through :func:`note_replicated` with its FLOPs or bytes, and collected
+by :func:`replicated`, beside :func:`whole_layers`.
 """
 
 from __future__ import annotations
@@ -68,6 +83,8 @@ _model = None
 _tap = None
 # layers that computed whole over a model axis: {(layer, reason)}
 _whole = set()
+# what a split step repeats whole on every rank of a group: {(layer, what)}
+_replicated = set()
 
 
 def _cfg():
@@ -169,6 +186,24 @@ def whole_layers():
         _whole = prev
 
 
+def note_replicated(layer: str, what: str) -> None:
+    """Record that every rank of a group computes or holds ``what`` of
+    ``layer`` whole (with its FLOPs or bytes), as the reference's do."""
+    _replicated.add((layer, what))
+
+
+@contextlib.contextmanager
+def replicated():
+    """Collects the ``(layer, what)`` notes of :func:`note_replicated`
+    made inside the block into the set it yields."""
+    global _replicated
+    prev, _replicated = _replicated, set()
+    try:
+        yield _replicated
+    finally:
+        _replicated = prev
+
+
 def full_shape(w) -> tuple:
     """The whole weight's shape (a bound shard's leaf's)."""
     leaf = getattr(w, "_shard_leaf", None)
@@ -176,7 +211,10 @@ def full_shape(w) -> tuple:
 
 
 def act(x, pattern):
-    """Constrain an activation: ``x`` unchanged."""
+    """Constrain an activation: ``x`` unchanged.  The one pattern that
+    acts, the MoE's ``(None, "dp", None)`` on its capacity buffer, is
+    ``models.common.moe``'s slot blocks over :func:`routing`'s axes
+    (:func:`gather_rows`, :func:`scatter_rows`)."""
     return x
 
 
@@ -290,3 +328,82 @@ def max_over_model(x):
         import torch.distributed as dist
         _collectives().all_reduce(x, *_model, op=dist.ReduceOp.MAX)
     return x
+
+
+def kv_block(g: int):
+    """``(process group, index in it)`` of this rank's block of ``g``
+    consecutive model ranks (those that share one KV head): ``(None, 0)``
+    without a model axis or at ``g`` 1."""
+    if _model is None or g == 1:
+        return None, 0
+    mesh, axis = _model
+    return mesh.block(axis, g)
+
+
+# ---------------------------------------------------------------------------
+# The batch's rows over the data axes (the MoE's capacity slots)
+
+
+def _interleave(y, n: int):
+    """Rank-major rows ``(n * b, ...)`` (rank ``h``'s ``b`` rows at
+    ``h * b``) in global order: local row ``i`` of rank ``h`` is global
+    row ``i * n + h``, the pipeline's."""
+    return y.reshape(n, -1, *y.shape[1:]).transpose(0, 1).reshape(y.shape)
+
+
+def _deinterleave(y, n: int):
+    """:func:`_interleave`'s inverse."""
+    return y.reshape(-1, n, *y.shape[1:]).transpose(0, 1).reshape(y.shape)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every data rank's rows (dim 0), all-gathered in ``src`` (exact:
+    ``x`` holds values of it) and widened to float32, in global order;
+    backward, the float32 gradient summed over the data ranks, this
+    rank's rows of it (a reduce-scatter), cast to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, src):
+        ctx.mesh, ctx.axes, ctx.dtype = mesh, axes, x.dtype
+        n = mesh.axis_size(axes)
+        y = _collectives().all_gather(x.to(src), 0, mesh, axes)
+        return _interleave(y, n).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.axis_size(ctx.axes)
+        g = _deinterleave(g.to(torch.float32), n)
+        g = _collectives().reduce_scatter(g, 0, ctx.mesh, ctx.axes)
+        return g.to(ctx.dtype), None, None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    """A float32 partial over the global rows, summed over the data ranks,
+    this rank's rows of it (a reduce-scatter); backward, the gradient's
+    rows all-gathered in global order."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        n = mesh.axis_size(axes)
+        return _collectives().reduce_scatter(_deinterleave(x, n), 0, mesh,
+                                             axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.axis_size(ctx.axes)
+        y = _collectives().all_gather(g.contiguous(), 0, ctx.mesh, ctx.axes)
+        return _interleave(y, n), None, None
+
+
+def gather_rows(x, route, src=None):
+    """Every rank of ``route`` (:func:`routing`)'s rows of ``x`` (dim 0),
+    in global order, float32; moved in ``src`` (``x``'s dtype unless
+    given)."""
+    return _GatherRows.apply(x, *route, src or x.dtype)
+
+
+def scatter_rows(x, route):
+    """This rank's rows of the sum over ``route``'s ranks of ``x``
+    (float32, every global row, in global order)."""
+    return _ScatterRows.apply(x, *route)

@@ -13,7 +13,12 @@ policy:
   * mamba                   -> (conv, ssm) states, O(1) in context length.
 
 ``state_bytes`` is the planner the serving engine uses to compute cache
-residency; its counts equal the reference's.
+residency; its counts equal the reference's: a replica's whole state.
+Under a sharded step's context (``models.shardctx.use``) ``init_state``
+holds a rank's blocks: its KV heads, of a KV head that ``g`` model ranks
+share ``1/g`` of the slots, its RG-LRU and Mamba channels; positions and
+cursors whole (``launch.dryrun`` records a rank's bytes beside its
+``state_specs`` shard).
 """
 
 from __future__ import annotations

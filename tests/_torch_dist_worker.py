@@ -28,10 +28,17 @@ job's ``out`` directory (``torch.save``).  Cases:
     on one process too);
   * ``ce``: the vocab-parallel CE sums of this rank's slice of whole
     logits, and their gradient; out: each rank's;
+  * ``moe_costs``: per mesh shape, deepseek-moe-16b's first MoE layer's
+    ``moe`` (the model not bound: the weights are whole on every rank)
+    run forward and backward on this rank's rows of the global ``x``
+    inside a sharded step's context under ``CostMode``;
+    out: each rank's product FLOPs, collective bytes by kind and the
+    layers noted whole;
   * ``serve``: per arch, the model bound to a (1, n) mesh as the dry
     run's serving cells bind it (no FSDP), a decode state of the rank's
-    blocks, a prefill and teacher-forced decode steps; out: the logits
-    of each and each rank's state shapes.
+    blocks, a prefill and teacher-forced decode steps; out (``out``.pt):
+    the logits of each, each rank's state shapes and the layers noted
+    whole.
 """
 
 import contextlib
@@ -265,6 +272,48 @@ def run_costs(case, out):
         torch.save(res, os.path.join(out, "costs.pt"))
 
 
+def moe_cost(moe, cfg, x, scope=contextlib.nullcontext):
+    """``(product FLOPs, {collective kind: bytes})`` of one forward and
+    backward of ``common.moe`` on ``x`` under ``CostMode`` inside
+    ``scope()``."""
+    x = x.clone().requires_grad_(True)
+    with scope(), CM.CostMode() as cm:
+        y, aux = C.moe(moe, cfg, x)
+        (y.sum() + aux).backward()
+    c = cm.cost
+    return (c.flops_by_class["products_f32"]
+            + c.flops_by_class["products_bf16"],
+            {k: c.coll_bytes[k] for k in c.coll_bytes})
+
+
+def run_moe_costs(case, out):
+    data = torch.load(case["inputs"], weights_only=False)
+    arch = case["arch"]
+    res = {}
+    _, whole = model_for(arch, data[arch]["tree"])
+    x = data["moe_costs"]["x"]
+    for shape in case["meshes"]:
+        mesh = meshmod.make_host_mesh(model=shape[1])
+        # a sharded step's context (``make_train_step``'s) over x's rows
+        ctx = dict(tp_axis="model", tp_size=shape[1], dp_axes=("data",),
+                   dp_size=shape[0], mesh=mesh, batch_axes=("data",))
+
+        @contextlib.contextmanager
+        def scope():
+            with shardctx.use(**ctx):
+                yield
+        layer = next(getattr(whole, f"seg{i}_{k}")[0] for i, (k, _) in
+                     enumerate(whole.cfg.segments()) if k == "moe")
+        with shardctx.whole_layers() as noted:
+            cost = moe_cost(layer.moe, whole.cfg.moe_cfg(),
+                            local_rows({"x": x}, mesh)["x"], scope)
+        res[tuple(shape)] = cost + (sorted(noted),)
+    outs = [None] * dist.get_world_size()
+    dist.all_gather_object(outs, res)
+    if dist.get_rank() == 0:
+        torch.save(outs, os.path.join(out, "moe_costs.pt"))
+
+
 def run_ce(case, out):
     data = torch.load(case["inputs"], weights_only=False)["ce"]
     mesh = meshmod.make_host_mesh(model=dist.get_world_size())
@@ -297,7 +346,8 @@ def run_serve(case, out):
         pre = serve_step.make_prefill(model, fam)
         dec = serve_step.make_decode(model, fam)
         logits = []
-        with shardctx.use(**ctx), rt.swapped():
+        with shardctx.use(**ctx), rt.swapped(), \
+                shardctx.whole_layers() as noted:
             state = kvcache.init_state(model, cfg, toks.shape[0],
                                        case["context"])
             shapes = {k: tuple(v.shape) for k, v in
@@ -310,16 +360,17 @@ def run_serve(case, out):
                                    None)
                 logits.append(lg)
                 pos = pos + 1
-        res[arch] = {"logits": logits, "shapes": shapes}
+        res[arch] = {"logits": logits, "shapes": shapes,
+                     "whole": sorted(noted)}
     outs = [None] * dist.get_world_size()
     dist.all_gather_object(outs, res)
     if dist.get_rank() == 0:
-        torch.save(outs, os.path.join(out, "serve.pt"))
+        torch.save(outs, os.path.join(out, case.get("out", "serve") + ".pt"))
 
 
 CASES = {"step": run_step, "sync": run_sync, "save": run_save,
          "restore": run_restore, "elastic": run_elastic, "costs": run_costs,
-         "ce": run_ce, "serve": run_serve}
+         "ce": run_ce, "serve": run_serve, "moe_costs": run_moe_costs}
 
 
 def main(path):

@@ -514,3 +514,59 @@ def test_dryrun_tp_rank_computes_its_share(arch):
                                         "vocabulary 259 % model 4 = 3"]]
         assert not rec["compute_per_rank_is_reference"]
         assert rec["products_per_rank"] > rec["products_one_card_over_chips"]
+
+
+def test_dryrun_tp_rank_splits_moe_slots_over_data():
+    """deepseek-moe-16b reduced, rank 0 of (data 2, model 4) under
+    ``--layout tp``: the MoE's capacity slots split over the data ranks
+    (``c = ceil(cap / 2)`` of every expert's buffer) and its experts over
+    model, so no layer is noted whole and the rank's product FLOPs are
+    the one card's over the 8 chips but for the experts' (× c / cap ÷ 4)
+    and the router's (÷ 2: whole over model, as the reference's, and
+    named in ``replicated``); under remat "full" each product runs in the
+    forward, again in the recompute, and twice in the backward."""
+    from repro_torch.launch import dryrun
+
+    arch = "deepseek-moe-16b"
+    one = dryrun.dryrun_cell(arch, "train", reduced=True, shape=TP_TRAIN,
+                             verbose=False)
+    rec = dryrun.dryrun_cell(arch, "train", reduced=True, shape=TP_TRAIN,
+                             mesh_shape=TP_MESH, one_card=one, verbose=False)
+    assert rec["whole_layers"] == [] and rec["compute_per_rank_is_reference"]
+    cfg = configs.get_module(arch).reduced()
+    mc = cfg.moe_cfg()
+    n, m = TP_MESH["data"], TP_MESH["model"]
+    tg = TP_TRAIN["global_batch"] * TP_TRAIN["seq_len"]
+    d, e, k, f = cfg.d_model, mc.n_experts, mc.top_k, mc.d_ff
+    cap = max(1, int(tg * k / e * mc.capacity_factor),
+              min(tg * k, mc.min_capacity))
+    c = -(-cap // n)
+    layers = sum(count for kind, count in cfg.segments() if kind == "moe")
+    experts = 4 * 6 * e * cap * d * f * layers
+    router = 4 * 2 * tg * d * e * layers
+    want = (one["products_per_rank"] - experts - router) / (n * m) \
+        + router / n + experts * c / (cap * m)
+    assert rec["products_per_rank"] == pytest.approx(want, rel=1e-12)
+    assert [w[0] for w in rec["replicated"]] == ["moe"], rec["replicated"]
+
+
+def test_dryrun_tp_rank_holds_a_block_of_the_shared_kv_head():
+    """recurrentgemma-9b reduced decode, rank 0 of (data 2, model 4): its
+    one KV head shared by the four model ranks, each holding a quarter of
+    its 16 slots, so the k and v leaves are the size of their
+    ``state_specs`` shard; the positions alone exceed theirs (whole on
+    every rank), and ``replicated`` names them and the shared head's
+    projection."""
+    from repro_torch.launch import dryrun
+
+    dec = dryrun.dryrun_cell(
+        "recurrentgemma-9b", "decode", reduced=True, mesh_shape=TP_MESH,
+        verbose=False, shape=dict(kind="decode", seq_len=64, global_batch=8))
+    assert dec["whole_layers"] == []
+    assert dec["kv_bytes_per_rank"] == dec["kv_specs_bytes_per_rank"] > 0
+    over = dec["state_over_specs"]
+    assert sorted(over) == ["seg0_griffin.attn.pos"], over
+    assert dec["state_bytes_per_rank"] - dec["state_specs_bytes_per_rank"] \
+        == sum(r - w for r, w in over.values())
+    assert sorted(w[1].split(",")[0] for w in dec["replicated"]) == [
+        "positions and cursors", "the shared KV head's k and v projections"]

@@ -26,10 +26,16 @@ elastic resume.  What they write back is compared here:
     model group runs whole (the MoE router, KV heads shared by ranks),
     and its collectives' bytes equal to their closed form from the
     shapes;
+  * at (2, 2) and (4, 1), deepseek-moe-16b's MoE alone, its capacity
+    slots split over the data ranks: a rank's product FLOPs one
+    process's ÷ (data × model) with the slot blocks' ceil, and its
+    collectives' bytes equal to their closed form;
   * on two ranks, the vocab-parallel CE against ``_ce_sums`` on whole
     logits, and a decode state split over the model axis (the rank's KV
-    heads and channels, the size ``state_specs`` gives a shard) giving
-    the reference's prefill and decode logits;
+    heads and channels, of a KV head shared by the ranks a block of its
+    slots: the size ``state_specs`` gives a shard, but for the positions
+    and cursors) giving the reference's prefill and decode logits; the
+    same for qwen3-8b on four ranks, two to each KV head;
   * ``hierarchical_grad_sync`` at (pod 2, data 2) against
     ``repro.train.grad``'s under two nested ``jax.vmap``s on the same
     inputs, and against the plain sum;
@@ -76,6 +82,9 @@ GRIFFIN = "recurrentgemma-9b"          # the (1, 4) mesh only
 WHISPER = "whisper-tiny"   # 2 heads: split at (2, 2), whole at (1, 4)
 MODEL_AXIS = [(GRIFFIN, (1, 4)), (WHISPER, (2, 2)), (WHISPER, (1, 4))]
 SERVE_ARCHS = ["qwen3-8b", GRIFFIN, "falcon-mamba-7b"]
+MOE = "deepseek-moe-16b"
+MOE_MESHES = [(2, 2), (4, 1)]          # its MoE's slots over data ranks
+MOE_B = 4                              # global rows of its MoE's input
 # the costs' archs: besides the steps', the biases (cut to the rank's
 # heads) and an MoE whose 6 experts four ranks split by hidden units
 COST_ARCHS = ARCHS + [GRIFFIN, "qwen2.5-32b", "grok-1-314b/hidden"]
@@ -162,6 +171,8 @@ def runs(tmp_path_factory, pair):
                                    .astype(np.int32)),
         "labels": torch.from_numpy(rng.integers(-1, 259, (COST_B, COST_S))
                                    .astype(np.int32))}
+    data["moe_costs"] = {"x": torch.from_numpy(
+        rng.standard_normal((MOE_B, COST_S, 64)).astype(np.float32))}
     # labels of -1 and gold ids in both ranks' halves of 512
     labels = rng.integers(0, 512, (3, 8)).astype(np.int32)
     labels[0, :3] = -1
@@ -191,6 +202,10 @@ def runs(tmp_path_factory, pair):
                "meshes": [(2, 2), (1, 4)], "n_micro": N_MICRO,
                "out": "whisper"},
               {"kind": "costs", "inputs": inputs, "archs": COST_ARCHS},
+              {"kind": "moe_costs", "inputs": inputs, "arch": MOE,
+               "meshes": MOE_MESHES},
+              {"kind": "serve", "inputs": inputs, "archs": ["qwen3-8b"],
+               "context": 32, "out": "serve4"},
               {"kind": "sync", "inputs": inputs},
               {"kind": "save", "inputs": inputs, "arch":
                ELASTIC + "/elastic", "model": 2, "steps": 4, "save_at": 2,
@@ -205,7 +220,8 @@ def runs(tmp_path_factory, pair):
                "context": 32}], tmp)
     out = {k: torch.load(tmp / f"{k}.pt", weights_only=False)
            for k in ("step", "small", "sync", "save", "restore", "elastic",
-                     "griffin", "whisper", "costs", "ce", "serve")}
+                     "griffin", "whisper", "costs", "ce", "serve",
+                     "moe_costs", "serve4")}
     return data, out, tmp
 
 
@@ -501,6 +517,51 @@ def test_model_axis_splits_each_layer_products(runs, pair, arch):
     assert whole == (["embedding"] if arch == ELASTIC else []), got["whole"]
 
 
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=["2x2", "4x1"])
+def test_moe_capacity_slots_split_over_data_ranks(runs, pair, shape):
+    """deepseek-moe-16b reduced's MoE on each rank's rows of a 4-row
+    batch at (data n, model m), forward and backward (``CostMode``): rank
+    ``h`` runs slots ``[h c, (h + 1) c)`` of every expert's global buffer,
+    ``c = ceil(cap / n)``, on its experts, so its product FLOPs are one
+    process's ÷ (n × m) but for the experts' (× c / cap ÷ m) and the
+    router's (÷ n: whole over model).  Its collectives, byte for byte:
+    the top-k ids (int64), the tokens and gates all-gathered, the
+    combined partial reduce-scattered, the aux loss's sum; backward the
+    tokens' and gates' reduce-scatters and the partial's all-gather; with
+    a model axis, g after the experts and the shared MLP, and f of the
+    tokens, gates and the shared MLP's two products."""
+    import _torch_dist_worker as W
+
+    data, out, _ = runs
+    _, model = W.model_for(MOE, data[MOE]["tree"])
+    cfg, mc = model.cfg, model.cfg.moe_cfg()
+    layer = next(getattr(model, f"seg{i}_{k}")[0] for i, (k, _) in
+                 enumerate(cfg.segments()) if k == "moe")
+    x = data["moe_costs"]["x"]
+    one = W.moe_cost(layer.moe, mc, x)[0]
+    n, m = shape
+    tg, d, f4 = x.shape[0] * x.shape[1], cfg.d_model, 4
+    t, e, k, f = tg // n, mc.n_experts, mc.top_k, mc.d_ff
+    cap = max(1, int(tg * k / e * mc.capacity_factor),
+              min(tg * k, mc.min_capacity))
+    c = -(-cap // n)
+    experts, router = 18 * e * cap * d * f, 6 * tg * d * e
+    want = (one - experts - router) / (n * m) + router / n \
+        + experts * c / (cap * m)
+    coll = {"all-gather": tg * k * 8 + tg * d * f4 + tg * k * f4
+            + tg * d * f4,
+            "reduce-scatter": (2 * t * d + t * k) * f4,
+            "all-reduce": e * f4 + (0 if m == 1 else
+                                    (2 * t * d + t * k + 3 * t * d) * f4)}
+    for r, ranks in enumerate(out["moe_costs"]):
+        prod, got, whole = ranks[shape]
+        assert prod == pytest.approx(want, rel=1e-12), (r, prod, want)
+        for kind in coll:
+            assert got[kind] == coll[kind], (r, kind, got)
+        assert sum(got.values()) == sum(coll.values()), (r, got)
+        assert whole == [], (r, whole)
+
+
 def test_vocab_parallel_ce_equals_whole_logits(runs):
     """Two ranks, each with half of the vocabulary's logits: the CE sums
     equal ``_ce_sums`` on the whole logits, and each rank's gradient is
@@ -520,11 +581,28 @@ def test_vocab_parallel_ce_equals_whole_logits(runs):
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_split_decode_state_gives_reference_logits(runs, pair, arch):
     """Two ranks at (1, 2), the model bound as the dry run's serving
-    cells bind it: each rank's decode state holds its KV heads (the one
-    every rank reads, where there are fewer than the ranks) and its
-    RG-LRU or Mamba channels, the size ``state_specs`` gives its shard
-    where the heads divide; prefill and three teacher-forced decode steps
-    give the reference's logits."""
+    cells bind it: each rank's decode state holds its KV heads (of the
+    one KV head both read, recurrentgemma-9b's, a block of half its
+    slots) and its RG-LRU or Mamba channels, every k and v leaf the size
+    ``state_specs`` gives its shard; prefill and three teacher-forced
+    decode steps give the reference's logits."""
+    _check_split_serve(runs, pair, arch, "serve", 2)
+
+
+def test_split_decode_state_of_shared_kv_heads_on_four_ranks(runs, pair):
+    """qwen3-8b reduced on four ranks at (1, 4): its 2 KV heads each
+    shared by two ranks, each holding half of the head's slots; the
+    reference's prefill and decode logits."""
+    _check_split_serve(runs, pair, "qwen3-8b", "serve4", 4)
+
+
+def _check_split_serve(runs, pair, arch, key, m):
+    """Each rank of ``out[key]`` (a (1, ``m``) mesh): the reference's
+    logits within ``test_torch_serve_step.py``'s tolerance; every k and v
+    leaf the bytes of its ``state_specs`` shard (the rank's KV heads, or
+    of a KV head shared by ``g`` ranks ``1/g`` of the slots), the RG-LRU
+    and Mamba states the rank's channels, positions and cursors whole;
+    no layer noted whole."""
     from repro.serve import kvcache as RK
     from repro.serve import serve_step as RStep
 
@@ -548,30 +626,41 @@ def test_split_decode_state_gives_reference_logits(runs, pair, arch):
         pos = pos + 1
     whole = {k: tuple(v.shape) for k, v in
              weights._flatten(TK.init_state(port, port.cfg, 2, 32)).items()}
-    mesh = meshmod.Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
+    mesh = meshmod.Mesh({"data": 1, "model": m}, {"data": 0, "model": 0})
     specs = weights._flatten(SH.state_specs(
         {"s": {k: torch.empty(v, device="meta") for k, v in whole.items()}},
         mesh)["s"])
-    for r in out["serve"]:
+    assert len(out[key]) == m
+    for r in out[key]:
         got = r[arch]
         for g, w in zip(got["logits"], want):
             # test_torch_serve_step.py's tolerance for logits
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
                                        rtol=1e-4)
+        assert got["whole"] == [], got["whole"]
         for k, shape in got["shapes"].items():
             if k.endswith(("pos", "cursor")):
                 assert shape == whole[k], k
                 continue
-            dim = 3 if k.endswith((".k", ".v")) else (
-                2 if k.endswith("ssm") or "rec" in k else len(shape) - 1)
-            n = whole[k][dim]
-            heads = k.endswith((".k", ".v"))
-            assert shape[dim] == (1 if heads and n < 2 else n // 2), k
-            assert shape[:dim] + shape[dim + 1:] == \
-                whole[k][:dim] + whole[k][dim + 1:], k
-            if not heads or n >= 2:
+            if k.endswith((".k", ".v")):
+                n = whole[k][3]
+                # the rank's KV heads, or a block of a shared head's slots
+                want_shape = list(whole[k])
+                if n >= m:
+                    want_shape[3] = n // m
+                else:
+                    want_shape[2], want_shape[3] = whole[k][2] // (m // n), 1
+                assert list(shape) == want_shape, (k, shape)
                 split = SH.shard_shape(whole[k], specs[k], mesh)
                 assert np.prod(shape) == np.prod(split), (k, specs[k])
+                continue
+            dim = 2 if k.endswith("ssm") or "rec" in k else len(shape) - 1
+            n = whole[k][dim]
+            assert shape[dim] == n // m, k
+            assert shape[:dim] + shape[dim + 1:] == \
+                whole[k][:dim] + whole[k][dim + 1:], k
+            split = SH.shard_shape(whole[k], specs[k], mesh)
+            assert np.prod(shape) == np.prod(split), (k, specs[k])
 
 
 def test_sequence_split_batch_runs_whole_batch_on_every_rank(runs, pair):

@@ -259,7 +259,15 @@ Phases, in order; any failure exits non-zero before the last line:
      ``MR_BF16_TOL``; the MoE layer's products and collectives equal to
      their closed form; recurrentgemma-9b's split serving in float32
      within ``MR_SERVE_TOL`` of one process, its k/v bytes its
-     ``state_specs`` shard.
+     ``state_specs`` shard.  (g) The sequence split, fewer rows than
+     data ranks (``MR_SEQ_TRAIN``, ``MR_SEQ_SERVE``): bytelm-100m at
+     (4, 1) and falcon-mamba-7b at (2, 1) training beside one process,
+     each rank's product FLOPs one process's over the data ranks and its
+     collectives ``seq_closed_form``; danube, recurrentgemma-9b and
+     falcon-mamba-7b serving one row at (4, 1) and (2, 2) in float32,
+     a split prefill and ``MR_SEQ_DECODE`` decode steps within
+     ``MR_SERVE_TOL`` of one process, each k/v and position leaf its
+     ``state_specs`` shard, the recurrent states within theirs.
  11. The ``kernels`` line (all twelve kernels; ronepass's launches
      include phase 10's ranks'), then ``{"ok": true, "device": ...}``
      last.
@@ -2829,6 +2837,30 @@ MR_SPLIT_DATA = {"falcon-mamba-7b": (2, 1)}
 # and context, in float32 (held at test_torch_serve_step.py's tolerance)
 MR_SERVE = ("recurrentgemma-9b", (1, 4), 2, 256, (256, 200), 3, 512)
 MR_SERVE_TOL = dict(atol=1e-4, rtol=1e-4)
+# (g): the sequence split (fewer rows than data ranks), full width, depth
+# cut, the registry's weights (seed 0).  Training: arch, layers (None:
+# all), mesh, global batch, seq, dtype, and the steps of each metric held
+# to the dtype's tolerance (MR_BF16_TOL, MR_SEQ_F32_TOL).  falcon-mamba's
+# split scan folds each block's carry into a block scanned from zero, an
+# association of the f32 sums that one process's scan does not use; in
+# bf16 the casts behind it round the difference, and step 1's grad norm
+# moved 1.153e-3 from one process's on an H100 (PERF.md, §6), so its
+# bf16 grad norm is printed, and held in float32.
+MR_SEQ_TRAIN = (
+    ("bytelm-100m", None, (4, 1), 2, 512, "bfloat16",
+     {"loss": 2, "grad_norm": 2}),
+    ("falcon-mamba-7b", 2, (2, 1), 1, 512, "bfloat16",
+     {"loss": 1, "grad_norm": 0}),
+    ("falcon-mamba-7b", 2, (2, 1), 1, 512, "float32",
+     {"loss": 1, "grad_norm": 1}))
+MR_SEQ_F32_TOL = {"loss_rel": 2 ** -16, "gnorm_rel": 2 ** -16}
+# serving in float32, one row at each mesh: arch, layers, prompt, context
+# (danube's prompt outruns its 4,096-slot ring)
+MR_SEQ_SERVE = (("h2o-danube-1.8b", 2, 4352, 8192),
+                ("recurrentgemma-9b", 3, 512, 1024),
+                ("falcon-mamba-7b", 2, 512, 512))
+MR_SEQ_MESHES = ((4, 1), (2, 2))
+MR_SEQ_DECODE = 16
 
 
 def _kernel_counters():
@@ -2932,6 +2964,48 @@ def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
     return out
 
 
+def seq_closed_form(rt, cfg, dtype_bytes: dict, batch: int, seq: int) -> dict:
+    """Bytes of one step's collectives by kind under the sequence split
+    (``batch`` rows of ``seq`` positions over ``n`` data ranks, no model
+    axis, remat "full"), under ``CostMode``'s convention (a collective's
+    output): :func:`collective_closed_form`'s weight gathers and
+    reductions, label count and CE, and each layer's sequence
+    collectives, forward and again in its recompute: attention's keys
+    and values all-gathered (every position, in the model's dtype) with
+    their int32 positions, their gradients reduce-scattered (float32);
+    Mamba's conv halo (each block's last ``min(d_conv - 1, S / n)``
+    positions of its inner channels) and its scan's carries (``(a_0 ...
+    a_last, h_last)`` of each block, float32) all-gathered, their
+    gradients reduce-scattered."""
+    from repro_torch.launch import mesh as meshmod
+
+    mesh = rt.mesh
+    n = mesh.axis_size(meshmod.dp_axes(mesh))
+    require(rt.tp is None, "the sequence split's closed form has no model "
+            "axis", dict(mesh.shape))
+    out = collective_closed_form(rt, 1, True, dtype_bytes)
+    xb = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    sl = seq // n
+    for kind, count in cfg.segments():
+        if kind in ("dense", "moe"):
+            kvd = cfg.n_kv_heads * cfg.hd
+            out["all-gather"] += count * 2 * (2 * batch * seq * kvd * xb
+                                              + batch * seq * 4)
+            out["reduce-scatter"] += count * 2 * batch * sl * kvd * 4
+        elif kind == "mamba":
+            mc = cfg.mamba_cfg()
+            t = min(mc.d_conv - 1, sl)
+            di, ns = mc.d_inner, mc.d_state
+            out["all-gather"] += count * 2 * (batch * n * t * di * xb
+                                              + n * 2 * batch * di * ns * 4)
+            out["reduce-scatter"] += count * (batch * t * di * 4
+                                              + 2 * batch * di * ns * 4)
+        else:
+            require(False, "the sequence split's closed form covers dense "
+                    "and Mamba layers", kind)
+    return out
+
+
 def rank_products(cfg, batch: int, seq: int, data: int, model: int) -> dict:
     """A rank's product FLOPs outside attention (``mm``) of one step of a
     dense decoder at (``data``, ``model``) on the card: :func:`train_flops`'
@@ -2983,6 +3057,8 @@ def rank_job(path: str) -> int:
         beside its ``state_specs`` shard, the layers noted whole.
     A case's own ``cfg``, ``seed``, ``batch_file``, ``batch`` and ``seq``
     stand for the job's."""
+    import gc
+
     import torch
     import torch.distributed as dist
 
@@ -3004,6 +3080,9 @@ def rank_job(path: str) -> int:
             fn = {"train": _rank_train, "sync": _rank_sync,
                   "single": _rank_single, "serve": _rank_serve}[case["kind"]]
             res[case["label"]] = fn(case, job, dev)
+            if dev.type == "cuda":      # the ranks share the card's memory
+                gc.collect()
+                torch.cuda.empty_cache()
             dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3089,7 +3168,17 @@ def _rank_train(case, job, dev) -> dict:
                                  "lr": float(met["lr"]), "ms": ms})
             if tm is not None:
                 out["split_ms"] = tm.split(ms)
-            if cm is not None:
+            if cm is not None and case.get("seq_cost"):
+                out["collectives"] = {
+                    "costmode_bytes": {k: cm.cost.coll_bytes[k]
+                                       for k in MR_COLLECTIVES},
+                    "costmode_counts": {k: cm.cost.coll_counts[k]
+                                        for k in MR_COLLECTIVES},
+                    "closed_form_bytes": seq_closed_form(
+                        rt, cfg, dtype_bytes, job["batch"], job["seq"])}
+                out["products_all"] = (cm.cost.flops_by_class["products_bf16"]
+                                       + cm.cost.flops_by_class["products_f32"])
+            elif cm is not None:
                 out["collectives"] = {
                     "costmode_bytes": {k: cm.cost.coll_bytes[k]
                                        for k in MR_COLLECTIVES},
@@ -3153,7 +3242,10 @@ def _rank_opt(case):
 def _rank_single(case, job, dev) -> dict:
     """One process's ``steps`` steps of the case's model (no mesh) on its
     fixed batch, with :func:`_rank_train`'s optimizer settings."""
+    import contextlib
+
     import torch
+    from repro_torch import costmodel
     from repro_torch.train import train_step as TS
 
     job = {**job, **case}
@@ -3161,18 +3253,24 @@ def _rank_single(case, job, dev) -> dict:
     step_fn = TS.make_train_step(model, fam, _rank_opt(case))
     batch = {k: v.to(dev) for k, v in torch.load(
         job["batch_file"], weights_only=False).items()}
-    steps = []
-    for _ in range(case["steps"]):
+    steps, out = [], {}
+    for i in range(1, case["steps"] + 1):
+        cost = costmodel.CostMode() if i == case.get("cost_at") \
+            else contextlib.nullcontext()
         _sync_dev(dev)
         t0 = time.perf_counter()
-        met = step_fn(batch)
+        with cost as cm:
+            met = step_fn(batch)
         _sync_dev(dev)
         steps.append({"loss": float(met["loss"]),
                       "grad_norm": float(met["grad_norm"]),
                       "lr": float(met["lr"]),
                       "ms": (time.perf_counter() - t0) * 1e3})
+        if cm is not None:
+            out["products_all"] = (cm.cost.flops_by_class["products_bf16"]
+                                   + cm.cost.flops_by_class["products_f32"])
     del step_fn, model
-    return {"steps": steps}
+    return {"steps": steps, **out}
 
 
 def _rank_serve(case, job, dev) -> dict:
@@ -3205,8 +3303,12 @@ def _rank_serve(case, job, dev) -> dict:
         rt = SH.bind(model, fam, mesh, SH.param_specs(model, mesh,
                                                       fsdp=None),
                      None, ("data",))
-        scope.enter_context(shardctx.use(dp_axes=("data",), dp_size=1,
-                                         mesh=mesh, batch_axes=()))
+        # fewer rows than data ranks: the sequence split (its state's
+        # slots and channels over the data ranks too)
+        seq = ("data",) if mesh.shape["data"] > rows else ()
+        scope.enter_context(shardctx.use(
+            dp_axes=("data",), dp_size=mesh.shape["data"], mesh=mesh,
+            batch_axes=(), seq_axes=seq))
         scope.enter_context(rt.swapped())
     pre = serve_step.make_prefill(model, fam)
     dec = serve_step.make_decode(model, fam)
@@ -3227,20 +3329,21 @@ def _rank_serve(case, job, dev) -> dict:
                 pos = pos + 1
         _sync_dev(dev)
         ms = (time.perf_counter() - t0) * 1e3
-    kv = {}
+    kv, leaves = {}, {}
     for name, t in whole.items():
-        if not name.endswith((".k", ".v")):
-            continue
         size = t.element_size()
         want = math.prod(t.shape) * size
         if mesh is not None:
             spec = SH.state_specs({"t": t}, mesh)["t"]
             want = math.prod(SH.shard_shape(t.shape, spec, mesh)) * size
-        kv[name] = [mine[name].numel() * size, want, list(mine[name].shape)]
+        leaves[name] = [mine[name].numel() * size, want,
+                        list(mine[name].shape)]
+        if name.endswith((".k", ".v")):
+            kv[name] = leaves[name]
     path = Path(job["work"]) / f"{case['label']}_rank{dist.get_rank()}.pt"
     torch.save(logits, path)
     del model, state
-    return {"logits_file": str(path), "kv": kv, "ms": ms,
+    return {"logits_file": str(path), "kv": kv, "leaves": leaves, "ms": ms,
             "whole_layers": sorted(list(w) for w in noted)}
 
 
@@ -3547,13 +3650,14 @@ def _log_model_axis(label: str, step: int, r: dict) -> None:
         f"{r['whole_leaves'] or 'none'}")
 
 
-def _split_cfg(arch: str, layers: int, reduced: bool, dtype=None):
+def _split_cfg(arch: str, layers, reduced: bool, dtype=None):
     """``arch``'s config (its reduced one when ``reduced``) cut to
-    ``layers`` layers, in ``dtype`` when given."""
+    ``layers`` layers (all of them for ``None``), in ``dtype`` when
+    given."""
     from repro_torch import configs
     base = configs.get_module(arch).reduced() if reduced \
         else configs.get_config(arch)
-    cfg = dataclasses.replace(base, n_layers=layers)
+    cfg = dataclasses.replace(base, n_layers=layers or base.n_layers)
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
@@ -3774,6 +3878,197 @@ def split_layers_checks(f: dict, tol: dict) -> None:
                     "(f) k/v split", n)
 
 
+def seqpar_run(smi: str, work: Path, env: dict, device: str,
+               reduced: bool) -> dict:
+    """Phase 10 (g): the sequence split, fewer rows than data ranks, on
+    gloo ranks sharing the card beside one process (a rank of its own),
+    one group after another.  Training (``MR_SEQ_TRAIN``, bf16): each
+    rank runs its block of every row's positions; its steps against one
+    process's, and under ``CostMode`` its product FLOPs against one
+    process's over the data ranks and its collectives against
+    :func:`seq_closed_form`.  Serving (``MR_SEQ_SERVE``, float32, one
+    row, at each of ``MR_SEQ_MESHES``): a prefill split over the data
+    ranks and ``MR_SEQ_DECODE`` teacher-forced decode steps on a state
+    whose slots and channels they split, against one process's logits;
+    each rank's state leaves beside their ``state_specs`` shard.
+    :func:`seqpar_checks` holds what it returns."""
+    import torch
+
+    rng = np.random.default_rng(11)
+
+    def job(name, cases):
+        d = work / name
+        d.mkdir()
+        return {"init": f"file://{d}/store_{time.monotonic_ns()}",
+                "backend": "gloo", "device": device, "work": str(d),
+                "reduced": reduced, "cases": cases}
+
+    single, four, two, cfgs = [], [], [], {}
+    for arch, layers, mesh, b, seq, dtype, held in MR_SEQ_TRAIN:
+        cfg = _split_cfg(arch, layers, reduced, dtype)
+        label = f"train:{arch}:{dtype}"
+        cfgs[label] = cfg
+        path = work / f"seq_batch_{arch}.pt"
+        if not path.exists():
+            torch_save_batch(_train_batch(rng, cfg.vocab, b, seq, "cpu"),
+                             path)
+        steps = max(held.values())
+        case = {"cfg": dataclasses.asdict(cfg), "seed": 0,
+                "batch_file": str(path), "batch": b, "seq": seq,
+                "steps": steps, "total": steps, "cost_at": 1}
+        single.append({**case, "kind": "single", "label": label})
+        (four if mesh[0] * mesh[1] == 4 else two).append(
+            {**case, "kind": "train", "label": label, "mesh": list(mesh),
+             "seq_cost": True})
+    sizes = {}
+    for arch, layers, prompt, context in MR_SEQ_SERVE:
+        cfg = _split_cfg(arch, layers, reduced, "float32")
+        if reduced:     # the rehearsal's window is the reduced config's
+            prompt = max(prompt * cfg.d_model // 4096, 32)
+            context = max(context * cfg.d_model // 4096, 32)
+        cfgs["serve:" + arch], sizes[arch] = cfg, (prompt, context)
+        toks = rng.integers(3, cfg.vocab, (1, prompt)).astype(np.int32)
+        feed = rng.integers(3, cfg.vocab, (1, MR_SEQ_DECODE)).astype(np.int32)
+        path = work / f"seq_serve_{arch}.pt"
+        torch.save({"tokens": torch.from_numpy(toks),
+                    "lens": torch.tensor([prompt - 3], dtype=torch.int32),
+                    "feed": torch.from_numpy(feed)}, path)
+        serve = {"cfg": dataclasses.asdict(cfg), "seed": 0,
+                 "batch_file": str(path), "context": context,
+                 "kind": "serve"}
+        single.append({**serve, "label": f"serve:{arch}", "mesh": None})
+        for mesh in MR_SEQ_MESHES:
+            four.append({**serve, "label": f"serve:{arch}:{mesh[0]}x{mesh[1]}",
+                         "mesh": list(mesh)})
+    held = torch.cuda.memory_reserved() if device != "cpu" else 0
+    t0 = time.time()
+    one = spawn_ranks(1, job("g_one", single), work / "g_one", env)[0]
+    ranks4 = spawn_ranks(4, job("g_four", four), work / "g_four", env)
+    ranks2 = spawn_ranks(2, job("g_two", two), work / "g_two", env)
+    out = {"seconds": time.time() - t0, "train": {}, "serve": {},
+           "held_bytes": held}
+    for arch, layers, mesh, b, seq, dtype, held in MR_SEQ_TRAIN:
+        label = f"train:{arch}:{dtype}"
+        per = [r[label] for r in (ranks4 if mesh[0] * mesh[1] == 4
+                                  else ranks2)]
+        want = one[label]
+        rel = {k: [abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                   zip(per[0]["steps"], want["steps"])]
+               for k in ("loss", "grad_norm")}
+        n = mesh[0]
+        cfg = cfgs[label]
+        tol = MR_BF16_TOL if dtype == "bfloat16" else MR_SEQ_F32_TOL
+        out["train"][label] = {"mesh": list(mesh), "batch": [b, seq],
+                               "layers": cfg.n_layers, "ranks": per,
+                               "one_process": want, "rel": rel,
+                               "held": held, "tol": tol}
+        co = per[0]["collectives"]
+        log(f"phase 10: (g) {arch} d_model {cfg.d_model} ({cfg.dtype}), "
+            f"{cfg.n_layers} layers, at {tuple(mesh)} (gloo ranks on one "
+            f"card), {b} x {seq}: {seq // n} positions a rank; losses "
+            f"{[x['loss'] for x in per[0]['steps']]} vs one process "
+            f"{[x['loss'] for x in want['steps']]} (rel "
+            f"{[f'{x:.3e}' for x in rel['loss']]}); grad norms "
+            f"{[x['grad_norm'] for x in per[0]['steps']]} vs "
+            f"{[x['grad_norm'] for x in want['steps']]} (rel "
+            f"{[f'{x:.3e}' for x in rel['grad_norm']]}); limits "
+            f"{tol}, steps held {held}; step-1 product FLOPs on rank 0 "
+            f"{per[0]['products_all']:.6e} vs one process's / {n} "
+            f"{want['products_all'] / n:.6e}; collectives CostMode vs "
+            "closed form (bytes): " + "; ".join(
+                f"{k} {co['costmode_bytes'][k]:.0f} vs "
+                f"{co['closed_form_bytes'][k]:.0f} "
+                f"(x{co['costmode_counts'][k]})" for k in MR_COLLECTIVES)
+            + f"; step ms {[round(x['ms'], 1) for x in per[0]['steps']]} "
+            f"(one process {[round(x['ms'], 1) for x in want['steps']]}); "
+            f"whole {per[0]['whole_layers'] or 'none'}  [{smi}]")
+    for arch, *_ in MR_SEQ_SERVE:
+        cfg, (prompt, context) = cfgs["serve:" + arch], sizes[arch]
+        base = one[f"serve:{arch}"]
+        want = torch.load(base["logits_file"], weights_only=False)
+        for mesh in MR_SEQ_MESHES:
+            label = f"serve:{arch}:{mesh[0]}x{mesh[1]}"
+            per = [r[label] for r in ranks4]
+            gaps = []
+            for r in per:
+                got = torch.load(r["logits_file"], weights_only=False)
+                gaps.append([{
+                    "max_abs": float((g - w).abs().max()),
+                    "excess": float(((g - w).abs() - MR_SERVE_TOL["atol"]
+                                     - MR_SERVE_TOL["rtol"] * w.abs()).max())}
+                    for g, w in zip(got, want)])
+            out["serve"][label] = {"arch": arch, "mesh": list(mesh),
+                                   "ranks": per, "one_process": base,
+                                   "gaps": gaps, "d_model": cfg.d_model,
+                                   "layers": cfg.n_layers}
+            worst = max(x["max_abs"] for g in gaps for x in g)
+            log(f"phase 10: (g) {arch} serving at {tuple(mesh)} in float32 "
+                f"(d_model {cfg.d_model}, {cfg.n_layers} layers, KV heads "
+                f"{cfg.n_kv_heads}), one row: prefill {prompt} (length "
+                f"{prompt - 3}, context {context}) split over the data "
+                f"ranks + {MR_SEQ_DECODE} teacher-forced decode steps: logits "
+                f"max |diff| to one process {worst:.3e} (bound "
+                f"{MR_SERVE_TOL}; excess "
+                f"{max(x['excess'] for g in gaps for x in g):.3e}); state "
+                "bytes a rank vs state_specs shard: " + "; ".join(
+                    f"rank {i} " + ", ".join(f"{nm} {v[0]} vs {v[1]}"
+                                             for nm, v in r["leaves"].items())
+                    for i, r in enumerate(per))
+                + f"; one process's state "
+                f"{sum(v[0] for v in base['leaves'].values())} B; "
+                f"{per[0]['ms']:.1f} ms on rank 0 (one process "
+                f"{base['ms']:.1f}); whole {per[0]['whole_layers'] or 'none'}"
+                f"  [{smi}]")
+    log(f"phase 10: (g) took {out['seconds']:.0f} s  [{smi}]")
+    return out
+
+
+def seqpar_checks(g: dict) -> None:
+    """Holds :func:`seqpar_run`'s results: each training run's ranks
+    agree on the loss, its held steps of each metric are within its
+    dtype's tolerance of one process's (``MR_SEQ_TRAIN``), its rank's
+    product FLOPs are one process's over the data
+    ranks and its collectives' bytes their closed form, nothing computes
+    whole; each split serving's logits are within ``MR_SERVE_TOL`` of one
+    process's on every rank, each k/v and position leaf the bytes of its
+    ``state_specs`` shard, the recurrent states no more than theirs."""
+    for arch, a in g["train"].items():
+        per = a["ranks"]
+        n = a["mesh"][0]
+        for r in per:
+            require([x["loss"] for x in r["steps"]]
+                    == [x["loss"] for x in per[0]["steps"]],
+                    "(g) ranks agree on the loss", arch)
+            require(r["whole_layers"] == [], "(g) nothing computes whole",
+                    arch, r["whole_layers"])
+            want = a["one_process"]["products_all"] / n
+            require(abs(r["products_all"] - want) <= 1e-9 * want,
+                    "(g) rank products = one process's / data ranks", arch,
+                    r["products_all"], want)
+            co = r["collectives"]
+            for k in MR_COLLECTIVES:
+                require(co["costmode_bytes"][k] == co["closed_form_bytes"][k],
+                        "(g) collectives = closed form", arch, k, co)
+        held, tol = a["held"], a["tol"]
+        require(max(a["rel"]["loss"][:held["loss"]], default=0)
+                <= tol["loss_rel"], "(g) loss", arch, a["rel"])
+        require(max(a["rel"]["grad_norm"][:held["grad_norm"]], default=0)
+                <= tol["gnorm_rel"], "(g) grad norm", arch, a["rel"])
+    for label, sv in g["serve"].items():
+        for r, gaps in zip(sv["ranks"], sv["gaps"]):
+            require(all(x["excess"] <= 0 for x in gaps),
+                    "(g) split serving logits vs one process", label, gaps)
+            require(r["whole_layers"] == [], "(g) serving split", label,
+                    r["whole_layers"])
+            for nm, (got, want, _) in r["leaves"].items():
+                if nm.endswith((".k", ".v", ".pos", "cursor")):
+                    require(got == want, "(g) state bytes = state_specs "
+                            "shard", label, nm, got, want)
+                else:
+                    require(got <= want, "(g) recurrent state within its "
+                            "state_specs shard", label, nm, got, want)
+
+
 def multirank_phase(smi: str, work: Path, device="cuda",
                     reduced: bool = False, backend1: str = "nccl",
                     danube=None) -> dict:
@@ -3824,6 +4119,7 @@ def multirank_phase(smi: str, work: Path, device="cuda",
           closed form; recurrentgemma-9b's split serving at (1, 4)
           against one process's logits (float32, ``MR_SERVE_TOL``) and
           its k/v bytes against their ``state_specs`` shard.
+      (g) The sequence split (:func:`seqpar_run`, :func:`seqpar_checks`).
     Times beside the card's name and power limit; those of gloo ranks
     sharing one card are a correctness run's, not a speed figure."""
     import shutil
@@ -4041,6 +4337,8 @@ def multirank_phase(smi: str, work: Path, device="cuda",
         _log_model_axis("danube 1x2", MR_DANUBE_STEPS, per[0])
     # (f) the split MoE, RG-LRU and Mamba in bf16
     out["split_layers"] = split_layers_run(smi, work, env, device, reduced)
+    # (g) the sequence split
+    out["seqpar"] = seqpar_run(smi, work, env, device, reduced)
     out["seconds"] = time.time() - t_phase
 
     # the checks with tolerances, after every number is printed
@@ -4087,9 +4385,11 @@ def multirank_phase(smi: str, work: Path, device="cuda",
         require(s["pod_hop_int8_bytes"] * 2 == s["pod_hop_f32_bytes"],
                 "pod hop bytes (CostMode)", s)
     split_layers_checks(out["split_layers"], tol)
+    seqpar_checks(out["seqpar"])
     log(f"phase 10: took {out['seconds']:.0f} s (four ranks "
         f"{four_s:.0f} s, elastic {el_s:.0f} s, (f) "
-        f"{out['split_layers']['seconds']:.0f} s)  [{smi}]")
+        f"{out['split_layers']['seconds']:.0f} s, (g) "
+        f"{out['seqpar']['seconds']:.0f} s)  [{smi}]")
     return out
 
 

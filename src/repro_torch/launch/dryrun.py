@@ -32,19 +32,30 @@ the rank's cost by the chips.  ``--layout``:
     ``compute_per_rank_is_reference`` is true where there is none (and
     the batch's rows split);
   * ``dp``: no tensor axis; ZeRO-3 over every axis and the batch over
-    the whole mesh: each rank computes its share, as the reference's,
-    where the global batch has a row for every rank.  Where it has not,
-    the reference splits the sequence (``batch_specs``); the port gives
-    every rank the whole batch, whose compute it then repeats.
+    the whole mesh: each rank computes its share, as the reference's.
+
+Where the global batch has fewer rows than the data ranks, the
+reference splits the sequence instead (``batch_specs``), and so does the
+port (``sequence_split`` in the record): a train or prefill step runs
+the rank's block of every row's positions (``models.shardctx.
+sequence``; the whole sequence, noted in ``whole_layers``, where the
+data ranks do not divide it), and a decode cell's state holds the
+rank's block of the cache's slots and of its recurrent channels over
+the data ranks too.  Whisper's decoder is not split so
+(``sequence_split`` false): every rank runs the whole batch.
 
 A serving cell's decode state is the rank's rows of its KV heads and
-recurrent channels (the blocks its layers compute), and of a KV head
-shared by ``g`` model ranks its block of ``1/g`` of the slots: the size
-of its ``state_specs`` shard but for the positions and cursors, whole on
-every rank.  The record has both (``state_bytes_per_rank``,
-``state_specs_bytes_per_rank``), the k/v leaves' (``kv_bytes_per_rank``,
-``kv_specs_bytes_per_rank``) and each leaf a rank holds beyond its shard
-(``state_over_specs``: name -> [rank, spec] bytes).  What a rank of a
+recurrent channels (the blocks its layers compute), of a KV head shared
+by ``g`` model ranks its block of ``1/g`` of the slots (under the
+sequence split, ``1/(n g)`` of them and of the channels): the size of
+its ``state_specs`` shard but for the positions and cursors, whole on
+every rank outside the sequence split.  The record has both
+(``state_bytes_per_rank``, ``state_specs_bytes_per_rank``), the k/v
+leaves' (``kv_bytes_per_rank``, ``kv_specs_bytes_per_rank``), each leaf
+a rank holds beyond its shard (``state_over_specs``: name -> [rank,
+spec] bytes) and each it holds less of (``state_under_specs``: a
+recurrent state's channels that the reference repeats over the model
+axis, of which a rank holds only those it computes).  What a rank of a
 group computes or holds whole, as the reference's ranks do (the MoE
 router over the model axis, a shared KV head's projection, positions
 and cursors), is listed with its FLOPs or bytes in ``replicated``.
@@ -229,7 +240,8 @@ def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
     rt = SH.bind(model, family, mesh, pspecs, None, dp, tp=tp)
     ctx = dict(tp_axis=tp, tp_size=mesh.shape["model"], dp_axes=dp,
                dp_size=mesh.axis_size(dp), mesh=mesh,
-               batch_axes=dp if split else ())
+               batch_axes=dp if split else (),
+               seq_axes=() if split or family == "encdec" else dp)
 
     def sharded(step):
         def run(*a):
@@ -401,6 +413,8 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
             _shape(shape_name, shape)["kind"],
             _shape(shape_name, shape)["global_batch"], mesh,
             dp=_layout_axes(mesh, layout)[1])[0] is not None
+        # the sequence (or the decode state) split over the data ranks
+        seq = not split and cfgmod.get_module(arch).FAMILY != "encdec"
         with CM.CostMode() as cm, LiveBytes(_arg_tensors(args)) as mem:
             out = fn(*args)
     rl = RL.analyze(arch, shape_name, mesh_name, chips, cm.cost,
@@ -410,17 +424,20 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     rec["remat"] = remat
     rec["variant"] = f"opt-{layout}" if opt else "baseline"
     rec["layout"] = layout if mesh is not None else None
-    # one card computes the reference's step; a rank of a "tp" layout
-    # computes its share over the model axis but for the layers whose
-    # counts do not divide it, and a rank given the whole batch (too few
-    # rows for the data axes: the reference splits the sequence there)
-    # repeats its data peers'
+    # one card computes the reference's step; a rank computes its share
+    # of the rows or of the sequence over the data axes, and of a "tp"
+    # layout's model axis, but for what is noted whole (counts that do
+    # not divide the model axis, a sequence or a cache that does not
+    # divide the data ranks), and a rank given the whole batch unsplit
+    # (whisper's decoder with too few rows) repeats its data peers'
     rec["batch_rows_split"] = split
+    whole_seq = [w for w in whole if w[0] == "sequence"]
+    rec["sequence_split"] = seq and not whole_seq
     rec["whole_layers"] = sorted(list(w) for w in whole)
     # what every rank of a group repeats whole, as the reference's ranks
     rec["replicated"] = sorted(list(w) for w in repl)
     rec["compute_per_rank_is_reference"] = mesh is None or (
-        split and (layout == "dp" or not whole))
+        (split or rec["sequence_split"]) and not whole)
     rec["products_per_rank"] = (cm.cost.flops_by_class["products_bf16"]
                                 + cm.cost.flops_by_class["products_f32"])
     if one_card is not None:
@@ -434,9 +451,12 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
               if n.endswith((".k", ".v"))]
         rec["kv_bytes_per_rank"] = sum(r for r, _ in kv)
         rec["kv_specs_bytes_per_rank"] = sum(w for _, w in kv)
-        # the leaves a rank holds beyond its state_specs shard, by name
+        # the leaves a rank holds beyond its state_specs shard, and short
+        # of it, by name
         rec["state_over_specs"] = {n: v for n, v in state["leaves"].items()
-                                   if v[0] != v[1]}
+                                   if v[0] > v[1]}
+        rec["state_under_specs"] = {n: v for n, v in
+                                    state["leaves"].items() if v[0] < v[1]}
     rec["mem_temp_size_in_bytes"] = mem.peak - mem.args
     rec["mem_argument_size_in_bytes"] = mem.args
     rec["mem_output_size_in_bytes"] = _storage_bytes(CM.tensors(out))
@@ -451,7 +471,8 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
                 / rec["products_one_card_over_chips"]
             ratio = f" = {ratio:.4f} x the one card's / chips"
         print(f"  rank: compute_per_rank_is_reference="
-              f"{rec['compute_per_rank_is_reference']} products="
+              f"{rec['compute_per_rank_is_reference']} sequence_split="
+              f"{rec['sequence_split']} products="
               f"{rec['products_per_rank']:.4e}{ratio}; whole layers: "
               f"{rec['whole_layers'] or 'none'}; replicated as the "
               f"reference's: {rec['replicated'] or 'none'}")
@@ -460,7 +481,8 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
                   f"state_specs {rec['state_specs_bytes_per_rank']:.0f}; "
                   f"k/v {rec['kv_bytes_per_rank']:.0f} vs "
                   f"{rec['kv_specs_bytes_per_rank']:.0f}; over the specs: "
-                  f"{rec['state_over_specs'] or 'none'}")
+                  f"{rec['state_over_specs'] or 'none'}; under them: "
+                  f"{rec['state_under_specs'] or 'none'}")
     if verbose:
         print(f"[{arch} x {shape_name} x {mesh_name}] OK  "
               f"flops={rec['hlo_flops']:.3e} bytes={rec['hlo_bytes']:.3e} "

@@ -14,8 +14,11 @@ collective can run over: each axis, each pair (``("pod", "data")``, the
 data axes of a multi-pod mesh) and the whole mesh, and, along each axis,
 every block of ``g`` consecutive ranks for each ``g`` that divides the
 axis (``Mesh.block``: the ranks that share one KV head over the model
-axis).  A group whose axes have size 1 is ``None``: a collective over it
-is the identity and is not issued.  The sharding specs
+axis), and the other axes together with each such block of the last
+axis (``Mesh.data_block``: the data ranks and the model ranks that
+share a KV head, over which a decode cache split in slot blocks
+combines its attention).  A group whose axes have size 1 is ``None``: a
+collective over it is the identity and is not issued.  The sharding specs
 (``train.sharding``) read only ``shape``,
 so they run unchanged on an **abstract** mesh: one with no coordinate
 and no groups, as ``make_production_mesh`` returns outside the dry run.
@@ -102,7 +105,9 @@ class Mesh:
     along those axes, ``None`` where they number one; ``blocks``:
     ``(axis, g)`` -> the group of this rank's block of ``g`` consecutive
     indices along ``axis`` (the other coordinates fixed), for each ``g``
-    that divides the axis, ``1 < g <`` its size."""
+    that divides the axis, ``1 < g <`` its size, and ``(rest, axis, g)``
+    -> the group of every index of the axes ``rest`` before the last axis
+    ``axis`` with this rank's block of ``g`` of it (``data_block``)."""
 
     shape: dict
     coord: Optional[dict] = None
@@ -150,6 +155,22 @@ class Mesh:
             return self.group(axis), self.coord[axis]
         return (None if g == 1 else self.blocks[(axis, g)],
                 self.coord[axis] % g)
+
+    def data_block(self, axes, axis: str, g: int):
+        """``(group, index in it)``: the ranks of every index of ``axes``
+        (the axes before the last, ``axis``) with this rank's block of
+        ``g`` consecutive indices of ``axis``; the index is ``h * g + a``,
+        ``h`` this rank's over ``axes`` and ``a`` its place in the
+        block (the group's ranks in ascending order)."""
+        axes = self.axes(axes)
+        h, a = self.index(axes), self.coord[axis] % g
+        if g == 1:
+            return self.group(axes), h
+        if g == self.shape[axis]:
+            return self.group(axes + (axis,)), h * g + a
+        if self.axis_size(axes) == 1:
+            return self.blocks[(axis, g)], a
+        return self.blocks[(axes, axis, g)], h * g + a
 
 
 def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -235,6 +256,23 @@ def make_mesh(shape: dict, ranks=None) -> Mesh:
                     if coord is not None and me in members:
                         mine = grp
             blocks[(a, g)] = mine
+    # the axes before the last, each with a block of the last
+    *rest, last = names
+    rest = tuple(rest)
+    if rest and math.prod(shape[x] for x in rest) > 1:
+        for g in range(2, shape[last]):
+            if shape[last] % g:
+                continue
+            mine = None
+            for b0 in range(0, shape[last], g):
+                members = [rank_at({**dict(zip(rest, at)), last: i})
+                           for at in itertools.product(
+                               *(range(shape[x]) for x in rest))
+                           for i in range(b0, b0 + g)]
+                grp = dist.new_group(sorted(members))
+                if coord is not None and me in members:
+                    mine = grp
+            blocks[(rest, last, g)] = mine
     return Mesh(dict(shape), coord, groups, blocks)
 
 

@@ -295,6 +295,8 @@ def _train_mesh(args, stop, dev, backend):
                                  n_micro=args.micro, mesh=mesh,
                                  global_batch=args.batch)
     dp = meshmod.dp_axes(mesh)
+    # rows over the data ranks, or, with fewer rows than ranks, the whole
+    # batch to every rank, which runs its block of the sequence
     split = SH.batch_specs("train", args.batch, mesh, dp=dp)[0] is not None
     pipe = pipemod.TextPipeline(pipemod.PipelineConfig(
         seq_len=args.seq, global_batch=args.batch,

@@ -144,7 +144,8 @@ def bdot32(x: torch.Tensor, w: torch.Tensor, src=None) -> torch.Tensor:
 def _dense_init(gen, shape, dtype, device, scale=None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(shape, generator=gen, device=device, dtype=F32) * scale
+    w = torch.randn(shape, generator=gen, device=device, dtype=F32).mul_(
+        scale)
     return nn.Parameter(w.to(dtype))
 
 
@@ -389,34 +390,57 @@ def _attend(q, k, v, q_pos, k_pos, window=None, chunk=1024):
     return acc, m, l
 
 
-def _shared_attention(q, ck, cv, q_pos, cpos, window, chunk, g):
-    """Attention of this rank's query heads over a shared KV head's cache
-    that the ``g`` ranks sharing it hold in slot blocks
-    (``shardctx.kv_block``): ``q`` is all-gathered over the group's
-    heads, each rank scores them over its block of slots, and a
-    log-sum-exp combine (an all-reduce of the ``G`` maxima, then one
-    float32 all-reduce of the rescaled sums and weighted values,
-    ``G (D + 1)`` values a query row, ``G`` the group's query heads)
-    gives the softmax over every slot.  A rank whose slots hold no live key weighs 0; a
-    query with no live key anywhere returns 0.  Serving only (no
-    gradient)."""
+def _shared_attention(q, ck, cv, q_pos, cpos, window, chunk, g, nd=1,
+                      spread=False):
+    """Attention of this rank's query heads over a cache whose slots are
+    split in blocks: over the ``g`` model ranks that share its KV head
+    (``shardctx.kv_block``), and with ``nd`` > 1 over the sequence
+    split's ``nd`` data ranks too (``shardctx.slot_group``: rank
+    ``(h, a)`` holds block ``h g + a``).  ``q`` is all-gathered over the
+    KV block's heads, and, where the data ranks hold different queries
+    (``spread``: their blocks of a split prefill), over the data ranks
+    too; each rank scores them over its block of slots (``cpos``: the
+    positions of the data block's slots, whose ``a``-th block of
+    ``ck.shape[1]`` is its own), and a log-sum-exp combine over the
+    group (an all-reduce of the maxima, then the rescaled sums and
+    weighted values, ``D + 1`` float32 values a query row and head,
+    all-reduced, or reduce-scattered to each rank's own positions and
+    heads when ``spread``) gives the softmax over every slot.  A rank
+    whose slots hold no live key weighs 0; a query with no live key
+    anywhere returns 0.  Serving only (no gradient)."""
     grp, a = shardctx.kv_block(g)
     b, sq, h, d = q.shape
     cl = ck.shape[1]
-    qs = q.movedim(2, 0).contiguous()
-    qa = qs.new_empty((g * h,) + tuple(qs.shape[1:]))
-    meshmod.all_gather_into(qa, qs, grp)
+    qa = q.movedim(2, 0).contiguous()
+    if g > 1:
+        qs, qa = qa, qa.new_empty((g * h,) + tuple(qa.shape[1:]))
+        meshmod.all_gather_into(qa, qs, grp)
+    n = nd if spread else 1
+    if n > 1:
+        qa = shardctx.gather_seq(qa, 2)
+        q_pos = shardctx.gather_seq(q_pos.expand(b, sq).contiguous())
+    sgrp, _ = shardctx.slot_group(g, nd)
     acc, m, l = _attend(qa.movedim(0, 2), ck, cv, q_pos,
                         cpos[:, a * cl: (a + 1) * cl], window, chunk)
     top = m.clone()
-    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=grp)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=sgrp)
     wgt = torch.where(torch.isfinite(m), torch.exp(
         m - torch.where(torch.isfinite(top), top, 0.0)), 0.0)
     sums = torch.cat([(l * wgt)[..., None], acc * wgt[..., None]], -1)
-    dist.all_reduce(sums, group=grp)
-    out = sums[..., 1:] / torch.clamp_min(sums[..., :1], 1e-30)
-    out = out.permute(0, 2, 1, 3, 4).reshape(b, sq, g * h, d)
-    return out[:, :, a * h: (a + 1) * h].to(q.dtype)
+    kv = sums.shape[1]
+    if n == 1:
+        dist.all_reduce(sums, group=sgrp)
+        out = sums[..., 1:] / torch.clamp_min(sums[..., :1], 1e-30)
+        out = out.permute(0, 2, 1, 3, 4).reshape(b, sq, kv, g, -1, d)
+        return out[:, :, :, a].reshape(b, sq, h, d).to(q.dtype)
+    # (n position blocks, g head blocks, ...): block h g + a is this rank's
+    parts = sums.reshape(b, kv, n, sq, g, -1, d + 1).permute(
+        2, 4, 0, 1, 3, 5, 6).contiguous()
+    mine = parts.new_empty(parts.shape[2:])
+    meshmod.reduce_scatter_into(mine, parts.reshape(
+        (n * g * b,) + tuple(parts.shape[3:])), sgrp)
+    out = mine[..., 1:] / torch.clamp_min(mine[..., :1], 1e-30)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
 def _write_block(c, rows, slot, new, lo):
@@ -449,14 +473,28 @@ def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
     ``capacity`` of them are written, the ones a sequential ring write
     leaves (the reference's scatter keeps the last write on the CPU;
     repeated indices have no defined order on CUDA).
+
+    Under the sequence split (``shardctx.seq``) ``x`` is this rank's
+    block of every row's positions: its keys and values are all-gathered
+    over the data ranks (every position's, in order), and its queries
+    score them, so a rank computes ``1/n`` of the products; a cache
+    takes every position's keys (each rank writing the slots it holds).
+    A cache whose slots the data ranks hold in blocks
+    (:func:`init_attn_cache`) is scored through
+    :func:`_shared_attention`, over the data ranks as well.
     """
     b, s, _ = x.shape
     hs = heads(cfg)
     q, k, v = _project_qkv(params, cfg, x, pos, hs)
     tpos = pos[0] if pos.dim() == 3 else pos  # temporal stream for masking
+    spread = shardctx.seq() is not None
+    kpos = tpos
+    if spread:                  # every position's keys, in order
+        k, v = shardctx.gather_seq(k), shardctx.gather_seq(v)
+        kpos = shardctx.gather_seq(tpos.expand(b, s).contiguous())
 
     if cache is None:
-        y = chunked_attention(q, k, v, tpos, tpos, cfg.window, chunk)
+        y = chunked_attention(q, k, v, tpos, kpos, cfg.window, chunk)
         new_cache = None
     else:
         if s == 1:
@@ -465,26 +503,33 @@ def attention(params, cfg: AttnConfig, x, pos, cache=None, chunk=1024):
             v = shardctx.act(v, ("dp", None, None, None))
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         cur = cache["cursor"]                     # (B,) per-row cursors
-        cap = cpos.shape[1]
+        cap, nd = shardctx.cache_layout(cfg, cpos.shape[1], ck.shape[1])
+        g = 1 if hs is None else hs.g
+        sk = k.shape[1]                           # positions written
         # ring-buffer write (sliding window) or linear write (full cache)
-        j0 = max(0, s - cap)
+        j0 = max(0, sk - cap)
         rows = torch.arange(b, device=x.device)[:, None]
         slot = (cur[:, None].long()
-                + torch.arange(j0, s, device=x.device)[None, :]) % cap
+                + torch.arange(j0, sk, device=x.device)[None, :]) % cap
         if ck.shape[1] == cap:
             ck[rows, slot] = k[:, j0:]
             cv[rows, slot] = v[:, j0:]
-        else:                   # a shared head: this rank's slot block
-            lo = shardctx.kv_block(hs.g)[1] * ck.shape[1]
+        else:                   # this rank's slot block
+            lo = shardctx.slot_group(g, nd)[1] * ck.shape[1]
             _write_block(ck, rows, slot, k[:, j0:], lo)
             _write_block(cv, rows, slot, v[:, j0:], lo)
-        cpos[rows, slot] = tpos.expand(b, s)[:, j0:].to(cpos.dtype)
-        cur += s
+        new_pos = kpos.expand(b, sk)[:, j0:].to(cpos.dtype)
+        if cpos.shape[1] == cap:
+            cpos[rows, slot] = new_pos
+        else:                   # the data block's positions
+            _write_block(cpos, rows, slot, new_pos,
+                         shardctx.seq_state()[3] * cpos.shape[1])
+        cur += sk
         if ck.shape[1] == cap:
             y = chunked_attention(q, ck, cv, tpos, cpos, cfg.window, chunk)
         else:
             y = _shared_attention(q, ck, cv, tpos, cpos, cfg.window, chunk,
-                                  hs.g)
+                                  g, nd, spread)
         new_cache = cache
 
     return attn_out(params, cfg, hs, y, x.dtype), new_cache
@@ -508,23 +553,48 @@ def init_attn_cache(cfg: AttnConfig, batch, capacity, dtype, device):
     head that ``g`` ranks share, rank ``a`` of them holds slots
     ``[a cap / g, (a + 1) cap / g)`` (the whole head where ``g`` does not
     divide the capacity).  Positions and cursors are whole on every
-    rank."""
+    rank.
+
+    Under the sequence split (``shardctx.seq_state``: ``n`` data ranks)
+    the slots are split over the data ranks as well, as ``state_specs``
+    splits the cache's length: rank ``(h, a)`` holds block ``h g + a``
+    of ``cap / (n g)`` slots, and the positions of its data block's
+    ``cap / n`` (``h``-th) slots; cursors stay whole.  Where ``n g``
+    does not divide the capacity, every data rank holds the cache as
+    above, noted whole."""
     hs = heads(cfg)
     kv, hd = (cfg.n_kv_heads if hs is None else hs.kv), cfg.head_dim
-    slots = capacity
-    if hs is not None:
+    g = 1 if hs is None else hs.g
+    slots = pslots = capacity
+    st = shardctx.seq_state()
+    n = 1 if st is None else st[2]
+    if hs is not None and n == 1:
         shardctx.note_replicated(
             "attention", f"positions and cursors, {batch * (capacity + 1) * 4}"
             " B a layer, whole on every model rank")
-        if hs.g > 1 and capacity % hs.g == 0:
-            slots = capacity // hs.g
-        elif hs.g > 1:
+    if n > 1 and capacity % (n * g) == 0:
+        slots, pslots = capacity // (n * g), capacity // n
+        shardctx.register_cache(cfg, pslots, slots, capacity, n)
+    else:
+        if n > 1:
             shardctx.note_whole("attention", f"cache capacity {capacity} % "
-                                f"the {hs.g} ranks sharing a KV head")
+                                f"the {n} data ranks x {g} sharing a KV "
+                                "head")
+        if g > 1 and capacity % g == 0:
+            slots = capacity // g
+        elif g > 1:
+            shardctx.note_whole("attention", f"cache capacity {capacity} % "
+                                f"the {g} ranks sharing a KV head")
+        if n > 1:
+            shardctx.register_cache(cfg, pslots, slots, capacity, 1)
+    if n > 1:
+        shardctx.note_replicated(
+            "attention", f"cursors, {batch * 4} B a layer, whole on every "
+            "rank")
     return {
         "k": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, slots, kv, hd), dtype=dtype, device=device),
-        "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+        "pos": torch.full((batch, pslots), -1, dtype=torch.int32,
                           device=device),
         "cursor": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
@@ -818,13 +888,14 @@ def _load_balance_loss(logits, idx, e, route=None):
 # Linear recurrences: a log-step scan
 
 
-def linear_scan(a, u):
+def linear_scan(a, u, prefix: bool = False):
     """Inclusive scan of ``h_t = a_t * h_{t-1} + u_t`` along axis 1, from
     ``h_{-1} = 0``: the reference's ``lax.associative_scan`` with
     ``comb((a1, u1), (a2, u2)) = (a1 a2, u1 a2 + u2)``, as ⌈log₂ S⌉
     whole-array steps (Hillis–Steele).  The products are summed in
     another order than the reference's, so results agree within float32
-    rounding, not bit for bit."""
+    rounding, not bit for bit.  With ``prefix``, ``(h, the products
+    a_0 ... a_t)``."""
     s = a.shape[1]
     step = 1
     while step < s:
@@ -832,7 +903,30 @@ def linear_scan(a, u):
         u = torch.cat([u[:, :step], u_prev * a[:, step:] + u[:, step:]], 1)
         a = torch.cat([a[:, :step], a_prev * a[:, step:]], 1)
         step *= 2
-    return u
+    return (u, a) if prefix else u
+
+
+def split_scan(a, u, h0=None):
+    """:func:`linear_scan` over a sequence split in blocks over the data
+    ranks (``shardctx.seq``), from ``h0`` (or 0) before the first
+    position: ``(h over this rank's block, the state after the last
+    position of the whole sequence)``.  Each rank scans its block from
+    zero, the ranks all-gather each block's ``(a_0 ... a_last, h_last)``
+    (``shardctx.gather_seq``: its gradient summed back), and each folds
+    its predecessors' into its carry with the scan's combine,
+    ``h_t += (a_0 ... a_t) carry``; folding every block gives the final
+    state, on every rank."""
+    h, acum = linear_scan(a, u, prefix=True)
+    ends = shardctx.gather_seq(torch.stack([acum[:, -1], h[:, -1]])[None],
+                               0)                     # (n, 2, B, ...)
+    _, _, n, r = shardctx.seq()
+    carries = [torch.zeros_like(h[:, 0]) if h0 is None else h0.to(h.dtype)]
+    for i in range(n):
+        carries.append(ends[i, 0] * carries[-1] + ends[i, 1])
+    # indexed from every block's carry, so that every rank's backward
+    # reaches the gather (its reduce-scatter is a collective)
+    carries = torch.stack(carries)
+    return h + acum * carries[r][:, None], carries[n]
 
 
 # ---------------------------------------------------------------------------
@@ -856,8 +950,24 @@ def rglru(params, x, state=None, c=8.0):
     Over a model axis the gates are column products on the rank's
     channels, the recurrence runs on them (``state`` is theirs), and the
     output is all-gathered over model; the returned state stays local.
+
+    Under the sequence split a rank scans its block of the positions and
+    folds its predecessors' carries in (:func:`split_scan`).  A state
+    split over the data ranks as well (``shardctx.sub_block``: the
+    rank's ``1/n`` of its model channels) is gathered over them before a
+    split prefill and cut back after it; outside a split sequence (a
+    decode step) the rank computes those channels alone, and their
+    output is gathered over data and model.
     """
-    blk = shardctx.split(x.shape[-1], "rglru", "channels")
+    d = x.shape[-1]
+    sub = shardctx.sub_block(d)
+    if state is not None and sub is not None and state.shape[-1] == sub[1]:
+        if shardctx.seq() is None:
+            return _rglru_channels(params, x, state, c, sub)
+        state = _gather_data(state)
+    else:
+        sub = None
+    blk = shardctx.split(d, "rglru", "channels")
     if blk is None:
         xs = x
         r = torch.sigmoid(dot32(x, shardctx.gather("wa", params.wa)))
@@ -871,15 +981,55 @@ def rglru(params, x, state=None, c=8.0):
         i = torch.sigmoid(dot32(xx, shardctx.gather("wx", params.wx, 1,
                                                     (blk,)), x.dtype))
         lam = shardctx.gather("lam", params.lam, 0, (blk,))
+    h, last = _gated_scan(lam, r, i, xs, state, c)
+    y = h.to(x.dtype)
+    if sub is not None:
+        last = _own_channels(last)
+    return (y if blk is None else shardctx.gather_model(y)), last
+
+
+def _gated_scan(lam, r, i, xs, state, c):
+    """The RG-LRU's recurrence from its gates: ``(h, last state)``, over
+    the split sequence where there is one."""
     log_a = -c * F.softplus(lam) * r                         # (B,S,D) f32
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9)) * (
         i * xs.to(F32))
+    if shardctx.seq() is not None:
+        return split_scan(a, gated, state)
     if state is not None:
         gated[:, 0] += a[:, 0] * state
     h = linear_scan(a, gated)
-    y = h.to(x.dtype)
-    return (y if blk is None else shardctx.gather_model(y)), h[:, -1]
+    return h, h[:, -1]
+
+
+def _gather_data(state):
+    """A state's channel blocks (``shardctx.sub_block``) of every data
+    rank, concatenated: the rank's model channels (serving)."""
+    mesh, axes, _, _ = shardctx.seq_state()
+    from repro_torch.train import sharding as SH
+    return SH.all_gather(state, state.dim() - 1, mesh, axes)
+
+
+def _own_channels(state):
+    """This data rank's ``1/n`` of a state of its model channels."""
+    _, _, n, h = shardctx.seq_state()
+    c = state.shape[-1] // n
+    return state[..., h * c: (h + 1) * c]
+
+
+def _rglru_channels(params, x, state, c, sub):
+    """:func:`rglru` on the rank's channels over data and model
+    (``sub``), every position on every rank: the gates are column
+    products on them, and the output is gathered over data and model
+    (serving)."""
+    cut = (sub,)
+    r = torch.sigmoid(dot32(x, shardctx.gather("wa", params.wa, 1, cut)))
+    i = torch.sigmoid(dot32(x, shardctx.gather("wx", params.wx, 1, cut)))
+    lam = shardctx.gather("lam", params.lam, 0, cut)
+    xs = x[..., sub[0]: sub[0] + sub[1]]
+    h, last = _gated_scan(lam, r, i, xs, state, c)
+    return shardctx.gather_channels(h.to(x.dtype)), last
 
 
 # ---------------------------------------------------------------------------
@@ -922,10 +1072,29 @@ def mamba(params, cfg: MambaConfig, x, state=None):
     state: None (training) or dict(conv: (B, d_conv-1, di), ssm: (B, di, n)).
     Selective scan by :func:`linear_scan` (parallel in S); ``h`` is the
     reference's (B, S, di, n) float32.
+
+    Under the sequence split a rank runs its block of the positions: the
+    causal conv takes the ``d_conv - 1`` positions before its block from
+    its predecessors (their blocks' tails, all-gathered), and the scan
+    folds their carries in (:func:`split_scan`).  A state split over the
+    data ranks as well (``shardctx.sub_block``) is gathered over them
+    before a split prefill and cut back after it; outside a split
+    sequence (a decode step) the rank computes those channels alone
+    (:func:`_mamba_channels`).
     """
     b, s, d = x.shape
     di, n = cfg.d_inner, cfg.d_state
     dt_rank = shardctx.full_shape(params.dt_proj)[0]
+    sub = shardctx.sub_block(di)
+    if state is not None and sub is not None \
+            and state["ssm"].shape[1] == sub[1]:
+        if shardctx.seq() is None:
+            return _mamba_channels(params, cfg, x, state, sub)
+        state = {"conv": _gather_data(state["conv"]),
+                 "ssm": _gather_data(state["ssm"].transpose(1, 2))
+                 .transpose(1, 2)}
+    else:
+        sub = None
     blk = shardctx.split(di, "mamba", "inner channels")
     # this rank's channels of every per-channel leaf; its xi and z columns
     # of in_proj, its rows of x_proj, its columns of dt_proj
@@ -939,17 +1108,8 @@ def mamba(params, cfg: MambaConfig, x, state=None):
                            else (blk, (di + blk[0], blk[1])))
     xz = columns(x, [w_in], blk is not None)[0].to(x.dtype)
     xi, z = xz[..., :ch], xz[..., ch:]
-
-    # depthwise causal conv1d
-    kw = cfg.d_conv
-    if state is not None:
-        xpad = torch.cat([state["conv"].to(xi.dtype), xi], 1)
-    else:
-        xpad = F.pad(xi, (0, 0, kw - 1, 0))
-    new_conv = xpad[:, -(kw - 1):].to(F32)
-    conv_w = leaf("conv_w", params.conv_w, 1)
-    conv = sum(xpad[:, i: i + s] * conv_w[i] for i in range(kw))
-    xc = F.silu(conv + leaf("conv_b", params.conv_b, 0))
+    xc, new_conv = _causal_conv(xi, state, leaf("conv_w", params.conv_w, 1),
+                                leaf("conv_b", params.conv_b, 0), cfg.d_conv)
 
     # input-dependent SSM parameters (over a model axis: contracted over
     # the rank's channels, summed over model, and replicated from there;
@@ -967,30 +1127,105 @@ def mamba(params, cfg: MambaConfig, x, state=None):
         src = x.dtype
     dt = F.softplus(dot32(dt_in, leaf("dt_proj", params.dt_proj, 1), src)
                     + leaf("dt_bias", params.dt_bias, 0))       # (B,S,di)
-    Bc = bc[..., :n]                                            # (B,S,n)
-    Cc = bc[..., n:]                                            # (B,S,n)
-
-    A = -torch.exp(leaf("A_log", params.A_log, 0))              # (di,n)
-    dA = torch.exp(dt[..., None] * A)                           # (B,S,di,n)
-    dBx = (dt * xc.to(F32))[..., None] * Bc[:, :, None, :]
-
-    if state is not None:
-        dBx[:, 0] += dA[:, 0] * state["ssm"]
-
-    h = linear_scan(dA, dBx)                                    # (B,S,di,n)
-    y = torch.einsum("bsin,bsn->bsi", h, Cc) \
-        + leaf("D", params.D, 0) * xc.to(F32)
-    y = y * F.silu(z.to(F32))
+    y, ssm = _selective_scan(xc, z, dt, bc[..., :n], bc[..., n:],
+                             leaf("A_log", params.A_log, 0),
+                             leaf("D", params.D, 0), state)
     out = dot32(y.to(x.dtype), leaf("out_proj", params.out_proj, 0))
     if blk is not None:
         out = shardctx.from_model(out)
-    new_state = {"conv": new_conv, "ssm": h[:, -1]}
+    new_state = {"conv": new_conv, "ssm": ssm}
+    if sub is not None:
+        new_state = {"conv": _own_channels(new_conv),
+                     "ssm": _own_channels(ssm.transpose(1, 2))
+                     .transpose(1, 2)}
     return out.to(x.dtype), new_state
 
 
+def _causal_conv(xi, state, conv_w, conv_b, kw):
+    """The depthwise causal conv1d of ``xi`` (B, S, C), after the
+    ``kw - 1`` positions of ``state["conv"]`` (zeros without a state):
+    ``(silu(conv + b), the last kw - 1 positions, float32)``.  Under the
+    sequence split the positions before this rank's block are its
+    predecessors' (each block's last ``min(kw - 1, S)`` positions,
+    all-gathered in order), and the last ones are the whole
+    sequence's."""
+    b, s, ch = xi.shape
+    head = xi.new_zeros((b, kw - 1, ch)) if state is None \
+        else state["conv"].to(xi.dtype)
+    sp = shardctx.seq()
+    if sp is None:
+        xpad = torch.cat([head, xi], 1)
+        tail = xpad[:, -(kw - 1):]
+    else:
+        r = sp[3]
+        t = min(kw - 1, s)
+        tails = shardctx.gather_seq(xi[:, s - t:], 1)   # (B, n t, C)
+        # the kw - 1 positions before this block, sliced from every
+        # block's tail, so that every rank's backward reaches the gather
+        every = torch.cat([head, tails], 1)
+        xpad = torch.cat([every[:, r * t: r * t + kw - 1], xi], 1)
+        tail = every[:, every.shape[1] - (kw - 1):]
+    conv = sum(xpad[:, i: i + s] * conv_w[i] for i in range(kw))
+    return F.silu(conv + conv_b), tail.to(F32)
+
+
+def _selective_scan(xc, z, dt, Bc, Cc, A_log, D, state):
+    """Mamba's scan on its channels: ``(y, last ssm state)``; ``Bc``/``Cc``
+    (B, S, n), the rest per channel; over the split sequence where there
+    is one."""
+    A = -torch.exp(A_log)                                       # (di,n)
+    dA = torch.exp(dt[..., None] * A)                           # (B,S,di,n)
+    dBx = (dt * xc.to(F32))[..., None] * Bc[:, :, None, :]
+    if shardctx.seq() is not None:
+        h, last = split_scan(dA, dBx, None if state is None
+                             else state["ssm"])
+    else:
+        if state is not None:
+            dBx[:, 0] += dA[:, 0] * state["ssm"]
+        h = linear_scan(dA, dBx)                                # (B,S,di,n)
+        last = h[:, -1]
+    y = torch.einsum("bsin,bsn->bsi", h, Cc) + D * xc.to(F32)
+    return y * F.silu(z.to(F32)), last
+
+
+def _mamba_channels(params, cfg: MambaConfig, x, state, sub):
+    """:func:`mamba` on the rank's inner channels over data and model
+    (``sub``), every position on every rank: their columns of
+    ``in_proj`` and ``dt_proj``, their conv and scan, their rows of
+    ``x_proj`` and ``out_proj``, whose partial products are summed over
+    data and model (serving)."""
+    di, n = cfg.d_inner, cfg.d_state
+    dt_rank = shardctx.full_shape(params.dt_proj)[0]
+    cut = (sub,)
+
+    def leaf(name, w, dim):
+        return shardctx.gather(name, w, dim, cut)
+
+    w_in = shardctx.gather("in_proj", params.in_proj, 1,
+                           (sub, (di + sub[0], sub[1])))
+    xz = dot32(x, w_in).to(x.dtype)
+    xi, z = xz[..., :sub[1]], xz[..., sub[1]:]
+    xc, new_conv = _causal_conv(xi, state, leaf("conv_w", params.conv_w, 1),
+                                leaf("conv_b", params.conv_b, 0), cfg.d_conv)
+    dbc = shardctx.sum_channels(dot32(xc, leaf("x_proj", params.x_proj, 0)))
+    dt = F.softplus(dot32(dbc[..., :dt_rank].to(x.dtype),
+                          leaf("dt_proj", params.dt_proj, 1))
+                    + leaf("dt_bias", params.dt_bias, 0))
+    y, ssm = _selective_scan(xc, z, dt, dbc[..., dt_rank: dt_rank + n],
+                             dbc[..., dt_rank + n:],
+                             leaf("A_log", params.A_log, 0),
+                             leaf("D", params.D, 0), state)
+    out = dot32(y.to(x.dtype), leaf("out_proj", params.out_proj, 0))
+    return shardctx.sum_channels(out).to(x.dtype), {"conv": new_conv,
+                                                    "ssm": ssm}
+
+
 def init_mamba_state(cfg: MambaConfig, batch, device):
-    """An empty state of the rank's inner channels."""
-    blk = shardctx.split(cfg.d_inner)
+    """An empty state of the rank's inner channels: of its model block,
+    and under the sequence split its ``1/n`` of that block over the data
+    ranks (``shardctx.sub_block``), as ``state_specs`` splits the
+    channels; the model block where ``m n`` does not divide them."""
+    blk = shardctx.sub_block(cfg.d_inner) or shardctx.split(cfg.d_inner)
     di = cfg.d_inner if blk is None else blk[1]
     return {
         "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=F32,

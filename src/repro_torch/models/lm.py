@@ -197,9 +197,11 @@ def _make_layer(cfg: LMConfig, kind: str, device, gen):
 def _init_state(cfg: LMConfig, kind: str, batch, capacity, device):
     """One layer's empty decode state: under a model axis
     (``shardctx.tp``), of the rank's KV heads, RG-LRU channels or Mamba
-    inner channels, the blocks its layers compute."""
+    inner channels, the blocks its layers compute; under the sequence
+    split (``shardctx.seq_state``), its blocks of the cache's slots and
+    of those channels over the data ranks too."""
     dt = cfg.torch_dtype
-    blk = shardctx.split(cfg.d_model)
+    blk = shardctx.sub_block(cfg.d_model) or shardctx.split(cfg.d_model)
     width = cfg.d_model if blk is None else blk[1]      # RG-LRU channels
     if kind == "dense" or kind == "moe":
         cap = capacity if cfg.window is None else min(capacity, cfg.window)
@@ -351,7 +353,9 @@ class DecoderLM(nn.Module):
     def forward(self, tokens, pos=None, state=None, logits: bool = True):
         """tokens: (B, S) int (or (B, S, D) pre-embedded for stubs).
 
-        pos: (B, S) or (3, B, S) for M-RoPE; defaults to arange.
+        pos: (B, S) or (3, B, S) for M-RoPE; defaults to arange (from
+        ``h S`` under the sequence split, ``shardctx.seq``: ``tokens``
+        are then rank ``h``'s block of ``S`` positions of every row).
         state: None for training, else the tree from ``init_state``,
         updated in place and returned.
         Returns (logits_or_hidden, new_state, aux_loss).
@@ -363,8 +367,11 @@ class DecoderLM(nn.Module):
             x = tokens.to(cfg.torch_dtype)
         b, s = x.shape[0], x.shape[1]
         if pos is None:
-            pos = torch.arange(s, dtype=torch.int32,
-                               device=x.device).expand(b, s)
+            sp = shardctx.seq()
+            pos = torch.arange(s, dtype=torch.int32, device=x.device)
+            if sp is not None:
+                pos = pos + sp[3] * s
+            pos = pos.expand(b, s)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         apply_layer = _apply_layer
         if cfg.remat and state is None and torch.is_grad_enabled():

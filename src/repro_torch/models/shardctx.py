@@ -59,6 +59,20 @@ whole weight's (``train.sharding.Leaf`` sums it over ``model``).  Any
 other ``w`` is returned unchanged, or cut to the block.  ``act`` stays
 the identity: the split activations are the layers' own local tensors.
 
+**The sequence split** (the reference's sequence parallelism).  Where
+the global batch has fewer rows than the data ranks, ``batch_specs``
+splits the sequence over the data axes instead, and ``state_specs`` the
+decode state's slots or channels.  ``use(..., seq_axes=)`` records
+those axes (:func:`seq_state`, while the step holds its decode state
+over them); a step that runs rank ``h`` of ``n``'s block of every row's
+positions, ``[h S / n, (h + 1) S / n)``, does so inside
+:func:`sequence`, which says so to the layers (:func:`seq`) and to the
+MoE (:func:`routing`: its tokens are then split over those axes).  The
+layers join the blocks with :func:`gather_seq` (every position, in
+global order; backward a float32 reduce-scatter); a decode state split
+over the data ranks combines or gathers over them
+(:func:`slot_group`, :func:`gather_channels`, :func:`sum_channels`).
+
 What a rank of a split step still computes or holds whole, as a rank of
 the reference does too (the MoE router over the model axis, a shared KV
 head's projection, the decode state's positions and cursors), is named
@@ -79,6 +93,14 @@ _sharded = None
 # process-wide: (mesh, model axis) while a sharded step runs with a
 # model axis of more than one rank, else None
 _model = None
+# process-wide: (mesh, sequence axes) while a sharded step's batch has
+# fewer rows than those data ranks (the sequence split), else None
+_seq = None
+# process-wide: True while a step runs its rank's block of the sequence
+_seq_on = False
+# the layout of each decode cache made under the sequence split:
+# (attention config, position slots, k/v slots) -> (capacity, data blocks)
+_caches = {}
 # discovery hook of ``train.sharding.bind``: gather(name, w) -> tensor
 _tap = None
 # layers that computed whole over a model axis: {(layer, reason)}
@@ -93,15 +115,18 @@ def _cfg():
 
 @contextlib.contextmanager
 def use(tp_axis="model", tp_size=16, dp_axes=("data",), dp_size=16, *,
-        mesh=None, batch_axes=None):
+        mesh=None, batch_axes=None, seq_axes=()):
     """Enable weight re-gather constraints within a mesh context.
 
     ``mesh`` (a ``launch.mesh.Mesh``) and ``batch_axes`` (the axes the
     batch's rows are split over, ``()`` when every rank holds the whole
-    batch) are recorded process-wide for :func:`routing`, and the mesh's
-    ``tp_axis`` for :func:`tp`."""
-    global _sharded, _model
+    batch) are recorded process-wide for :func:`routing`, the mesh's
+    ``tp_axis`` for :func:`tp`, and ``seq_axes`` (the axes the sequence
+    is split over when the rows are not: ``batch_specs``' sequence
+    split) for :func:`seq_state`."""
+    global _sharded, _model, _seq, _seq_on
     prev, prev_sharded, prev_model = _cfg(), _sharded, _model
+    prev_seq, prev_on = _seq, _seq_on
     _state.cfg = {"tp": tp_axis, "tp_n": tp_size,
                   "dp": dp_axes, "dp_n": dp_size}
     if mesh is not None:
@@ -110,11 +135,16 @@ def use(tp_axis="model", tp_size=16, dp_axes=("data",), dp_size=16, *,
         split = tp_axis is not None and tp_axis in mesh.shape \
             and mesh.shape[tp_axis] > 1
         _model = (mesh, tp_axis) if split else None
+        seq_axes = tuple(seq_axes or ())
+        _seq = (mesh, seq_axes) if seq_axes \
+            and mesh.axis_size(seq_axes) > 1 else None
+        _seq_on = False
     try:
         yield
     finally:
         _state.cfg = prev
         _sharded, _model = prev_sharded, prev_model
+        _seq, _seq_on = prev_seq, prev_on
 
 
 @contextlib.contextmanager
@@ -130,8 +160,11 @@ def tapped(fn):
 
 def routing():
     """``(mesh, batch axes)`` when a sharded step splits the batch's
-    rows over more than one rank, else ``None``: the MoE then routes the
-    global batch's tokens."""
+    rows over more than one rank, or ``(mesh, sequence axes)`` while it
+    runs its block of the sequence (:func:`sequence`), else ``None``:
+    the MoE then routes the global batch's tokens."""
+    if _seq_on:
+        return _seq
     if _sharded is None:
         return None
     mesh, axes = _sharded
@@ -153,6 +186,91 @@ def tp() -> tuple:
         return 1, 0
     mesh, axis = _model
     return mesh.shape[axis], mesh.coord[axis]
+
+
+def seq_state():
+    """``(mesh, axes, n, h)``: the sequence split's data axes, their
+    size and this rank's index over them, while a sharded step holds its
+    decode state over them (``use(..., seq_axes=)``), else ``None``."""
+    if _seq is None:
+        return None
+    mesh, axes = _seq
+    return mesh, axes, mesh.axis_size(axes), mesh.index(axes)
+
+
+def seq():
+    """:func:`seq_state` while the step runs its rank's block of the
+    sequence (:func:`sequence`), else ``None``."""
+    return seq_state() if _seq_on else None
+
+
+@contextlib.contextmanager
+def sequence(length: int):
+    """Run a step's rank's block of a sequence of ``length`` positions:
+    yields ``(h, n)`` (its block is ``[h length / n, (h + 1) length /
+    n)``) and turns :func:`seq` on inside, or yields ``None`` outside
+    the sequence split or where ``n`` does not divide ``length`` (then
+    noted whole: the step computes the whole sequence on every rank)."""
+    global _seq_on
+    st = seq_state()
+    if st is None:
+        yield None
+        return
+    n, h = st[2], st[3]
+    if _seq_on:
+        yield h, n
+        return
+    if length % n:
+        note_whole("sequence", f"sequence {length} % data ranks {n} = "
+                   f"{length % n}")
+        yield None
+        return
+    _seq_on = True
+    try:
+        yield h, n
+    finally:
+        _seq_on = False
+
+
+def sub_block(count: int):
+    """``(start, size)``: this rank's block of ``count`` channels when the
+    decode state is split over the data ranks (:func:`seq_state`) as
+    well as the model axis, its model block's ``h``-th of ``n`` (``None``
+    outside the sequence split, or where ``m n`` does not divide
+    ``count``)."""
+    st = seq_state()
+    if st is None:
+        return None
+    m, r = tp()
+    n, h = st[2], st[3]
+    if count % (m * n):
+        return None
+    size = count // (m * n)
+    return r * (count // m) + h * size, size
+
+
+def register_cache(cfg, slots_pos: int, slots_kv: int, capacity: int,
+                   data_blocks: int) -> None:
+    """Record a decode cache's layout under the sequence split: its
+    ``capacity`` and how many data blocks split its slots (1: each data
+    rank holds them all), by its config and the shapes a rank holds."""
+    key = (cfg, slots_pos, slots_kv)
+    if _caches.get(key, (capacity, data_blocks)) != (capacity, data_blocks):
+        raise ValueError(f"two caches of {cfg} hold {slots_pos} position and "
+                         f"{slots_kv} k/v slots a rank: {_caches[key]} and "
+                         f"{(capacity, data_blocks)}")
+    _caches[key] = (capacity, data_blocks)
+
+
+def cache_layout(cfg, slots_pos: int, slots_kv: int):
+    """``(capacity, data blocks)`` of a cache a rank holds with these
+    shapes: as :func:`register_cache` recorded it under the sequence
+    split, else the positions' slots and 1."""
+    if _seq is not None:
+        got = _caches.get((cfg, slots_pos, slots_kv))
+        if got is not None:
+            return got
+    return slots_pos, 1
 
 
 def split(n: int, layer: str = None, what: str = None):
@@ -330,6 +448,54 @@ def max_over_model(x):
     return x
 
 
+def slot_group(g: int, data_blocks: int):
+    """``(process group, index in it)`` of the ranks over which a cache's
+    slot blocks combine: the ``g`` model ranks that share its KV head
+    (:func:`kv_block`), and with ``data_blocks`` > 1 every data rank of
+    the sequence split too (``launch.mesh.Mesh.data_block``: rank
+    ``(h, a)`` at ``h g + a``)."""
+    if data_blocks == 1:
+        return kv_block(g)
+    mesh, axes = _seq
+    if _model is None:
+        return mesh.group(axes), mesh.index(axes)
+    return mesh.data_block(axes, _model[1], g)
+
+
+def _channel_axes():
+    mesh, axes = _seq
+    return mesh, axes + ((_model[1],) if _model is not None else ())
+
+
+def gather_channels(x):
+    """A decode state's channel blocks (:func:`sub_block`) of every data
+    and model rank, concatenated along the last dim in channel order
+    (serving: no gradient)."""
+    mesh, axes = _channel_axes()
+    out = _collectives().all_gather(x, x.dim() - 1, mesh, axes)
+    m = tp()[0]
+    if m == 1:
+        return out
+    n = mesh.axis_size(axes) // m
+    c = x.shape[-1]
+    out = out.reshape(*x.shape[:-1], n, m, c).transpose(-3, -2)
+    return out.reshape(*x.shape[:-1], n * m * c)
+
+
+def sum_channels(x):
+    """Partial products over :func:`sub_block`'s channels summed over
+    every data and model rank (serving: no gradient)."""
+    mesh, axes = _channel_axes()
+    return _collectives().all_reduce(x.contiguous().clone(), mesh, axes)
+
+
+def sum_over_seq(x):
+    """``x`` summed over the sequence split's data ranks (no
+    gradient)."""
+    mesh, axes = _seq
+    return _collectives().all_reduce(x.contiguous().clone(), mesh, axes)
+
+
 def kv_block(g: int):
     """``(process group, index in it)`` of this rank's block of ``g``
     consecutive model ranks (those that share one KV head): ``(None, 0)``
@@ -341,13 +507,48 @@ def kv_block(g: int):
 
 
 # ---------------------------------------------------------------------------
-# The batch's rows over the data axes (the MoE's capacity slots)
+# The sequence's blocks over the data axes
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Every rank of the sequence split's block along ``dim``,
+    concatenated in rank order (global position order); backward, the
+    float32 gradient summed over the ranks, this rank's block of it (a
+    reduce-scatter), cast to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.dtype = mesh, axes, dim, x.dtype
+        return _collectives().all_gather(x, dim, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _collectives().reduce_scatter(g.to(torch.float32), ctx.dim,
+                                          ctx.mesh, ctx.axes)
+        return g.to(ctx.dtype), None, None, None
+
+
+def gather_seq(x, dim: int = 1):
+    """Every rank's block of the split sequence (:func:`seq`) of ``x``
+    along ``dim``, in global position order."""
+    mesh, axes = _seq
+    if not x.is_floating_point():
+        return _collectives().all_gather(x, dim, mesh, axes)
+    return _GatherSeq.apply(x, mesh, axes, dim)
+
+
+# ---------------------------------------------------------------------------
+# The batch's tokens over the data axes (the MoE's capacity slots)
 
 
 def _interleave(y, n: int):
     """Rank-major rows ``(n * b, ...)`` (rank ``h``'s ``b`` rows at
     ``h * b``) in global order: local row ``i`` of rank ``h`` is global
-    row ``i * n + h``, the pipeline's."""
+    row ``i * n + h``, the pipeline's.  Under the sequence split
+    (:func:`seq`) the same reshape gives ``(b, n, ...)``: rank ``h``'s
+    positions of row ``i`` at ``i * n + h``, so that the tokens, read
+    row by row, are in global order (local token ``(i, j)`` of rank
+    ``h`` is global token ``(i, h S / n + j)``)."""
     return y.reshape(n, -1, *y.shape[1:]).transpose(0, 1).reshape(y.shape)
 
 

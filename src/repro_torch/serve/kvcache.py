@@ -17,8 +17,11 @@ residency; its counts equal the reference's: a replica's whole state.
 Under a sharded step's context (``models.shardctx.use``) ``init_state``
 holds a rank's blocks: its KV heads, of a KV head that ``g`` model ranks
 share ``1/g`` of the slots, its RG-LRU and Mamba channels; positions and
-cursors whole (``launch.dryrun`` records a rank's bytes beside its
-``state_specs`` shard).
+cursors whole.  Under the sequence split (fewer rows than data ranks)
+the slots are split over the data ranks too, ``1/(n g)`` of them (the
+positions of the rank's data block, ``1/n``), and the channels its
+``1/n`` of the model block's; cursors whole (``launch.dryrun`` records a
+rank's bytes beside its ``state_specs`` shard).
 """
 
 from __future__ import annotations

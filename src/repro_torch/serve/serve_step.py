@@ -11,16 +11,28 @@ state it filled.  Prompts in a batch may have different lengths:
 padding lanes carry position -1, which the attention mask treats as
 empty, and per-row cache cursors advance by the padded length so slot
 layout stays uniform.
+
+Under the sequence split (``models.shardctx.use(..., seq_axes=)``: a
+batch with fewer rows than the data ranks) a prefill runs rank ``h`` of
+``n``'s block of every prompt's positions, ``[h S / n, (h + 1) S / n)``
+(padding masked by global position), and the rank that holds each
+prompt's last real token gives its logits to the others (a sum over the
+data ranks); a decode step's one token is the same on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import shardctx
 
-def _positions(family, tokens, lens=None, offset=None):
+
+def _positions(family, tokens, lens=None, offset=None, start=0):
+    """Positions ``start, start + 1, ...`` of each row of ``tokens`` (+
+    ``offset``), -1 at and past ``lens``."""
     b, s = tokens.shape
-    base = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
+    base = start + torch.arange(s, dtype=torch.int32,
+                                device=tokens.device)[None, :]
     if offset is not None:
         pos = base + offset[:, None]
     else:
@@ -52,10 +64,24 @@ def make_prefill(model, family: str):
 
     @torch.no_grad()
     def prefill(params, tokens, lens, state):
-        pos = _positions(family, tokens, lens=lens)
-        logits, state, _ = _net(model, params)(tokens, pos=pos, state=state)
-        idx = (lens - 1).long()[:, None, None].expand(-1, 1, logits.shape[-1])
-        return torch.gather(logits, 1, idx)[:, 0], state
+        with shardctx.sequence(tokens.shape[1]) as blk:
+            start = 0
+            if blk is not None:             # this rank's block of positions
+                s = tokens.shape[1] // blk[1]
+                start = blk[0] * s
+                tokens = tokens[:, start: start + s]
+            pos = _positions(family, tokens, lens=lens, start=start)
+            logits, state, _ = _net(model, params)(tokens, pos=pos,
+                                                   state=state)
+            last = (lens - 1 - start).long()
+            idx = last.clamp(0, tokens.shape[1] - 1)[:, None, None].expand(
+                -1, 1, logits.shape[-1])
+            out = torch.gather(logits, 1, idx)[:, 0]
+            if blk is not None:             # from the rank that holds it
+                own = (last >= 0) & (last < tokens.shape[1])
+                out = shardctx.sum_over_seq(torch.where(own[:, None], out,
+                                                        0.0))
+        return out, state
 
     return prefill
 

@@ -353,11 +353,17 @@ class Leaf:
         column product's output or a row product's input, split as the
         spec splits it): gathered over the data axes only, and the
         gradient is the block's;
+      * ``"inner"``: a block inside the shard's own along ``model`` (a
+        decode state's channels over the data ranks as well, the
+        sequence split's): gathered as ``"local"``, then cut; the
+        gradient is placed in the shard's block and reduced as
+        ``"local"``'s;
       * ``"cut"``: any other block (a replicated per-channel leaf, KV
         heads fewer than the model ranks, Mamba's ``in_proj``/``x_proj``/
-        ``dt_proj``): gathered whole and cut; the block's gradient is
-        this rank's part, so it is placed in a whole-size zero tensor and
-        summed over ``model`` before it is narrowed."""
+        ``dt_proj``, a decode state's channels over the data ranks
+        without a model axis): gathered whole and cut; the block's
+        gradient is this rank's part, so it is placed in a whole-size
+        zero tensor and summed over ``model`` before it is narrowed."""
 
     name: str
     shape: tuple
@@ -381,25 +387,39 @@ class Leaf:
     def mode(self, block) -> str:
         """``"whole"``, ``"local"`` or ``"cut"`` for a use of ``block``."""
         tp, mesh = self.runtime.tp, self.mesh
-        if block is None or tp is None:
+        if block is None:
             return "whole"
+        if tp is None:
+            return "cut"
         dim, ranges = block
         m = mesh.axis_size(tp)
         n = self.shape[dim] // m
-        if self.dims[dim] == (tp,) and tuple(ranges) == (
-                (mesh.index(tp) * n, n),):
-            return "local"
+        if self.dims[dim] == (tp,):
+            lo = mesh.index(tp) * n
+            if tuple(ranges) == ((lo, n),):
+                return "local"
+            if all(lo <= a and a + k <= lo + n for a, k in ranges):
+                return "inner"
         return "cut"
+
+    def _inner(self, block):
+        """``block``'s ranges relative to this rank's shard along model."""
+        dim, ranges = block
+        lo = self.mesh.index(self.runtime.tp) * (
+            self.shape[dim] // self.mesh.axis_size(self.runtime.tp))
+        return dim, tuple((a - lo, k) for a, k in ranges)
 
     def gather(self, shard: torch.Tensor, block=None) -> torch.Tensor:
         mode = self.mode(block)
-        skip = (self.runtime.tp,) if mode == "local" else None
+        skip = (self.runtime.tp,) if mode in ("local", "inner") else None
         out = shard
         for i, axes in enumerate(self.dims):
             if axes and axes != skip:
                 out = all_gather(out, i, self.mesh, axes)
         if mode == "cut":
             out = shardctx._cut(out, *block)
+        elif mode == "inner":
+            out = shardctx._cut(out, *self._inner(block))
         if out is shard:
             out = shard.view_as(shard)
         return out
@@ -411,6 +431,16 @@ class Leaf:
         mesh, batch = self.mesh, self.runtime.batch_axes
         mode = self.mode(block)
         g = g.to(F32)
+        if mode == "inner":
+            dim, ranges = self._inner(block)
+            part = list(g.shape)
+            part[dim] = self.shape[dim] // mesh.axis_size(self.runtime.tp)
+            full = g.new_zeros(part)
+            at = 0
+            for start, size in ranges:
+                full.narrow(dim, start, size).add_(g.narrow(dim, at, size))
+                at += size
+            g, mode = full, "local"
         if mode == "cut":
             dim, ranges = block
             full = g.new_zeros(self.shape)
@@ -418,7 +448,8 @@ class Leaf:
             for start, size in ranges:
                 full.narrow(dim, start, size).add_(g.narrow(dim, at, size))
                 at += size
-            g = all_reduce(full, mesh, self.runtime.tp)
+            g = full if self.runtime.tp is None else all_reduce(
+                full, mesh, self.runtime.tp)
         local = (self.runtime.tp,) if mode == "local" else None
         named = set()
         for i, axes in enumerate(self.dims):

@@ -89,8 +89,9 @@ def _loss_sums(model, family: str, batch):
     pos = None
     if family == "vlm":
         b, s = tokens.shape
-        pos = torch.arange(s, dtype=torch.int32,
-                           device=tokens.device).expand(3, b, s)
+        sp = shardctx.seq()                 # this rank's block's positions
+        pos = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        pos = (pos + (0 if sp is None else sp[3] * s)).expand(3, b, s)
     hidden, _, aux = lm(tokens, pos=pos, logits=False)
     tl, tn = _chunked_ce_sums(lm.embed, hidden, batch["labels"])
     return tl, tn, aux
@@ -117,27 +118,30 @@ def make_sharded_loss_fn(model, family: str, mesh, batch_axes,
     ``loss_fn(local batch) -> (loss to differentiate, global loss,
     {"ce", "aux"})``.
 
-    With the batch's rows split over ``batch_axes``, the CE is divided by
-    the **global** label count (all-reduced), so the ranks' losses sum to
-    the global mean and so do their gradients (the ``gather`` backward
-    sums them); the aux (global already: ``models.common.moe`` routes the
-    global batch) keeps its gradient to this rank's tokens.  Without the
-    split every data rank runs the whole batch, and its loss is divided
-    by their count to match."""
+    With the batch's rows split over ``batch_axes``, or its sequence
+    (``shardctx.seq``: the batch is then this rank's block of every
+    row's positions), the CE is divided by the **global** label count
+    (all-reduced), so the ranks' losses sum to the global mean and so do
+    their gradients (the ``gather`` backward sums them); the aux (global
+    already: ``models.common.moe`` routes the global batch) keeps its
+    gradient to this rank's tokens.  Without either split every data
+    rank runs the whole batch, and its loss is divided by their count to
+    match."""
     from repro_torch.train import sharding as SH
 
     n_data = mesh.axis_size(batch_axes)
 
     def loss_fn(batch):
+        split = rows_split or shardctx.seq() is not None
         tl, tn, aux = _loss_sums(model, family, batch)
-        if rows_split:
+        if split:
             tn = SH.all_reduce(tn.detach().clone(), mesh, batch_axes)
         ce = tl / torch.clamp_min(tn, 1.0)
         loss = ce + aux_weight * aux
-        if not rows_split and n_data > 1:
+        if not split and n_data > 1:
             loss = loss / n_data
         ce_g = ce.detach().clone()
-        if rows_split:
+        if split:
             ce_g = SH.all_reduce(ce_g, mesh, batch_axes)
         aux = aux.detach() if isinstance(aux, torch.Tensor) else aux
         return loss, ce_g + aux_weight * aux, {"ce": ce_g, "aux": aux}
@@ -162,9 +166,12 @@ def make_train_step(model, family: str, opt_cfg: O.AdamWConfig,
     shards, and ``batch`` is this rank's: rows ``h, h + D, ...`` of the
     global batch (``data.pipeline`` with ``host_id`` the data coordinate
     ``h`` and ``n_hosts`` the data size ``D``), or the whole batch when
-    ``batch_specs`` for ``global_batch`` rows gives the sequence split.
-    Local microbatch ``m`` of every rank makes the reference's global
-    microbatch ``m``.  The metrics are the global step's.  ``layout``:
+    ``batch_specs`` for ``global_batch`` rows gives the sequence split:
+    the step then runs positions ``[h S / D, (h + 1) S / D)`` of every
+    row (``models.shardctx.sequence``; the whole sequence, noted, where
+    ``D`` does not divide ``S``; every position for whisper's decoder,
+    whose split is not ported).  Local microbatch ``m`` of every rank
+    makes the reference's global microbatch ``m``.  The metrics are the global step's.  ``layout``:
     ``"tp"`` (the model axis on the specs' tensor-parallel dims, FSDP
     and the batch over the data axes) or ``"dp"`` (no tensor axis; FSDP
     and the batch over every axis), the reference dry run's two."""
@@ -211,10 +218,16 @@ def _sharded_step(model, family, opt_cfg, n_micro, mesh, global_batch,
     params = rt.params()
     ctx = dict(tp_axis=tp, tp_size=mesh.shape.get("model", 1),
                dp_axes=dp, dp_size=n_dp, mesh=mesh,
-               batch_axes=dp if rows_split else ())
+               batch_axes=dp if rows_split else (),
+               seq_axes=() if rows_split or family == "encdec" else dp)
 
     def run(batch):
-        with rt.swapped():
+        with rt.swapped(), \
+                shardctx.sequence(batch["tokens"].shape[1]) as blk:
+            if blk is not None:         # this rank's block of positions
+                s = batch["tokens"].shape[1] // blk[1]
+                batch = {k: v[:, blk[0] * s: (blk[0] + 1) * s]
+                         for k, v in batch.items()}
             loss_b, loss, metrics = loss_fn(batch)
             loss_b.backward()
         return loss, metrics

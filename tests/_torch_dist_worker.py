@@ -7,11 +7,13 @@ runs the job's cases in order and writes what rank 0 gathers to the
 job's ``out`` directory (``torch.save``).  Cases:
 
   * ``step``: per arch and mesh shape, the reduced model from the
-    reference weights in ``weights``, one sharded step on this rank's rows
-    of the global batch (the whole batch when it has fewer rows than the
-    data ranks); out (``out``.pt): loss, grad_norm, every parameter and
-    every gradient the update took, whole, the resident and spec bytes of
-    each rank;
+    reference weights in ``weights``, one sharded step (AdamW's settings
+    ``opt`` where the case gives them) on this rank's rows of the global
+    batch (the whole batch when it has fewer rows than the data ranks:
+    the step splits its sequence); out (``out``.pt): loss, grad_norm,
+    every parameter and every gradient the update took, whole, the
+    resident and spec bytes of each rank, the sequence axes and the
+    layers noted whole;
   * ``sync``: ``hierarchical_grad_sync`` on a (pod, data) mesh over the
     given per-rank gradients and residuals; out: each rank's result;
   * ``save``: ``steps`` sharded steps, the state checkpointed after
@@ -38,7 +40,13 @@ job's ``out`` directory (``torch.save``).  Cases:
     run's serving cells bind it (no FSDP), a decode state of the rank's
     blocks, a prefill and teacher-forced decode steps; out (``out``.pt):
     the logits of each, each rank's state shapes and the layers noted
-    whole.
+    whole;
+  * ``seq_serve``: per arch and (data, model) mesh shape, the model bound
+    as ``serve`` binds it, in the sequence split's context (one prompt
+    row for more data ranks: its positions split over them, the decode
+    state's slots and channels too); a prefill and teacher-forced decode
+    steps; out (``out``.pt): each rank's logits, its state's leaves
+    after the last step, its coordinate and the layers noted whole.
 """
 
 import contextlib
@@ -121,8 +129,9 @@ def run_step(case, out):
             fam, model = model_for(arch, data[arch]["tree"])
             batch = data[arch]["batch"]
             gb = batch["tokens"].shape[0]
+            opt = O.AdamWConfig(**case["opt"]) if "opt" in case else OPT
             step = TS.make_train_step(
-                model, fam, OPT, n_micro=case["n_micro"], mesh=mesh,
+                model, fam, opt, n_micro=case["n_micro"], mesh=mesh,
                 global_batch=gb)
             split = gb % mesh.axis_size(meshmod.dp_axes(mesh)) == 0
             grads = {}
@@ -133,14 +142,17 @@ def run_step(case, out):
                 return real(cfg, rt, g, state, decay)
             O.adamw_update_sharded = spy
             try:
-                m = step(local_rows(batch, mesh) if split else batch)
+                with shardctx.whole_layers() as noted:
+                    m = step(local_rows(batch, mesh) if split else batch)
             finally:
                 O.adamw_update_sharded = real
             params = whole(step)
             nbytes = gather_bytes(step.runtime, step.opt_state)
             res[(arch, tuple(shape))] = {
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                "params": params, "grads": grads, "bytes": nbytes}
+                "params": params, "grads": grads, "bytes": nbytes,
+                "seq_axes": step.context["seq_axes"],
+                "whole": sorted(noted)}
     if dist.get_rank() == 0:
         torch.save(res, os.path.join(out, case.get("out", "step") + ".pt"))
 
@@ -331,35 +343,39 @@ def run_ce(case, out):
         torch.save(outs, os.path.join(out, "ce.pt"))
 
 
+def serve(model, fam, sv, context):
+    """A decode state for ``context`` positions, the prompts ``sv``
+    (``tokens``, ``lens``) prefilled, then a teacher-forced decode step
+    for each column of ``sv["feed"]``: ``(every call's logits, the
+    state)``."""
+    toks, lens, feed = sv["tokens"], sv["lens"], sv["feed"]
+    pre = serve_step.make_prefill(model, fam)
+    dec = serve_step.make_decode(model, fam)
+    state = kvcache.init_state(model, model.cfg, toks.shape[0], context)
+    lg, state = pre(model, toks, lens, state)
+    logits, pos = [lg], lens.clone()
+    for j in range(feed.shape[1]):
+        _, lg, state = dec(model, feed[:, j: j + 1], pos, state, None)
+        logits.append(lg)
+        pos = pos + 1
+    return logits, state
+
+
 def run_serve(case, out):
     data = torch.load(case["inputs"], weights_only=False)
     mesh = meshmod.make_host_mesh(model=dist.get_world_size())
     res = {}
     for arch in case["archs"]:
         fam, model = model_for(arch, data[arch]["tree"])
-        cfg = model.cfg
         pspecs = SH.param_specs(model, mesh, fsdp=None)
         rt = SH.bind(model, fam, mesh, pspecs, None, ("data",))
         ctx = dict(dp_axes=("data",), dp_size=1, mesh=mesh, batch_axes=())
-        toks, lens = data["serve"]["tokens"], data["serve"]["lens"]
-        feed = data["serve"]["feed"]
-        pre = serve_step.make_prefill(model, fam)
-        dec = serve_step.make_decode(model, fam)
-        logits = []
         with shardctx.use(**ctx), rt.swapped(), \
                 shardctx.whole_layers() as noted:
-            state = kvcache.init_state(model, cfg, toks.shape[0],
-                                       case["context"])
-            shapes = {k: tuple(v.shape) for k, v in
-                      weights._flatten(state).items()}
-            lg, state = pre(model, toks, lens, state)
-            logits.append(lg)
-            pos = lens.clone()
-            for j in range(feed.shape[1]):
-                _, lg, state = dec(model, feed[:, j: j + 1], pos, state,
-                                   None)
-                logits.append(lg)
-                pos = pos + 1
+            logits, state = serve(model, fam, data["serve"],
+                                  case["context"])
+        shapes = {k: tuple(v.shape) for k, v in
+                  weights._flatten(state).items()}
         res[arch] = {"logits": logits, "shapes": shapes,
                      "whole": sorted(noted)}
     outs = [None] * dist.get_world_size()
@@ -368,7 +384,35 @@ def run_serve(case, out):
         torch.save(outs, os.path.join(out, case.get("out", "serve") + ".pt"))
 
 
-CASES = {"step": run_step, "sync": run_sync, "save": run_save,
+def run_seq_serve(case, out):
+    data = torch.load(case["inputs"], weights_only=False)
+    res = {}
+    for arch in case["archs"]:
+        for shape in case["meshes"]:
+            mesh = meshmod.make_host_mesh(model=shape[1])
+            fam, model = model_for(arch, data[arch]["tree"])
+            rt = SH.bind(model, fam, mesh, SH.param_specs(model, mesh,
+                                                          fsdp=None),
+                         None, ("data",))
+            ctx = dict(dp_axes=("data",), dp_size=shape[0], mesh=mesh,
+                       batch_axes=(), seq_axes=("data",))
+            with shardctx.use(**ctx), rt.swapped(), \
+                    shardctx.whole_layers() as noted:
+                logits, state = serve(model, fam, data["seq_serve"],
+                                      case["context"])
+            res[(arch, tuple(shape))] = {
+                "logits": logits, "coord": dict(mesh.coord),
+                "state": {k: v.clone() for k, v in
+                          weights._flatten(state).items()},
+                "whole": sorted(noted)}
+    outs = [None] * dist.get_world_size()
+    dist.all_gather_object(outs, res)
+    if dist.get_rank() == 0:
+        torch.save(outs, os.path.join(out, case.get("out", "seq_serve")
+                                      + ".pt"))
+
+
+CASES = {"seq_serve": run_seq_serve, "step": run_step, "sync": run_sync, "save": run_save,
          "restore": run_restore, "elastic": run_elastic, "costs": run_costs,
          "ce": run_ce, "serve": run_serve, "moe_costs": run_moe_costs}
 

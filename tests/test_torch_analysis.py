@@ -570,3 +570,42 @@ def test_dryrun_tp_rank_holds_a_block_of_the_shared_kv_head():
         == sum(r - w for r, w in over.values())
     assert sorted(w[1].split(",")[0] for w in dec["replicated"]) == [
         "positions and cursors", "the shared KV head's k and v projections"]
+
+
+# ---------------------------------------------------------------------------
+# The sequence split: one row for a (data 4, model 2) mesh
+
+
+SEQ_MESH = {"data": 4, "model": 2}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b",
+                                  "falcon-mamba-7b"])
+def test_dryrun_sequence_split_rank_computes_and_holds_its_share(arch, kind):
+    """Rank 0 of (data 4, model 2) under ``--layout tp``, reduced, a
+    global batch of one row: ``batch_specs`` gives the sequence split, so
+    a train or prefill step runs a quarter of the 64 positions (its
+    product FLOPs at most 1.05x the one card's over the 8 chips: the
+    shared KV head's projections are whole on the two model ranks that
+    read it) and a decode state holds the rank's block of the cache's
+    slots and channels: its k and v leaves the size of their
+    ``state_specs`` shard, no leaf but the cursors beyond its shard."""
+    from repro_torch.launch import dryrun
+
+    shape = dict(kind=kind, seq_len=64, global_batch=1)
+    one = None if kind == "decode" else dryrun.dryrun_cell(
+        arch, kind, reduced=True, shape=shape, verbose=False)
+    rec = dryrun.dryrun_cell(arch, kind, reduced=True, shape=shape,
+                             mesh_shape=SEQ_MESH, one_card=one,
+                             verbose=False)
+    assert not rec["batch_rows_split"] and rec["sequence_split"]
+    assert rec["compute_per_rank_is_reference"], rec["whole_layers"]
+    if kind == "decode":
+        assert rec["kv_bytes_per_rank"] == rec["kv_specs_bytes_per_rank"]
+        assert all(n.endswith("cursor") for n in rec["state_over_specs"]), \
+            rec["state_over_specs"]
+        assert rec["state_bytes_per_rank"] <= rec["state_specs_bytes_per_rank"]
+    else:
+        assert rec["products_per_rank"] <= \
+            1.05 * rec["products_one_card_over_chips"]

@@ -98,6 +98,12 @@ SYNC_SHAPES = {"w": (8, 64), "b": (37,), "s": (3, 5, 7)}
 def spawn(n, cases, tmp):
     """Run ``cases`` on ``n`` ranks; any rank's failure fails the test
     (the others are killed)."""
+    start_ranks(n, cases, tmp)()
+
+
+def start_ranks(n, cases, tmp):
+    """Start ``cases`` on ``n`` ranks; returns a function that waits for
+    them, failing if any rank fails (the others are then killed)."""
     stamp = f"{time.monotonic_ns()}"
     job = {"init": f"file://{tmp}/store_{stamp}", "out": str(tmp),
            "cases": cases}
@@ -110,21 +116,24 @@ def spawn(n, cases, tmp):
                               env=dict(env, RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(n)]
-    deadline = time.monotonic() + 600
-    try:
-        while any(p.poll() is None for p in procs):
-            bad = [p for p in procs if p.poll() not in (None, 0)]
-            assert not bad and time.monotonic() < deadline, [
-                p.communicate()[1][-3000:] for p in bad]
-            time.sleep(0.05)
-        errs = [p.communicate()[1] for p in procs]
-        assert [p.returncode for p in procs] == [0] * n, \
-            [e[-3000:] for e in errs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+
+    def wait():
+        deadline = time.monotonic() + 600
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [p for p in procs if p.poll() not in (None, 0)]
+                assert not bad and time.monotonic() < deadline, [
+                    p.communicate()[1][-3000:] for p in bad]
+                time.sleep(0.05)
+            errs = [p.communicate()[1] for p in procs]
+            assert [p.returncode for p in procs] == [0] * n, \
+                [e[-3000:] for e in errs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return wait
 
 
 @pytest.fixture(scope="module")
@@ -663,13 +672,15 @@ def _check_split_serve(runs, pair, arch, key, m):
             assert np.prod(shape) == np.prod(split), (k, specs[k])
 
 
-def test_sequence_split_batch_runs_whole_batch_on_every_rank(runs, pair):
+def test_sequence_split_batch_splits_the_sequence(runs, pair):
     """Two rows over four data ranks: ``batch_specs`` gives the sequence
-    split, and every rank runs the whole batch with its loss divided by
-    the data size (the reference splits the sequence instead: ROADMAP
-    queue 3); the step equals the single-process one."""
+    split, as the reference's, and each rank runs its quarter of every
+    row's positions (nothing noted whole); the step equals the
+    single-process one.  ``test_torch_seqpar.py`` holds the split to
+    the reference, arch by arch."""
     data, out, _ = runs
     got = out["small"][(ELASTIC + "/small", (4, 1))]
+    assert got["seq_axes"] == ("data",) and got["whole"] == [], got["whole"]
     fam, cfg, ref, params, _ = pair(ELASTIC)
     _, _, port = TR.get(ELASTIC, reduced=True, device="cpu")
     weights.from_reference(port, np_tree(params))

@@ -339,9 +339,9 @@ def test_dryrun_rank_of_the_production_meshes(one_card_train, layout,
     one = one_card_train["flops_by_class"]["products_f32"]
     got = rec["flops_by_class"]["products_f32"]
     # train_4k: 256 rows; dp over 512 ranks has too few: each rank runs
-    # all 256 (the reference splits the sequence)
-    rows = 256 // chips if layout == "dp" else 256 // (chips // 16)
-    rows = rows or 256
+    # its 1/512 of every row's positions, as the reference splits the
+    # sequence (a row's share of the work, 256 / 512)
+    rows = 256 / chips if layout == "dp" else 256 // (chips // 16)
     # the roofline's FLOPs are the rank's times the chips
     share = one * rows * chips / 256
     if layout == "dp":
@@ -363,7 +363,8 @@ def test_dryrun_rank_of_the_production_meshes(one_card_train, layout,
         assert got == pytest.approx(rank * chips, rel=1e-12)
         assert rec["whole_layers"] == [["attention",
                                         "heads 4 % model 16 = 4"]]
-    assert rec["batch_rows_split"] == (rows != 256)
+    assert rec["batch_rows_split"] == (rows >= 1)
+    assert rec["sequence_split"] == (rows < 1)
     assert rec["compute_per_rank_is_reference"] == (
         layout == "dp" and rows * chips == 256)
 

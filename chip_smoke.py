@@ -2845,20 +2845,29 @@ MR_SERVE_TOL = dict(atol=1e-4, rtol=1e-4)
 # association of the f32 sums that one process's scan does not use; in
 # bf16 the casts behind it round the difference, and step 1's grad norm
 # moved 1.153e-3 from one process's on an H100 (PERF.md, §6), so its
-# bf16 grad norm is printed, and held in float32.
+# bf16 grad norm is printed, and held in float32.  whisper-tiny at full
+# width and depth: its decoder tokens split, its 1,500 frames whole on
+# every rank (the encoder and the cross-attention K/V projections run
+# whole there), bf16's step 1 and float32's two steps held.
 MR_SEQ_TRAIN = (
     ("bytelm-100m", None, (4, 1), 2, 512, "bfloat16",
      {"loss": 2, "grad_norm": 2}),
     ("falcon-mamba-7b", 2, (2, 1), 1, 512, "bfloat16",
      {"loss": 1, "grad_norm": 0}),
     ("falcon-mamba-7b", 2, (2, 1), 1, 512, "float32",
-     {"loss": 1, "grad_norm": 1}))
+     {"loss": 1, "grad_norm": 1}),
+    ("whisper-tiny", None, (4, 1), 1, 512, "bfloat16",
+     {"loss": 1, "grad_norm": 1}),
+    ("whisper-tiny", None, (4, 1), 1, 512, "float32",
+     {"loss": 2, "grad_norm": 2}))
 MR_SEQ_F32_TOL = {"loss_rel": 2 ** -16, "gnorm_rel": 2 ** -16}
 # serving in float32, one row at each mesh: arch, layers, prompt, context
-# (danube's prompt outruns its 4,096-slot ring)
+# (danube's prompt outruns its 4,096-slot ring; whisper-tiny's state holds
+# its block of the 1,500 frames' K/V)
 MR_SEQ_SERVE = (("h2o-danube-1.8b", 2, 4352, 8192),
                 ("recurrentgemma-9b", 3, 512, 1024),
-                ("falcon-mamba-7b", 2, 512, 512))
+                ("falcon-mamba-7b", 2, 512, 512),
+                ("whisper-tiny", None, 512, 1024))
 MR_SEQ_MESHES = ((4, 1), (2, 2))
 MR_SEQ_DECODE = 16
 
@@ -2918,7 +2927,12 @@ def collective_closed_form(rt, n_micro: int, remat: bool, dtype_bytes: dict,
                 cur *= size(axes)
                 gathers += cur * b
         if lf.reached:
-            inside = name.split(".")[0].startswith(("seg", "enc", "dec"))
+            # a layer's leaves are gathered again in its remat recompute,
+            # but the cross-attention K/V projections, which run once,
+            # outside the decoder layers (models.encdec._enc_kv)
+            head = name.split(".")[0]
+            inside = (head.startswith("seg") or head in ("enc", "dec")) \
+                and not name.endswith(("xattn.wk", "xattn.wv"))
             uses = lf.uses * (2 if remat and inside else 1)
             back = lf.uses
         else:
@@ -2976,7 +2990,9 @@ def seq_closed_form(rt, cfg, dtype_bytes: dict, batch: int, seq: int) -> dict:
     Mamba's conv halo (each block's last ``min(d_conv - 1, S / n)``
     positions of its inner channels) and its scan's carries (``(a_0 ...
     a_last, h_last)`` of each block, float32) all-gathered, their
-    gradients reduce-scattered."""
+    gradients reduce-scattered.  An encoder-decoder's decoder layers are
+    attention's; its encoder and cross-attention, on every frame on every
+    rank, add no sequence collective."""
     from repro_torch.launch import mesh as meshmod
 
     mesh = rt.mesh
@@ -2986,7 +3002,9 @@ def seq_closed_form(rt, cfg, dtype_bytes: dict, batch: int, seq: int) -> dict:
     out = collective_closed_form(rt, 1, True, dtype_bytes)
     xb = {"bfloat16": 2, "float32": 4}[cfg.dtype]
     sl = seq // n
-    for kind, count in cfg.segments():
+    segments = [("dense", cfg.n_layers)] if not hasattr(cfg, "segments") \
+        else cfg.segments()
+    for kind, count in segments:
         if kind in ("dense", "moe"):
             kvd = cfg.n_kv_heads * cfg.hd
             out["all-gather"] += count * 2 * (2 * batch * seq * kvd * xb
@@ -3004,6 +3022,23 @@ def seq_closed_form(rt, cfg, dtype_bytes: dict, batch: int, seq: int) -> dict:
             require(False, "the sequence split's closed form covers dense "
                     "and Mamba layers", kind)
     return out
+
+
+def encdec_whole_products(cfg, batch: int, aten_remat: bool) -> float:
+    """Product FLOPs of one training step's encoder and cross-attention
+    K/V projections over every frame (whole on every rank of the sequence
+    split): the forward, the backward (twice it) and the encoder layers'
+    remat recompute, which stops before each layer's last product (the
+    MLP's output) where that product is aten ``mm``, which saves its
+    inputs (``aten_remat``: float32, or off the card), and runs whole
+    where it is ``common._Mm32`` (bf16 on the card)."""
+    t, d, hd, f = cfg.n_audio_frames, cfg.d_model, cfg.hd, cfg.d_ff
+    h, kv, b = cfg.n_heads, cfg.n_kv_heads, batch
+    layer = 2 * b * t * (d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f) \
+        + 4 * b * t * h * hd * t
+    cross = 4 * b * t * d * kv * hd * cfg.n_layers
+    early = 2 * b * t * f * d if aten_remat else 0
+    return float(cfg.n_layers * (4 * layer - early) + 3 * cross)
 
 
 def rank_products(cfg, batch: int, seq: int, data: int, model: int) -> dict:
@@ -3217,11 +3252,18 @@ def _rank_train(case, job, dev) -> dict:
 
 
 def _rank_model(job, dev):
-    """``(family, cfg, model)``: the job's ``cfg`` built from its ``seed``
-    (remat "full"), or the registry's ``arch``."""
+    """``(family, cfg, model)``: the job's ``cfg`` (of its ``family``,
+    ``lm`` unless given) built from its ``seed`` (remat "full"), or the
+    registry's ``arch``."""
     import torch
     from repro_torch.models import registry
 
+    if "seed" in job and job.get("family") == "encdec":
+        from repro_torch.models.encdec import EncDecConfig
+        cfg = EncDecConfig(**dict(job["cfg"], remat=True))
+        return "encdec", cfg, registry.build(
+            cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(job["seed"]))
     if "seed" in job:
         from repro_torch.models.lm import LMConfig
         fields = dict(job["cfg"], remat=True, remat_policy="full")
@@ -3276,13 +3318,14 @@ def _rank_single(case, job, dev) -> dict:
 def _rank_serve(case, job, dev) -> dict:
     """Prefill and teacher-forced decode steps of the case's model, bound
     to a (1, n) mesh as the dry run's serving cells bind it (no FSDP),
-    or in one process (``mesh`` null)."""
+    or in one process (``mesh`` null); an encoder-decoder's prefill takes
+    the whole prompt and the job's frames."""
     import contextlib
 
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as meshmod
-    from repro_torch.models import shardctx, weights
+    from repro_torch.models import shardctx
     from repro_torch.serve import kvcache, serve_step
     from repro_torch.train import sharding as SH
 
@@ -3292,9 +3335,11 @@ def _rank_serve(case, job, dev) -> dict:
         job["batch_file"], weights_only=False).items()}
     toks, lens, feed = ins["tokens"], ins["lens"], ins["feed"]
     rows, context = toks.shape[0], case["context"]
+    cap = kvcache.capacity_for(cfg, context)
     with torch.no_grad():                # the whole state's leaves
-        whole = weights._flatten(kvcache.init_state(model, cfg, rows,
-                                                    context))
+        whole = _state_leaves(
+            model.init_state(ins["frames"], rows, cap) if fam == "encdec"
+            else kvcache.init_state(model, cfg, rows, context))
     scope, mesh = contextlib.ExitStack(), None
     if case["mesh"] is not None:
         mesh = meshmod.make_host_mesh(model=case["mesh"][1])
@@ -3310,23 +3355,32 @@ def _rank_serve(case, job, dev) -> dict:
             dp_axes=("data",), dp_size=mesh.shape["data"], mesh=mesh,
             batch_axes=(), seq_axes=seq))
         scope.enter_context(rt.swapped())
-    pre = serve_step.make_prefill(model, fam)
-    dec = serve_step.make_decode(model, fam)
     logits = []
     with torch.no_grad():
         _sync_dev(dev)
         t0 = time.perf_counter()
         with scope, shardctx.whole_layers() as noted:
-            state = kvcache.init_state(model, cfg, rows, context)
-            mine = weights._flatten(state)
-            lg, state = pre(model, toks, lens, state)
-            logits.append(lg.float().cpu())
-            pos = lens.clone()
-            for j in range(feed.shape[1]):
-                _, lg, state = dec(model, feed[:, j: j + 1], pos, state,
-                                   None)
+            if fam == "encdec":     # the whole prompt against the frames
+                pre, dec = serve_step.make_encdec_steps(model)
+                lg, state = pre(model, ins["frames"], toks, cap)
+                mine = _state_leaves(state)
                 logits.append(lg.float().cpu())
-                pos = pos + 1
+                for j in range(feed.shape[1]):
+                    _, lg, state = dec(model, feed[:, j: j + 1], state)
+                    logits.append(lg.float().cpu())
+            else:
+                pre = serve_step.make_prefill(model, fam)
+                dec = serve_step.make_decode(model, fam)
+                state = kvcache.init_state(model, cfg, rows, context)
+                mine = _state_leaves(state)
+                lg, state = pre(model, toks, lens, state)
+                logits.append(lg.float().cpu())
+                pos = lens.clone()
+                for j in range(feed.shape[1]):
+                    _, lg, state = dec(model, feed[:, j: j + 1], pos,
+                                       state, None)
+                    logits.append(lg.float().cpu())
+                    pos = pos + 1
         _sync_dev(dev)
         ms = (time.perf_counter() - t0) * 1e3
     kv, leaves = {}, {}
@@ -3345,6 +3399,15 @@ def _rank_serve(case, job, dev) -> dict:
     del model, state
     return {"logits_file": str(path), "kv": kv, "leaves": leaves, "ms": ms,
             "whole_layers": sorted(list(w) for w in noted)}
+
+
+def _state_leaves(state) -> dict:
+    """A decode state's tensors by dotted name, an encoder-decoder's
+    ``enc_kv`` pair as ``enc_kv.0`` and ``enc_kv.1``."""
+    from repro_torch.models import weights
+    if isinstance(state.get("enc_kv"), tuple):
+        state = {**state, "enc_kv": dict(enumerate(state["enc_kv"]))}
+    return weights._flatten(state)
 
 
 def moe_closed_form(mc, d: int, rows: int, seq: int, data: int, model: int,
@@ -3558,17 +3621,26 @@ def spawn_ranks(n: int, job: dict, work: Path, env: dict) -> list:
     """Run ``job`` on ``n`` rank processes (``--rank-job``); every rank
     must exit 0 within ``MR_TIMEOUT`` (a failed rank kills the others and
     fails the phase).  Returns each rank's result."""
-    path = work / f"job_{time.monotonic_ns()}.json"
-    path.write_text(json.dumps(job))
+    return spawn_groups([(n, job, work)], env)[0]
+
+
+def spawn_groups(groups: list, env: dict) -> list:
+    """:func:`spawn_ranks` for several ``(n, job, work)`` rank groups at
+    once, each in a process group of its own: a failed rank kills every
+    group's.  Returns each group's ranks' results."""
     procs = []
     try:
-        for r in range(n):
-            procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-job",
-                 str(path)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
-                                      WORLD_SIZE=str(n)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                cwd=str(ROOT)))
+        for n, job, work in groups:
+            path = work / f"job_{time.monotonic_ns()}.json"
+            path.write_text(json.dumps(job))
+            for r in range(n):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--rank-job", str(path)],
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                             WORLD_SIZE=str(n)),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, cwd=str(ROOT)))
         deadline = time.monotonic() + MR_TIMEOUT
         while any(p.poll() is None for p in procs):
             failed = [p for p in procs if p.poll() not in (None, 0)]
@@ -3585,8 +3657,8 @@ def spawn_ranks(n: int, job: dict, work: Path, env: dict) -> list:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    return [json.loads((Path(job["work"]) / f"rank{r}.json").read_text())
-            for r in range(n)]
+    return [[json.loads((Path(job["work"]) / f"rank{r}.json").read_text())
+             for r in range(n)] for n, job, _work in groups]
 
 
 def torchrun(n: int, args: list, env: dict, timeout: int = MR_TIMEOUT):
@@ -3882,17 +3954,20 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
                reduced: bool) -> dict:
     """Phase 10 (g): the sequence split, fewer rows than data ranks, on
     gloo ranks sharing the card beside one process (a rank of its own),
-    one group after another.  Training (``MR_SEQ_TRAIN``, bf16): each
-    rank runs its block of every row's positions; its steps against one
-    process's, and under ``CostMode`` its product FLOPs against one
-    process's over the data ranks and its collectives against
-    :func:`seq_closed_form`.  Serving (``MR_SEQ_SERVE``, float32, one
-    row, at each of ``MR_SEQ_MESHES``): a prefill split over the data
-    ranks and ``MR_SEQ_DECODE`` teacher-forced decode steps on a state
-    whose slots and channels they split, against one process's logits;
-    each rank's state leaves beside their ``state_specs`` shard.
+    the three groups at once.  Training (``MR_SEQ_TRAIN``): each rank runs
+    its block of every row's positions; its steps against one process's,
+    and under ``CostMode`` its product FLOPs against one process's over
+    the data ranks (whisper-tiny's: its encoder's and cross-attention K/V
+    projections' whole, :func:`encdec_whole_products`, plus the rest over
+    the data ranks) and its collectives against :func:`seq_closed_form`.
+    Serving (``MR_SEQ_SERVE``, float32, one row, at each of
+    ``MR_SEQ_MESHES``): a prefill split over the data ranks and
+    ``MR_SEQ_DECODE`` teacher-forced decode steps on a state whose slots,
+    channels and frames they split, against one process's logits; each
+    rank's state leaves beside their ``state_specs`` shard.
     :func:`seqpar_checks` holds what it returns."""
     import torch
+    from repro_torch import configs
 
     rng = np.random.default_rng(11)
 
@@ -3903,6 +3978,14 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
                 "backend": "gloo", "device": device, "work": str(d),
                 "reduced": reduced, "cases": cases}
 
+    def family(arch):
+        return configs.get_module(arch).FAMILY
+
+    def frames(cfg, rows):
+        """Stub mel frames of an encoder-decoder (float32, as drawn)."""
+        return torch.from_numpy(rng.standard_normal(
+            (rows, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+
     single, four, two, cfgs = [], [], [], {}
     for arch, layers, mesh, b, seq, dtype, held in MR_SEQ_TRAIN:
         cfg = _split_cfg(arch, layers, reduced, dtype)
@@ -3910,10 +3993,13 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
         cfgs[label] = cfg
         path = work / f"seq_batch_{arch}.pt"
         if not path.exists():
-            torch_save_batch(_train_batch(rng, cfg.vocab, b, seq, "cpu"),
-                             path)
+            batch = _train_batch(rng, cfg.vocab, b, seq, "cpu")
+            if family(arch) == "encdec":
+                batch["frames"] = frames(cfg, b)
+            torch_save_batch(batch, path)
         steps = max(held.values())
         case = {"cfg": dataclasses.asdict(cfg), "seed": 0,
+                "family": family(arch),
                 "batch_file": str(path), "batch": b, "seq": seq,
                 "steps": steps, "total": steps, "cost_at": 1}
         single.append({**case, "kind": "single", "label": label})
@@ -3930,10 +4016,14 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
         toks = rng.integers(3, cfg.vocab, (1, prompt)).astype(np.int32)
         feed = rng.integers(3, cfg.vocab, (1, MR_SEQ_DECODE)).astype(np.int32)
         path = work / f"seq_serve_{arch}.pt"
-        torch.save({"tokens": torch.from_numpy(toks),
-                    "lens": torch.tensor([prompt - 3], dtype=torch.int32),
-                    "feed": torch.from_numpy(feed)}, path)
+        ins = {"tokens": torch.from_numpy(toks),
+               "lens": torch.tensor([prompt - 3], dtype=torch.int32),
+               "feed": torch.from_numpy(feed)}
+        if family(arch) == "encdec":
+            ins["frames"] = frames(cfg, 1)
+        torch.save(ins, path)
         serve = {"cfg": dataclasses.asdict(cfg), "seed": 0,
+                 "family": family(arch),
                  "batch_file": str(path), "context": context,
                  "kind": "serve"}
         single.append({**serve, "label": f"serve:{arch}", "mesh": None})
@@ -3942,9 +4032,12 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
                          "mesh": list(mesh)})
     held = torch.cuda.memory_reserved() if device != "cpu" else 0
     t0 = time.time()
-    one = spawn_ranks(1, job("g_one", single), work / "g_one", env)[0]
-    ranks4 = spawn_ranks(4, job("g_four", four), work / "g_four", env)
-    ranks2 = spawn_ranks(2, job("g_two", two), work / "g_two", env)
+    # the three groups at once (small models: the card holds them all)
+    ones, ranks4, ranks2 = spawn_groups(
+        [(1, job("g_one", single), work / "g_one"),
+         (4, job("g_four", four), work / "g_four"),
+         (2, job("g_two", two), work / "g_two")], env)
+    one = ones[0]
     out = {"seconds": time.time() - t0, "train": {}, "serve": {},
            "held_bytes": held}
     for arch, layers, mesh, b, seq, dtype, held in MR_SEQ_TRAIN:
@@ -3958,10 +4051,17 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
         n = mesh[0]
         cfg = cfgs[label]
         tol = MR_BF16_TOL if dtype == "bfloat16" else MR_SEQ_F32_TOL
+        # what every rank computes whole: an encoder-decoder's encoder and
+        # cross-attention K/V projections (the card's bf16 products are
+        # common._Mm32, the rest aten mm)
+        whole = encdec_whole_products(
+            cfg, b, dtype != "bfloat16" or device == "cpu") \
+            if family(arch) == "encdec" else 0.0
         out["train"][label] = {"mesh": list(mesh), "batch": [b, seq],
                                "layers": cfg.n_layers, "ranks": per,
                                "one_process": want, "rel": rel,
-                               "held": held, "tol": tol}
+                               "held": held, "tol": tol,
+                               "whole_products": whole}
         co = per[0]["collectives"]
         log(f"phase 10: (g) {arch} d_model {cfg.d_model} ({cfg.dtype}), "
             f"{cfg.n_layers} layers, at {tuple(mesh)} (gloo ranks on one "
@@ -3973,8 +4073,10 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
             f"{[x['grad_norm'] for x in want['steps']]} (rel "
             f"{[f'{x:.3e}' for x in rel['grad_norm']]}); limits "
             f"{tol}, steps held {held}; step-1 product FLOPs on rank 0 "
-            f"{per[0]['products_all']:.6e} vs one process's / {n} "
-            f"{want['products_all'] / n:.6e}; collectives CostMode vs "
+            f"{per[0]['products_all']:.6e} vs whole {whole:.6e} + (one "
+            f"process's - whole) / {n} "
+            f"{whole + (want['products_all'] - whole) / n:.6e}; "
+            "collectives CostMode vs "
             "closed form (bytes): " + "; ".join(
                 f"{k} {co['costmode_bytes'][k]:.0f} vs "
                 f"{co['closed_form_bytes'][k]:.0f} "
@@ -3998,6 +4100,7 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
                                      - MR_SERVE_TOL["rtol"] * w.abs()).max())}
                     for g, w in zip(got, want)])
             out["serve"][label] = {"arch": arch, "mesh": list(mesh),
+                                   "vocab": cfg.vocab,
                                    "ranks": per, "one_process": base,
                                    "gaps": gaps, "d_model": cfg.d_model,
                                    "layers": cfg.n_layers}
@@ -4005,7 +4108,8 @@ def seqpar_run(smi: str, work: Path, env: dict, device: str,
             log(f"phase 10: (g) {arch} serving at {tuple(mesh)} in float32 "
                 f"(d_model {cfg.d_model}, {cfg.n_layers} layers, KV heads "
                 f"{cfg.n_kv_heads}), one row: prefill {prompt} (length "
-                f"{prompt - 3}, context {context}) split over the data "
+                f"{prompt if family(arch) == 'encdec' else prompt - 3}, "
+                f"context {context}) split over the data "
                 f"ranks + {MR_SEQ_DECODE} teacher-forced decode steps: logits "
                 f"max |diff| to one process {worst:.3e} (bound "
                 f"{MR_SERVE_TOL}; excess "
@@ -4027,24 +4131,29 @@ def seqpar_checks(g: dict) -> None:
     """Holds :func:`seqpar_run`'s results: each training run's ranks
     agree on the loss, its held steps of each metric are within its
     dtype's tolerance of one process's (``MR_SEQ_TRAIN``), its rank's
-    product FLOPs are one process's over the data
-    ranks and its collectives' bytes their closed form, nothing computes
-    whole; each split serving's logits are within ``MR_SERVE_TOL`` of one
-    process's on every rank, each k/v and position leaf the bytes of its
-    ``state_specs`` shard, the recurrent states no more than theirs."""
+    product FLOPs are what it computes whole (an encoder-decoder's
+    encoder and cross-attention K/V projections) plus the rest of one
+    process's over the data ranks, its collectives' bytes their closed
+    form, nothing computes whole; each split serving's logits are within
+    ``MR_SERVE_TOL`` of one process's on every rank, each k/v, position
+    and cross-attention K/V leaf the bytes of its ``state_specs`` shard,
+    the recurrent states no more than theirs, nothing whole but a
+    vocabulary that does not divide the model axis (its table whole, as
+    the reference's ``leaf_spec`` keeps it)."""
     for arch, a in g["train"].items():
         per = a["ranks"]
         n = a["mesh"][0]
+        whole = a["whole_products"]
         for r in per:
             require([x["loss"] for x in r["steps"]]
                     == [x["loss"] for x in per[0]["steps"]],
                     "(g) ranks agree on the loss", arch)
             require(r["whole_layers"] == [], "(g) nothing computes whole",
                     arch, r["whole_layers"])
-            want = a["one_process"]["products_all"] / n
+            want = whole + (a["one_process"]["products_all"] - whole) / n
             require(abs(r["products_all"] - want) <= 1e-9 * want,
-                    "(g) rank products = one process's / data ranks", arch,
-                    r["products_all"], want)
+                    "(g) rank products = whole + one process's rest / data "
+                    "ranks", arch, r["products_all"], want)
             co = r["collectives"]
             for k in MR_COLLECTIVES:
                 require(co["costmode_bytes"][k] == co["closed_form_bytes"][k],
@@ -4055,13 +4164,16 @@ def seqpar_checks(g: dict) -> None:
         require(max(a["rel"]["grad_norm"][:held["grad_norm"]], default=0)
                 <= tol["gnorm_rel"], "(g) grad norm", arch, a["rel"])
     for label, sv in g["serve"].items():
+        whole_vocab = sv["vocab"] % sv["mesh"][1] != 0
         for r, gaps in zip(sv["ranks"], sv["gaps"]):
             require(all(x["excess"] <= 0 for x in gaps),
                     "(g) split serving logits vs one process", label, gaps)
-            require(r["whole_layers"] == [], "(g) serving split", label,
-                    r["whole_layers"])
+            require([w for w in r["whole_layers"] if not (
+                whole_vocab and w[0] == "embedding")] == [],
+                "(g) serving split", label, r["whole_layers"])
             for nm, (got, want, _) in r["leaves"].items():
-                if nm.endswith((".k", ".v", ".pos", "cursor")):
+                if nm.endswith((".k", ".v", ".pos", "cursor")) \
+                        or nm.startswith("enc_kv."):
                     require(got == want, "(g) state bytes = state_specs "
                             "shard", label, nm, got, want)
                 else:
@@ -5138,6 +5250,56 @@ def main(argv=None) -> int:
         f"count "
         f"and write kernels on the main and injected buffers = the general "
         f"body (no class dispatch)")
+
+    # The ASCII class switched off (``ascii_fastpath=False``): on 64 MiB of
+    # the latin profile (every tile ASCII) and of the arabic one, count,
+    # write and onepass give the same outputs off as on and as their plain
+    # versions off, bit for bit; their device times both ways give the
+    # class's worth on the card.
+    switch_rng = np.random.default_rng([args.seed, 30])
+    ascii_t = {}
+    for lang in ("latin", "arabic"):
+        host8 = x8 if lang == "arabic" else inputs.utf8_buffer(
+            lang, main_bytes, switch_rng)
+        x = torch.from_numpy(host8).cuda()
+        kw = dict(src="utf8", dst="utf16", errors="strict")
+        base, _total = compaction.tile_base_offsets(
+            ft.count_kernel(x, main_bytes, validate=True, **kw)[0])
+        switch = {
+            "count": (lambda a: ft.count_kernel(
+                x, main_bytes, validate=True, ascii_fastpath=a, **kw),
+                lambda: ft.count_plain(x, main_bytes, validate=True,
+                                       ascii_fastpath=False, **kw)),
+            "write": (lambda a: ft.write_kernel(
+                x, main_bytes, base, main_bytes, ascii_fastpath=a, **kw),
+                lambda: ft.write_plain(x, main_bytes, base, main_bytes,
+                                       ascii_fastpath=False, **kw)),
+            "onepass": (lambda a: op.onepass_kernel(
+                x, main_bytes, main_bytes, validate=True, ascii_fastpath=a,
+                **kw),
+                lambda: op.onepass_plain(x, main_bytes, main_bytes,
+                                         validate=True, ascii_fastpath=False,
+                                         **kw))}
+        row = {"tiles": class_counts(stages, "utf8", torch.from_numpy(host8))}
+        for name, (call, plain) in switch.items():
+            on, off = call(True), call(False)
+            if not isinstance(on, tuple):
+                on, off = (on,), (off,)
+            require(all(equal(a, b) for a, b in zip(on, off, strict=True)),
+                    f"{name} ascii_fastpath off vs on", lang)
+            hold(name, off if len(off) > 1 else off[0], plain(), max_err,
+                 "ascii_fastpath off", lang)
+            row[name] = {"device_ms_on": device_ms(lambda: call(True), 10),
+                         "device_ms_off": device_ms(lambda: call(False), 10)}
+        ascii_t[lang] = row
+        log(f"phase 3: ascii_fastpath off on 64 MiB {lang} (tiles "
+            f"{row['tiles']}): count, write, onepass = on = plain, bit for "
+            "bit; device ms on / off: " + ", ".join(
+                f"{n} {row[n]['device_ms_on']:.4f} / "
+                f"{row[n]['device_ms_off']:.4f}" for n in switch)
+            + f"  [{smi}]")
+        del x
+    report["ascii_fastpath"] = ascii_t
 
     # The main ragged batch: ragged_transcode (onepass, fused) and
     # ragged_scan, each with the counts set to 0 just before it.

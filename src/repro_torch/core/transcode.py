@@ -32,9 +32,17 @@ conversions.
 Devices (``device=``): ``None`` runs on the current CUDA device through
 the hand-written kernels and raises when there is none; ``"cpu"`` runs
 the kernels' plain PyTorch versions.
+
+The reference's deprecated per-pair shims (:data:`DEPRECATED`:
+``utf8_to_utf16``, ``scan_utf8``, ``ragged_utf8_to_utf16`` and the
+rest) are here too, with its names, arguments and historical default
+strategies, plus ``device=``; each warns ``DeprecationWarning`` at its
+caller and calls the generic entry point.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -257,9 +265,10 @@ def _dst_encode(dst: str, cp):
 
 
 def _blockparallel_pair(x, n_valid, src: str, dst: str, validate: bool,
-                        errors: str, device=None):
+                        errors: str, device=None, ascii_fastpath: bool = True):
     """Block-parallel (src, dst) transcode: an int32 buffer of ``CAP_FACTOR
-    * len(x)`` units, as the reference's."""
+    * len(x)`` units, as the reference's.  ``ascii_fastpath=False`` takes
+    the general path for an all-ASCII buffer too (the same result)."""
     factor = _check_pair(src, dst)
     x, n = _whole(x, n_valid, device, "transcode")
     cap = factor * x.shape[0]
@@ -268,7 +277,7 @@ def _blockparallel_pair(x, n_valid, src: str, dst: str, validate: bool,
     # reference decides it with lax.cond on the device; here it is a
     # Python branch, one host sync per call.  The lower bound matters:
     # a garbage UTF-32 scalar such as 0xFFFFFFFF is negative as int32.
-    if bool(((x >= 0) & (x < 0x80)).all()):
+    if ascii_fastpath and bool(((x >= 0) & (x < 0x80)).all()):
         out = torch.cat([x, x.new_zeros(cap - x.shape[0])])
         return TranscodeResult(out, _i32(n, x), _i32(STATUS_OK, x))
     idx = torch.arange(x.shape[0], device=x.device)
@@ -430,3 +439,187 @@ def ragged_scan(data, offsets, lengths, *, src_format: str = "utf8",
     return rt.scan_ragged(
         data, offsets, lengths, src=normalize_format(src_format),
         dst=normalize_format(dst_format), device=device)
+
+
+# ---------------------------------------------------------------------------
+# The reference's deprecated per-pair shims.  Each warns a
+# ``DeprecationWarning`` attributed to its caller (the stack level past the
+# shim) and keeps its historical default strategy, so its results are the
+# reference's shim's bit for bit.
+
+DEPRECATED = (
+    "utf8_to_utf16", "utf8_to_utf32", "utf8_to_latin1",
+    "latin1_to_utf8", "latin1_to_utf16",
+    "utf16_to_utf8", "utf16_to_utf32",
+    "utf32_to_utf8", "utf32_to_utf16",
+    "transcode_utf8_to_utf16", "transcode_utf16_to_utf8",
+    "ragged_utf8_to_utf16", "ragged_utf16_to_utf8",
+    "ragged_scan_utf8", "ragged_scan_utf16",
+    "scan_utf8", "scan_utf16",
+)
+
+
+def _warn_deprecated(name: str, repl: str):
+    warnings.warn(
+        f"repro_torch.core.transcode.{name}() is deprecated; use {repl}",
+        DeprecationWarning, stacklevel=3)
+
+
+def scan_utf8(b, n_valid=None, *, strategy: str = DEFAULT_STRATEGY,
+              device=None):
+    """DEPRECATED shim: use :func:`scan` with ``dst_format="utf16"``."""
+    _warn_deprecated("scan_utf8", 'scan(b, "utf16", src_format="utf8")')
+    return scan(b, "utf16", src_format="utf8", n_valid=n_valid,
+                strategy=strategy, device=device)
+
+
+def scan_utf16(u, n_valid=None, *, strategy: str = DEFAULT_STRATEGY,
+               device=None):
+    """DEPRECATED shim: use :func:`scan` with ``dst_format="utf8"``."""
+    _warn_deprecated("scan_utf16", 'scan(u, "utf8", src_format="utf16")')
+    return scan(u, "utf8", src_format="utf16", n_valid=n_valid,
+                strategy=strategy, device=device)
+
+
+def _pair_shim(name: str, src: str, dst: str, arg: str, strategy: str):
+    """A deprecated ``src`` -> ``dst`` shim over :func:`transcode`, its
+    strategy keyword defaulting to ``strategy`` (its historical one)."""
+    repl = f'transcode({arg}, "{dst}", src_format="{src}")'
+
+    def shim(x, n_valid=None, validate: bool = True,
+             errors: str = "strict", *, strategy: str = strategy,
+             device=None):
+        _warn_deprecated(name, repl)
+        return transcode(x, dst, src_format=src, n_valid=n_valid,
+                         strategy=strategy, validate=validate, errors=errors,
+                         device=device)
+
+    shim.__name__ = shim.__qualname__ = name
+    shim.__doc__ = (f"DEPRECATED shim: use :func:`transcode` "
+                    f"(``{repl}``).  Historical default strategy: "
+                    f"``{strategy}``.")
+    return shim
+
+
+utf8_to_utf32 = _pair_shim("utf8_to_utf32", "utf8", "utf32", "b",
+                           "blockparallel")
+utf8_to_latin1 = _pair_shim("utf8_to_latin1", "utf8", "latin1", "b",
+                            "fused")
+latin1_to_utf8 = _pair_shim("latin1_to_utf8", "latin1", "utf8", "b",
+                            "fused")
+latin1_to_utf16 = _pair_shim("latin1_to_utf16", "latin1", "utf16", "b",
+                             "fused")
+utf16_to_utf32 = _pair_shim("utf16_to_utf32", "utf16", "utf32", "u",
+                            "blockparallel")
+utf32_to_utf8 = _pair_shim("utf32_to_utf8", "utf32", "utf8", "cp",
+                           "blockparallel")
+utf32_to_utf16 = _pair_shim("utf32_to_utf16", "utf32", "utf16", "cp",
+                            "blockparallel")
+
+
+def utf8_to_utf16(b, n_valid=None, validate: bool = True,
+                  ascii_fastpath: bool = True, errors: str = "strict", *,
+                  device=None):
+    """DEPRECATED shim: use :func:`transcode` with
+    ``strategy="blockparallel"`` (this wrapper was the block-parallel
+    reference cell); ``ascii_fastpath=False`` is its escape hatch past the
+    all-ASCII copy."""
+    _warn_deprecated(
+        "utf8_to_utf16",
+        'transcode(b, "utf16", src_format="utf8", strategy="blockparallel")')
+    if not ascii_fastpath:
+        R.check_errors_policy(errors)
+        return _blockparallel_pair(b, n_valid, "utf8", "utf16", validate,
+                                   errors, device, ascii_fastpath=False)
+    return transcode(b, "utf16", src_format="utf8", n_valid=n_valid,
+                     strategy="blockparallel", validate=validate,
+                     errors=errors, device=device)
+
+
+def utf16_to_utf8(u, n_valid=None, validate: bool = True,
+                  ascii_fastpath: bool = True, errors: str = "strict", *,
+                  device=None):
+    """DEPRECATED shim: use :func:`transcode` with
+    ``strategy="blockparallel"`` (this wrapper was the block-parallel
+    reference cell); ``ascii_fastpath=False`` is its escape hatch past the
+    all-ASCII copy."""
+    _warn_deprecated(
+        "utf16_to_utf8",
+        'transcode(u, "utf8", src_format="utf16", strategy="blockparallel")')
+    if not ascii_fastpath:
+        R.check_errors_policy(errors)
+        return _blockparallel_pair(u, n_valid, "utf16", "utf8", validate,
+                                   errors, device, ascii_fastpath=False)
+    return transcode(u, "utf8", src_format="utf16", n_valid=n_valid,
+                     strategy="blockparallel", validate=validate,
+                     errors=errors, device=device)
+
+
+def transcode_utf8_to_utf16(b, n_valid=None, *,
+                            strategy: str = DEFAULT_STRATEGY,
+                            validate: bool = True, errors: str = "strict",
+                            device=None):
+    """DEPRECATED shim: use :func:`transcode` (``dst_format="utf16"``)."""
+    _warn_deprecated("transcode_utf8_to_utf16",
+                     'transcode(b, "utf16", src_format="utf8")')
+    return transcode(b, "utf16", src_format="utf8", n_valid=n_valid,
+                     strategy=strategy, validate=validate, errors=errors,
+                     device=device)
+
+
+def transcode_utf16_to_utf8(u, n_valid=None, *,
+                            strategy: str = DEFAULT_STRATEGY,
+                            validate: bool = True, errors: str = "strict",
+                            device=None):
+    """DEPRECATED shim: use :func:`transcode` (``dst_format="utf8"``)."""
+    _warn_deprecated("transcode_utf16_to_utf8",
+                     'transcode(u, "utf8", src_format="utf16")')
+    return transcode(u, "utf8", src_format="utf16", n_valid=n_valid,
+                     strategy=strategy, validate=validate, errors=errors,
+                     device=device)
+
+
+def ragged_utf8_to_utf16(data, offsets, lengths, *, validate: bool = True,
+                         errors: str = "strict",
+                         strategy: str = DEFAULT_STRATEGY, device=None):
+    """DEPRECATED shim: use :func:`ragged_transcode`."""
+    _warn_deprecated(
+        "ragged_utf8_to_utf16",
+        'ragged_transcode(data, offsets, lengths, src_format="utf8", '
+        'dst_format="utf16")')
+    return ragged_transcode(data, offsets, lengths, src_format="utf8",
+                            dst_format="utf16", validate=validate,
+                            errors=errors, strategy=strategy, device=device)
+
+
+def ragged_utf16_to_utf8(data, offsets, lengths, *, validate: bool = True,
+                         errors: str = "strict",
+                         strategy: str = DEFAULT_STRATEGY, device=None):
+    """DEPRECATED shim: use :func:`ragged_transcode`."""
+    _warn_deprecated(
+        "ragged_utf16_to_utf8",
+        'ragged_transcode(data, offsets, lengths, src_format="utf16", '
+        'dst_format="utf8")')
+    return ragged_transcode(data, offsets, lengths, src_format="utf16",
+                            dst_format="utf8", validate=validate,
+                            errors=errors, strategy=strategy, device=device)
+
+
+def ragged_scan_utf8(data, offsets, lengths, *, device=None):
+    """DEPRECATED shim: use :func:`ragged_scan`."""
+    _warn_deprecated(
+        "ragged_scan_utf8",
+        'ragged_scan(data, offsets, lengths, src_format="utf8", '
+        'dst_format="utf16")')
+    return ragged_scan(data, offsets, lengths, src_format="utf8",
+                       dst_format="utf16", device=device)
+
+
+def ragged_scan_utf16(data, offsets, lengths, *, device=None):
+    """DEPRECATED shim: use :func:`ragged_scan`."""
+    _warn_deprecated(
+        "ragged_scan_utf16",
+        'ragged_scan(data, offsets, lengths, src_format="utf16", '
+        'dst_format="utf8")')
+    return ragged_scan(data, offsets, lengths, src_format="utf16",
+                       dst_format="utf8", device=device)

@@ -46,10 +46,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "transcode_set_tables": [_P, _P, _P],
-    "transcode_count": [_I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "transcode_write": [_I, _I, _P, _I, _I, _I, _P, _I, _P, _P],
-    "transcode_onepass": [_I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                          _P],
+    "transcode_count": [_I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "transcode_write": [_I, _I, _P, _I, _I, _I, _I, _P, _I, _P, _P],
+    "transcode_onepass": [_I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _P],
     "transcode_rcount": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                          _P],
     "transcode_rwrite": [_I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P],

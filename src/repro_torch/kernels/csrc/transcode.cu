@@ -655,10 +655,11 @@ enum TileClass { CLASS_ASCII = 0, CLASS_2 = 1, CLASS_GENERAL = 2 };
 // element and the inflow lie in [0, 0x80) (ascii_tile_pred), the <=2-byte
 // class when they pass class2_pred (UTF-8 below 0xE0 with the inflow,
 // UTF-16 below 0x800, UTF-32 in [0, 0x7FF]; never for Latin-1), else
-// general.
+// general.  With ascii 0 (the entry points' ascii_fastpath=False) no tile
+// is ASCII: an all-ASCII tile takes the <=2-byte or the general body.
 template <int S>
 __device__ __forceinline__ int tile_class(const uint32_t (&w)[Words<S>::N],
-                                          uint32_t pw) {
+                                          uint32_t pw, int ascii_ok) {
   using W = Words<S>;
   constexpr int H = Reach<S>::value;
   bool ascii = true, c2 = true;
@@ -673,7 +674,7 @@ __device__ __forceinline__ int tile_class(const uint32_t (&w)[Words<S>::N],
     ascii = ascii && v >= 0 && v < 0x80;
     if (S == UTF8) c2 = c2 && v >= 0 && v < 0xE0;
   }
-  if (__all_sync(0xffffffffu, ascii)) return CLASS_ASCII;
+  if (ascii_ok && __all_sync(0xffffffffu, ascii)) return CLASS_ASCII;
   return __all_sync(0xffffffffu, c2) ? CLASS_2 : CLASS_GENERAL;
 }
 
@@ -754,7 +755,7 @@ __device__ __forceinline__ void count_lane(
 template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
 count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
-             int replace, int validate, int* __restrict__ tot_out,
+             int replace, int validate, int ascii, int* __restrict__ tot_out,
              int* __restrict__ err_out, int* __restrict__ ferr_out) {
   using W = Words<S>;
   __shared__ int32_t tab[KL_ENTRIES];
@@ -767,7 +768,7 @@ count_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   const int lane = threadIdx.x & 31;
   uint32_t w[W::N], pw, nw;
   load_lane<S>(x, geo, tile, lane, w, pw, nw);
-  const int cls = tile_class<S>(w, pw);
+  const int cls = tile_class<S>(w, pw, ascii);
 
   const int end = geo.end(tile);
   const int g0 = tile * TILE + lane * CITEMS;
@@ -1020,7 +1021,7 @@ __device__ __forceinline__ void zero_fill(T* __restrict__ out, long long lo,
 template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS, 3)
 write_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
-             int replace, const int* __restrict__ base, int cap,
+             int replace, int ascii, const int* __restrict__ base, int cap,
              typename Storage<D>::T* __restrict__ out) {
   using T = typename Storage<D>::T;
   using W = Words<S>;
@@ -1032,7 +1033,7 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   const int lane = threadIdx.x & 31;
   uint32_t w[W::N], pw, nw;
   load_lane<S>(x, geo, tile, lane, w, pw, nw);
-  const int cls = tile_class<S>(w, pw);
+  const int cls = tile_class<S>(w, pw, ascii);
 
   const long long t0 = static_cast<long long>(tile) * TILE;
   const long long at = base[tile];
@@ -1129,7 +1130,7 @@ write_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
 template <int S, int D, class G>
 __global__ void __launch_bounds__(THREADS)
 onepass_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
-               int replace, int validate, int cap,
+               int replace, int validate, int ascii, int cap,
                unsigned long long* __restrict__ state, int* __restrict__ ctl,
                int* __restrict__ fin, int* __restrict__ tot_out,
                int* __restrict__ err_out, int* __restrict__ ferr_out,
@@ -1147,7 +1148,7 @@ onepass_kernel(const typename Storage<S>::T* __restrict__ x, G geo, int nblk,
   if (tile >= nblk) return;
   uint32_t w[W::N], pw, nw;
   load_lane<S>(x, geo, tile, lane, w, pw, nw);
-  const int cls = tile_class<S>(w, pw);
+  const int cls = tile_class<S>(w, pw, ascii);
 
   const long long t0 = static_cast<long long>(tile) * TILE;
   const int end = geo.end(tile);
@@ -1680,19 +1681,20 @@ encode_kernel(const T* __restrict__ x, int n, int len,
 
 template <int S, int D, class G>
 int launch_count(const void* x, G geo, int nblk, int replace, int validate,
-                 int* tot, int* err, int* ferr, cudaStream_t stream) {
+                 int ascii, int* tot, int* err, int* ferr,
+                 cudaStream_t stream) {
   count_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0, stream>>>(
       static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace,
-      validate, tot, err, ferr);
+      validate, ascii, tot, err, ferr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int S, int D, class G>
-int launch_write(const void* x, G geo, int nblk, int replace,
+int launch_write(const void* x, G geo, int nblk, int replace, int ascii,
                  const int* base, int cap, void* out, cudaStream_t stream) {
   write_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0, stream>>>(
-      static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace, base,
-      cap, static_cast<typename Storage<D>::T*>(out));
+      static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace,
+      ascii, base, cap, static_cast<typename Storage<D>::T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1703,14 +1705,15 @@ constexpr long long ZERO_BLOCKS = 1056;
 
 template <int S, int D, class G>
 int launch_onepass(const void* x, G geo, int nblk, int replace, int validate,
-                   int cap, unsigned long long* state, int* ctl, int* fin,
-                   int* tot, int* err, int* ferr, const int* end, void* out,
-                   cudaStream_t stream) {
+                   int ascii, int cap, unsigned long long* state, int* ctl,
+                   int* fin, int* tot, int* err, int* ferr, const int* end,
+                   void* out, cudaStream_t stream) {
   using T = typename Storage<D>::T;
   onepass_kernel<S, D, G><<<(nblk + CTILES - 1) / CTILES, THREADS, 0,
                             stream>>>(
       static_cast<const typename Storage<S>::T*>(x), geo, nblk, replace,
-      validate, cap, state, ctl, fin, tot, err, ferr, static_cast<T*>(out));
+      validate, ascii, cap, state, ctl, fin, tot, err, ferr,
+      static_cast<T*>(out));
   const long long chunks = (static_cast<long long>(cap) * sizeof(T) + 15) / 16;
   const long long want = (chunks + THREADS - 1) / THREADS;
   const int blocks = static_cast<int>(want < 1 ? 1
@@ -1797,28 +1800,31 @@ int transcode_set_tables(const int32_t* byte_1_high, const int32_t* byte_1_low,
   return static_cast<int>(rc);
 }
 
+// The single-buffer entry points take ascii: 0 keeps every tile out of
+// the ASCII class (the wrappers' ascii_fastpath=False), 1 lets tile_class
+// choose it.  The packed ones always let it.
 int transcode_count(int src, int dst, const void* x, int n, int nblk,
-                    int replace, int validate, int* tot, int* err, int* ferr,
-                    void* stream) {
-  PAIR_CASES(launch_count, x, Flat{n}, nblk, replace, validate, tot,
+                    int replace, int validate, int ascii, int* tot, int* err,
+                    int* ferr, void* stream) {
+  PAIR_CASES(launch_count, x, Flat{n}, nblk, replace, validate, ascii, tot,
              err, ferr, static_cast<cudaStream_t>(stream))
 }
 
 int transcode_write(int src, int dst, const void* x, int n, int nblk,
-                    int replace, const int* base, int cap, void* out,
-                    void* stream) {
-  PAIR_CASES(launch_write, x, Flat{n}, nblk, replace, base, cap, out,
+                    int replace, int ascii, const int* base, int cap,
+                    void* out, void* stream) {
+  PAIR_CASES(launch_write, x, Flat{n}, nblk, replace, ascii, base, cap, out,
              static_cast<cudaStream_t>(stream))
 }
 
 // The one-pass entry point: state holds nblk look-back words and ctl 4
 // ints after it, all zero (onepass_kernel); fin receives (count, status).
 int transcode_onepass(int src, int dst, const void* x, int n, int nblk,
-                      int replace, int validate, int cap,
+                      int replace, int validate, int ascii, int cap,
                       unsigned long long* state, int* ctl, int* fin,
                       void* out, void* stream) {
-  PAIR_CASES(launch_onepass, x, Flat{n}, nblk, replace, validate, cap, state,
-             ctl, fin, nullptr, nullptr, nullptr, fin, out,
+  PAIR_CASES(launch_onepass, x, Flat{n}, nblk, replace, validate, ascii, cap,
+             state, ctl, fin, nullptr, nullptr, nullptr, fin, out,
              static_cast<cudaStream_t>(stream))
 }
 
@@ -1829,8 +1835,8 @@ int transcode_rcount(int src, int dst, const void* x, int len, int nblk,
                      const int* same_next, int replace, int validate,
                      int* tot, int* err, int* ferr, void* stream) {
   const Packed geo{len, nblk, tile_end, same_prev, same_next};
-  PAIR_CASES(launch_count, x, geo, nblk, replace, validate, tot, err, ferr,
-             static_cast<cudaStream_t>(stream))
+  PAIR_CASES(launch_count, x, geo, nblk, replace, validate, 1, tot, err,
+             ferr, static_cast<cudaStream_t>(stream))
 }
 
 int transcode_rwrite(int src, int dst, const void* x, int len, int nblk,
@@ -1838,7 +1844,7 @@ int transcode_rwrite(int src, int dst, const void* x, int len, int nblk,
                      const int* same_next, int replace, const int* base,
                      int cap, void* out, void* stream) {
   const Packed geo{len, nblk, tile_end, same_prev, same_next};
-  PAIR_CASES(launch_write, x, geo, nblk, replace, base, cap, out,
+  PAIR_CASES(launch_write, x, geo, nblk, replace, 1, base, cap, out,
              static_cast<cudaStream_t>(stream))
 }
 
@@ -1853,8 +1859,8 @@ int transcode_ronepass(int src, int dst, const void* x, int len, int nblk,
                        void* stream) {
   const Packed geo{len, nblk, tile_end, same_prev, same_next};
   const int* end = reinterpret_cast<const int*>(state + nblk - 1);
-  PAIR_CASES(launch_onepass, x, geo, nblk, replace, validate, cap, state,
-             ticket, nullptr, tot, err, ferr, end, out,
+  PAIR_CASES(launch_onepass, x, geo, nblk, replace, validate, 1, cap,
+             state, ticket, nullptr, tot, err, ferr, end, out,
              static_cast<cudaStream_t>(stream))
 }
 

@@ -15,7 +15,15 @@ Port of ``repro.kernels.fused_transcode``:
 Each pass is a hand-written CUDA kernel (``kernels/csrc/transcode.cu``)
 on a CUDA tensor, and its plain PyTorch version (:func:`count_plain`,
 :func:`write_plain`) on a CPU tensor.  The wrappers keep a launch count
-(``count_kernel.launches``, ``write_kernel.launches``).
+(``count_kernel.launches``, ``write_kernel.launches``).  Both passes
+dispatch each tile on its class (ASCII, ≤2-byte, general);
+``ascii_fastpath=False`` keeps every tile out of the ASCII class, with
+the same results.
+
+Beside the generic :func:`transcode_fused` and :func:`scan_fused`, the
+reference's per-pair instantiations: :func:`utf8_to_utf16_fused`,
+:func:`utf16_to_utf8_fused`, :func:`utf8_scan_fused` and
+:func:`utf16_scan_fused`.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ def status(errs, ferrs, validate: bool):
 
 
 def count_plain(x, n: int, *, src: str, dst: str, errors: str,
-                validate: bool):
+                validate: bool, ascii_fastpath: bool = True):
     """Plain version of the count kernel: per-tile ``(total, err,
     first_err)`` as three ``(nblk,)`` int32 tensors, with the kernel's
     per-tile class dispatch."""
@@ -76,17 +84,19 @@ def count_plain(x, n: int, *, src: str, dst: str, errors: str,
     t, tp, tn, gidx = stages.tiles(x, n)
     return stages.count_classes(codec_s, codec_d, t, tp, tn, gidx < n, gidx,
                                 validation_tables(codec_s, x.device),
-                                errors=errors, validate=validate)
+                                errors=errors, validate=validate,
+                                ascii_fastpath=ascii_fastpath)
 
 
 def count_kernel(x, n: int, *, src: str, dst: str, errors: str,
-                 validate: bool):
+                 validate: bool, ascii_fastpath: bool = True):
     """Per-tile ``(total, err, first_err)``: the CUDA count kernel on a
     CUDA tensor, :func:`count_plain` on a CPU tensor."""
     with costmodel.kernel("count", (x,)) as kc:
         if x.device.type == "cpu":
             return kc.result(count_plain(x, n, src=src, dst=dst,
-                                         errors=errors, validate=validate))
+                                         errors=errors, validate=validate,
+                                         ascii_fastpath=ascii_fastpath))
         codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
         _build.check_tensor(x, codec_s.dtype, "count_kernel")
         _build.check_length(x, n, "count_kernel")
@@ -96,7 +106,8 @@ def count_kernel(x, n: int, *, src: str, dst: str, errors: str,
         with torch.cuda.device(x.device):
             rc = lib.transcode_count(
                 codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-                replace_flag(errors), int(validate), out[0].data_ptr(),
+                replace_flag(errors), int(validate), int(ascii_fastpath),
+                out[0].data_ptr(),
                 out[1].data_ptr(), out[2].data_ptr(),
                 _build.stream_of(x.device))
         _build.check(rc, "count_kernel")
@@ -112,19 +123,20 @@ count_kernel.launches = 0
 
 
 def write_plain(x, n: int, base, cap: int, *, src: str, dst: str,
-                errors: str):
+                errors: str, ascii_fastpath: bool = True):
     """Plain version of the write kernel: the compact output buffer of
     ``cap`` units in the destination's storage dtype, with the kernel's
     per-tile class dispatch."""
     codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
     t, tp, tn, gidx = stages.tiles(x, n)
     eff, planes = stages.write_classes(codec_s, codec_d, t, tp, tn,
-                                       gidx < n, errors=errors)
+                                       gidx < n, errors=errors,
+                                       ascii_fastpath=ascii_fastpath)
     return stages.place_units(eff, planes, base, cap).to(codec_d.dtype)
 
 
 def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
-                 errors: str):
+                 errors: str, ascii_fastpath: bool = True):
     """The compact output buffer: the CUDA write kernel on a CUDA
     tensor, :func:`write_plain` on a CPU tensor.
 
@@ -138,7 +150,8 @@ def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
     with costmodel.kernel("write", (x, base)) as kc:
         if x.device.type == "cpu":
             return kc.result(write_plain(x, n, base, cap, src=src, dst=dst,
-                                         errors=errors))
+                                         errors=errors,
+                                         ascii_fastpath=ascii_fastpath))
         codec_s, codec_d = stages.get_codec(src), stages.get_codec(dst)
         nblk = stages.num_tiles(x.shape[0])
         _build.check_tensor(x, codec_s.dtype, "write_kernel")
@@ -153,7 +166,8 @@ def write_kernel(x, n: int, base, cap: int, *, src: str, dst: str,
         with torch.cuda.device(x.device):
             rc = lib.transcode_write(
                 codec_s.code, codec_d.code, x.data_ptr(), n, nblk,
-                replace_flag(errors), base.data_ptr(), cap, out.data_ptr(),
+                replace_flag(errors), int(ascii_fastpath), base.data_ptr(),
+                cap, out.data_ptr(),
                 _build.stream_of(x.device))
         _build.check(rc, "write_kernel")
         write_kernel.launches += 1
@@ -169,21 +183,24 @@ write_kernel.launches = 0
 
 def transcode_fused(x, n_valid=None, *, src: str, dst: str,
                     validate: bool = True, errors: str = "strict",
-                    device=None):
+                    device=None, ascii_fastpath: bool = True):
     """Two-pass transcode for any (src, dst) cell of the matrix.
 
     Returns ``TranscodeResult(buffer[dst dtype, cap = CAP_FACTOR *
     len(x)], count, status)``, bit-identical to the reference: ``count``
     may exceed ``cap`` on speculative garbage, whose units past capacity
-    are dropped.
+    are dropped.  ``ascii_fastpath=False`` sends every tile through the
+    ≤2-byte or the general body (the same result).
     """
     R.check_errors_policy(errors)
     faults.fire(faults.KERNEL_FUSED)     # fault-injection hook (no-op unarmed)
     x, n, cap = prepare(x, n_valid, src, dst, device)
     totals, errs, ferrs = count_kernel(x, n, src=src, dst=dst,
-                                       errors=errors, validate=validate)
+                                       errors=errors, validate=validate,
+                                       ascii_fastpath=ascii_fastpath)
     base, total = compaction.tile_base_offsets(totals)
-    out = write_kernel(x, n, base, cap, src=src, dst=dst, errors=errors)
+    out = write_kernel(x, n, base, cap, src=src, dst=dst, errors=errors,
+                       ascii_fastpath=ascii_fastpath)
     return R.TranscodeResult(out, total, status(errs, ferrs, validate))
 
 
@@ -199,3 +216,35 @@ def scan_fused(x, n_valid=None, *, src: str, dst: str, device=None):
     totals, errs, ferrs = count_kernel(x, n, src=src, dst=dst,
                                        errors="strict", validate=True)
     return totals.sum(dtype=torch.int32), status(errs, ferrs, True)
+
+
+# ---------------------------------------------------------------------------
+# The reference's per-pair instantiations (its pre-matrix public API).
+
+
+def utf8_to_utf16_fused(b, n_valid=None, *, validate: bool = True,
+                        errors: str = "strict", device=None,
+                        ascii_fastpath: bool = True):
+    """Fused UTF-8 -> UTF-16 (the (utf8, utf16) matrix cell)."""
+    return transcode_fused(b, n_valid, src="utf8", dst="utf16",
+                           validate=validate, errors=errors, device=device,
+                           ascii_fastpath=ascii_fastpath)
+
+
+def utf16_to_utf8_fused(u, n_valid=None, *, validate: bool = True,
+                        errors: str = "strict", device=None,
+                        ascii_fastpath: bool = True):
+    """Fused UTF-16 -> UTF-8 (the (utf16, utf8) matrix cell)."""
+    return transcode_fused(u, n_valid, src="utf16", dst="utf8",
+                           validate=validate, errors=errors, device=device,
+                           ascii_fastpath=ascii_fastpath)
+
+
+def utf8_scan_fused(b, n_valid=None, *, device=None):
+    """Single-scan UTF-8 validation + UTF-16 length: ``(count, status)``."""
+    return scan_fused(b, n_valid, src="utf8", dst="utf16", device=device)
+
+
+def utf16_scan_fused(u, n_valid=None, *, device=None):
+    """Single-scan UTF-16 validation + UTF-8 length: ``(count, status)``."""
+    return scan_fused(u, n_valid, src="utf16", dst="utf8", device=device)

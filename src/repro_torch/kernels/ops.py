@@ -1,8 +1,9 @@
 """The legacy kernel surface: validation, per-position decode and the
 kernel-backed UTF-8 <-> UTF-16 transcoders.
 
-Port of ``repro.kernels.ops`` without the per-pair re-exports of the
-fused pipeline.  Each op composes a kernel (``validate_kernel``,
+Port of ``repro.kernels.ops``, with its re-export of the fused
+pipeline's two per-pair transcoders (``utf8_to_utf16_fused``,
+``utf16_to_utf8_fused``).  Each op composes a kernel (``validate_kernel``,
 ``decode_kernel``, ``encode_kernel``: hand-written CUDA on the card,
 their plain versions on the CPU) with the global compaction the
 reference leaves to XLA (``core.compaction.compact_offsets``: cumsum +
@@ -22,6 +23,8 @@ from repro_torch.kernels import runtime
 from repro_torch.kernels import utf8_decode as kdec
 from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels import utf16_encode as kenc
+from repro_torch.kernels.fused_transcode import (  # noqa: F401  (re-export)
+    utf8_to_utf16_fused, utf16_to_utf8_fused)
 
 
 def _prepare(b, n_valid, device, narrow, what: str):

@@ -31,7 +31,10 @@ Each kernel (``rcount``, ``rwrite``, ``ronepass``) is hand-written CUDA
 PyTorch version (:func:`rcount_plain`, :func:`rwrite_plain`,
 :func:`ronepass_plain`) on a CPU tensor.  The wrappers keep a launch
 count.  Every document's output slice is bit-identical to the
-single-buffer transcode of that document alone.
+single-buffer transcode of that document alone.  Beside the generic
+:func:`transcode_ragged` and :func:`scan_ragged`, the reference's
+per-pair instantiations (``utf8_to_utf16_ragged``,
+``utf16_to_utf8_ragged``, ``utf8_scan_ragged``, ``utf16_scan_ragged``).
 """
 
 from __future__ import annotations
@@ -357,3 +360,37 @@ def scan_ragged(data, offsets, lengths, *, src: str, dst: str, device=None):
     counts, _oo, statuses = _doc_reduce(totals, errs, ferrs, own[0], off,
                                         True)
     return counts, statuses
+
+
+# ---------------------------------------------------------------------------
+# The reference's per-pair instantiations (its pre-matrix public API).
+
+
+def utf8_to_utf16_ragged(data, offsets, lengths, *, validate: bool = True,
+                         errors: str = "strict", device=None,
+                         strategy: str = "onepass"):
+    """Ragged packed-batch UTF-8 -> UTF-16: one launch per batch."""
+    return transcode_ragged(data, offsets, lengths, src="utf8", dst="utf16",
+                            validate=validate, errors=errors,
+                            strategy=strategy, device=device)
+
+
+def utf8_scan_ragged(data, offsets, lengths, *, device=None):
+    """Counting pass only, per document: ``(counts, statuses)``."""
+    return scan_ragged(data, offsets, lengths, src="utf8", dst="utf16",
+                       device=device)
+
+
+def utf16_to_utf8_ragged(data, offsets, lengths, *, validate: bool = True,
+                         errors: str = "strict", device=None,
+                         strategy: str = "onepass"):
+    """Ragged packed-batch UTF-16 -> UTF-8: one launch per batch."""
+    return transcode_ragged(data, offsets, lengths, src="utf16", dst="utf8",
+                            validate=validate, errors=errors,
+                            strategy=strategy, device=device)
+
+
+def utf16_scan_ragged(data, offsets, lengths, *, device=None):
+    """Counting pass only, per document: ``(counts, statuses)``."""
+    return scan_ragged(data, offsets, lengths, src="utf16", dst="utf8",
+                       device=device)

@@ -214,22 +214,25 @@ def ascii_tile_pred(x, xp, lookback: int = 3):
 ASCII, CLASS2, GENERAL = 0, 1, 2
 
 
-def tile_class(src: Codec, x, xp):
+def tile_class(src: Codec, x, xp, ascii_fastpath: bool = True):
     """Each tile's class, ``(nblk,)`` int64: :data:`ASCII`,
-    :data:`CLASS2` (the source's ≤2-byte class) or :data:`GENERAL`."""
+    :data:`CLASS2` (the source's ≤2-byte class) or :data:`GENERAL`.
+    With ``ascii_fastpath`` off no tile is :data:`ASCII`: an all-ASCII
+    tile takes the ≤2-byte or the general body."""
     cls = torch.full(x.shape[:-1], GENERAL, dtype=torch.int64,
                      device=x.device)
     if src.class2_pred is not None:
         cls[src.class2_pred(x, xp)] = CLASS2
-    cls[ascii_tile_pred(x, xp, src.max_lookback)] = ASCII
+    if ascii_fastpath:
+        cls[ascii_tile_pred(x, xp, src.max_lookback)] = ASCII
     return cls
 
 
-def _class_groups(src: Codec, x, xp):
+def _class_groups(src: Codec, x, xp, ascii_fastpath: bool):
     """The ≤2-byte and general tiles of the stack: ``(class2, sel)`` for
     each of the two classes that occurs, ``sel`` its tile mask.  ASCII
     tiles run no lane body."""
-    cls = tile_class(src, x, xp)
+    cls = tile_class(src, x, xp, ascii_fastpath)
     for c in (CLASS2, GENERAL):
         sel = cls == c
         if bool(sel.any()):
@@ -263,16 +266,17 @@ def _stage_class(src: Codec, dst: Codec, cp, lead, instream, class2: bool,
 
 
 def count_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables, *,
-                  errors: str, validate: bool):
+                  errors: str, validate: bool, ascii_fastpath: bool = True):
     """:func:`count_tile` with the per-tile class dispatch of the count
     kernels: an ASCII tile counts one unit per live lane and no error; a
     ≤2-byte tile runs the class bodies (the Keiser-Lemire check still
     rides along under ``validate``: the reference's one-pass class body
     drops it, but the per-tile flag must stay :func:`count_tile`'s, since
     KL flags a bad pair at its second byte, possibly in the next tile);
-    the rest the general body.  Equal to :func:`count_tile` per tile."""
+    the rest the general body (:func:`tile_class`'s ``ascii_fastpath``).
+    Equal to :func:`count_tile` per tile."""
     tot, err, ferr = _count_ascii(live)
-    for class2, sel in _class_groups(src, x, xp):
+    for class2, sel in _class_groups(src, x, xp, ascii_fastpath):
         parts = [t[sel] for t in (x, xp, xn, live, gidx)]
         a, cp, lead = decode_once(src, *parts[:3], errors=errors,
                                   validate=validate, class2=class2)
@@ -337,15 +341,16 @@ def write_stage(src: Codec, dst: Codec, x, xp, xn, instream, *,
 
 
 def write_classes(src: Codec, dst: Codec, x, xp, xn, instream, *,
-                  errors: str):
+                  errors: str, ascii_fastpath: bool = True):
     """:func:`write_stage` with the per-tile class dispatch of the write
     kernels: ``(eff, planes)`` over :func:`stage_units` planes.  An ASCII
     tile is a widening copy (one unit per live lane, the lane itself); a
     ≤2-byte tile runs the class bodies over :func:`stage_units2` planes
     (the planes above them stay 0, below ``eff``'s reach); the rest the
-    general body.  Equal to :func:`write_stage` wherever ``eff`` reaches."""
+    general body (:func:`tile_class`'s ``ascii_fastpath``).  Equal to
+    :func:`write_stage` wherever ``eff`` reaches."""
     eff, planes = _write_ascii(src, dst, x, instream)
-    for class2, sel in _class_groups(src, x, xp):
+    for class2, sel in _class_groups(src, x, xp, ascii_fastpath):
         parts = [t[sel] for t in (x, xp, xn, instream)]
         _a, cp, lead = decode_once(src, *parts[:3], errors=errors,
                                    validate=False, class2=class2)
@@ -354,7 +359,8 @@ def write_classes(src: Codec, dst: Codec, x, xp, xn, instream, *,
 
 
 def onepass_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables,
-                    *, errors: str, validate: bool):
+                    *, errors: str, validate: bool,
+                    ascii_fastpath: bool = True):
     """The one-pass body with the reference's per-tile dispatch
     (``onepass_tile``), as the one-pass kernels run it: one decode of each
     ≤2-byte or general tile feeds both :func:`count_classes`' per-tile
@@ -364,10 +370,12 @@ def onepass_classes(src: Codec, dst: Codec, x, xp, xn, live, gidx, tables,
     under ``validate``, as in :func:`count_classes`, so the per-tile
     ``(err, first_err)`` are :func:`count_tile`'s (the reference's class
     body drops it; its fold, and every document's status, are the same).
-    Returns ``(total, err, first_err, eff, planes)``."""
+    With ``ascii_fastpath`` off no tile takes the ASCII class
+    (:func:`tile_class`).  Returns ``(total, err, first_err, eff,
+    planes)``."""
     tot, err, ferr = _count_ascii(live)
     eff, planes = _write_ascii(src, dst, x, live)
-    for class2, sel in _class_groups(src, x, xp):
+    for class2, sel in _class_groups(src, x, xp, ascii_fastpath):
         parts = [t[sel] for t in (x, xp, xn, live, gidx)]
         a, cp, lead = decode_once(src, *parts[:3], errors=errors,
                                   validate=validate, class2=class2)

@@ -41,8 +41,11 @@ the rank's block of every row's positions (``models.shardctx.
 sequence``; the whole sequence, noted in ``whole_layers``, where the
 data ranks do not divide it), and a decode cell's state holds the
 rank's block of the cache's slots and of its recurrent channels over
-the data ranks too.  Whisper's decoder is not split so
-(``sequence_split`` false): every rank runs the whole batch.
+the data ranks too.  Whisper's decoder tokens are split so, and its
+frames stay whole, as the reference's: the encoder and the
+cross-attention K/V projections run on every frame on every rank (named
+in ``replicated``), and a decode state holds the rank's block of the
+frames' K/V where the data ranks divide them (else whole, named).
 
 A serving cell's decode state is the rank's rows of its KV heads and
 recurrent channels (the blocks its layers compute), of a KV head shared
@@ -241,7 +244,7 @@ def _mesh_cell(model, family, cfg, s, ins, mesh, layout, n_active):
     ctx = dict(tp_axis=tp, tp_size=mesh.shape["model"], dp_axes=dp,
                dp_size=mesh.axis_size(dp), mesh=mesh,
                batch_axes=dp if split else (),
-               seq_axes=() if split or family == "encdec" else dp)
+               seq_axes=() if split else dp)
 
     def sharded(step):
         def run(*a):
@@ -414,7 +417,7 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
             _shape(shape_name, shape)["global_batch"], mesh,
             dp=_layout_axes(mesh, layout)[1])[0] is not None
         # the sequence (or the decode state) split over the data ranks
-        seq = not split and cfgmod.get_module(arch).FAMILY != "encdec"
+        seq = not split
         with CM.CostMode() as cm, LiveBytes(_arg_tensors(args)) as mem:
             out = fn(*args)
     rl = RL.analyze(arch, shape_name, mesh_name, chips, cm.cost,
@@ -428,8 +431,7 @@ def dryrun_cell(arch: str, shape_name: str, *, remat=True,
     # of the rows or of the sequence over the data axes, and of a "tp"
     # layout's model axis, but for what is noted whole (counts that do
     # not divide the model axis, a sequence or a cache that does not
-    # divide the data ranks), and a rank given the whole batch unsplit
-    # (whisper's decoder with too few rows) repeats its data peers'
+    # divide the data ranks)
     rec["batch_rows_split"] = split
     whole_seq = [w for w in whole if w[0] == "sequence"]
     rec["sequence_split"] = seq and not whole_seq

@@ -13,6 +13,20 @@ state keeps the reference's stacked layout (``enc_kv`` a pair of
 ``jax.checkpoint`` of each layer: under autograd, each encoder layer,
 and each decoder layer when there is no decode state, runs under
 ``torch.utils.checkpoint`` (``lm.remat``), keeping only its inputs.
+
+Under the sequence split (``shardctx.seq``: one row or a few, fewer than
+the data ranks) a rank runs positions ``[h S / n, (h + 1) S / n)`` of
+every decoder row, as the decoder LMs do, and the frames stay whole, as
+the reference's ``P(None, None, None)`` keeps them: the encoder and the
+cross-attention K/V projections run on every frame on every rank (noted
+through ``shardctx.note_replicated``), and a block's queries attend over
+every frame with no collective.  The decode state holds what
+``state_specs`` gives a rank: the self-attention caches in slot blocks
+(``common.init_attn_cache``) and ``enc_kv`` in frame blocks, rank ``h``
+holding frames ``[h T / n, (h + 1) T / n)`` where ``n`` divides ``T``
+(else whole, noted); a decode step's cross-attention over a frame block
+combines the data ranks' log-sum-exp partials (``common.
+_shared_attention``).
 """
 
 from __future__ import annotations
@@ -65,9 +79,18 @@ class CrossAttention(nn.Module):
         self.wo = C._dense_init(gen, (h * hd, d), dt, device)
 
 
+def _frame_blocks(cfg: EncDecConfig, frames: int) -> int:
+    """How many data blocks split a held ``enc_kv`` of ``frames`` frames a
+    rank (:meth:`EncDecLM.init_state`): 1 where it is whole."""
+    return shardctx.cache_layout(("cross-attention", cfg.attn_cfg()),
+                                 frames, frames)[1]
+
+
 def _cross_attention(p, cfg: EncDecConfig, x, enc_kv):
     """Bidirectional attention of x over precomputed encoder (k, v), on
-    the rank's heads (``C.heads``) under a model axis."""
+    the rank's heads (``C.heads``) under a model axis.  A decode step over
+    a state's block of the frames (:func:`_frame_blocks`) combines the
+    data ranks' partial softmaxes."""
     b, s, _ = x.shape
     hs = C.heads(cfg.attn_cfg(), "cross-attention")
     h, hd = (cfg.n_heads if hs is None else hs.h), cfg.hd
@@ -80,7 +103,11 @@ def _cross_attention(p, cfg: EncDecConfig, x, enc_kv):
     qpos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     # kpos=0 <= qpos: full visibility
     kpos = torch.zeros((b, se), dtype=torch.int32, device=x.device)
-    y = C.chunked_attention(q, k, v, qpos, kpos)
+    nd = _frame_blocks(cfg, se)
+    if nd > 1 and shardctx.seq() is None:
+        y = C._shared_attention(q, k, v, qpos, kpos, None, 1024, 1, nd)
+    else:
+        y = C.chunked_attention(q, k, v, qpos, kpos)
     return C.attn_out(p, cfg.attn_cfg(), hs, y, x.dtype)
 
 
@@ -146,10 +173,15 @@ class EncDecLM(nn.Module):
         self.ln_f = C.RMSNorm(cfg.d_model, dt, dev)
 
     def encode(self, frames):
-        """frames: (B, T, d_model) stub mel embeddings -> encoder output."""
+        """frames: (B, T, d_model) stub mel embeddings -> encoder output
+        (every frame, on every rank of a split step: noted)."""
         cfg = self.cfg
         x = frames.to(cfg.torch_dtype) + self.enc_pos[None, : frames.shape[1]]
         b, t, _ = x.shape
+        if shardctx.seq() is not None:
+            shardctx.note_replicated(
+                "encoder", f"every frame, {_encoder_products(cfg, b, t):.6g}"
+                " product FLOPs a call forward, on every data rank")
         pos = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
         layer = _enc_layer
         if cfg.remat and torch.is_grad_enabled():
@@ -166,6 +198,11 @@ class EncDecLM(nn.Module):
         hs = C.heads(cfg.attn_cfg(), "cross-attention")
         kv, hd = (cfg.n_kv_heads if hs is None else hs.kv), cfg.hd
         kr = None if hs is None else hs.ranges(hd)[1]
+        if shardctx.seq() is not None:
+            shardctx.note_replicated(
+                "cross-attention", "the K/V projections of every frame, "
+                f"{4 * b * t * cfg.d_model * kv * hd * cfg.n_layers:.6g} "
+                "product FLOPs a call forward, on every data rank")
         ws = []
         for lp in self.dec:
             ws += [shardctx.gather("wk", lp.xattn.wk, 1, kr),
@@ -175,20 +212,31 @@ class EncDecLM(nn.Module):
         vs = [v.reshape(b, t, kv, hd).to(enc_out.dtype) for v in out[1::2]]
         return torch.stack(ks), torch.stack(vs)
 
-    def forward(self, frames, tokens, state=None):
+    def cross_kv(self, frames):
+        """Every frame's cross-attention K/V: the encoder, then
+        :meth:`_enc_kv`."""
+        return self._enc_kv(self.encode(frames))
+
+    def forward(self, frames, tokens, state=None, enc_kv=None):
         """Returns (logits, new_state, aux): the reference's ``apply``.
 
         state: None (teacher forcing) or dict(enc_kv, caches, pos0) for
-        decode; its caches are updated in place.
+        decode; its caches are updated in place.  ``enc_kv``: every
+        frame's cross-attention K/V, in place of the state's (a split
+        prefill, whose state holds the rank's block of them).  Under the
+        sequence split ``tokens`` are rank ``h``'s block of ``S``
+        positions of every row (positions from ``h S``).
         """
         cfg = self.cfg
-        if state is not None and "enc_kv" in state:
+        if enc_kv is None and state is not None and "enc_kv" in state:
             enc_kv = state["enc_kv"]
-        else:
-            enc_kv = self._enc_kv(self.encode(frames))
+        elif enc_kv is None:
+            enc_kv = self.cross_kv(frames)
         x = C.embed(self.embed, tokens)
         b, s = tokens.shape
-        base = torch.arange(s, dtype=torch.int32,
+        sp = shardctx.seq()
+        start, span = (0, s) if sp is None else (sp[3] * s, sp[2] * s)
+        base = torch.arange(start, start + s, dtype=torch.int32,
                             device=x.device).expand(b, s)
         pos0 = state["pos0"] if state is not None else None
         pos = base + pos0 if state is not None else base
@@ -204,16 +252,57 @@ class EncDecLM(nn.Module):
         logits = C.unembed(self.embed, x)
         new_state = None
         if state is not None:
-            new_state = {"enc_kv": enc_kv, "caches": caches,
-                         "pos0": pos0 + s}
+            new_state = {"enc_kv": state.get("enc_kv", enc_kv),
+                         "caches": caches, "pos0": pos0 + span}
         return logits, new_state, torch.zeros((), dtype=torch.float32,
                                               device=x.device)
 
-    def init_state(self, frames, batch, capacity):
+    def init_state(self, frames, batch, capacity, enc_kv=None):
+        """The decode state: ``enc_kv`` (from ``frames``, unless given
+        whole) as :meth:`_hold_frames` keeps it, the self-attention
+        caches (``common.init_attn_cache``), ``pos0``."""
         cfg = self.cfg
         dev = self.embed.table.device
+        if enc_kv is None:
+            enc_kv = self.cross_kv(frames)
         one = C.init_attn_cache(cfg.attn_cfg(), batch, capacity,
                                 cfg.torch_dtype, dev)
-        return {"enc_kv": self._enc_kv(self.encode(frames)),
+        return {"enc_kv": self._hold_frames(enc_kv),
                 "caches": stacked(one, cfg.n_layers),
                 "pos0": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def _hold_frames(self, enc_kv):
+        """``enc_kv`` as ``state_specs`` splits it over the sequence
+        split's ``n`` data ranks (``shardctx.seq_state``): rank ``h``'s
+        block of the ``T`` frames where ``n`` divides ``T`` (recorded for
+        :func:`_frame_blocks`), else whole on every data rank (noted)."""
+        st = shardctx.seq_state()
+        if st is None:
+            return enc_kv
+        n, h = st[2], st[3]
+        k, v = enc_kv
+        t = k.shape[2]
+        if t % n:
+            shardctx.note_replicated(
+                "cross-attention", f"enc_kv, {2 * k.numel() * k.element_size()}"
+                f" B, whole on every data rank ({t} frames % {n} data ranks)")
+            return enc_kv
+        tl = t // n
+        shardctx.register_cache(("cross-attention", self.cfg.attn_cfg()), tl,
+                                tl, t, n)
+        return tuple(e[:, :, h * tl: (h + 1) * tl].contiguous()
+                     for e in enc_kv)
+
+
+def _encoder_products(cfg: EncDecConfig, b: int, t: int) -> float:
+    """Forward product FLOPs of the encoder on ``b`` rows of ``t`` frames
+    on this rank: its heads (``C.heads``) and hidden units over a model
+    axis."""
+    hs = C.heads(cfg.attn_cfg())
+    h, kv = (cfg.n_heads, cfg.n_kv_heads) if hs is None else (hs.h, hs.kv)
+    blk = shardctx.split(cfg.d_ff)
+    f = cfg.d_ff if blk is None else blk[1]
+    d, hd = cfg.d_model, cfg.hd
+    per = 2 * b * t * (d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f) \
+        + 4 * b * t * h * hd * t
+    return float(per * cfg.n_layers)

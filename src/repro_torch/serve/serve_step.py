@@ -17,7 +17,10 @@ batch with fewer rows than the data ranks) a prefill runs rank ``h`` of
 ``n``'s block of every prompt's positions, ``[h S / n, (h + 1) S / n)``
 (padding masked by global position), and the rank that holds each
 prompt's last real token gives its logits to the others (a sum over the
-data ranks); a decode step's one token is the same on every rank.
+data ranks); a decode step's one token is the same on every rank.  The
+encoder-decoder's prefill runs the encoder on every frame on every rank
+and its block of the decoder tokens against them, and the last rank's
+last position gives the logits.
 """
 
 from __future__ import annotations
@@ -113,15 +116,28 @@ def make_decode(model, family: str, temperature: float = 0.0):
 
 
 def make_encdec_steps(model):
-    """Whisper-style: (prefill, decode) against a fixed encoder output."""
+    """Whisper-style: (prefill, decode) against a fixed encoder output.
+    Under the sequence split the prefill holds the state's block of the
+    frames' K/V and attends over all of them."""
 
     @torch.no_grad()
     def prefill(params, frames, tokens, capacity):
         net = _net(model, params)
         b, s = tokens.shape
-        state = net.init_state(frames, b, capacity)
-        logits, state, _ = net(frames, tokens, state=state)
-        return logits[:, -1], state
+        with shardctx.sequence(s) as blk:
+            enc_kv = net.cross_kv(frames)
+            state = net.init_state(None, b, capacity, enc_kv=enc_kv)
+            if blk is not None:             # this rank's block of positions
+                sl = s // blk[1]
+                tokens = tokens[:, blk[0] * sl: (blk[0] + 1) * sl]
+            logits, state, _ = net(frames, tokens, state=state,
+                                   enc_kv=enc_kv)
+            out = logits[:, -1]
+            if blk is not None:             # from the rank that holds it
+                if blk[0] != blk[1] - 1:
+                    out = torch.zeros_like(out)
+                out = shardctx.sum_over_seq(out)
+        return out, state
 
     @torch.no_grad()
     def decode(params, tok, state):

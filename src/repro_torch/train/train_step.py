@@ -169,8 +169,8 @@ def make_train_step(model, family: str, opt_cfg: O.AdamWConfig,
     ``batch_specs`` for ``global_batch`` rows gives the sequence split:
     the step then runs positions ``[h S / D, (h + 1) S / D)`` of every
     row (``models.shardctx.sequence``; the whole sequence, noted, where
-    ``D`` does not divide ``S``; every position for whisper's decoder,
-    whose split is not ported).  Local microbatch ``m`` of every rank
+    ``D`` does not divide ``S``; whisper's decoder tokens so, its frames
+    whole on every rank).  Local microbatch ``m`` of every rank
     makes the reference's global microbatch ``m``.  The metrics are the global step's.  ``layout``:
     ``"tp"`` (the model axis on the specs' tensor-parallel dims, FSDP
     and the batch over the data axes) or ``"dp"`` (no tensor axis; FSDP
@@ -219,14 +219,15 @@ def _sharded_step(model, family, opt_cfg, n_micro, mesh, global_batch,
     ctx = dict(tp_axis=tp, tp_size=mesh.shape.get("model", 1),
                dp_axes=dp, dp_size=n_dp, mesh=mesh,
                batch_axes=dp if rows_split else (),
-               seq_axes=() if rows_split or family == "encdec" else dp)
+               seq_axes=() if rows_split else dp)
 
     def run(batch):
         with rt.swapped(), \
                 shardctx.sequence(batch["tokens"].shape[1]) as blk:
             if blk is not None:         # this rank's block of positions
                 s = batch["tokens"].shape[1] // blk[1]
-                batch = {k: v[:, blk[0] * s: (blk[0] + 1) * s]
+                batch = {k: v if k == "frames"
+                         else v[:, blk[0] * s: (blk[0] + 1) * s]
                          for k, v in batch.items()}
             loss_b, loss, metrics = loss_fn(batch)
             loss_b.backward()

@@ -44,7 +44,7 @@ job's ``out`` directory (``torch.save``).  Cases:
   * ``seq_serve``: per arch and (data, model) mesh shape, the model bound
     as ``serve`` binds it, in the sequence split's context (one prompt
     row for more data ranks: its positions split over them, the decode
-    state's slots and channels too); a prefill and teacher-forced decode
+    state's slots, channels and frames too); a prefill and teacher-forced decode
     steps; out (``out``.pt): each rank's logits, its state's leaves
     after the last step, its coordinate and the layers noted whole.
 """
@@ -347,8 +347,18 @@ def serve(model, fam, sv, context):
     """A decode state for ``context`` positions, the prompts ``sv``
     (``tokens``, ``lens``) prefilled, then a teacher-forced decode step
     for each column of ``sv["feed"]``: ``(every call's logits, the
-    state)``."""
+    state)``.  An encoder-decoder prefills the whole prompts against
+    ``sv["frames"]`` (its prefill takes no lengths)."""
     toks, lens, feed = sv["tokens"], sv["lens"], sv["feed"]
+    if fam == "encdec":
+        pre, dec = serve_step.make_encdec_steps(model)
+        lg, state = pre(model, sv["frames"], toks,
+                        kvcache.capacity_for(model.cfg, context))
+        logits = [lg]
+        for j in range(feed.shape[1]):
+            _, lg, state = dec(model, feed[:, j: j + 1], state)
+            logits.append(lg)
+        return logits, state
     pre = serve_step.make_prefill(model, fam)
     dec = serve_step.make_decode(model, fam)
     state = kvcache.init_state(model, model.cfg, toks.shape[0], context)
@@ -359,6 +369,14 @@ def serve(model, fam, sv, context):
         logits.append(lg)
         pos = pos + 1
     return logits, state
+
+
+def state_leaves(state) -> dict:
+    """A decode state's tensors by dotted name (``weights._flatten``),
+    the encoder-decoder's ``enc_kv`` pair as ``enc_kv.0``/``enc_kv.1``."""
+    if isinstance(state.get("enc_kv"), tuple):
+        state = {**state, "enc_kv": dict(enumerate(state["enc_kv"]))}
+    return weights._flatten(state)
 
 
 def run_serve(case, out):
@@ -403,7 +421,7 @@ def run_seq_serve(case, out):
             res[(arch, tuple(shape))] = {
                 "logits": logits, "coord": dict(mesh.coord),
                 "state": {k: v.clone() for k, v in
-                          weights._flatten(state).items()},
+                          state_leaves(state).items()},
                 "whole": sorted(noted)}
     outs = [None] * dist.get_world_size()
     dist.all_gather_object(outs, res)

@@ -579,18 +579,39 @@ def test_dryrun_tp_rank_holds_a_block_of_the_shared_kv_head():
 SEQ_MESH = {"data": 4, "model": 2}
 
 
+def _encdec_whole(cfg, kind: str, b: int, m: int) -> float:
+    """Product FLOPs of whisper's encoder and cross-attention K/V
+    projections over every frame in one step on a rank of ``m`` model
+    ranks (their heads and hidden units split ``m`` ways), on the CPU:
+    forward; in training also the backward (twice the forward) and the
+    encoder layers' remat recompute, which stops before each layer's last
+    product, the MLP's output (aten ``mm`` saves its inputs)."""
+    t, d, hd, n = cfg.n_audio_frames, cfg.d_model, cfg.hd, cfg.n_layers
+    h, kv, f = cfg.n_heads // m, cfg.n_kv_heads // m, cfg.d_ff // m
+    layer = 2 * b * t * (d * (h + 2 * kv) * hd + h * hd * d + 3 * d * f) \
+        + 4 * b * t * h * hd * t
+    cross = 4 * b * t * d * kv * hd * n
+    if kind == "prefill":
+        return n * layer + cross
+    return n * (4 * layer - 2 * b * t * f * d) + 3 * cross
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "recurrentgemma-9b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "whisper-tiny"])
 def test_dryrun_sequence_split_rank_computes_and_holds_its_share(arch, kind):
     """Rank 0 of (data 4, model 2) under ``--layout tp``, reduced, a
     global batch of one row: ``batch_specs`` gives the sequence split, so
     a train or prefill step runs a quarter of the 64 positions (its
     product FLOPs at most 1.05x the one card's over the 8 chips: the
     shared KV head's projections are whole on the two model ranks that
-    read it) and a decode state holds the rank's block of the cache's
-    slots and channels: its k and v leaves the size of their
-    ``state_specs`` shard, no leaf but the cursors beyond its shard."""
+    read it; whisper-tiny's exactly its encoder's and cross-attention
+    K/V projections' over every frame, their heads split over model,
+    plus the rest of the one card's over the 8 chips, both named in
+    ``replicated``) and a decode state holds the rank's block of the
+    cache's slots and channels (and of whisper's frames): its k and v
+    leaves the size of their ``state_specs`` shard, no leaf but the
+    cursors beyond its shard."""
     from repro_torch.launch import dryrun
 
     shape = dict(kind=kind, seq_len=64, global_batch=1)
@@ -606,6 +627,14 @@ def test_dryrun_sequence_split_rank_computes_and_holds_its_share(arch, kind):
         assert all(n.endswith("cursor") for n in rec["state_over_specs"]), \
             rec["state_over_specs"]
         assert rec["state_bytes_per_rank"] <= rec["state_specs_bytes_per_rank"]
+    elif arch == "whisper-tiny":
+        cfg = configs.get_module(arch).reduced()
+        one = rec["products_one_card_over_chips"] * 8
+        whole = _encdec_whole(cfg, kind, 1, 1)
+        assert rec["products_per_rank"] == pytest.approx(
+            _encdec_whole(cfg, kind, 1, 2) + (one - whole) / 8, rel=1e-12)
+        assert {w[0] for w in rec["replicated"]} >= {"encoder",
+                                                     "cross-attention"}
     else:
         assert rec["products_per_rank"] <= \
             1.05 * rec["products_one_card_over_chips"]

@@ -302,6 +302,41 @@ def test_write_kernels_zero_the_tail_of_dirty_memory(src, dst):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("src,dst", tc.PAIRS)
+def test_ascii_fastpath_off_kernels_equal_on_and_plain(src, dst):
+    """count, write and onepass with ``ascii_fastpath=False`` (no tile in
+    the ASCII class) on every tile-class buffer: equal to themselves with
+    it on and to their plain versions with it off, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    for name, arr in C.class_buffers(src, seed=71):
+        x, n = torch.from_numpy(arr).cuda(), len(arr)
+        cap = tc.CAP_FACTOR[(src, dst)] * n
+        kw = dict(src=src, dst=dst, errors="replace")
+        base, _total = compaction.tile_base_offsets(
+            ft.count_kernel(x, n, validate=True, **kw)[0])
+        calls = {
+            "count": (lambda a, f=ft.count_kernel: f(
+                x, n, validate=True, ascii_fastpath=a, **kw),
+                ft.count_plain),
+            "write": (lambda a, f=ft.write_kernel: f(
+                x, n, base, cap, ascii_fastpath=a, **kw), ft.write_plain),
+            "onepass": (lambda a, f=op.onepass_kernel: f(
+                x, n, cap, validate=True, ascii_fastpath=a, **kw),
+                op.onepass_plain)}
+        for what, (call, plain) in calls.items():
+            on, off = call(True), call(False)
+            args = {"count": (x, n), "write": (x, n, base, cap),
+                    "onepass": (x, n, cap)}[what]
+            extra = {} if what == "write" else {"validate": True}
+            want = plain(*args, ascii_fastpath=False, **extra, **kw)
+            for a, b, c in zip(*(t if isinstance(t, tuple) else (t,)
+                                 for t in (on, off, want)), strict=True):
+                assert torch.equal(a, b) and torch.equal(b, c), (
+                    src, dst, name, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,dst", tc.PAIRS)
 def test_onepass_kernels_match_plain_on_tile_classes(src, dst):
     """onepass_kernel on every tile-class buffer (6 tiles, and one of 17:
     neither a multiple of the 8 tiles a block), full and with ``n``

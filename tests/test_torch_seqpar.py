@@ -9,14 +9,17 @@ RG-LRU's carries, its one KV head), falcon-mamba-7b (the causal conv's
 halo, the SSM's carries) and deepseek-moe-16b (global routing in global
 token order) with one row of 64 positions at (4, 1) and (2, 2), and
 deepseek-moe-16b with two rows and qwen2-vl-2b (M-RoPE's three position
-streams, offset to the rank's block) at (4, 1): loss, grad norm, every gradient and every updated parameter
+streams, offset to the rank's block) at (4, 1), and whisper-tiny (its
+decoder tokens split, its 32 frames whole on every rank) at (4, 1) and
+(2, 2): loss, grad norm, every gradient and every updated parameter
 against the port's single-process step and the reference's unmeshed
 ``train_step`` (jitted), within ``atol=2e-5, rtol=1e-4``; and a prefill
 of one 24-position prompt then three teacher-forced decode steps of
 h2o-danube-1.8b (its 16-slot ring wraps), recurrentgemma-9b (at (2, 2)
 its KV head's slots in blocks over data and the two model ranks that
-share it) and falcon-mamba-7b, whose logits and final decode state, put
-back together from the ranks' blocks, equal one process's.  In process:
+share it), falcon-mamba-7b and whisper-tiny (its cross-attention K/V in
+frame blocks over the data ranks), whose logits and final decode state,
+put back together from the ranks' blocks, equal one process's.  In process:
 the carry scan split in 1-4 blocks against ``linear_scan`` whole, and
 ``_write_block``'s data-block numbering.
 """
@@ -35,10 +38,10 @@ from repro.train import train_step as RT
 from repro_torch.models import common as C
 from repro_torch.models import registry as TR
 from repro_torch.models import shardctx, weights
-from repro_torch.serve import kvcache, serve_step
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
 
+import _torch_dist_worker as W
 from _train_port import TOL, assert_tree_close, batch_for, np_tree
 from test_torch_distributed import _assert_params_close, start_ranks
 
@@ -48,9 +51,11 @@ MESHES = [(4, 1), (2, 2)]
 # (arch, mesh, global rows: fewer than the data ranks); deepseek's MoE
 # also with two rows, its tokens' global order across rows
 CASES = [(a, m, 1) for a in ARCHS for m in MESHES] + [
-    ("deepseek-moe-16b", (4, 1), 2), ("qwen2-vl-2b", (4, 1), 1)]
+    ("deepseek-moe-16b", (4, 1), 2), ("qwen2-vl-2b", (4, 1), 1)] + [
+    ("whisper-tiny", m, 1) for m in MESHES]
 S = 64
-SERVE_ARCHS = ["h2o-danube-1.8b", "recurrentgemma-9b", "falcon-mamba-7b"]
+SERVE_ARCHS = ["h2o-danube-1.8b", "recurrentgemma-9b", "falcon-mamba-7b",
+               "whisper-tiny"]
 PROMPT, CONTEXT, FEED = 24, 32, 3
 # AdamW's eps at 1e-6, not its default 1e-8: its first step moves an
 # element by lr g / (|g| + eps), and a gradient of ~1e-10, float32 noise
@@ -117,7 +122,10 @@ def runs(tmp_path_factory, pair):
                                    .astype(np.int32)),
         "lens": torch.tensor([PROMPT - 3], dtype=torch.int32),
         "feed": torch.from_numpy(rng.integers(3, 512, (1, FEED))
-                                 .astype(np.int32))}
+                                 .astype(np.int32)),
+        # whisper-tiny reduced: 32 frames of d_model 64
+        "frames": torch.from_numpy(rng.standard_normal((1, 32, 64))
+                                   .astype(np.float32))}
     inputs = str(tmp / "inputs.pt")
     torch.save(data, inputs)
     cases = [{"kind": "step", "inputs": inputs, "archs": [f"{a}/{rows}"],
@@ -227,32 +235,27 @@ def test_sequence_split_step_equals_one_process_and_reference(runs, pair,
 
 def _one_process_serve(arch, data):
     """The port's prefill and decode logits and final state in one
-    process, on the weights the ranks load."""
+    process, on the weights the ranks load (the ranks' ``serve``)."""
     fam, _, port = TR.get(arch, reduced=True, device="cpu")
     weights.from_reference(port, data[arch]["tree"])
-    sv = data["seq_serve"]
-    state = kvcache.init_state(port, port.cfg, 1, CONTEXT)
-    pre = serve_step.make_prefill(port, fam)
-    dec = serve_step.make_decode(port, fam)
-    lg, state = pre(port, sv["tokens"], sv["lens"], state)
-    logits, pos = [lg], sv["lens"].clone()
-    for j in range(FEED):
-        _, lg, state = dec(port, sv["feed"][:, j: j + 1], pos, state, None)
-        logits.append(lg)
-        pos = pos + 1
-    return logits, weights._flatten(state)
+    logits, state = W.serve(port, fam, data["seq_serve"], CONTEXT)
+    return logits, W.state_leaves(state)
 
 
 def _assemble(arch, name, ranks, mesh, whole):
     """A state leaf put back together from the ranks' blocks: a cache's
     slots from block ``h g + a`` of rank ``(h, a)`` (its KV heads over
     model where each rank has its own), its positions from data block
-    ``h``; a recurrent state's channels from model block ``r``'s
-    ``h``-th of ``n``."""
+    ``h``; the cross-attention K/V's frames from data block ``h``, its KV
+    heads from model rank ``r``; a recurrent state's channels from model
+    block ``r``'s ``h``-th of ``n``."""
     data, model = mesh
     got = {(r["coord"]["data"], r["coord"]["model"]): r["state"][name]
            for r in ranks}
-    if name.endswith("cursor"):
+    if name.startswith("enc_kv."):
+        return torch.cat([torch.cat([got[(h, r)] for h in range(data)], 2)
+                          for r in range(model)], 3)
+    if name.endswith(("cursor", "pos0")):
         for t in got.values():
             assert torch.equal(t, whole), name
         return whole
@@ -292,7 +295,7 @@ def test_sequence_split_serving_equals_one_process(runs, pair, arch, mesh):
                                        rtol=1e-4)
     for name, whole in state.items():
         # a rank's share: positions over data, the rest over every rank
-        share = {"cursor": 1, ".pos": mesh[0]}
+        share = {"cursor": 1, "pos0": 1, ".pos": mesh[0]}
         n = next((v for k, v in share.items() if name.endswith(k)),
                  mesh[0] * mesh[1])
         for r in ranks:

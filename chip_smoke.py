@@ -256,8 +256,12 @@ Phases, in order; any failure exits non-zero before the last line:
      (2, 2), its capacity slots over the data ranks; recurrentgemma-9b
      at (1, 4), its one KV head shared by the four ranks; falcon-mamba-7b
      at (1, 2)) beside one process, ``MR_SPLIT_HELD`` steps within
-     ``MR_BF16_TOL``; the MoE layer's products and collectives equal to
-     their closed form; recurrentgemma-9b's split serving in float32
+     ``MR_BF16_TOL``; deepseek-moe-16b's one process run twice, equal
+     as floats at both steps; deepseek-moe-16b and falcon-mamba-7b in
+     float32 at the same meshes (``MR_SPLIT_F32``), both steps within
+     ``MR_SEQ_F32_TOL`` of a float32 one process; the MoE layer's
+     products and collectives equal to their closed form;
+     recurrentgemma-9b's split serving in float32
      within ``MR_SERVE_TOL`` of one process, its k/v bytes its
      ``state_specs`` shard.  (g) The sequence split, fewer rows than
      data ranks (``MR_SEQ_TRAIN``, ``MR_SEQ_SERVE``): bytelm-100m at
@@ -2819,19 +2823,26 @@ MR_SPLIT_LAYERS = (("deepseek-moe-16b", 2, (2, 2), 8, 512),
                    ("falcon-mamba-7b", 2, (1, 2), 2, 512))
 MR_SPLIT_STEPS = 2
 MR_MOE = "deepseek-moe-16b"             # its MoE layer costed alone
-# The steps (f) holds to MR_BF16_TOL; later ones are printed beside two
-# yardsticks that are not this split: deepseek-moe-16b's one process run
-# again (its index_add_ sums by atomics, so it does not repeat itself bit
-# for bit) and falcon-mamba-7b on the data axis alone (the rounding of
-# the reference's own microbatches).  ``tools/split_spread.py`` on an
-# H100 (PERF.md): deepseek-moe-16b's one process, run four times,
-# moved its step-2 grad norm up to 8.5e-4 from the first run's (the limit
-# 9.77e-4), its (1, 2) and (1, 4) splits missed the limit by 3.4x and
-# 3.7x, falcon-mamba-7b's (2, 1) by 2.8x; step 1 stayed within both
-# limits everywhere.
+# The bf16 steps (f) holds to MR_BF16_TOL; later ones are printed beside
+# two yardsticks that are not this split: deepseek-moe-16b's one process
+# run again and falcon-mamba-7b on the data axis alone (the rounding of
+# the reference's own microbatches).  Adam's first steps turn a few-ulp
+# gradient difference into a whole bf16 step of a weight, so a split's
+# reordered sums move bf16's step 2 past 2^-10 (``tools/split_spread.py``
+# on an H100, PERF.md: deepseek-moe-16b's (1, 2) and (1, 4) splits by
+# 3.4x and 3.7x, falcon-mamba-7b's (2, 1) by 2.8x; step 1 within the
+# limits everywhere).
 MR_SPLIT_HELD = {"deepseek-moe-16b": 1, "recurrentgemma-9b": 2,
                  "falcon-mamba-7b": 1}
+# One process run again must repeat itself bit for bit: the MoE's
+# dispatch and combine sum in a fixed order (models/common.py::_combine).
 MR_SPLIT_REPEAT = ("deepseek-moe-16b",)
+# (f) in float32, where reordered sums stay far below MR_SEQ_F32_TOL:
+# arch -> global batch, both steps held, the same layers, widths and
+# meshes as its bf16 case beside a float32 one process.  deepseek-moe-16b's
+# batch is cut from 8 to its first 4 rows (2 a data rank) to keep phase 10
+# within its time; falcon-mamba-7b keeps its 2 x 512.
+MR_SPLIT_F32 = {"deepseek-moe-16b": 4, "falcon-mamba-7b": 2}
 MR_SPLIT_DATA = {"falcon-mamba-7b": (2, 1)}
 # (f)'s split serving: arch, mesh, rows, prompt, true lengths, decode steps
 # and context, in float32 (held at test_torch_serve_step.py's tolerance)
@@ -3311,8 +3322,9 @@ def _rank_single(case, job, dev) -> dict:
         if cm is not None:
             out["products_all"] = (cm.cost.flops_by_class["products_bf16"]
                                    + cm.cost.flops_by_class["products_f32"])
+    params = sum(p.numel() for p in model.parameters())
     del step_fn, model
-    return {"steps": steps, **out}
+    return {"steps": steps, "params": params, **out}
 
 
 def _rank_serve(case, job, dev) -> dict:
@@ -3741,10 +3753,11 @@ def split_layers_run(smi: str, work: Path, env: dict, device: str,
     four ranks; falcon-mamba-7b's channels) in bf16 at full width, its
     depth cut, the registry's weights (seed 0), on gloo ranks sharing the
     card, beside one process (a rank of its own) on the same batch; the
-    MoE layer alone costed on each rank; ``MR_SERVE``'s split prefill and
-    decode beside one process's, in float32.  The one process, the two
-    ranks and the four ranks run one group after another.  Returns what
-    they saw;
+    MoE layer alone costed on each rank; deepseek-moe-16b's one process
+    run again; ``MR_SPLIT_F32``'s archs in float32 at the same meshes,
+    beside a float32 one process; ``MR_SERVE``'s split prefill and decode
+    beside one process's, in float32.  The one process, the two ranks and
+    the four ranks run one group after another.  Returns what they saw;
     :func:`split_layers_checks` holds it."""
     import torch
 
@@ -3772,7 +3785,20 @@ def split_layers_run(smi: str, work: Path, env: dict, device: str,
             single.append({**case, "kind": "single", "label": arch + "/again"})
         rank_case = {**case, "kind": "train", "label": arch,
                      "mesh": list(mesh), "moe_cost": arch == MR_MOE}
-        (split4 if mesh[0] * mesh[1] == 4 else split2).append(rank_case)
+        group = split4 if mesh[0] * mesh[1] == 4 else split2
+        group.append(rank_case)
+        if arch in MR_SPLIT_F32:
+            b32 = MR_SPLIT_F32[arch]
+            cfg32 = _split_cfg(arch, layers, reduced, "float32")
+            cfgs[arch + "/f32"] = cfg32
+            path = work / f"batch_{arch}_f32.pt"
+            torch_save_batch({k: v[:b32] for k, v in torch.load(
+                work / f"batch_{arch}.pt", weights_only=False).items()}, path)
+            case32 = {**case, "cfg": dataclasses.asdict(cfg32),
+                      "batch_file": str(path), "batch": b32}
+            single.append({**case32, "kind": "single", "label": arch + "/f32"})
+            group.append({**case32, "kind": "train", "label": arch + "/f32",
+                          "mesh": list(mesh)})
         if arch in MR_SPLIT_DATA:
             dmesh = MR_SPLIT_DATA[arch]
             (split4 if dmesh[0] * dmesh[1] == 4 else split2).append(
@@ -3830,6 +3856,8 @@ def split_layers_run(smi: str, work: Path, env: dict, device: str,
                               "yardsticks": yard,
                               "held_steps": MR_SPLIT_HELD[arch],
                               "d_model": cfg.d_model, "dtype": cfg.dtype}
+        if arch in MR_SPLIT_REPEAT:
+            out["archs"][arch]["again"] = again
         log(f"phase 10: (f) {arch} d_model {cfg.d_model} ({cfg.dtype}), cut "
             f"to {layers} layers, at {tuple(mesh)} (gloo ranks on one "
             f"card), {b} x {seq}: losses "
@@ -3852,7 +3880,33 @@ def split_layers_run(smi: str, work: Path, env: dict, device: str,
                 f"{[x['grad_norm'] for x in y['steps']]}; rel to one "
                 f"process: loss {[f'{x:.3e}' for x in y['rel']['loss']]}, "
                 f"grad norm {[f'{x:.3e}' for x in y['rel']['grad_norm']]}; "
-                f"steps held to {MR_BF16_TOL}: 1-{MR_SPLIT_HELD[arch]}")
+                + (f"held equal as floats at steps 1-{MR_SPLIT_STEPS}"
+                   if name == "one process again" else
+                   f"steps held to {MR_BF16_TOL}: 1-{MR_SPLIT_HELD[arch]}")
+                + f"  [{smi}]")
+        if arch in MR_SPLIT_F32:
+            lab, b32 = arch + "/f32", MR_SPLIT_F32[arch]
+            per32, one32 = ranks_of(lab, mesh), one[0][lab]
+            rel32 = gaps(per32[0]["steps"], one32["steps"])
+            out["archs"][arch]["f32"] = {
+                "batch": [b32, seq], "ranks": per32,
+                "one_process": one32["steps"], "rel": rel32,
+                "params": one32["params"]}
+            log(f"phase 10: (f) {arch} in float32, the same {layers} layers "
+                f"and widths at {tuple(mesh)}, {b32} x {seq}: "
+                f"{one32['params']} parameters, so one process holds "
+                f"{one32['params'] * 16 / 1e9:.2f} GB before activations "
+                "(weight, gradient and Adam's two moments, 4 bytes each); "
+                f"losses {[x['loss'] for x in per32[0]['steps']]} vs one "
+                f"process {[x['loss'] for x in one32['steps']]} (rel "
+                f"{[f'{x:.3e}' for x in rel32['loss']]}); grad norms "
+                f"{[x['grad_norm'] for x in per32[0]['steps']]} vs "
+                f"{[x['grad_norm'] for x in one32['steps']]} (rel "
+                f"{[f'{x:.3e}' for x in rel32['grad_norm']]}); steps 1-"
+                f"{MR_SPLIT_STEPS} held to {MR_SEQ_F32_TOL}; step ms "
+                f"{[round(x['ms'], 1) for x in per32[0]['steps']]} (one "
+                f"process {[round(x['ms'], 1) for x in one32['steps']]})"
+                f"  [{smi}]")
         if arch == MR_MOE:
             mc = per[0]["moe_cost"]
             cf = mc["closed_form"]
@@ -3905,8 +3959,9 @@ def split_layers_checks(f: dict, tol: dict) -> None:
     """Holds :func:`split_layers_run`'s results: each arch's ranks agree
     on the loss, its ``MR_SPLIT_HELD`` steps within ``tol`` of one
     process's (the later ones printed beside their yardsticks), resident
-    bytes
-    equal to the spec shards, no layer noted whole; the MoE's products and
+    bytes equal to the spec shards, no layer noted whole; the one process
+    run again equal as floats; the float32 cases, each rank as above and
+    both steps within ``MR_SEQ_F32_TOL``; the MoE's products and
     collectives equal to their closed form on every rank; the split
     serving's logits within ``MR_SERVE_TOL`` of one process's and each k
     and v leaf the bytes of its ``state_specs`` shard on every rank."""
@@ -3937,6 +3992,31 @@ def split_layers_checks(f: dict, tol: dict) -> None:
                 arch, a["rel"])
         require(max(a["rel"]["grad_norm"][:held]) <= tol["gnorm_rel"],
                 "(f) grad norm", arch, a["rel"])
+        if "again" in a:
+            metrics = [[(x["loss"], x["grad_norm"]) for x in steps]
+                       for steps in (a["one_process"], a["again"])]
+            require(metrics[0] == metrics[1] and len(metrics[0])
+                    == MR_SPLIT_STEPS, "(f) one process repeats itself bit "
+                    "for bit", arch, metrics)
+        if "f32" in a:
+            f32 = a["f32"]
+            for r in f32["ranks"]:
+                require([x["loss"] for x in r["steps"]]
+                        == [x["loss"] for x in f32["ranks"][0]["steps"]],
+                        "(f) float32 ranks agree on the loss", arch)
+                require(r["resident_bytes"] == r["spec_bytes"],
+                        "(f) float32 resident bytes = spec shards", arch,
+                        r["coord"], r["resident_bytes"], r["spec_bytes"])
+                require(r["whole_layers"] == [],
+                        "(f) float32: no layer computes whole", arch,
+                        r["whole_layers"])
+            require(len(f32["rel"]["loss"]) == MR_SPLIT_STEPS,
+                    "(f) float32 steps", arch)
+            require(max(f32["rel"]["loss"]) <= MR_SEQ_F32_TOL["loss_rel"],
+                    "(f) float32 loss", arch, f32["rel"])
+            require(max(f32["rel"]["grad_norm"])
+                    <= MR_SEQ_F32_TOL["gnorm_rel"], "(f) float32 grad norm",
+                    arch, f32["rel"])
     sv = f["serve"]
     for r, gaps in zip(sv["ranks"], sv["gaps"]):
         require(all(g["excess"] <= 0 for g in gaps),
@@ -4226,8 +4306,12 @@ def multirank_phase(smi: str, work: Path, device="cuda",
       (f) The split MoE, RG-LRU and Mamba in bf16
           (:func:`split_layers_run`): deepseek-moe-16b at (2, 2),
           recurrentgemma-9b at (1, 4) and falcon-mamba-7b at (1, 2), full
-          width, depth cut, steps 1-2 within ``MR_BF16_TOL`` of one
-          process's; the MoE's products and collectives against their
+          width, depth cut, ``MR_SPLIT_HELD`` steps within
+          ``MR_BF16_TOL`` of one process's; deepseek-moe-16b's one
+          process run twice, bit for bit; deepseek-moe-16b and
+          falcon-mamba-7b in float32 (``MR_SPLIT_F32``), steps 1-2
+          within ``MR_SEQ_F32_TOL``; the MoE's products and collectives
+          against their
           closed form; recurrentgemma-9b's split serving at (1, 4)
           against one process's logits (float32, ``MR_SERVE_TOL``) and
           its k/v bytes against their ``state_specs`` shard.

@@ -623,3 +623,19 @@ def ragged_scan_utf16(data, offsets, lengths, *, device=None):
         'dst_format="utf8")')
     return ragged_scan(data, offsets, lengths, src_format="utf16",
                        dst_format="utf8", device=device)
+
+
+# The resumable streaming API (``core/stream.py``), under the names the
+# reference's ``core.transcode`` re-exports; resolved at first use, since
+# ``core/stream.py`` imports this module.
+_STREAM = {"StreamState": "StreamState", "stream_finalize": "finalize",
+           "stream_init": "stream_init",
+           "transcode_stream": "transcode_stream",
+           "transcode_stream_chunk": "transcode_stream_chunk"}
+
+
+def __getattr__(name: str):
+    if name in _STREAM:
+        from repro_torch.core import stream
+        return getattr(stream, _STREAM[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

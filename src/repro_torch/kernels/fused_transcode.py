@@ -37,6 +37,21 @@ from repro_torch.kernels import _build, runtime
 from repro_torch.kernels import stages
 from repro_torch.testing import faults
 
+BLOCK = stages.BLOCK                # elements a tile
+
+
+def count8_tile(b, bp, bn, live, gidx, t1h, t1l, t2h, *, errors, validate):
+    """The UTF-8 -> UTF-16 cell of :func:`stages.count_tile`."""
+    return stages.count_tile(stages.UTF8, stages.UTF16, b, bp, bn, live,
+                             gidx, (t1h, t1l, t2h), errors=errors,
+                             validate=validate)
+
+
+def count16_tile(u, up, un, live, gidx, *, errors, validate):
+    """The UTF-16 -> UTF-8 cell of :func:`stages.count_tile`."""
+    return stages.count_tile(stages.UTF16, stages.UTF8, u, up, un, live,
+                             gidx, (), errors=errors, validate=validate)
+
 
 def replace_flag(errors: str) -> int:
     """The kernels' runtime ``errors=`` argument: 1 for "replace"."""

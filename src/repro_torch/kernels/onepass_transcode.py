@@ -41,6 +41,8 @@ from repro_torch.kernels import fused_transcode as ft
 from repro_torch.kernels import stages
 from repro_torch.testing import faults
 
+BLOCK = stages.BLOCK                # elements a tile
+
 
 def onepass_tiles(codec_s, codec_d, t, tp, tn, live, gidx, cap: int, *,
                   errors: str, validate: bool, ascii_fastpath: bool = True):

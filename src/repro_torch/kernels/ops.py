@@ -24,7 +24,7 @@ from repro_torch.kernels import utf8_decode as kdec
 from repro_torch.kernels import utf8_validate as kval
 from repro_torch.kernels import utf16_encode as kenc
 from repro_torch.kernels.fused_transcode import (  # noqa: F401  (re-export)
-    utf8_to_utf16_fused, utf16_to_utf8_fused)
+    BLOCK, utf8_to_utf16_fused, utf16_to_utf8_fused)
 
 
 def _prepare(b, n_valid, device, narrow, what: str):

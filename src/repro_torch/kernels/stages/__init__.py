@@ -19,7 +19,8 @@ from repro_torch.kernels.stages import utf32 as s_utf32
 from repro_torch.kernels.stages import utf8 as s_utf8
 from repro_torch.kernels.stages.driver import (  # noqa: F401  (re-export)
     ASCII, BLOCK, CLASS2, GENERAL, Codec, ascii_tile_pred, count_classes,
-    count_decoded, count_tile, decode_once, num_tiles, onepass_classes,
+    count_decoded, count_decoded2, count_tile, decode_once, decode_once2,
+    num_tiles, onepass_classes,
     place_units, ragged_tiles, stage_decoded, stage_decoded2, stage_units,
     stage_units2, tile_class, tiles, write_classes, write_stage)
 
@@ -113,3 +114,12 @@ def get_pair(src: str, dst: str):
     cap_factor)``; rejects src == dst and unknown names."""
     factor = _check_pair(src, dst)
     return CODECS[src], CODECS[dst], factor
+
+
+def __getattr__(name: str):
+    # the reference's name here for ``kernels.utf8_validate``, whose
+    # Keiser-Lemire tile check UTF-8's codec runs (``extra_err``)
+    if name == "kval":
+        from repro_torch.kernels import utf8_validate
+        return utf8_validate
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -173,6 +173,12 @@ def decode_once(src: Codec, x, xp, xn, *, errors: str, validate: bool,
     return a, cp, is_lead
 
 
+def decode_once2(src: Codec, x, xp, xn, *, errors: str, validate: bool):
+    """:func:`decode_once` of ≤2-byte tiles (``class2``)."""
+    return decode_once(src, x, xp, xn, errors=errors, validate=validate,
+                       class2=True)
+
+
 def count_decoded(src: Codec, dst: Codec, a, cp, lead, x, xp, live, gidx,
                   tables, *, validate: bool):
     """Lengths + fused validation over decoded tiles.
@@ -196,6 +202,16 @@ def count_decoded(src: Codec, dst: Codec, a, cp, lead, x, xp, live, gidx,
         err_flag = torch.zeros_like(tot)
         ferr = torch.full_like(tot, _IMAX)
     return tot, err_flag, ferr
+
+
+def count_decoded2(src: Codec, dst: Codec, a, cp, lead, live, gidx, *,
+                   validate: bool):
+    """:func:`count_decoded` of ≤2-byte tiles without the extra
+    (Keiser-Lemire) detector: the subpart map alone flags a tile, as in
+    the reference's one-pass class body.  The port's count bodies keep
+    the detector (:func:`count_classes`)."""
+    return count_decoded(src._replace(extra_err=None), dst, a, cp, lead,
+                         None, None, live, gidx, (), validate=validate)
 
 
 def ascii_tile_pred(x, xp, lookback: int = 3):

@@ -19,6 +19,10 @@ import torch
 from repro_torch import costmodel
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels.stages import utf16 as s_utf16
+from repro_torch.kernels.stages.utf16 import (  # noqa: F401  (re-export)
+    analyze_tile, encode_tile)
+from repro_torch.kernels.stages.utf8 import (  # noqa: F401  (re-export)
+    utf8_candidates)
 from repro_torch.kernels.stages.driver import BLOCK, num_tiles
 from repro_torch.kernels.utf8_validate import check_legacy_input
 

@@ -19,6 +19,8 @@ import torch
 from repro_torch import costmodel
 from repro_torch.kernels import _build, runtime
 from repro_torch.kernels.stages import utf8 as s_utf8
+from repro_torch.kernels.stages.utf8 import (  # noqa: F401  (re-export)
+    analyze_tile, decode_tile)
 from repro_torch.kernels.stages.driver import BLOCK, num_tiles
 from repro_torch.kernels.utf8_validate import ELEMENTS, check_legacy_input
 

@@ -745,52 +745,123 @@ def _experts(params, x_dtype, xg, ep, hid, src=None):
     return ye.to(x_dtype) if ep is not None else ye
 
 
+class _Gather(torch.autograd.Function):
+    """``src.index_select(0, idx)`` whose backward sums each row's
+    cotangents in a fixed order, with no scatter.  ``inv`` (rows of
+    ``src``, m) lists the positions of ``idx`` that read each row, and
+    ``len(idx)`` where fewer than m do; row ``r``'s gradient is
+    ``g[inv[r, 0]] + g[inv[r, 1]] + ...`` in that order, in float32 (or
+    ``g``'s wider dtype), cast once to ``g``'s dtype.  (Autograd's
+    backward of a gather accumulates with ``index_put_``, in the order
+    its kernel picks.)  A position of ``idx`` that ``inv`` does not list
+    must get a zero cotangent: a dropped copy, weighted 0."""
+
+    @staticmethod
+    def forward(ctx, src, idx, inv):
+        ctx.save_for_backward(inv)
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        wide = torch.promote_types(g.dtype, F32)
+        g = torch.cat([g, g.new_zeros((1,) + g.shape[1:])])
+        acc = g.index_select(0, inv[:, 0]).to(wide)
+        for j in range(1, inv.shape[1]):
+            acc = acc + g.index_select(0, inv[:, j])
+        return acc.to(g.dtype), None, None
+
+
+class _CopySum(torch.autograd.Function):
+    """(t, k, d) -> (t, d): each token's ``k`` adjacent copies summed in
+    copy order from +0, the reference's ``zeros.at[src_token].add(v)``
+    with ``src_token = arange(t k) // k`` bit for bit (``index_add_``
+    sums by atomics on the card); backward, the cotangent to every
+    copy."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.k = v.shape[1]
+        acc = torch.zeros_like(v[:, 0])
+        for j in range(v.shape[1]):
+            acc = acc + v[:, j]
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(1).expand(-1, ctx.k, -1)
+
+
+def _slot_copies(dest, n_slots: int):
+    """The copy in each of a rank's ``n_slots`` expert slots, from each
+    copy's slot ``dest`` (``n_slots`` for a copy the rank does not run):
+    ``len(dest)`` for an empty slot."""
+    m = dest.numel()
+    out = torch.full((n_slots + 1,), m, dtype=torch.long, device=dest.device)
+    out[dest] = torch.arange(m, device=dest.device)
+    return out[:n_slots]
+
+
+def _dispatch(x, dest, slot_copy, k: int):
+    """The tokens ``x`` (t, d) in a rank's expert slots: (n_slots, d),
+    zero rows where a slot is empty.  Backward, each token's ``k``
+    copies' cotangents gathered from their slots and summed in copy
+    order (:class:`_Gather`)."""
+    t, d = x.shape
+    n_slots = slot_copy.numel()
+    inv = torch.cat([dest.reshape(t, k), dest.new_full((1, k), n_slots)])
+    return _Gather.apply(torch.cat([x, x.new_zeros((1, d))]),
+                         slot_copy // k, inv)
+
+
+def _combine(ye, dest, slot_copy, w, k: int):
+    """Each copy's expert output read back from its slot of ``ye``
+    (n_slots, ..., d), weighted by ``w`` (t k, 1; 0 for a copy the rank
+    does not run), and each token's ``k`` copies summed in copy order in
+    float32 (:class:`_CopySum`): (t, d)."""
+    d = ye.shape[-1]
+    live = dest < slot_copy.numel()
+    v = _Gather.apply(ye.reshape(-1, d), torch.where(live, dest, 0),
+                      slot_copy[:, None])
+    return _CopySum.apply((v.to(F32) * w).reshape(-1, k, d))
+
+
 def _moe_local(params, cfg: MoEConfig, x, gates, idx, slot, cap):
     """The routed experts' float32 combined output (t, d) when every rank
     routes its own tokens: the whole capacity buffer."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
-    xf = x.reshape(t, d)
     eid = idx.reshape(t * k)
     keep = slot < cap
 
-    # token ids into (e, cap) gather indices (t = the zero row); as in the
-    # reference, each dropped copy goes to a sentinel slot that is sliced
-    # off, so the kept copies, at distinct slots, are what remain (no
-    # boolean mask: a CUDA graph can capture it)
-    src_token = torch.arange(t * k, device=dev) // k
-    gather_idx = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev)
-    gather_idx[torch.where(keep, eid * cap + slot, e * cap)] = src_token
-    gather_idx = gather_idx[: e * cap].reshape(e, cap)
-
     ep, hid = _expert_split(cfg)
-    if ep is None and hid is None:
-        xg = torch.cat([xf, xf.new_zeros((1, d))])[gather_idx]  # (e, cap, d)
-        xg = shardctx.act(xg, (None, "dp", None))
-        ye = _experts(params, x.dtype, xg, ep, hid)
-        ye = shardctx.act(ye, (None, "dp", None))               # (e, cap, d)
-        mine, at = keep, eid
-    else:
-        xm, = shardctx.to_model(xf)
-        gates, = shardctx.to_model(gates)
-        if ep is not None:      # this rank's experts, the global buffer
-            e0, el = ep
-            gather_idx = gather_idx[e0: e0 + el]
-            mine = keep & (eid >= e0) & (eid < e0 + el)
-            at = eid - e0
-        else:                   # every expert, this rank's hidden units
-            mine, at = keep, eid
-        xg = torch.cat([xm, xm.new_zeros((1, d))])[gather_idx]
-        ye = _experts(params, x.dtype, xg, ep, hid)
-
-    # combine: each token-copy reads back its expert output, weighted
-    copy_val = ye[torch.where(mine, at, 0), torch.where(mine, slot, 0)]
-    w = gates.reshape(t * k)[:, None] * mine[:, None]
-    out = torch.zeros((t, d), dtype=F32, device=dev).index_add_(
-        0, src_token, copy_val.to(F32) * w)
+    xs = x.reshape(t, d)
     if ep is not None or hid is not None:
+        xs, = shardctx.to_model(xs)
+        gates, = shardctx.to_model(gates)
+    if ep is not None:          # this rank's experts, the global buffer
+        e0, el = ep
+        mine = keep & (eid >= e0) & (eid < e0 + el)
+        at = eid - e0
+    else:                       # every expert (whole, or its hidden units)
+        el, mine, at = e, keep, eid
+    # as in the reference, each dropped copy goes to a sentinel slot, so
+    # the kept copies, at distinct slots, are what remain (no boolean
+    # mask: a CUDA graph can capture it)
+    dest = torch.where(mine, at * cap + slot, el * cap)
+    slot_copy = _slot_copies(dest, el * cap)
+    xg = _dispatch(xs, dest, slot_copy, k).reshape(el, cap, d)
+    whole = ep is None and hid is None
+    if whole:
+        xg = shardctx.act(xg, (None, "dp", None))
+    ye = _experts(params, x.dtype, xg, ep, hid)
+    if whole:
+        ye = shardctx.act(ye, (None, "dp", None))               # (e, cap, d)
+
+    w = gates.reshape(t * k)[:, None] * mine[:, None]
+    out = _combine(ye, dest, slot_copy, w, k)
+    if not whole:
         out = shardctx.from_model(out)
     return out
 
@@ -819,11 +890,9 @@ def _moe_slots(params, cfg: MoEConfig, x, gates, idx_g, slot, cap, route):
     b, s, d = x.shape
     t, tg = b * s, b * s * n
     k = cfg.top_k
-    dev = x.device
     c = -(-cap // n)
     lo = r * c
     eid = idx_g.reshape(tg * k)
-    tok = torch.arange(tg * k, device=dev) // k             # global token
     mine = (slot >= lo) & (slot < min(lo + c, cap))          # kept, my block
 
     ep, hid = _expert_split(cfg)
@@ -839,17 +908,13 @@ def _moe_slots(params, cfg: MoEConfig, x, gates, idx_g, slot, cap, route):
         at = eid - e0
     else:                       # every expert (whole, or its hidden units)
         el, at = cfg.n_experts, eid
-    gather_idx = torch.full((el * c + 1,), tg, dtype=torch.long, device=dev)
-    gather_idx[torch.where(mine, at * c + slot - lo, el * c)] = tok
-    gather_idx = gather_idx[: el * c].reshape(el, c)
-    xg = torch.cat([xa, xa.new_zeros((1, d))])[gather_idx]     # (el, c, d)
+    dest = torch.where(mine, at * c + slot - lo, el * c)
+    slot_copy = _slot_copies(dest, el * c)
+    xg = _dispatch(xa, dest, slot_copy, k).reshape(el, c, d)
     ye = _experts(params, x.dtype, xg, ep, hid, x.dtype)
 
     # combine the copies of this block into every global token's partial
-    copy_val = ye[torch.where(mine, at, 0), torch.where(mine, slot - lo, 0)]
-    w = ga[:, None] * mine[:, None]
-    part = torch.zeros((tg, d), dtype=F32, device=dev).index_add_(
-        0, tok, copy_val.to(F32) * w)
+    part = _combine(ye, dest, slot_copy, ga[:, None] * mine[:, None], k)
     out = shardctx.scatter_rows(part.reshape(n * b, s, d), route)
     out = out.reshape(t, d)
     if ep is not None or hid is not None:

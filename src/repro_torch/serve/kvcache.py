@@ -27,6 +27,7 @@ rank's bytes beside its ``state_specs`` shard).
 from __future__ import annotations
 
 from repro_torch.models.encdec import EncDecConfig
+from repro_torch.models.lm import LMConfig  # noqa: F401  (re-export)
 
 
 def capacity_for(cfg, context_len: int) -> int:

@@ -54,7 +54,9 @@ kernels do not build; for every decoder arch, reduced, the decode
 graph equals the eager step over 8 steps (tokens, logits within 1e-4),
 and after the capture the live state is what ``init_state`` makes.
 Multi-card training's one-rank case: a reduced step under NCCL at mesh
-(1, 1) equals the unsharded step bit for bit.
+(1, 1) equals the unsharded step bit for bit.  The reduced
+deepseek-moe-16b's MoE layer, forward and backward, run twice on the
+card, bit for bit (its dispatch and combine sum in a fixed order).
 """
 
 import sys
@@ -1374,3 +1376,30 @@ def test_reduced_sharded_step_world_one_nccl_equals_unsharded(tmp_path):
     want = dict(plain.named_parameters())
     for n, p in sharded.named_parameters():
         assert torch.equal(p, want[n]), n
+
+
+@pytest.mark.cuda
+def test_moe_layer_repeats_itself_on_card():
+    """The reduced deepseek-moe-16b's MoE layer, forward and backward, run
+    twice on the card from the same weights and inputs: outputs, the aux
+    loss and every gradient bit-identical (its dispatch and combine sum
+    in a fixed order, with no atomics; 4,096 tokens, so that an
+    accumulating scatter's order would show)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    cfg = configs.get_module("deepseek-moe-16b").reduced().moe_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m = mc.MoE(cfg, torch.float32, "cuda", gen)
+    x0 = torch.randn((8, 512, cfg.d_model), generator=gen, device="cuda")
+    g = torch.randn(x0.shape, generator=gen, device="cuda")
+    runs = []
+    for _ in range(2):
+        m.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        y, aux = mc.moe(m, cfg, x)
+        torch.autograd.backward([y, aux], [g, torch.ones_like(aux)])
+        torch.cuda.synchronize()
+        runs.append([y.detach(), aux.detach(), x.grad]
+                    + [p.grad for p in m.parameters()])
+    for a, b in zip(*runs):
+        assert a is not None and torch.equal(a, b)
